@@ -5,29 +5,42 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's Triton kernels from the checkout's sources (Triton's
-cache goes to the git-ignored ``build/triton``), then runs five phases,
-each printing JSON lines, and fails (exit code != 0, no result line) if
-any phase fails:
+It builds the port's kernels from the checkout's sources (Triton's cache
+goes to the git-ignored ``build/triton``, the CUDA copy kernel to
+``build/cuda``, the Triton kernels generated from rtc bodies to
+``build/rtc``), then runs these phases, each printing JSON lines, and
+fails (exit code != 0, no result line) if any phase fails:
 
 1. device: the card's name and power limit, torch/CUDA/Triton versions;
-2. kernels: ``bn_fwd``/``bn_bwd`` against their plain PyTorch versions on
+2. copy: the copy probe (``python -m mxnet_tpu_torch.tools.bn_probe
+   --copy-sweep``): the CUDA copy kernel at each tile size and
+   ``copy_`` on a (128, 256·3136) bf16 array, bit for bit; the best rate
+   is the measured copy roofline;
+3. kernels: ``bn_fwd``/``bn_bwd`` against their plain PyTorch versions on
    the card at ResNet-50 shapes (batch 32) and a ragged one, in float32
    and bfloat16, with ReLU, fix_gamma and exact statistics on and off;
    repeat runs bit for bit identical; then, at every BatchNorm shape of a
    ResNet-50 step, the kernel's time, the plain version's, the time of
    the PyTorch call that computes the same function (a yardstick the port
-   never calls) and the least time the card's memory rate allows;
-3. main path: ResNet-50 (224², 1000 classes, batch 32, float32) through
+   never calls) and the least time the card's memory rate allows, at the
+   data sheet's rate and at the measured copy roofline;
+4. main path: ResNet-50 (224², 1000 classes, batch 32, float32) through
    ``mx.mod.Module(context=mx.gpu(0))`` with SGD (lr 0.1, momentum 0.9,
    wd 1e-4, rescale 1/32): 5 forward_backward + update steps; the kernels'
    launch counts must be 51 per step each;
-4. card vs CPU: one ResNet-50 forward_backward at batch 2 from identical
+5. card vs CPU: one ResNet-50 forward_backward at batch 2 from identical
    weights on the card (kernels) and on the CPU (plain versions): softmax
    outputs and the gradients of fc1_weight, bn1_gamma,
    stage4_unit3_bn3_gamma and conv0_weight, and the same step on the card
    with the plain versions for scale;
-5. the kernels line, the card's nvidia-smi line, and the result line.
+6. rtc: five bodies pushed through ``mx.rtc.Rtc`` on the card at one
+   ResNet-50 activation (32×256×56×56 float32) and a ragged 5×3×17×13,
+   each against its plain version; a second push of one key must not
+   compile again; axpy's kernel, plain and library times;
+7. fit: ResNet-50 through ``mod.fit`` on 8 synthetic batches (numpy seed
+   0) with 2 eval batches, SGD with a FactorScheduler; exactly 51 × 8
+   launches of each BatchNorm kernel, none from scoring;
+8. the kernels line, the card's nvidia-smi line, and the result line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -63,6 +76,13 @@ TOL = {
     # share of elements allowed outside the tolerance: ReLU-mask flips.
     # Both sides round x·scale + shift once, so none are expected.
     "flip_fraction": 1e-6,
+    # rtc bodies of transcendental functions: 1e-6 of the plain output's
+    # max-abs (Triton's and torch's exp and tanh may round differently in
+    # the last bits); bodies of + - *, where and maximum agree
+    # within 1 float32 ulp per element (Triton may fuse a multiply and an
+    # add into one fma)
+    "rtc_transcendental": 1e-6,
+    "rtc_exact_ulps": 1,
     # card vs CPU, ResNet-50 at batch 2, as relative L2 error
     # ‖card − cpu‖/‖cpu‖. The softmax outputs, and the gradients one
     # layer below them (fc1_weight, bn1_gamma), agree to ~1e-5; 1e-4.
@@ -87,27 +107,22 @@ def nvidia_smi_line():
     return out.strip().splitlines()[0]
 
 
-def cuda_time(fn, reps=20, warm=3):
-    """Median milliseconds of ``fn`` on the card (CUDA events, one pair per
-    repetition, after ``warm`` untimed calls)."""
+def host_ms(fn, reps=5):
+    """Median host-clock milliseconds of ``fn`` with the card idle before
+    and synchronised after (for work that is not one kernel)."""
     import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def bn_inputs(shape, dtype, gen):
     import torch
@@ -228,14 +243,17 @@ def resnet50_bn_shapes(mx, batch):
     return counts
 
 
-def time_kernels(K, counts):
+def time_kernels(K, counts, copy_bytes_per_s):
     """Per-shape and per-step times of both kernels, their plain versions
-    and the PyTorch yardsticks (float32, the main path's flags)."""
+    and the PyTorch yardsticks (float32, the main path's flags), and each
+    byte bound also at the measured copy rate ``copy_bytes_per_s``."""
     import torch
     import torch.nn.functional as F
+    from mxnet_tpu_torch.tools.bn_probe import cuda_time
     gen = torch.Generator(device="cuda").manual_seed(1)
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0} for k in ("bn_fwd", "bn_bwd")}
+    tot_copy = {"bn_fwd": 0.0, "bn_bwd": 0.0}
     for (shape, fix_gamma, relu), n in sorted(counts.items()):
         x, gamma, beta, c, du = bn_inputs(shape, torch.float32, gen)
         numel, C = x.numel(), shape[1]
@@ -275,18 +293,22 @@ def time_kernels(K, counts):
             "bound_ms": 1e3 * max(3 * numel * 4 / HBM_BYTES_PER_S,
                                   16 * numel / F32_FLOPS_PER_S),
         }
+        at_copy = {"bn_fwd": 1e3 * 2 * numel * 4 / copy_bytes_per_s,
+                   "bn_bwd": 1e3 * 3 * numel * 4 / copy_bytes_per_s}
         emit({"phase": "kernel_times", "shape": list(shape),
               "fix_gamma": fix_gamma, "relu": relu, "per_step": n,
-              "bn_fwd": fwd, "bn_bwd": bwd})
+              "bn_fwd": fwd, "bn_bwd": bwd,
+              "bound_ms_at_measured_copy": at_copy})
         for name, t in (("bn_fwd", fwd), ("bn_bwd", bwd)):
             for key in tot[name]:
                 tot[name][key] += n * t[key]
+            tot_copy[name] += n * at_copy[name]
         del x, du, st
-    return tot
+    return tot, tot_copy
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the main path
+# phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 def resnet50_module(mx, ctx, batch, arg_params=None, aux_params=None):
     sym = mx.models.get_symbol("resnet-50", num_classes=1000,
@@ -351,7 +373,7 @@ def main_path(mx, K, card):
     if not (finite and changed and out.shape == (BATCH, 1000)
             and launches == {"bn_fwd": want, "bn_bwd": want}):
         raise RuntimeError("main path failed: %s" % json.dumps(row))
-    return launches
+    return launches, row["img_per_s"]
 
 
 def card_vs_cpu(mx, K):
@@ -406,6 +428,239 @@ def card_vs_cpu(mx, K):
         raise RuntimeError("card and CPU disagree: %s" % json.dumps(row))
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the copy probe
+# ---------------------------------------------------------------------------
+def copy_phase(C, card):
+    """The copy sweep through its entry point, with the copy kernel's
+    count reset just before and read just after. Returns the kernels-line
+    entry and the measured copy roofline in bytes/s."""
+    from mxnet_tpu_torch.tools import bn_probe
+    t0 = time.time()
+    C.copy.launches = 0
+    rows = bn_probe.copy_sweep()
+    launches = C.copy.launches
+    for row in rows:
+        emit({"phase": "copy", **row})
+    best = max(rows, key=lambda r: r["gb_per_s"])
+    kern = min((r for r in rows if r["route"] == "kernel"),
+               key=lambda r: r["ms"])
+    lib = next(r for r in rows if r["route"] == "copy_")
+    emit({"phase": "copy_roofline", "measured_copy_gb_per_s":
+          best["gb_per_s"], "route": best["route"],
+          "tile_bytes": best["tile_bytes"], "launches": launches,
+          "seconds_incl_build": time.time() - t0, "card": card})
+    if not all(r["bitwise_equal"] for r in rows) or launches == 0:
+        raise RuntimeError("copy phase failed: launches=%d, rows=%s"
+                           % (launches, json.dumps(rows)))
+    entry = dict(name="copy", route="cuda",
+                 source="mxnet_tpu_torch/kernels/csrc/copy.cu",
+                 replaces="tools/bn_pallas_probe.py:326", launches=launches,
+                 max_abs_err=0.0, ms=kern["ms"], plain_ms=lib["ms"],
+                 bound_ms=kern["bound_ms"], bound_by="bytes",
+                 library_ms=lib["ms"])
+    return entry, best["gb_per_s"] * 1e9
+
+
+# ---------------------------------------------------------------------------
+# phase 6: rtc user kernels
+# ---------------------------------------------------------------------------
+# name, input names, output names, body, exact (+ - *, where, maximum only)
+RTC_BODIES = [
+    ("axpy", ["x", "y"], ["z"], "z_ref[...] = x_ref[...] * 2.0 + y_ref[...]",
+     True),
+    ("square", ["x"], ["o"], "o_ref[...] = x_ref[...] ** 2", True),
+    ("exp_tanh", ["x", "y"], ["o"],
+     "o_ref[...] = jnp.exp(-x_ref[...] * x_ref[...]) "
+     "+ jnp.tanh(y_ref[...])", False),
+    ("where_max", ["x", "y"], ["o"],
+     "o_ref[...] = jnp.where(x_ref[...] > 0.0, "
+     "jnp.maximum(x_ref[...], y_ref[...]), y_ref[...] * 0.5)", True),
+    ("two_outputs", ["x", "y"], ["s", "d"],
+     "t = x_ref[...] - y_ref[...]\n"
+     "s_ref[...] = x_ref[...] + y_ref[...]\n"
+     "d_ref[...] = t * t", True),
+]
+RTC_SHAPES = [(BATCH, 256, 56, 56), (5, 3, 17, 13)]
+
+
+def rtc_errors(kern, plain, exact):
+    """(max abs error, elements outside tolerance) of one output."""
+    import torch
+    err = (kern - plain).abs()
+    if exact:
+        big = torch.maximum(kern.abs(), plain.abs())
+        ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+        bad = int((err > TOL["rtc_exact_ulps"] * ulp).sum())
+    else:
+        bad = int((err > TOL["rtc_transcendental"]
+                   * float(plain.abs().max())).sum())
+    return float(err.max()), bad
+
+
+def rtc_phase(mx, R, card):
+    """Push every body through ``mx.rtc.Rtc`` on the card at both shapes
+    (counts reset just before, read just after; one key pushed twice),
+    then hold each output against the plain version on the same inputs
+    and time axpy at full size."""
+    import torch
+    from mxnet_tpu_torch.tools.bn_probe import cuda_time
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ctx = mx.gpu(0)
+    runs = []
+    for shape in RTC_SHAPES:
+        for name, ins, outs, body, exact in RTC_BODIES:
+            xs = [mx.nd.NDArray(torch.randn(shape, device="cuda",
+                                            generator=gen), ctx=ctx)
+                  for _ in ins]
+            ys = [mx.nd.zeros(shape, ctx=ctx) for _ in outs]
+            rtc = mx.rtc.Rtc(name, list(zip(ins, xs)), list(zip(outs, ys)),
+                             body)
+            runs.append((shape, name, exact, rtc, xs, ys))
+    torch.cuda.synchronize()
+    R.rtc_kernel.launches = 0
+    compiles0 = R.rtc_kernel.compiles
+    first_push_s = {}
+    for shape, name, _, rtc, xs, ys in runs:
+        t0 = time.perf_counter()
+        rtc.push(xs, ys)
+        torch.cuda.synchronize()
+        first_push_s["%s@%s" % (name, "x".join(map(str, shape)))] = \
+            time.perf_counter() - t0
+    compiles = R.rtc_kernel.compiles - compiles0
+    shape, name, _, rtc, xs, ys = runs[0]       # axpy at full size again
+    t0 = time.perf_counter()
+    rtc.push(xs, ys)
+    torch.cuda.synchronize()
+    second_push_s = time.perf_counter() - t0
+    recompiles = R.rtc_kernel.compiles - compiles0 - compiles
+    launches = R.rtc_kernel.launches
+
+    worst, failures = 0.0, []
+    for shape, name, exact, rtc, xs, ys in runs:
+        ins = [x._read() for x in xs]
+        plain = [torch.empty_like(ins[0]) for _ in ys]
+        R.rtc_plain(rtc._ck, ins, plain)
+        torch.cuda.synchronize()
+        for y, p in zip(ys, plain):
+            err, bad = rtc_errors(y._read(), p, exact)
+            row = {"phase": "rtc", "body": name, "shape": list(shape),
+                   "exact": exact, "max_abs_err": err,
+                   "plain_max_abs": float(p.abs().max()), "outside": bad}
+            emit(row)
+            worst = max(worst, err)
+            if bad:
+                failures.append(row)
+
+    _, _, _, rtc, xs, ys = runs[0]
+    x, y = (a._read() for a in xs)
+    z = ys[0]._read()
+    nbytes = 3 * x.numel() * 4
+    axpy = {
+        "ms": cuda_time(lambda: R.rtc_kernel(rtc._ck, [x, y], [z])),
+        "plain_ms": cuda_time(lambda: R.rtc_plain(rtc._ck, [x, y], [z])),
+        "library_ms": cuda_time(lambda: torch.add(y, x, alpha=2.0)),
+        # read x and y, write z; 2 float32 operations an element
+        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                              2 * x.numel() / F32_FLOPS_PER_S),
+    }
+    row = {"phase": "rtc_summary", "launches": launches,
+           "compiles": compiles, "recompiles_on_second_push": recompiles,
+           "first_push_s": first_push_s, "second_push_s": second_push_s,
+           "axpy_full_size": axpy, "card": card}
+    emit(row)
+    if failures or recompiles or compiles != len(runs) or \
+            launches != len(runs) + 1:
+        raise RuntimeError("rtc phase failed: %d output(s) out of "
+                           "tolerance; %s" % (len(failures),
+                                              json.dumps(row)))
+    return dict(name="rtc", route="triton",
+                source="mxnet_tpu_torch/kernels/rtc_codegen.py",
+                replaces="mxnet_tpu/rtc.py:33", launches=launches,
+                max_abs_err=worst, bound_by="bytes", **axpy)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Module.fit
+# ---------------------------------------------------------------------------
+FIT_BATCHES, EVAL_BATCHES = 8, 2
+
+
+def fit_phase(mx, K, card, hand_img_per_s):
+    """ResNet-50 through ``mod.fit``: 8 synthetic batches (numpy seed 0),
+    2 eval batches, SGD with a FactorScheduler; then ``score``."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(0)
+    n_train, n_eval = FIT_BATCHES * BATCH, EVAL_BATCHES * BATCH
+    x = rs.randn(n_train + n_eval, 3, 224, 224).astype(np.float32)
+    y = rs.randint(0, 1000, (n_train + n_eval,)).astype(np.float32)
+    train = mx.io.NDArrayIter(x[:n_train], y[:n_train], batch_size=BATCH,
+                              shuffle=False)
+    val = mx.io.NDArrayIter(x[n_train:], y[n_train:], batch_size=BATCH)
+    mx.random.seed(0)
+    mod = resnet50_module(mx, mx.gpu(0), BATCH)
+    before = {k: mod.get_params()[0][k].asnumpy()
+              for k in ("conv0_weight", "fc1_weight")}
+    sched = mx.lr_scheduler.FactorScheduler(step=4, factor=0.5)
+    stamps = []
+    torch.cuda.synchronize()
+    K.bn_fwd.launches = 0
+    K.bn_bwd.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val, eval_metric="acc",
+            batch_end_callback=[mx.callback.Speedometer(BATCH, 4),
+                                lambda p: stamps.append(time.perf_counter())],
+            optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                              "wd": 1e-4, "lr_scheduler": sched},
+            num_epoch=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches}
+    score = dict(mod.score(val, "acc"))
+    torch.cuda.synchronize()
+    after_score = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches}
+    args, aux = mod.get_params()
+    finite = all(np.isfinite(v.asnumpy()).all()
+                 for v in list(args.values()) + list(aux.values()))
+    changed = all(not np.array_equal(before[k], args[k].asnumpy())
+                  for k in before)
+    lr = mod._optimizer._get_lr(0)
+    # 8 updates at step 4: the lr halves once, after update 4
+    want_lr = 0.1 * 0.5
+    img_per_s = (len(stamps) - 1) * BATCH / (stamps[-1] - stamps[0])
+    # what a fit batch adds to a hand-driven step: the batch's copy from
+    # host memory into the bound arrays, and the metric's readback
+    batch = next(iter(train))
+    group = mod._exec_group
+
+    def to_card():
+        for dst, src in zip(group.data_arrays + group.label_arrays,
+                            batch.data + batch.label):
+            dst[0][:] = src
+
+    h2d_ms = host_ms(to_card)
+    metric_ms = host_ms(lambda: mod.update_metric(
+        mx.metric.create("acc"), batch.label))
+    row = {"phase": "fit", "model": "resnet-50", "batch": BATCH,
+           "batches": FIT_BATCHES, "eval_batches": EVAL_BATCHES,
+           "fit_s": fit_s, "fit_img_per_s_batches_2_to_8": img_per_s,
+           "hand_driven_img_per_s": hand_img_per_s,
+           "batch_to_card_ms": h2d_ms, "metric_update_ms": metric_ms,
+           "launches": launches, "launches_after_score": after_score,
+           "score": score, "lr_after_fit": lr, "finite": finite,
+           "params_changed": changed, "card": card}
+    emit(row)
+    want = BN_PER_STEP * FIT_BATCHES
+    acc = score.get("accuracy", float("nan"))
+    if not (launches == {"bn_fwd": want, "bn_bwd": want}
+            and after_score == launches and finite and changed
+            and abs(lr - want_lr) < 1e-12 and np.isfinite(acc)
+            and len(stamps) == FIT_BATCHES):
+        raise RuntimeError("fit phase failed: %s" % json.dumps(row))
+
+
 def main():
     t_start = time.time()
     try:
@@ -420,6 +675,8 @@ def main():
     try:
         import mxnet_tpu_torch as mx
         from mxnet_tpu_torch.kernels import batchnorm as K
+        from mxnet_tpu_torch.kernels import copy as C
+        from mxnet_tpu_torch.kernels import rtc as R
     except ImportError as e:
         print("chip_smoke: run from a checkout of the repository (%s)" % e,
               file=sys.stderr)
@@ -436,12 +693,18 @@ def main():
           "cuda": torch.version.cuda, "triton": triton.__version__,
           "python": sys.version.split()[0]})
 
+    copy_entry, copy_rate = copy_phase(C, card)
     worst = check_kernels(K)
-    totals = time_kernels(K, resnet50_bn_shapes(mx, BATCH))
+    totals, at_copy = time_kernels(K, resnet50_bn_shapes(mx, BATCH),
+                                   copy_rate)
     emit({"phase": "kernel_times_per_step", "batch": BATCH,
-          "card": card, **totals})
-    launches = main_path(mx, K, card)
+          "card": card, **totals,
+          "bound_ms_at_measured_copy": at_copy,
+          "measured_copy_gb_per_s": copy_rate / 1e9})
+    launches, hand_img_per_s = main_path(mx, K, card)
     card_vs_cpu(mx, K)
+    rtc_entry = rtc_phase(mx, R, card)
+    fit_phase(mx, K, card, hand_img_per_s)
 
     src = "mxnet_tpu_torch/kernels/batchnorm_triton.py"
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
@@ -449,7 +712,7 @@ def main():
     kernels = [dict(name=k, route="triton", source=src,
                     replaces=replaces[k], launches=launches[k],
                     max_abs_err=worst[k], bound_by="bytes", **totals[k])
-               for k in ("bn_fwd", "bn_bwd")]
+               for k in ("bn_fwd", "bn_bwd")] + [rtc_entry, copy_entry]
     emit({"phase": "done", "seconds": time.time() - t_start})
     print(card)
     emit({"kernels": kernels})

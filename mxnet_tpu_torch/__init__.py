@@ -2,7 +2,8 @@
 
 Same ``import … as mx`` surface as ``mxnet_tpu`` for the slices ported so
 far (``mx.nd``, ``mx.sym``, ``mx.mod``, ``mx.init``, ``mx.optimizer``,
-``mx.io``, ``mx.models``). It imports torch and numpy, never JAX and
+``mx.lr_scheduler``, ``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.rtc``,
+``mx.models``). It imports torch and numpy, never JAX and
 nothing of ``mxnet_tpu``. Entry points run on ``gpu(0)`` unless the caller
 passes ``mx.cpu()``.
 """
@@ -16,7 +17,11 @@ from . import symbol as sym
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from . import lr_scheduler
 from . import io
+from . import metric
+from . import callback
+from . import rtc
 from . import model
 from . import module
 from . import module as mod
@@ -25,4 +30,5 @@ from . import convert
 
 __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "current_context", "random", "nd", "sym", "init",
-           "optimizer", "io", "model", "mod", "models", "convert"]
+           "optimizer", "lr_scheduler", "io", "metric", "callback", "rtc",
+           "model", "mod", "models", "convert"]

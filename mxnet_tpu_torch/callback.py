@@ -1,0 +1,107 @@
+"""Training callbacks (PyTorch counterpart of ``mxnet_tpu/callback.py``).
+
+- epoch callbacks ``f(epoch, symbol, arg_params, aux_params)``, called by
+  ``Module.fit`` after each epoch (checkpointing);
+- batch callbacks ``f(BatchEndParam)``, called after every batch
+  (throughput and metric logging).
+
+The card runs asynchronously: a callback that looks only at
+``param.nbatch`` measures how fast the host enqueues work. Reading
+``param.eval_metric`` reads the batch's outputs back, which waits for the
+card, so ``Speedometer`` with a metric attached measures the card. The JAX
+package's checkpoint manager and host-wait report are not ported.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+__all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
+           "Speedometer"]
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch callback: save ``mod`` every ``period`` epochs as
+    ``prefix-symbol.json`` + ``prefix-%04d.params``."""
+    period = max(1, int(period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        epoch = iter_no + 1
+        if epoch % period == 0:
+            mod.save_checkpoint(prefix, epoch, save_optimizer_states)
+
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch callback: save the passed symbol and params every ``period``
+    epochs."""
+    from .model import save_checkpoint
+    period = max(1, int(period))
+
+    def _callback(iter_no, sym, arg, aux):
+        epoch = iter_no + 1
+        if epoch % period == 0:
+            save_checkpoint(prefix, epoch, sym, arg, aux)
+
+    return _callback
+
+
+def log_train_metric(period, auto_reset=False):
+    """Batch callback: log the training metric every ``period`` batches,
+    optionally resetting it afterwards."""
+
+    def _callback(param):
+        metric = param.eval_metric
+        if metric is None or param.nbatch % period != 0:
+            return
+        for name, value in metric.get_name_value():
+            logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                         param.epoch, param.nbatch, name, value)
+        if auto_reset:
+            metric.reset()
+
+    return _callback
+
+
+class Speedometer(object):
+    """Batch callback: log samples/sec (and the training metric, if one is
+    attached, which it then resets) every ``frequent`` batches. The window
+    restarts at every epoch boundary (``nbatch`` not increasing)."""
+
+    def __init__(self, batch_size, frequent=50):
+        self.batch_size = batch_size
+        self.frequent = frequent
+        self._tic = None
+        self._last_count = 0
+        self._seen = 0
+
+    def __call__(self, param):
+        count = param.nbatch
+        if count <= self._last_count:
+            self._tic = None    # new epoch: restart the timing window
+            self._seen = 0
+        delta = count - self._last_count
+        self._last_count = count
+        if self._tic is None:
+            self._tic = time.time()
+            self._seen = 0
+            return
+        self._seen += delta
+        if self._seen < self.frequent:
+            return
+        elapsed = time.time() - self._tic
+        speed = self._seen * self.batch_size / elapsed
+        metric = param.eval_metric
+        if metric is not None:
+            pairs = metric.get_name_value()
+            metric.reset()
+            for name, value in pairs:
+                logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec"
+                             "\tTrain-%s=%f", param.epoch, count, speed, name,
+                             value)
+        else:
+            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
+                         param.epoch, count, speed)
+        self._tic = time.time()
+        self._seen = 0

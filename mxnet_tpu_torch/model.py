@@ -11,12 +11,12 @@ __all__ = ["save_checkpoint", "load_checkpoint"]
 
 
 def _update_params(param_arrays, grad_arrays, updater):
-    """Update every parameter that has a gradient through ``updater``
-    (one device: the key is the parameter's index)."""
-    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
-                                                       grad_arrays)):
-        if grad_list is not None:
-            updater(index, grad_list[0], arg_list[0])
+    """Update every parameter that has a gradient, as one step of
+    ``updater`` (one device: the key is the parameter's index)."""
+    updater.update_multi([(index, grad_list[0], arg_list[0])
+                          for index, (arg_list, grad_list)
+                          in enumerate(zip(param_arrays, grad_arrays))
+                          if grad_list is not None])
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

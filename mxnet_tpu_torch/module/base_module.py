@@ -1,15 +1,39 @@
 """BaseModule (PyTorch counterpart of ``mxnet_tpu/module/base_module.py``)
-— the state flags and ``forward_backward``; ``fit``/``score``/``predict``
-come with a later slice of the port."""
+— the canonical train, score and predict loops.
+
+``fit`` is the JAX package's classic loop: bind, init_params,
+init_optimizer, then per batch forward_backward, update, update_metric
+and the batch-end callbacks; at each epoch's end it logs the training
+metric, syncs the parameters (get_params + set_params), calls the
+epoch-end callbacks and scores ``eval_data``. What the JAX ``fit`` layers
+on top of it (telemetry, the training guardian, resume, ``batch_group``,
+device prefetch, the device-side metric tally, monitors) is not ported.
+"""
 from __future__ import annotations
 
 import logging
+import time
+from collections import namedtuple
 
-__all__ = ["BaseModule"]
+from .. import metric as metric_mod
+from .. import ndarray as nd
+from ..initializer import Uniform
+
+__all__ = ["BaseModule", "BatchEndParam"]
+
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def _as_list(obj):
+    if obj is None:
+        return []
+    return obj if isinstance(obj, list) else [obj]
 
 
 class BaseModule(object):
-    """Binding, parameter and optimizer state of a module."""
+    """Binding, parameter and optimizer state of a module, and the loops
+    over data iterators."""
 
     def __init__(self, logger=logging):
         self.logger = logger
@@ -23,6 +47,139 @@ class BaseModule(object):
         """One training step's forward and backward."""
         self.forward(data_batch, is_train=True)
         self.backward()
+
+    def _eval_batches(self, eval_data, num_batch, reset):
+        """Up to ``num_batch`` (index, batch) pairs of ``eval_data``."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("call bind and init_params first")
+        if reset:
+            eval_data.reset()
+        for index, batch in enumerate(eval_data):
+            if index == num_batch:
+                return
+            yield index, batch
+
+    def _fire(self, callbacks, epoch, nbatch, eval_metric, caller_locals):
+        if not callbacks:
+            return
+        event = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                              eval_metric=eval_metric, locals=caller_locals)
+        for callback in _as_list(callbacks):
+            callback(event)
+
+    def _unpadded_outputs(self, batch, copy=False):
+        """The outputs without the rows the iterator padded the batch
+        with."""
+        pad = batch.pad or 0
+        keep = slice(None) if not pad else slice(0, -pad)
+        outs = [out[keep] for out in self.get_outputs()]
+        return [o.copy() for o in outs] if copy else outs
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Evaluate on a data iterator; returns the metric's (name, value)
+        pairs. As in the JAX package, a padded last batch is scored whole,
+        padded rows included."""
+        eval_metric = metric_mod.create(eval_metric)
+        eval_metric.reset()
+        seen = 0
+        for index, batch in self._eval_batches(eval_data, num_batch, reset):
+            self.forward(batch, is_train=False)
+            self.update_metric(eval_metric, batch.label)
+            self._fire(batch_end_callback, epoch, index, eval_metric,
+                       locals())
+            seen = index + 1
+        if score_end_callback:
+            self._fire(score_end_callback, epoch, seen, eval_metric,
+                       locals())
+        return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield (outputs without padded rows, index, batch) per batch."""
+        for index, batch in self._eval_batches(eval_data, num_batch, reset):
+            self.forward(batch, is_train=False)
+            yield (self._unpadded_outputs(batch), index, batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """Forward over an iterator, collecting the outputs without padded
+        rows: merged along the batch axis, or one list per batch."""
+        collected = []
+        for _index, batch in self._eval_batches(eval_data, num_batch, reset):
+            self.forward(batch, is_train=False)
+            collected.append(self._unpadded_outputs(batch, copy=True))
+        if not collected or not merge_batches:
+            return collected
+        num_outputs = len(collected[0])
+        if any(len(out) != num_outputs for out in collected):
+            raise ValueError("Cannot merge batches, as num of outputs is not "
+                             "the same in mini-batches")
+        merged = [nd.concatenate([out[i] for out in collected])
+                  for i in range(num_outputs)]
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None):
+        """Train on a data iterator for epochs ``begin_epoch`` up to
+        ``num_epoch``."""
+        if num_epoch is None:
+            raise ValueError("please specify number of epochs")
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        validation_metric = metric_mod.create(validation_metric)
+        eval_metric = metric_mod.create(eval_metric)
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            for nbatch, data_batch in enumerate(train_data):
+                self.forward_backward(data_batch)
+                self.update()
+                self.update_metric(eval_metric, data_batch.label)
+                self._fire(batch_end_callback, epoch, nbatch, eval_metric,
+                           locals())
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - tic)
+
+            arg_params, aux_params = self.get_params()
+            self.set_params(arg_params, aux_params)
+            for callback in _as_list(epoch_end_callback):
+                callback(epoch, self.symbol, arg_params, aux_params)
+
+            if eval_data:
+                res = self.score(eval_data, validation_metric,
+                                 score_end_callback=eval_end_callback,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True):
+        """Copy the given parameters in (the initializer is not used)."""
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
 
     @property
     def symbol(self):

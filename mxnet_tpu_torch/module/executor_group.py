@@ -104,6 +104,9 @@ class DataParallelExecutorGroup(object):
             raise MXNetError("re-bind with for_training=True")
         self.execs[0].backward(out_grads=out_grads)
 
+    def update_metric(self, eval_metric, labels):
+        eval_metric.update(labels, self.execs[0].outputs)
+
     def get_outputs(self, merge_multi_context=True):
         outs = self.execs[0].outputs
         return list(outs) if merge_multi_context else [[o] for o in outs]

@@ -1,8 +1,11 @@
 """Module — symbol + context + params + optimizer (PyTorch counterpart of
 ``mxnet_tpu/module/module.py``) on one device, through the classic
 ``DataParallelExecutorGroup`` route: bind, init_params, init_optimizer,
-forward, backward, update, get_params. The fused one-program step,
-``fit`` and multi-device binding come with later slices of the port.
+forward, backward, update, update_metric, get_params, and checkpoints in
+the JAX package's file format (``save_checkpoint``, ``Module.load``).
+``fit``, ``score`` and ``predict`` come from ``BaseModule``. The fused
+one-program step and multi-device binding come with later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..initializer import Uniform, InitDesc
-from ..model import _update_params
+from ..model import _update_params, load_checkpoint, save_checkpoint
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
@@ -51,6 +54,28 @@ class Module(BaseModule):
         self._optimizer = None
         self._updater = None
         self._exec_group = None
+
+    @staticmethod
+    def load(prefix, epoch, **kwargs):
+        """A Module over the checkpoint ``prefix-symbol.json`` +
+        ``prefix-%04d.params`` (either package's); the parameters are set
+        when it is bound. ``kwargs`` go to ``Module``."""
+        sym, args, auxs = load_checkpoint(prefix, epoch, ctx=ctx_mod.cpu())
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write ``prefix-symbol.json`` and ``prefix-%04d.params``."""
+        if save_optimizer_states:
+            raise MXNetError("saving optimizer states comes with a later "
+                             "slice of the port")
+        arg_params, aux_params = self.get_params()
+        save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
+        self.logger.info('Saved checkpoint to "%s-%04d.params"', prefix,
+                         epoch)
 
     def get_params(self):
         """(arg_params, aux_params) as CPU NDArrays, synced from the
@@ -166,3 +191,8 @@ class Module(BaseModule):
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs(merge_multi_context)
+
+    def update_metric(self, eval_metric, labels):
+        """Add this batch's outputs against ``labels`` to ``eval_metric``
+        (one readback of the outputs)."""
+        self._exec_group.update_metric(eval_metric, labels)

@@ -24,7 +24,8 @@ from .base import MXNetError, numeric_types, torch_dtype, numpy_dtype
 from .context import Context, current_context
 from . import registry as _registry
 
-__all__ = ["NDArray", "array", "zeros", "ones", "load", "save", "waitall"]
+__all__ = ["NDArray", "array", "zeros", "ones", "concatenate", "load",
+           "save", "waitall"]
 
 _py_slice = slice
 
@@ -99,6 +100,10 @@ class NDArray:
             torch.cuda.synchronize(self._t.device)
 
     # -------------------------------------------------------------- copy
+    def copy(self):
+        """A new array with this one's value, on the same context."""
+        return NDArray(self._t.detach().clone(), ctx=self._ctx)
+
     def copyto(self, other):
         """Copy into another NDArray or to a new array on a Context."""
         if isinstance(other, NDArray):
@@ -282,9 +287,19 @@ def array(source_array, ctx=None, dtype=onp.float32):
     ctx = ctx or current_context()
     if isinstance(source_array, NDArray):
         source_array = source_array.asnumpy()
-    src = torch.as_tensor(onp.asarray(source_array))
+    # a copy: the array never shares (possibly read-only) numpy memory
+    src = torch.from_numpy(onp.array(source_array))
     return NDArray(src.to(device=ctx.torch_device(), dtype=torch_dtype(dtype)),
                    ctx=ctx)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """Join arrays along ``axis`` on the first array's device."""
+    if not arrays:
+        raise ValueError("arrays must not be empty")
+    dev = arrays[0]._read().device
+    res = torch.cat([a._read().detach().to(dev) for a in arrays], dim=axis)
+    return NDArray(res, ctx=arrays[0].context)
 
 
 def waitall():

@@ -3,7 +3,11 @@
 Same registry + Updater contract as the JAX package, for SGD with
 momentum, weight decay and gradient rescaling. SGD calls the update ops
 of ``ops/optimizer_ops.py`` with ``out=`` set to the weight and its
-momentum, so each update lands in place.
+momentum, so each update lands in place. A learning-rate scheduler reads
+``num_update``, the largest per-parameter update count so far. A training
+step updates every parameter through ``Updater.update_multi``, which, in
+the JAX package's order, counts the step's updates first and then reads
+each parameter's lr, so every parameter of step k sees ``num_update`` k.
 """
 from __future__ import annotations
 
@@ -30,10 +34,17 @@ class Optimizer(object):
         raise ValueError("Cannot find optimizer %s" % name)
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=0.01, sym=None):
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count = {}
         self.clip_gradient = clip_gradient
         self.idx2name = dict(param_idx2name or {})
         self.sym = sym
@@ -44,6 +55,14 @@ class Optimizer(object):
         """Create optimizer state (momentum etc.) for a parameter."""
 
     def update(self, index, weight, grad, state):
+        """Update one parameter: read its lr and wd, count the update,
+        apply it."""
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        self._apply(weight, grad, state, lr, wd)
+
+    def _apply(self, weight, grad, state, lr, wd):
         raise NotImplementedError()
 
     def set_lr_mult(self, args_lr_mult):
@@ -70,8 +89,20 @@ class Optimizer(object):
                     self.wd_mult[name] = float(attr[name]["__wd_mult__"])
         self.wd_mult.update(args_wd_mult)
 
+    def _update_count(self, index):
+        """Count one update of parameter ``index``; ``num_update`` is the
+        largest count of any parameter."""
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
     def _get_lr(self, index):
-        lr = self.lr
+        if self.lr_scheduler is not None:
+            lr = self.lr_scheduler(self.num_update)
+        else:
+            lr = self.lr
         if index in self.lr_mult:
             lr *= self.lr_mult[index]
         elif index in self.idx2name:
@@ -104,9 +135,7 @@ class SGD(Optimizer):
             return None
         return zeros(weight.shape, weight.context, dtype=weight.dtype)
 
-    def update(self, index, weight, grad, state):
-        lr = self._get_lr(index)
-        wd = self._get_wd(index)
+    def _apply(self, weight, grad, state, lr, wd):
         kwargs = {"rescale_grad": self.rescale_grad, "lr": lr, "wd": wd}
         if self.clip_gradient:
             kwargs["clip_gradient"] = self.clip_gradient
@@ -128,6 +157,19 @@ class Updater(object):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def update_multi(self, triples):
+        """Update every (index, grad, weight) of one step: count them all,
+        then apply each with the lr it reads now (the JAX package's
+        ``Updater.update_multi`` order)."""
+        opt = self.optimizer
+        for index, _, weight in triples:
+            if index not in self.states:
+                self.states[index] = opt.create_state(index, weight)
+            opt._update_count(index)
+        for index, grad, weight in triples:
+            opt._apply(weight, grad, self.states[index], opt._get_lr(index),
+                       opt._get_wd(index))
 
 
 def get_updater(optimizer):
