@@ -5,25 +5,30 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's kernels from the checkout's sources (Triton's cache
-goes to the git-ignored ``build/triton``, the CUDA copy kernel to
-``build/cuda``, the Triton kernels generated from rtc bodies to
-``build/rtc``), then runs these phases, each printing JSON lines, and
-fails (exit code != 0, no result line) if any phase fails:
+It builds the port's kernels from the checkout's sources (the CUDA
+BatchNorm and copy libraries with nvcc into the git-ignored
+``build/cuda``, both at once; the Triton kernels generated from rtc
+bodies into ``build/rtc``), then runs these phases, each printing JSON
+lines, and fails (exit code != 0, no result line) if any phase fails:
 
-1. device: the card's name and power limit, torch/CUDA/Triton versions;
+1. device: the card's name and power limit, torch/CUDA/Triton versions,
+   and the build's seconds;
 2. copy: the copy probe (``python -m mxnet_tpu_torch.tools.bn_probe
    --copy-sweep``): the CUDA copy kernel at each tile size and
    ``copy_`` on a (128, 256·3136) bf16 array, bit for bit; the best rate
    is the measured copy roofline;
 3. kernels: ``bn_fwd``/``bn_bwd`` against their plain PyTorch versions on
    the card at ResNet-50 shapes (batch 32) and a ragged one, in float32
-   and bfloat16, with ReLU, fix_gamma and exact statistics on and off;
-   repeat runs bit for bit identical; then, at every BatchNorm shape of a
-   ResNet-50 step, the kernel's time, the plain version's, the time of
-   the PyTorch call that computes the same function (a yardstick the port
-   never calls) and the least time the card's memory rate allows, at the
-   data sheet's rate and at the measured copy roofline;
+   and bfloat16, with ReLU, fix_gamma and exact statistics on and off, so
+   that every plan (block, with aligned and unaligned planes; cluster
+   2/4/8; split) runs; the backward without dx against the full call and
+   repeat runs, bit for bit; then, at every BatchNorm shape of a
+   ResNet-50 step, each kernel's plan, call time (one CUDA-event pair),
+   device time (20 calls in one CUDA graph) and host enqueue time, the
+   plain version's time, the same three times of the PyTorch call that
+   computes the same function (a yardstick the port never calls) and the
+   least time the card's memory rate allows, at the data sheet's rate and
+   at the measured copy roofline;
 4. main path: ResNet-50 (224², 1000 classes, batch 32, float32) through
    ``mx.mod.Module(context=mx.gpu(0))`` with SGD (lr 0.1, momentum 0.9,
    wd 1e-4, rescale 1/32): 5 forward_backward + update steps; the kernels'
@@ -41,6 +46,10 @@ fails (exit code != 0, no result line) if any phase fails:
    0) with 2 eval batches, SGD with a FactorScheduler; exactly 51 × 8
    launches of each BatchNorm kernel, none from scoring;
 8. the kernels line, the card's nvidia-smi line, and the result line.
+
+``python3 chip_smoke.py --bn-times [--root DIR]`` runs only phase 1 and
+phase 3's timings, of the kernels of the checkout at DIR (this one by
+default), so that two trees can be compared in one call on one card.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -156,7 +165,21 @@ def reduction_error(kern, plain):
     return rel
 
 
+def plan_name(K, op, shape, dtype, need_dx=True):
+    """The kernels' plan of one call ("block", "cluster k", "split"), or
+    None for a tree whose kernels have no plan."""
+    if not hasattr(K, "plan"):
+        return None
+    p = K.plan(op, shape, dtype, need_dx)
+    return "cluster %d" % p.cluster if p.kind == "cluster" else p.kind
+
+
 def check_kernels(K):
+    """Every plan in float32 and bfloat16 (112²: forward cluster 8,
+    backward split or cluster 8; 56²: cluster 2/4; 28² and 7² blocks, 7²
+    with unaligned planes; the data's split; a ragged shape) against the
+    plain versions; the backward without dx against the full call, bit for
+    bit; repeat runs bit for bit at block, cluster and split shapes."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_flags = [(True, False, False), (False, True, False)]
@@ -172,6 +195,9 @@ def check_kernels(K):
     failures = []
     for shape, flags in grid:
         for dtype in (torch.float32, torch.bfloat16):
+            plans = {"fwd": plan_name(K, "fwd", shape, dtype),
+                     "bwd": plan_name(K, "bwd", shape, dtype),
+                     "aligned": K.plan("fwd", shape, dtype).aligned}
             for relu, fix_gamma, exact in flags:
                 x, gamma, beta, c, du = bn_inputs(shape, dtype, gen)
                 kf = K.bn_fwd(x, gamma, beta, c, EPS, fix_gamma, relu, exact)
@@ -181,6 +207,8 @@ def check_kernels(K):
                 _, mean, _, rstd, scale, shift = pf
                 kb = K.bn_bwd(du, x, rstd, mean, scale, shift, relu)
                 pb = K.bn_bwd_plain(du, x, rstd, mean, scale, shift, relu)
+                nd = K.bn_bwd(du, x, rstd, mean, scale, shift, relu,
+                              need_dx=False)
                 torch.cuda.synchronize()
                 y_err, y_bad = compare_outputs(kf[0], pf[0], dtype)
                 dx_err, dx_bad = compare_outputs(kb[0], pb[0], dtype)
@@ -188,15 +216,19 @@ def check_kernels(K):
                            for a, b in zip(kf[1:], pf[1:])] +
                           [reduction_error(a, b)
                            for a, b in zip(kb[1:], pb[1:])])
+                no_dx = nd[0] is None and all(
+                    torch.equal(a, b) for a, b in zip(nd[1:], kb[1:]))
                 allowed = int(TOL["flip_fraction"] * x.numel())
                 row = {"phase": "kernels", "shape": list(shape),
                        "dtype": str(dtype).replace("torch.", ""),
                        "relu": relu, "fix_gamma": fix_gamma, "exact": exact,
+                       "plan": plans,
                        "y_max_abs_err": y_err, "y_outside": y_bad,
                        "dx_max_abs_err": dx_err, "dx_outside": dx_bad,
-                       "reduction_rel_err": red}
+                       "reduction_rel_err": red,
+                       "no_dx_bitwise_equal": no_dx}
                 ok = (y_bad <= allowed and dx_bad <= allowed
-                      and red <= TOL["reduction"])
+                      and red <= TOL["reduction"] and no_dx)
                 row["ok"] = ok
                 emit(row)
                 if not ok:
@@ -205,24 +237,33 @@ def check_kernels(K):
                     worst["bn_fwd"] = max(worst["bn_fwd"], y_err)
                     worst["bn_bwd"] = max(worst["bn_bwd"], dx_err)
     # repeat runs are bit for bit identical (no atomics)
-    x, gamma, beta, c, du = bn_inputs((BATCH, 64, 112, 112), torch.float32,
-                                      gen)
-    a = K.bn_fwd(x, gamma, beta, c, EPS, False, True, False)
-    b = K.bn_fwd(x, gamma, beta, c, EPS, False, True, False)
-    ga = K.bn_bwd(du, x, a[3], a[1], a[4], a[5], True)
-    gb = K.bn_bwd(du, x, a[3], a[1], a[4], a[5], True)
-    same = all(torch.equal(u, v) for u, v in zip(a + ga, b + gb))
-    emit({"phase": "kernels", "repeat_runs_bitwise_equal": same})
-    if failures or not same:
+    same_all = True
+    for shape in ((BATCH, 512, 28, 28), (BATCH, 256, 56, 56),
+                  (BATCH, 64, 112, 112), (BATCH, 3, 224, 224)):
+        for exact in (False, True):
+            x, gamma, beta, c, du = bn_inputs(shape, torch.float32, gen)
+            a = K.bn_fwd(x, gamma, beta, c, EPS, False, True, exact)
+            b = K.bn_fwd(x, gamma, beta, c, EPS, False, True, exact)
+            ga = K.bn_bwd(du, x, a[3], a[1], a[4], a[5], True)
+            gb = K.bn_bwd(du, x, a[3], a[1], a[4], a[5], True)
+            same = all(torch.equal(u, v) for u, v in zip(a + ga, b + gb))
+            emit({"phase": "kernels", "shape": list(shape), "exact": exact,
+                  "plan": {"fwd": plan_name(K, "fwd", shape, torch.float32),
+                           "bwd": plan_name(K, "bwd", shape, torch.float32)},
+                  "repeat_runs_bitwise_equal": same})
+            same_all = same_all and same
+    if failures or not same_all:
         raise RuntimeError("kernel check failed: %d case(s) out of "
                            "tolerance, repeat-equal=%s" % (len(failures),
-                                                           same))
+                                                           same_all))
     return worst
 
 
 def resnet50_bn_shapes(mx, batch):
-    """Counter of (input shape, fix_gamma, relu) over the 51 BatchNorms of
-    ResNet-50 after the BN+ReLU fusion."""
+    """Counter of (input shape, fix_gamma, relu, need_dx) over the 51
+    BatchNorms of ResNet-50 after the BN+ReLU fusion. need_dx is False for
+    the BatchNorm of the data, whose gradient the executor never asks
+    for."""
     from mxnet_tpu_torch.executor import fuse_bn_relu
     sym = fuse_bn_relu(mx.models.get_symbol("resnet-50", num_classes=1000,
                                             image_shape=(3, 224, 224)))
@@ -238,28 +279,102 @@ def resnet50_bn_shapes(mx, batch):
         key = src.name if src.op is None else \
             "%s_%s" % (src.name, src.op.list_outputs(src.attrs)[oi])
         k = (tuple(shape_of[key]), bool(n.attrs.get("fix_gamma", True)),
-             bool(n.attrs.get("_fused_relu", False)))
+             bool(n.attrs.get("_fused_relu", False)), src.op is not None)
         counts[k] = counts.get(k, 0) + 1
     return counts
 
 
-def time_kernels(K, counts, copy_bytes_per_s):
+def graph_ms(fn, calls=20, reps=5):
+    """Device milliseconds of one call of ``fn``: ``calls`` calls captured
+    in one CUDA graph after warm-up, the replay timed with CUDA events
+    (median of ``reps``), divided by ``calls``. Where capture fails, the
+    sum of the kernels' durations in a ``torch.profiler`` trace of
+    ``calls`` calls instead. Returns (ms, method)."""
+    import torch
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages())
+        return us / 1e3 / calls, "profiler"
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times), "graph"
+
+
+def enqueue_us(fn, reps=20):
+    """Median host microseconds of one call of ``fn`` with the card idle
+    before it and no synchronise in the timed span: the host's cost of
+    enqueuing the call."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e6 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def time_kernels(K, counts, copy_bytes_per_s=None):
     """Per-shape and per-step times of both kernels, their plain versions
-    and the PyTorch yardsticks (float32, the main path's flags), and each
-    byte bound also at the measured copy rate ``copy_bytes_per_s``."""
+    and the PyTorch yardsticks (float32, the main path's flags): call ms
+    (one CUDA-event pair around one call, host enqueue included), device
+    ms (``graph_ms``) and host enqueue µs (``enqueue_us``), beside the
+    plan and the byte bound, also at the measured copy rate
+    ``copy_bytes_per_s`` when given. ``K`` may be another checkout's
+    kernels: a backward without ``need_dx`` then computes dx for the
+    data's BatchNorm too, as that tree's main path did."""
+    import inspect
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.tools.bn_probe import cuda_time
     gen = torch.Generator(device="cuda").manual_seed(1)
-    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0} for k in ("bn_fwd", "bn_bwd")}
+    keys = ("ms", "device_ms", "enqueue_us", "plain_ms", "library_ms",
+            "library_device_ms", "library_enqueue_us", "bound_ms")
+    tot = {k: dict.fromkeys(keys, 0.0) for k in ("bn_fwd", "bn_bwd")}
     tot_copy = {"bn_fwd": 0.0, "bn_bwd": 0.0}
-    for (shape, fix_gamma, relu), n in sorted(counts.items()):
+    skips_dx = "need_dx" in inspect.signature(K.bn_bwd).parameters
+    for (shape, fix_gamma, relu, need_dx), n in sorted(counts.items()):
+        need_dx = need_dx or not skips_dx
         x, gamma, beta, c, du = bn_inputs(shape, torch.float32, gen)
-        numel, C = x.numel(), shape[1]
+        numel = x.numel()
         st = K.bn_fwd(x, gamma, beta, c, EPS, fix_gamma, relu, False)
         _, mean, _, rstd, scale, shift = st
         g = torch.ones_like(gamma) if fix_gamma else gamma
+        bwd_kw = {} if need_dx else {"need_dx": False}
+
+        def kern_fwd():
+            return K.bn_fwd(x, gamma, beta, c, EPS, fix_gamma, relu, False)
+
+        def kern_bwd():
+            return K.bn_bwd(du, x, rstd, mean, scale, shift, relu, **bwd_kw)
 
         def lib_fwd():
             y = F.batch_norm(x, None, None, g, beta, training=True, eps=EPS)
@@ -271,38 +386,45 @@ def time_kernels(K, counts, copy_bytes_per_s):
         def lib_bwd():
             return torch.ops.aten.native_batch_norm_backward(
                 du, x, g, None, None, smean, sinv, True, EPS,
-                [True, True, True])
+                [need_dx, True, True])
 
-        fwd = {
-            "ms": cuda_time(lambda: K.bn_fwd(x, gamma, beta, c, EPS,
-                                             fix_gamma, relu, False)),
-            "plain_ms": cuda_time(lambda: K.bn_fwd_plain(
-                x, gamma, beta, c, EPS, fix_gamma, relu, False), reps=5),
-            "library_ms": cuda_time(lib_fwd),
-            # read x, write y; ~7 float32 operations an element
-            "bound_ms": 1e3 * max(2 * numel * 4 / HBM_BYTES_PER_S,
-                                  7 * numel / F32_FLOPS_PER_S),
-        }
-        bwd = {
-            "ms": cuda_time(lambda: K.bn_bwd(du, x, rstd, mean, scale, shift,
-                                             relu)),
-            "plain_ms": cuda_time(lambda: K.bn_bwd_plain(
-                du, x, rstd, mean, scale, shift, relu), reps=5),
-            "library_ms": cuda_time(lib_bwd),
-            # read x and du, write dx; ~16 float32 operations an element
-            "bound_ms": 1e3 * max(3 * numel * 4 / HBM_BYTES_PER_S,
-                                  16 * numel / F32_FLOPS_PER_S),
-        }
-        at_copy = {"bn_fwd": 1e3 * 2 * numel * 4 / copy_bytes_per_s,
-                   "bn_bwd": 1e3 * 3 * numel * 4 / copy_bytes_per_s}
-        emit({"phase": "kernel_times", "shape": list(shape),
-              "fix_gamma": fix_gamma, "relu": relu, "per_step": n,
-              "bn_fwd": fwd, "bn_bwd": bwd,
-              "bound_ms_at_measured_copy": at_copy})
+        def row(kern, plain, lib, sweeps, ops, op):
+            dev, method = graph_ms(kern)
+            lib_dev, lib_method = graph_ms(lib)
+            return {
+                "plan": plan_name(K, op, shape, torch.float32, need_dx),
+                "ms": cuda_time(kern), "device_ms": dev,
+                "enqueue_us": enqueue_us(kern),
+                "plain_ms": cuda_time(plain, reps=5),
+                "library_ms": cuda_time(lib), "library_device_ms": lib_dev,
+                "library_enqueue_us": enqueue_us(lib),
+                "device_ms_by": sorted({method, lib_method}),
+                "bound_ms": 1e3 * max(sweeps * numel * 4 / HBM_BYTES_PER_S,
+                                      ops * numel / F32_FLOPS_PER_S)}
+
+        # forward: read x, write y; ~7 float32 operations an element.
+        # backward: read x and du (and write dx); ~16 operations.
+        bwd_sweeps = 3 if need_dx else 2
+        fwd = row(kern_fwd, lambda: K.bn_fwd_plain(
+            x, gamma, beta, c, EPS, fix_gamma, relu, False), lib_fwd, 2, 7,
+            "fwd")
+        bwd = row(kern_bwd, lambda: K.bn_bwd_plain(
+            du, x, rstd, mean, scale, shift, relu, **bwd_kw), lib_bwd,
+            bwd_sweeps, 16, "bwd")
+        out = {"phase": "kernel_times", "shape": list(shape),
+               "fix_gamma": fix_gamma, "relu": relu, "need_dx": need_dx,
+               "per_step": n, "bn_fwd": fwd, "bn_bwd": bwd}
+        if copy_bytes_per_s:
+            at_copy = {"bn_fwd": 1e3 * 2 * numel * 4 / copy_bytes_per_s,
+                       "bn_bwd": 1e3 * bwd_sweeps * numel * 4
+                       / copy_bytes_per_s}
+            out["bound_ms_at_measured_copy"] = at_copy
+            for name in tot_copy:
+                tot_copy[name] += n * at_copy[name]
+        emit(out)
         for name, t in (("bn_fwd", fwd), ("bn_bwd", bwd)):
-            for key in tot[name]:
+            for key in keys:
                 tot[name][key] += n * t[key]
-            tot_copy[name] += n * at_copy[name]
         del x, du, st
     return tot, tot_copy
 
@@ -661,7 +783,26 @@ def fit_phase(mx, K, card, hand_img_per_s):
         raise RuntimeError("fit phase failed: %s" % json.dumps(row))
 
 
-def main():
+def build_kernels(builds):
+    """Build the CUDA libraries at once (one nvcc each); seconds taken."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.time()
+    with ThreadPoolExecutor(max(1, len(builds))) as pool:
+        for f in [pool.submit(b) for b in builds]:
+            f.result()
+    return time.time() - t0
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--bn-times", action="store_true",
+                    help="only the device line and phase 3's BatchNorm "
+                         "timings, of the kernels of the checkout at --root")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose mxnet_tpu_torch is imported "
+                         "(default: this script's)")
+    args = ap.parse_args(argv)
     t_start = time.time()
     try:
         import torch
@@ -671,7 +812,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     try:
         import mxnet_tpu_torch as mx
         from mxnet_tpu_torch.kernels import batchnorm as K
@@ -691,7 +832,17 @@ def main():
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "triton": triton.__version__,
-          "python": sys.version.split()[0]})
+          "python": sys.version.split()[0],
+          "root": os.path.abspath(args.root)})
+    builds = [b for b in (getattr(K, "_library", None), C._library) if b]
+    emit({"phase": "build", "libraries": len(builds),
+          "seconds": build_kernels(builds)})
+    if args.bn_times:
+        totals, _ = time_kernels(K, resnet50_bn_shapes(mx, BATCH))
+        emit({"phase": "kernel_times_per_step", "batch": BATCH,
+              "card": card, **totals})
+        emit({"phase": "done", "seconds": time.time() - t_start})
+        return 0
 
     copy_entry, copy_rate = copy_phase(C, card)
     worst = check_kernels(K)
@@ -706,12 +857,14 @@ def main():
     rtc_entry = rtc_phase(mx, R, card)
     fit_phase(mx, K, card, hand_img_per_s)
 
-    src = "mxnet_tpu_torch/kernels/batchnorm_triton.py"
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
-    kernels = [dict(name=k, route="triton", source=src,
+    kernels = [dict(name=k, route="cuda",
+                    source="mxnet_tpu_torch/kernels/csrc/batchnorm.cu",
                     replaces=replaces[k], launches=launches[k],
-                    max_abs_err=worst[k], bound_by="bytes", **totals[k])
+                    max_abs_err=worst[k], bound_by="bytes",
+                    **{key: totals[k][key] for key in
+                       ("ms", "plain_ms", "bound_ms", "library_ms")})
                for k in ("bn_fwd", "bn_bwd")] + [rtc_entry, copy_entry]
     emit({"phase": "done", "seconds": time.time() - t_start})
     print(card)

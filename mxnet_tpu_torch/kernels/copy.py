@@ -15,11 +15,10 @@ per iteration, and a block of 256 threads copies one tile of
 256·``tile_bytes`` bytes. The bytes past the last whole vector are copied
 one by one. The TPU kernel's column blocks served VMEM and are not kept.
 
-Build: ``torch.utils.cpp_extension.load`` compiles the source with
-``nvcc`` for ``sm_90a`` into ``build/cuda`` at first use (it needs
-``ninja``). The source has a plain C interface and includes no PyTorch
-header, so the build takes seconds; the library is called through
-``ctypes``.
+Build: ``kernels/build.py`` compiles the source with ``nvcc`` for
+``sm_90a`` into ``build/cuda/mxnet_tpu_torch_copy`` at first use. The
+source has a plain C interface and includes no PyTorch header, so the
+build takes seconds; the library is called through ``ctypes``.
 
 Dispatch: ``copy`` runs the plain version, ``out.copy_(x)``, only for
 tensors on the CPU; that is also the one PyTorch call that computes the
@@ -29,11 +28,11 @@ back. ``copy.launches`` counts launches, never plain runs.
 from __future__ import annotations
 
 import ctypes
-import os
 
 import torch
 
 from ..base import MXNetError
+from .build import cuda_library
 
 __all__ = ["copy", "copy_plain", "check_copy", "plan", "TILE_BYTES",
            "THREADS"]
@@ -41,10 +40,6 @@ __all__ = ["copy", "copy_plain", "check_copy", "plan", "TILE_BYTES",
 TILE_BYTES = (16, 64, 256)   # bytes per thread per iteration
 THREADS = 256
 _VEC = 16                    # bytes of one uint4
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                       "copy.cu")
 _LIB = []    # the loaded library, once built
 
 
@@ -85,20 +80,7 @@ def _library():
     """Build (once per process) and load the kernel's shared library."""
     if _LIB:
         return _LIB[0]
-    from torch.utils import cpp_extension
-    try:
-        cpp_extension.verify_ninja_availability()
-    except RuntimeError as e:
-        raise MXNetError("copy: building the CUDA kernel needs ninja, which "
-                         "was not found (%s)" % e)
-    build = os.path.join(_REPO_ROOT, "build", "cuda")
-    os.makedirs(build, exist_ok=True)
-    path = cpp_extension.load(
-        name="mxnet_tpu_torch_copy", sources=[_SOURCE],
-        build_directory=build,
-        extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
-        is_python_module=False, verbose=False)
-    lib = ctypes.CDLL(path)
+    lib = cuda_library("mxnet_tpu_torch_copy", "copy.cu")
     lib.mx_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_longlong, ctypes.c_void_p]

@@ -196,7 +196,9 @@ class _BNTrainCore(torch.autograd.Function):
     (the JAX package's ``_bn_train_core_make``): forward ``bn_fwd``,
     backward ``bn_bwd``. mean and var carry no gradient (their only
     consumer is the moving-stat EMA); the centre c has zero gradient by
-    construction (mean = c + E[x − c]); fix_gamma gives zero dγ."""
+    construction (mean = c + E[x − c]); fix_gamma gives zero dγ. dx is
+    computed only where x needs a gradient (not for the data's
+    BatchNorm, as the JAX step differentiates the parameters only)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, c, eps, fix_gamma, relu, exact):
@@ -213,7 +215,7 @@ class _BNTrainCore(torch.autograd.Function):
         x, rstd, mean, scale, shift = ctx.saved_tensors
         fix_gamma, relu, gdt, bdt = ctx.flags
         dx, dbeta, dgamma = bn_bwd(dy.contiguous(), x, rstd, mean, scale,
-                                   shift, relu)
+                                   shift, relu, ctx.needs_input_grad[0])
         dg = torch.zeros_like(dgamma) if fix_gamma else dgamma
         return dx, dg.to(gdt), dbeta.to(bdt), None, None, None, None, None
 

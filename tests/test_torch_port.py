@@ -354,8 +354,7 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
 import importlib, pkgutil, sys
 import mxnet_tpu_torch as mx
 for m in pkgutil.walk_packages(mx.__path__, "mxnet_tpu_torch."):
-    if m.name != "mxnet_tpu_torch.kernels.batchnorm_triton":  # needs triton
-        importlib.import_module(m.name)
+    importlib.import_module(m.name)
 sym = mx.models.get_symbol("resnet-8", num_classes=10, image_shape=(3, 28, 28))
 mod = mx.mod.Module(sym, context=mx.cpu())
 mod.bind(data_shapes=[("data", (1, 3, 28, 28))],
@@ -370,7 +369,7 @@ print("\n".join(sorted(sys.modules)))
     loaded = out.split()
     assert "mxnet_tpu_torch.executor" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
-    # the module the CPU cannot import is held to the same rule by its source
+    # and every module is held to the same rule by its source
     pkg = os.path.join(ROOT, "mxnet_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
         for f in files:
