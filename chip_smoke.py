@@ -292,70 +292,6 @@ def resnet50_bn_shapes(mx, batch):
     return counts
 
 
-GRAPH_CALLS = 20
-
-
-def graph_ms(fns, reps=5):
-    """Device milliseconds of one call: the calls ``fns`` captured in one
-    CUDA graph after warm-up, the replay timed with CUDA events (median of
-    ``reps``), divided by their number. Each call reads its own copy of
-    the inputs and the outputs stay alive through the capture, so each
-    writes its own buffer: the other calls between two replays of one
-    call move more bytes than the card's 50 MB L2 holds, and no call finds
-    its operands there. Where capture fails, the sum of the kernels'
-    durations in a ``torch.profiler`` trace of the calls instead. Returns
-    (ms, method)."""
-    import torch
-    calls = len(fns)
-    try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fns[0]()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outs = [fn() for fn in fns]
-    except RuntimeError:
-        torch.cuda.synchronize()
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            outs = [fn() for fn in fns]
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", None)
-                 or getattr(e, "self_cuda_time_total", 0)
-                 for e in prof.key_averages())
-        return us / 1e3 / calls, "profiler"
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    del graph, outs
-    return statistics.median(times), "graph"
-
-
-def enqueue_us(fn, reps=20):
-    """Median host microseconds of one call of ``fn`` with the card idle
-    before it and no synchronise in the timed span: the host's cost of
-    enqueuing the call."""
-    import torch
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        times.append(1e6 * (time.perf_counter() - t0))
-    torch.cuda.synchronize()
-    return statistics.median(times)
-
-
 def time_kernels(K, counts, copy_bytes_per_s):
     """At every BatchNorm shape of the step (float32, the main path's
     flags): both kernels held against their plain versions (the data's
@@ -369,7 +305,8 @@ def time_kernels(K, counts, copy_bytes_per_s):
     import functools
     import torch
     import torch.nn.functional as F
-    from mxnet_tpu_torch.tools.bn_probe import cuda_time
+    from mxnet_tpu_torch.tools.bn_probe import (GRAPH_CALLS, cuda_time,
+                                                enqueue_us, graph_ms)
     gen = torch.Generator(device="cuda").manual_seed(1)
     keys = ("ms", "device_ms", "enqueue_us", "plain_ms", "library_ms",
             "library_device_ms", "library_enqueue_us", "bound_ms")
@@ -588,7 +525,8 @@ def card_vs_cpu(mx, K):
 def copy_phase(C, card):
     """The copy sweep through its entry point, with the copy kernel's
     count reset just before and read just after. Returns the kernels-line
-    entry and the measured copy roofline in bytes/s."""
+    entry and the measured copy roofline (the best device rate) in
+    bytes/s."""
     from mxnet_tpu_torch.tools import bn_probe
     t0 = time.time()
     C.copy.launches = 0
@@ -598,11 +536,15 @@ def copy_phase(C, card):
         emit({"phase": "copy", **row})
     best = max(rows, key=lambda r: r["gb_per_s"])
     kern = min((r for r in rows if r["route"] == "kernel"),
-               key=lambda r: r["ms"])
+               key=lambda r: r["device_ms"])
     lib = next(r for r in rows if r["route"] == "copy_")
+    times = ("ms", "device_ms", "enqueue_us")
     emit({"phase": "copy_roofline", "measured_copy_gb_per_s":
-          best["gb_per_s"], "route": best["route"],
-          "tile_bytes": best["tile_bytes"], "launches": launches,
+          best["gb_per_s"], "route": best["route"], "config": best["config"],
+          "kernel": {"config": kern["config"],
+                     **{k: kern[k] for k in times}},
+          "library": {k: lib[k] for k in times},
+          "bound_ms": kern["bound_ms"], "launches": launches,
           "seconds_incl_build": time.time() - t0, "card": card})
     if not all(r["bitwise_equal"] for r in rows) or launches == 0:
         raise RuntimeError("copy phase failed: launches=%d, rows=%s"
@@ -638,6 +580,15 @@ RTC_BODIES = [
 RTC_SHAPES = [(BATCH, 256, 56, 56), (5, 3, 17, 13)]
 
 
+def rtc_library(name):
+    """(text, function) of the one PyTorch call that computes the body
+    ``name``, or None: the other bodies take more than one call."""
+    import torch
+    return {"axpy": ("torch.add(y, x, alpha=2.0)",
+                     lambda x, y: torch.add(y, x, alpha=2.0)),
+            "square": ("torch.square(x)", torch.square)}.get(name)
+
+
 def rtc_errors(kern, plain, exact):
     """(max abs error, elements outside tolerance) of one output."""
     import torch
@@ -652,13 +603,49 @@ def rtc_errors(kern, plain, exact):
     return float(err.max()), bad
 
 
-def rtc_phase(mx, R, card):
+def rtc_times(R, rtc, xs, ys, copy_rate):
+    """Call ms, device ms (one set of inputs: 205–411 MB, far above L2)
+    and host enqueue µs of one body's kernel, and of the PyTorch call
+    that computes the same function where there is one (``rtc_library``;
+    None elsewhere); the plain version's call ms; the byte bound (each
+    input read once, each output written once) at 3.35 TB/s and at the
+    measured copy rate."""
+    from mxnet_tpu_torch.tools.bn_probe import (GRAPH_CALLS, cuda_time,
+                                                enqueue_us, graph_ms)
+    ins, outs = [a._read() for a in xs], [a._read() for a in ys]
+
+    def kern():
+        R.rtc_kernel(rtc._ck, ins, outs)
+
+    def three(fn):
+        dev, method = graph_ms([fn] * GRAPH_CALLS)
+        return cuda_time(fn), dev, enqueue_us(fn), method
+
+    ms, dev, enq, by = three(kern)
+    nbytes = (len(ins) + len(outs)) * 4 * ins[0].numel()
+    t = {"ms": ms, "device_ms": dev, "enqueue_us": enq,
+         "plain_ms": cuda_time(lambda: R.rtc_plain(rtc._ck, ins, outs),
+                               reps=5),
+         "library": None, "library_ms": None, "library_device_ms": None,
+         "library_enqueue_us": None, "device_ms_by": [by],
+         "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+         "bound_ms_at_measured_copy": 1e3 * nbytes / copy_rate}
+    lib = rtc_library(rtc.name)
+    if lib is not None:
+        call, fn = lib
+        lms, ldev, lenq, lby = three(lambda: fn(*ins))
+        t.update(library=call, library_ms=lms, library_device_ms=ldev,
+                 library_enqueue_us=lenq, device_ms_by=sorted({by, lby}))
+    return t
+
+
+def rtc_phase(mx, R, card, copy_rate):
     """Push every body through ``mx.rtc.Rtc`` on the card at both shapes
     (counts reset just before, read just after; one key pushed twice),
     then hold each output against the plain version on the same inputs
-    and time axpy at full size."""
+    and time every body at full size (``rtc_times``)."""
     import torch
-    from mxnet_tpu_torch.tools.bn_probe import cuda_time
+    from mxnet_tpu_torch.tools.bn_probe import enqueue_us
     gen = torch.Generator(device="cuda").manual_seed(2)
     ctx = mx.gpu(0)
     runs = []
@@ -706,22 +693,20 @@ def rtc_phase(mx, R, card):
             if bad:
                 failures.append(row)
 
+    timed = {name: rtc_times(R, rtc, xs, ys, copy_rate)
+             for shape, name, _, rtc, xs, ys in runs
+             if shape == RTC_SHAPES[0]}
+    for name, t in timed.items():
+        emit({"phase": "rtc_times", "body": name,
+              "shape": list(RTC_SHAPES[0]), **t, "card": card})
     _, _, _, rtc, xs, ys = runs[0]
-    x, y = (a._read() for a in xs)
-    z = ys[0]._read()
-    nbytes = 3 * x.numel() * 4
-    axpy = {
-        "ms": cuda_time(lambda: R.rtc_kernel(rtc._ck, [x, y], [z])),
-        "plain_ms": cuda_time(lambda: R.rtc_plain(rtc._ck, [x, y], [z])),
-        "library_ms": cuda_time(lambda: torch.add(y, x, alpha=2.0)),
-        # read x and y, write z; 2 float32 operations an element
-        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                              2 * x.numel() / F32_FLOPS_PER_S),
-    }
+    ins, outs = [a._read() for a in xs], [a._read() for a in ys]
+    check_us = enqueue_us(lambda: R.check_tensors(rtc._ck, ins, outs))
+    axpy = timed["axpy"]
     row = {"phase": "rtc_summary", "launches": launches,
            "compiles": compiles, "recompiles_on_second_push": recompiles,
            "first_push_s": first_push_s, "second_push_s": second_push_s,
-           "axpy_full_size": axpy, "card": card}
+           "check_tensors_us": check_us, "card": card}
     emit(row)
     if failures or recompiles or compiles != len(runs) or \
             launches != len(runs) + 1:
@@ -731,7 +716,9 @@ def rtc_phase(mx, R, card):
     return dict(name="rtc", route="triton",
                 source="mxnet_tpu_torch/kernels/rtc_codegen.py",
                 replaces="mxnet_tpu/rtc.py:33", launches=launches,
-                max_abs_err=worst, bound_by="bytes", **axpy)
+                max_abs_err=worst, bound_by="bytes",
+                **{k: axpy[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms")})
 
 
 # ---------------------------------------------------------------------------
@@ -871,7 +858,7 @@ def main():
           "measured_copy_gb_per_s": copy_rate / 1e9})
     launches, hand_img_per_s = main_path(mx, K, card)
     card_vs_cpu(mx, K)
-    rtc_entry = rtc_phase(mx, R, card)
+    rtc_entry = rtc_phase(mx, R, card, copy_rate)
     fit_phase(mx, K, card, hand_img_per_s)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",

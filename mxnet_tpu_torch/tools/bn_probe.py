@@ -5,11 +5,12 @@
 
 copies the reference probe's array, (128, 256·3136) bfloat16 (205.5 MB),
 with the port's CUDA copy kernel (``kernels/copy.py``) at each tile size,
-and with ``Tensor.copy_``. For each it prints one JSON line: the median
-milliseconds of CUDA-event timings, the rate in GB/s (2·bytes/s: every
-byte is read and written) and its share of the H100's 3.35 TB/s. The best
-measured rate is the port's measured copy roofline, against which the
-streaming kernels (BatchNorm) are judged. It needs a CUDA card and fails
+and with ``Tensor.copy_``. For each it prints one JSON line: the call time
+(median of CUDA-event pairs around one call, host enqueue included), the
+device time (``graph_ms``), the host enqueue time (``enqueue_us``), the
+device rate in GB/s (2·bytes/s: every byte is read and written) and its
+share of the H100's 3.35 TB/s. The best device rate is the port's
+measured copy roofline, against which the streaming kernels are judged. It needs a CUDA card and fails
 without one. The BatchNorm kernels themselves are timed by
 ``chip_smoke.py``.
 """
@@ -18,17 +19,19 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import time
 
 import torch
 
 from ..base import MXNetError
 from ..kernels import copy as copy_kernel
 
-__all__ = ["COPY_SHAPE", "HBM_BYTES_PER_S", "copy_plan", "copy_sweep",
-           "cuda_time", "main"]
+__all__ = ["COPY_SHAPE", "HBM_BYTES_PER_S", "GRAPH_CALLS", "copy_plan",
+           "copy_sweep", "cuda_time", "enqueue_us", "graph_ms", "main"]
 
 COPY_SHAPE = (128, 256 * 3136)     # the reference probe's array, bf16
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+GRAPH_CALLS = 20                   # calls in one timed CUDA graph
 
 
 def copy_plan():
@@ -58,6 +61,65 @@ def cuda_time(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
+def graph_ms(fns, reps=5):
+    """Device milliseconds of one call: the calls ``fns`` captured in one
+    CUDA graph after warm-up, the replay timed with CUDA events (median of
+    ``reps``), divided by their number. For operands below the card's 50
+    MB L2, give each call its own copy of the inputs and keep the outputs
+    alive through the capture, so that the other calls between two
+    replays of one call move more bytes than L2 holds and no call finds
+    its operands there; operands far above 50 MB need one set. Where
+    capture fails, the sum of the kernels' durations in a
+    ``torch.profiler`` trace of the calls instead. Returns (ms, method)."""
+    calls = len(fns)
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fns[0]()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [fn() for fn in fns]
+    except RuntimeError:
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs = [fn() for fn in fns]
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages())
+        return us / 1e3 / calls, "profiler"
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph, outs
+    return statistics.median(times), "graph"
+
+
+def enqueue_us(fn, reps=20):
+    """Median host microseconds of one call of ``fn`` with the card idle
+    before it and no synchronise in the timed span: the host's cost of
+    enqueuing the call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e6 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def copy_sweep(reps=20):
     """Time the copy kernel at every tile size and ``copy_`` on the
     reference's array; returns one dict per row. Each row's output is
@@ -80,9 +142,15 @@ def copy_sweep(reps=20):
         torch.cuda.synchronize()
         exact = bool(torch.equal(out.view(torch.int16), x.view(torch.int16)))
         ms = cuda_time(fn, reps=reps)
-        gbps = 2 * n_bytes / (ms * 1e-3) / 1e9
-        row = {"route": route, "tile_bytes": tile, "bytes": n_bytes,
-               "ms": ms, "gb_per_s": gbps,
+        # the operands are far above L2: one set of inputs for the graph
+        device_ms, method = graph_ms([fn] * GRAPH_CALLS)
+        gbps = 2 * n_bytes / (device_ms * 1e-3) / 1e9
+        row = {"route": route,
+               "config": None if tile is None else {"tile_bytes": tile},
+               "bytes": n_bytes,
+               "ms": ms, "device_ms": device_ms, "device_ms_by": method,
+               "enqueue_us": enqueue_us(fn), "gb_per_s": gbps,
+               "call_gb_per_s": 2 * n_bytes / (ms * 1e-3) / 1e9,
                "share_of_3_35_tb_per_s": gbps * 1e9 / HBM_BYTES_PER_S,
                "bound_ms": bound_ms, "bitwise_equal": exact}
         if tile is not None:
@@ -107,8 +175,7 @@ def main(argv=None):
         print(json.dumps(row))
     best = max(rows, key=lambda r: r["gb_per_s"])
     print(json.dumps({"measured_copy_roofline_gb_per_s": best["gb_per_s"],
-                      "route": best["route"],
-                      "tile_bytes": best["tile_bytes"]}))
+                      "route": best["route"], "config": best["config"]}))
     if not all(r["bitwise_equal"] for r in rows):
         raise MXNetError("bn_probe: a copy was not bit for bit equal")
     return 0
