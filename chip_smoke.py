@@ -5,18 +5,22 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's kernels from the checkout's sources (the CUDA
-BatchNorm and copy libraries with nvcc into the git-ignored
-``build/cuda``, both at once; the Triton kernels generated from rtc
-bodies into ``build/rtc``), then runs these phases, each printing JSON
-lines, and fails (exit code != 0, no result line) if any phase fails:
+It builds the port's kernels from the checkout's sources with nvcc, one
+process per source, all at once: the CUDA BatchNorm and copy libraries
+into the git-ignored ``build/cuda`` and the CUDA generated from each of
+phase 6's five rtc bodies into ``build/rtc/<digest>``. Then it runs
+these phases, each printing JSON lines, and fails (exit code != 0, no
+result line) if any phase fails:
 
-1. device: the card's name and power limit, torch/CUDA/Triton versions,
+1. device: the card's name and power limit, the torch and CUDA versions,
    and the build's seconds;
 2. copy: the copy probe (``python -m mxnet_tpu_torch.tools.bn_probe
-   --copy-sweep``): the CUDA copy kernel at each tile size and
-   ``copy_`` on a (128, 256·3136) bf16 array, bit for bit; the best rate
-   is the measured copy roofline;
+   --copy-sweep``): the streaming engine's bulk copy at each swept (stage
+   bytes, stages) and ``copy_`` on a (128, 256·3136) bf16 array, bit for
+   bit, each with its call time (one CUDA-event pair around one call),
+   device time (20 calls in one CUDA graph) and host enqueue time; the
+   best device rate is the measured copy roofline; then every
+   configuration on ragged byte counts, bit for bit;
 3. kernels: ``bn_fwd``/``bn_bwd`` against their plain PyTorch versions on
    the card at ResNet-50 shapes (batch 32) and a ragged one, in float32
    and bfloat16, with ReLU, fix_gamma and exact statistics on and off, so
@@ -43,8 +47,16 @@ lines, and fails (exit code != 0, no result line) if any phase fails:
    with the plain versions for scale;
 6. rtc: five bodies pushed through ``mx.rtc.Rtc`` on the card at one
    ResNet-50 activation (32×256×56×56 float32) and a ragged 5×3×17×13,
-   each against its plain version; a second push of one key must not
-   compile again; axpy's kernel, plain and library times;
+   each against its plain version (+ − ×, ``where`` and ``maximum`` bit
+   for bit); the bodies were built once each in the build phase, so no
+   push compiles; every body again at both shapes in each case of
+   ``RTC_CASES`` (refs 4 bytes off 16-byte boundaries, refs that differ
+   mod 16 and so take the register plan, the other store, persistent
+   blocks, one stage, the L2 evict-first policy); then at full size each
+   body's call, device and enqueue times, those of ``torch.add`` and
+   ``torch.square`` for the two bodies one PyTorch call computes, the
+   device time of each plan variant, the plain version's time and the
+   byte bound;
 7. fit: ResNet-50 through ``mod.fit`` on 8 synthetic batches (numpy seed
    0) with 2 eval batches, SGD with a FactorScheduler; exactly 51 × 8
    launches of each BatchNorm kernel, none from scoring;
@@ -56,6 +68,7 @@ matrix products (``cudnn.allow_tf32 = False``, matmul precision
 It exits with an error, and prints no result, without a CUDA card or
 outside a checkout of the repository.
 """
+import functools
 import json
 import os
 import statistics
@@ -85,12 +98,13 @@ TOL = {
     # Both sides round x·scale + shift once, so none are expected.
     "flip_fraction": 1e-6,
     # rtc bodies of transcendental functions: 1e-6 of the plain output's
-    # max-abs (Triton's and torch's exp and tanh may round differently in
-    # the last bits); bodies of + - *, where and maximum agree
-    # within 1 float32 ulp per element (Triton may fuse a multiply and an
-    # add into one fma)
+    # max-abs (the kernel's expf/tanhf and torch's exp/tanh may round
+    # differently in the last bits); bodies of + - *, where and maximum
+    # agree bit for bit (0 ulps): the kernel rounds every operation once
+    # with the _rn intrinsics, as torch's separate ops do, and fuses no
+    # multiply and add
     "rtc_transcendental": 1e-6,
-    "rtc_exact_ulps": 1,
+    "rtc_exact_ulps": 0,
     # card vs CPU, ResNet-50 at batch 2, as relative L2 error
     # ‖card − cpu‖/‖cpu‖. The softmax outputs, and the gradients one
     # layer below them (fc1_weight, bn1_gamma), agree to ~1e-5; 1e-4.
@@ -302,7 +316,6 @@ def time_kernels(K, counts, copy_bytes_per_s):
     (``enqueue_us``), beside the plan and the byte bound, also at the
     measured copy rate ``copy_bytes_per_s``. Returns the per-step sums,
     the bounds' sums at the copy rate and the worst float32 errors."""
-    import functools
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.tools.bn_probe import (GRAPH_CALLS, cuda_time,
@@ -522,11 +535,15 @@ def card_vs_cpu(mx, K):
 # ---------------------------------------------------------------------------
 # phase 2: the copy probe
 # ---------------------------------------------------------------------------
+COPY_RINGS = ((16384, 1, 4, False), (8192, 2, 8, False))
+
+
 def copy_phase(C, card):
     """The copy sweep through its entry point, with the copy kernel's
     count reset just before and read just after. Returns the kernels-line
     entry and the measured copy roofline (the best device rate) in
     bytes/s."""
+    import torch
     from mxnet_tpu_torch.tools import bn_probe
     t0 = time.time()
     C.copy.launches = 0
@@ -535,8 +552,9 @@ def copy_phase(C, card):
     for row in rows:
         emit({"phase": "copy", **row})
     best = max(rows, key=lambda r: r["gb_per_s"])
-    kern = min((r for r in rows if r["route"] == "kernel"),
-               key=lambda r: r["device_ms"])
+    default = dict(zip(("stage_bytes", "stages", "run", "evict_first"),
+                       (C.STAGE_BYTES, C.STAGES, C.RUN, False)))
+    kern = next(r for r in rows if r["config"] == default)
     lib = next(r for r in rows if r["route"] == "copy_")
     times = ("ms", "device_ms", "enqueue_us")
     emit({"phase": "copy_roofline", "measured_copy_gb_per_s":
@@ -546,11 +564,24 @@ def copy_phase(C, card):
           "library": {k: lib[k] for k in times},
           "bound_ms": kern["bound_ms"], "launches": launches,
           "seconds_incl_build": time.time() - t0, "card": card})
-    if not all(r["bitwise_equal"] for r in rows) or launches == 0:
-        raise RuntimeError("copy phase failed: launches=%d, rows=%s"
-                           % (launches, json.dumps(rows)))
+    # ragged byte counts (a tail of 3 and 15 bytes; 5 bytes: no body), in
+    # every swept configuration and in rings of one and two stages
+    ragged = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for n_bytes in (5, 1000003, 12345679):
+        x = torch.randint(0, 256, (n_bytes,), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+        ragged[n_bytes] = all(torch.equal(C.copy(x, None, *c), x)
+                              for c in C.COPY_SWEEP + COPY_RINGS)
+    emit({"phase": "copy_ragged", "bitwise_equal": ragged})
+    if not all(r["bitwise_equal"] for r in rows) or launches == 0 \
+            or not all(ragged.values()):
+        raise RuntimeError("copy phase failed: launches=%d, rows=%s, "
+                           "ragged=%s" % (launches, json.dumps(rows),
+                                          ragged))
     entry = dict(name="copy", route="cuda",
-                 source="mxnet_tpu_torch/kernels/csrc/copy.cu",
+                 source="mxnet_tpu_torch/kernels/csrc/copy.cu + "
+                        "mxnet_tpu_torch/kernels/csrc/stream.cuh",
                  replaces="tools/bn_pallas_probe.py:326", launches=launches,
                  max_abs_err=0.0, ms=kern["ms"], plain_ms=lib["ms"],
                  bound_ms=kern["bound_ms"], bound_by="bytes",
@@ -605,17 +636,18 @@ def rtc_errors(kern, plain, exact):
 
 def rtc_times(R, rtc, xs, ys, copy_rate):
     """Call ms, device ms (one set of inputs: 205–411 MB, far above L2)
-    and host enqueue µs of one body's kernel, and of the PyTorch call
-    that computes the same function where there is one (``rtc_library``;
-    None elsewhere); the plain version's call ms; the byte bound (each
-    input read once, each output written once) at 3.35 TB/s and at the
-    measured copy rate."""
+    and host enqueue µs of one body's kernel (``R.STORE``), and of the
+    PyTorch call that computes the same function where there is one
+    (``rtc_library``; None elsewhere); the device ms of the plans of
+    ``RTC_PLAN_VARIANTS``; the plain version's call ms; the byte bound
+    (each input read once, each output written once) at 3.35 TB/s and at
+    the measured copy rate."""
     from mxnet_tpu_torch.tools.bn_probe import (GRAPH_CALLS, cuda_time,
                                                 enqueue_us, graph_ms)
     ins, outs = [a._read() for a in xs], [a._read() for a in ys]
 
-    def kern():
-        R.rtc_kernel(rtc._ck, ins, outs)
+    def kern(**plan_args):
+        R.rtc_kernel(rtc._ck, ins, outs, **plan_args)
 
     def three(fn):
         dev, method = graph_ms([fn] * GRAPH_CALLS)
@@ -623,7 +655,11 @@ def rtc_times(R, rtc, xs, ys, copy_rate):
 
     ms, dev, enq, by = three(kern)
     nbytes = (len(ins) + len(outs)) * 4 * ins[0].numel()
-    t = {"ms": ms, "device_ms": dev, "enqueue_us": enq,
+    t = {"store": R.STORE, "ms": ms, "device_ms": dev, "enqueue_us": enq,
+         "device_ms_by_plan": {
+             name: graph_ms([functools.partial(kern, **args)]
+                            * GRAPH_CALLS)[0]
+             for name, args in RTC_PLAN_VARIANTS.items()},
          "plain_ms": cuda_time(lambda: R.rtc_plain(rtc._ck, ins, outs),
                                reps=5),
          "library": None, "library_ms": None, "library_device_ms": None,
@@ -639,11 +675,86 @@ def rtc_times(R, rtc, xs, ys, copy_rate):
     return t
 
 
+# plans of the bulk kind timed beside the default (``stream.plan``'s
+# arguments): the other store, persistent blocks, the L2 evict-first policy
+RTC_PLAN_VARIANTS = {"store_regs": {"store": "regs"},
+                     "store_bulk": {"store": "bulk"},
+                     "persistent": {"run": None},
+                     "evict_first": {"evict_first": True}}
+
+# the plan check's cases: (element offsets of the inputs and outputs,
+# stream.plan arguments). Refs 4 bytes past a 16-byte boundary (the bulk
+# plan with a head and a tail); refs that differ mod 16 (the register
+# plan: the first input and output at 8 bytes, the second input at 0, the
+# second output at 4); aligned refs in the store that R.STORE is not, in
+# persistent blocks (the ring wraps), through one stage, and with the L2
+# evict-first policy
+RTC_CASES = {"offset_4": ((1, 1), (1, 1), {}),
+             "mixed": ((2, 0), (2, 1), {}),
+             "other_store": ((0, 0), (0, 0), None),
+             "persistent": ((0, 0), (0, 0), {"run": None}),
+             "one_stage": ((0, 0), (0, 0), {"stages": 1, "run": 4}),
+             "evict_first": ((0, 0), (0, 0), {"evict_first": True})}
+
+
+def rtc_plans(R, runs):
+    """Every body at both shapes in each case of ``RTC_CASES`` against
+    the plain version on the same inputs; returns the rows and the device
+    ms of axpy at full size in each case."""
+    import torch
+    from mxnet_tpu_torch.kernels import stream
+    from mxnet_tpu_torch.tools.bn_probe import GRAPH_CALLS, graph_ms
+    other = {"store": "bulk" if R.STORE == "regs" else "regs"}
+    rows, times = [], {}
+    for shape, name, exact, rtc, xs, _ in runs:
+        ck, n = rtc._ck, xs[0].size
+        src = [x._read() for x in xs]
+        for case, (e_in, e_out, args) in sorted(RTC_CASES.items()):
+            args = other if args is None else args
+
+            def view(e, fill=None):
+                v = torch.empty(n + 4, device="cuda")[e:e + n].view(shape)
+                return v.copy_(fill) if fill is not None else v
+            ins = [view(e_in[i], x) for i, x in enumerate(src)]
+            outs = [view(e_out[j]) for j in range(ck.n_out)]
+            R.rtc_kernel(ck, ins, outs, **args)
+            plain = [torch.empty_like(ins[0]) for _ in outs]
+            R.rtc_plain(ck, ins, plain)
+            torch.cuda.synchronize()
+            p = stream.plan(n, tuple(t.data_ptr() % 16 for t in ins + outs),
+                            ck.n_in, ck.n_out,
+                            **dict((("store", R.STORE),) + tuple(
+                                args.items())))
+            for j, (o, q) in enumerate(zip(outs, plain)):
+                err, bad = rtc_errors(o, q, exact)
+                rows.append({"phase": "rtc_plan", "body": name,
+                             "shape": list(shape), "case": case,
+                             "plan": p.kind, "store": p.store,
+                             "head": p.head, "tail": p.tail,
+                             "grid": p.grid, "stages": p.stages,
+                             "vec_mask": p.vec_mask, "output": j,
+                             "max_abs_err": err, "outside": bad})
+            if name == "axpy" and shape == RTC_SHAPES[0]:
+                times[case] = graph_ms([lambda: R.rtc_kernel(
+                    ck, ins, outs, **args)] * GRAPH_CALLS)[0]
+            del ins, outs, plain
+    return rows, times
+
+
+def rtc_checked(mx):
+    """The checked kernel of every body, as ``mx.rtc.Rtc`` checks it."""
+    x = mx.nd.zeros((1,), ctx=mx.cpu())
+    return [mx.rtc.Rtc(name, [(i, x) for i in ins], [(o, x) for o in outs],
+                       body)._ck for name, ins, outs, body, _ in RTC_BODIES]
+
+
 def rtc_phase(mx, R, card, copy_rate):
     """Push every body through ``mx.rtc.Rtc`` on the card at both shapes
-    (counts reset just before, read just after; one key pushed twice),
-    then hold each output against the plain version on the same inputs
-    and time every body at full size (``rtc_times``)."""
+    (counts reset just before, read just after; one key pushed twice;
+    the bodies were built in the build phase, one build each), then hold
+    each output against the plain version on the same inputs, check both
+    plans and both stores (``rtc_plans``) and time every body at full size
+    (``rtc_times``)."""
     import torch
     from mxnet_tpu_torch.tools.bn_probe import enqueue_us
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -668,13 +779,13 @@ def rtc_phase(mx, R, card, copy_rate):
         torch.cuda.synchronize()
         first_push_s["%s@%s" % (name, "x".join(map(str, shape)))] = \
             time.perf_counter() - t0
-    compiles = R.rtc_kernel.compiles - compiles0
+    push_compiles = R.rtc_kernel.compiles - compiles0
     shape, name, _, rtc, xs, ys = runs[0]       # axpy at full size again
     t0 = time.perf_counter()
     rtc.push(xs, ys)
     torch.cuda.synchronize()
     second_push_s = time.perf_counter() - t0
-    recompiles = R.rtc_kernel.compiles - compiles0 - compiles
+    recompiles = R.rtc_kernel.compiles - compiles0 - push_compiles
     launches = R.rtc_kernel.launches
 
     worst, failures = 0.0, []
@@ -692,6 +803,12 @@ def rtc_phase(mx, R, card, copy_rate):
             worst = max(worst, err)
             if bad:
                 failures.append(row)
+    plan_rows, case_ms = rtc_plans(R, runs)
+    for row in plan_rows:
+        emit(row)
+        if row["outside"]:
+            failures.append(row)
+    kinds = {(r["plan"], r["store"]) for r in plan_rows}
 
     timed = {name: rtc_times(R, rtc, xs, ys, copy_rate)
              for shape, name, _, rtc, xs, ys in runs
@@ -704,17 +821,25 @@ def rtc_phase(mx, R, card, copy_rate):
     check_us = enqueue_us(lambda: R.check_tensors(rtc._ck, ins, outs))
     axpy = timed["axpy"]
     row = {"phase": "rtc_summary", "launches": launches,
-           "compiles": compiles, "recompiles_on_second_push": recompiles,
+           "compiles": R.rtc_kernel.compiles,
+           "compiles_in_pushes": push_compiles,
+           "recompiles_on_second_push": recompiles,
+           "plans_checked": sorted(kinds),
+           "axpy_device_ms_by_case": case_ms,
            "first_push_s": first_push_s, "second_push_s": second_push_s,
            "check_tensors_us": check_us, "card": card}
     emit(row)
-    if failures or recompiles or compiles != len(runs) or \
-            launches != len(runs) + 1:
+    if failures or recompiles or push_compiles or \
+            R.rtc_kernel.compiles != len(RTC_BODIES) or \
+            launches != len(runs) + 1 or \
+            kinds != {("bulk", "regs"), ("bulk", "bulk"),
+                      ("register", "regs")}:
         raise RuntimeError("rtc phase failed: %d output(s) out of "
                            "tolerance; %s" % (len(failures),
                                               json.dumps(row)))
-    return dict(name="rtc", route="triton",
-                source="mxnet_tpu_torch/kernels/rtc_codegen.py",
+    return dict(name="rtc", route="cuda",
+                source="mxnet_tpu_torch/kernels/csrc/stream.cuh + "
+                       "mxnet_tpu_torch/kernels/rtc_codegen.py",
                 replaces="mxnet_tpu/rtc.py:33", launches=launches,
                 max_abs_err=worst, bound_by="bytes",
                 **{k: axpy[k] for k in ("ms", "plain_ms", "library_ms",
@@ -836,14 +961,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    import triton
     card = nvidia_smi_line()
     emit({"phase": "device", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "triton": triton.__version__,
-          "python": sys.version.split()[0]})
-    builds = [K._library, C._library]
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+    # one nvcc per source, all at once: BatchNorm, copy, each rtc body
+    builds = [K._library, C._library] + [
+        functools.partial(R._library, ck) for ck in rtc_checked(mx)]
     emit({"phase": "build", "libraries": len(builds),
           "seconds": build_kernels(builds)})
 

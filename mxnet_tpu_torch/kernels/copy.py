@@ -1,24 +1,27 @@
-"""Pure copy for Hopper: a CUDA C++ kernel (``csrc/copy.cu``) beside its
-plain PyTorch version.
+"""Pure copy for Hopper: the streaming engine's copy (``csrc/copy.cu`` on
+``csrc/stream.cuh``) beside its plain PyTorch version.
 
 What it replaces: ``k_copy`` of ``copy_sweep`` (``tools/bn_pallas_probe.py
 :288``, ``pl.pallas_call`` at ``:331``), a zero-compute copy that measured
 how fast a kernel can stream memory on the TPU. On the card it measures
 the copy rate that bounds every streaming kernel of the port (the
 ``bn_probe`` tool and ``chip_smoke.py`` report it as the measured copy
-roofline).
+roofline), on the same engine that runs the rtc bodies.
 
-What bounds it: bytes, read once and written once. The kernel moves
-16-byte vectors (``uint4``), neighbouring threads on neighbouring vectors;
-``tile_bytes`` (16, 64 or 256) is how many bytes each thread has in flight
-per iteration, and a block of 256 threads copies one tile of
-256·``tile_bytes`` bytes. The bytes past the last whole vector are copied
-one by one. The TPU kernel's column blocks served VMEM and are not kept.
+What bounds it: bytes, read once and written once. The kernel is the
+engine's bulk plan with the ``"stage"`` store: one-warp blocks, each
+taking ``run`` tiles through a ring of ``stages`` stages of
+``stage_bytes`` in shared memory, filled by ``cp.async.bulk`` loads and
+sent straight back by bulk stores, so no byte passes through registers.
+``COPY_SWEEP`` lists the configurations the probe times (runs, persistent
+blocks, the L2 evict-first policy); the bytes past the last whole 16 are
+copied one by one. The TPU kernel's column
+blocks served VMEM and are not kept.
 
 Build: ``kernels/build.py`` compiles the source with ``nvcc`` for
-``sm_90a`` into ``build/cuda/mxnet_tpu_torch_copy`` at first use. The
-source has a plain C interface and includes no PyTorch header, so the
-build takes seconds; the library is called through ``ctypes``.
+``sm_90a`` into ``build/cuda/mxnet_tpu_torch_copy`` at first use
+(seconds); the library is called through ``ctypes``, one call per copy,
+with the plan packed once per (bytes, configuration).
 
 Dispatch: ``copy`` runs the plain version, ``out.copy_(x)``, only for
 tensors on the CPU; that is also the one PyTorch call that computes the
@@ -32,34 +35,40 @@ import ctypes
 import torch
 
 from ..base import MXNetError
+from . import stream
 from .build import cuda_library
 
-__all__ = ["copy", "copy_plain", "check_copy", "plan", "TILE_BYTES",
-           "THREADS"]
+__all__ = ["copy", "copy_plain", "check_copy", "plan", "COPY_SWEEP",
+           "STAGE_BYTES", "STAGES", "RUN", "THREADS"]
 
-TILE_BYTES = (16, 64, 256)   # bytes per thread per iteration
-THREADS = 256
-_VEC = 16                    # bytes of one uint4
-_LIB = []    # the loaded library, once built
+# (stage bytes, stages, run, evict_first) the probe sweeps: runs of 4 and
+# 16 stages per block, persistent blocks (run None), and the L2
+# evict-first policy
+COPY_SWEEP = ((8192, 4, 4, False), (16384, 4, 4, False),
+              (32768, 3, 4, False), (8192, 4, 16, False),
+              (16384, 4, None, False), (8192, 4, 4, True))
+STAGE_BYTES, STAGES, RUN = 8192, 4, 4     # the default configuration
+THREADS = 32                       # one warp; lane 0 drives the ring
+_VEC = 16
+_LIB = []      # the loaded library, once built
+_PLANS = {}    # (bytes, configuration) -> address of the packed plan
 
 
-def plan(n_bytes, tile_bytes):
-    """(vectors, tail bytes, blocks) of a copy of ``n_bytes`` at
-    ``tile_bytes`` per thread per iteration."""
-    if tile_bytes not in TILE_BYTES:
-        raise MXNetError("copy: tile_bytes must be one of %s, not %r"
-                         % (TILE_BYTES, tile_bytes))
-    n_vec, tail = divmod(n_bytes, _VEC)
-    per_block = THREADS * (tile_bytes // _VEC)
-    return n_vec, tail, max(1, -(-n_vec // per_block))
+def plan(n_bytes, stage_bytes=STAGE_BYTES, stages=STAGES, run=RUN,
+         evict_first=False):
+    """The engine's plan (``stream.Plan``) of a copy of ``n_bytes``."""
+    return stream.plan(n_bytes, (0, 0), 1, 1, elem_bytes=1, store="stage",
+                       tile_bytes=stage_bytes, stages=stages, run=run,
+                       threads=THREADS, evict_first=evict_first)
 
 
 def check_copy(x, out):
     """Raise unless ``x`` and ``out`` are contiguous tensors of one shape
     and dtype on one device, both 16-byte aligned. Reads only tensor
     metadata, so it runs without a card."""
-    if out.shape != x.shape or out.dtype != x.dtype \
-            or out.device != x.device:
+    if out.shape != x.shape or out.dtype is not x.dtype \
+            or out.get_device() != x.get_device() \
+            or (x.get_device() < 0 and out.device != x.device):
         raise MXNetError("copy: out must match x (%s %s on %s); got %s %s "
                          "on %s" % (tuple(x.shape), x.dtype, x.device,
                                     tuple(out.shape), out.dtype, out.device))
@@ -81,33 +90,44 @@ def _library():
     if _LIB:
         return _LIB[0]
     lib = cuda_library("mxnet_tpu_torch_copy", "copy.cu")
-    lib.mx_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_longlong, ctypes.c_void_p]
+    P = ctypes.c_void_p
+    lib.mx_copy.argtypes = [P, P, ctypes.c_longlong, P, P]
     lib.mx_copy.restype = ctypes.c_int
     _LIB.append(lib)
     return lib
 
 
-def copy(x, out=None, tile_bytes=64):
+_ARRAYS = []   # the packed plans, kept alive
+
+
+def _packed(n_bytes, *config):
+    """The address of the packed plan of the key (``_PLANS``), made on
+    first use."""
+    arr = (ctypes.c_longlong * 13)(*plan(n_bytes, *config).packed())
+    _ARRAYS.append(arr)
+    addr = _PLANS[(n_bytes,) + config] = ctypes.addressof(arr)
+    return addr
+
+
+def copy(x, out=None, stage_bytes=STAGE_BYTES, stages=STAGES, run=RUN,
+         evict_first=False):
     """Copy ``x`` into ``out`` (a new contiguous tensor when None) and
-    return ``out``."""
+    return ``out``; the other arguments choose the plan (``plan``)."""
     if out is None:
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    if x.device.type == "cpu" and out.device.type == "cpu":
-        return copy_plain(x, out)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu" and out.device.type == "cpu":
+            return copy_plain(x, out)
         raise MXNetError("copy: tensors on %s are not supported" % x.device)
     check_copy(x, out)
     n_bytes = x.numel() * x.element_size()
     if n_bytes == 0:
         return out
-    _, _, grid = plan(n_bytes, tile_bytes)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mx_copy(x.data_ptr(), out.data_ptr(), n_bytes,
-                          tile_bytes // _VEC, grid, stream)
+    lib = _LIB[0] if _LIB else _library()
+    key = (n_bytes, stage_bytes, stages, run, evict_first)
+    packed = _PLANS.get(key) or _packed(*key)
+    err = lib.mx_copy(x.data_ptr(), out.data_ptr(), n_bytes, packed,
+                      torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err:
         raise MXNetError("copy: kernel launch failed with CUDA error %d"
                          % err)

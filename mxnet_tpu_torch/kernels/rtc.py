@@ -1,48 +1,65 @@
-"""Runtime user kernels (``mx.rtc``) for Hopper: a Triton kernel generated
-from each checked body, beside its plain PyTorch version.
+"""Runtime user kernels (``mx.rtc``) for Hopper: CUDA generated from each
+checked body on the port's streaming engine, beside its plain PyTorch
+version.
 
 What it replaces: ``PallasKernel.__call__`` (``mxnet_tpu/rtc.py:33``,
 ``pl.pallas_call`` at ``:49``), built by ``Rtc`` (``:59``), which compiles
 a user's body over refs once per (shapes, dtypes) key. With no grid there,
-each ref is the whole array; here too.
+each ref is the whole array; here too. The reference's ``mx.rtc``
+compiled CUDA C at run time; so does the port.
 
 What bounds it on the H100: bytes. A body in the supported language does
 a few operations per element, far below the card's ~295 operations per
 byte, so the least time is one read of every input and one write of every
-output at the memory rate. The design does just that: one fused pass, a
-flat 1-D grid of ``BLOCK`` = 1024 elements per program, every input loaded
-once and every output stored once, with masks at the ragged edge.
+output at the memory rate. ``rtc_codegen.cuda_source`` instantiates the
+streaming engine (``csrc/stream.cuh``) with the body: blocks stream runs
+of tiles of every input through shared-memory stages with bulk
+asynchronous copies (``stream.plan``: the bulk plan when every ref has
+the same address mod 16, else the register plan), and the results leave
+through output stages and bulk stores (``STORE = "bulk"``) or as 16-byte
+streaming stores from registers (``"regs"``).
 
-Build: ``rtc_codegen.triton_source`` writes the kernel's text; the
-launcher saves it as ``build/rtc/<sha256 of body and key>.py`` (written
-under a temporary name, then renamed, so processes never race on one
-file) and imports it from there, because Triton reads a kernel's source
-from its file. One build per (body, shape, ref counts, device) key;
-``N`` is a compile-time constant of that build, so Triton compiles once
-per key too. ``rtc_kernel.compiles`` counts builds.
+Build: the generated source is written to ``build/rtc/<digest>/rtc.cu``
+(under a temporary name, then renamed, so processes never race on one
+file) and ``nvcc`` builds ``librtc.so`` beside it (``kernels/build.py``;
+``-fmad=false -prec-div=true -prec-sqrt=true``, no fast math). The digest
+covers the generated text, the engine header and the flags, so each body
+builds once, whatever the shape, and a second process reuses the library
+on disk. ``n`` is an argument of the C entry, not of the build.
+``rtc_kernel.compiles`` counts the bodies made ready in this process
+(built, or found built on disk), one per body.
+
+Host path: one ``ctypes`` call per push. The pointer array and the packed
+plan are made once per (body, elements, device, addresses mod 16) key;
+a push writes the data pointers into the array and calls.
 
 Dispatch: ``rtc_kernel`` runs the plain version only for tensors on the
-CPU. CUDA tensors launch the kernel or raise; nothing falls back.
-``rtc_kernel.launches`` counts launches, never plain runs.
+CPU. CUDA tensors launch the kernel or raise ``MXNetError`` (a failed
+build or launch included); nothing falls back. ``rtc_kernel.launches``
+counts launches, never plain runs.
 """
 from __future__ import annotations
 
-import hashlib
-import importlib.util
+import ctypes
+import itertools
 import os
-import sys
+import threading
+from typing import NamedTuple
 
 import torch
 
 from ..base import MXNetError
-from . import rtc_codegen
+from . import build, rtc_codegen, stream
 
-__all__ = ["rtc_kernel", "rtc_plain", "check_tensors", "BLOCK"]
+__all__ = ["rtc_kernel", "rtc_plain", "check_tensors", "STORE", "FLAGS"]
 
-BLOCK = 1024        # elements per program: 8 per thread at 4 warps
+STORE = "bulk"      # how a bulk plan's results leave: "regs" or "bulk"
+FLAGS = ("-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "rtc")
+_F32 = torch.float32
+_LOCK = threading.Lock()     # bodies may be built from several threads
 
 
 # ---------------------------------------------------------------------------
@@ -112,17 +129,12 @@ def rtc_plain(ck, ins, outs):
 # ---------------------------------------------------------------------------
 # kernel build and launch
 # ---------------------------------------------------------------------------
-def check_tensors(ck, ins, outs):
-    """Raise unless every tensor is a contiguous float32 tensor of one
-    shape on one device, with as many inputs and outputs as the body has
-    refs, and fewer than 2**31 elements (int32 offsets)."""
-    if len(ins) != ck.n_in or len(outs) != ck.n_out:
-        raise MXNetError("rtc: the body takes %d input(s) and %d output(s);"
-                         " got %d and %d" % (ck.n_in, ck.n_out, len(ins),
-                                              len(outs)))
+def _refuse_tensors(ck, ins, outs):
+    """Raise the error that names the first tensor ``check_tensors``
+    refuses."""
     ref = outs[0]
-    for t in list(ins) + list(outs):
-        if t.dtype != torch.float32:
+    for t in itertools.chain(ins, outs):
+        if t.dtype != _F32:
             raise MXNetError("rtc: dtype %s is not supported (float32 only)"
                              % t.dtype)
         if tuple(t.shape) != tuple(ref.shape):
@@ -134,17 +146,38 @@ def check_tensors(ck, ins, outs):
                                                           ref.device))
         if not t.is_contiguous():
             raise MXNetError("rtc: refs must be contiguous")
+
+
+def check_tensors(ck, ins, outs):
+    """Raise unless every tensor is a contiguous float32 tensor of one
+    shape on one device, with as many inputs and outputs as the body has
+    refs, and fewer than 2**31 elements. Reads tensor metadata only:
+    device indices first (no device objects), whole devices only off the
+    card, where every index is -1."""
+    if len(ins) != ck.n_in or len(outs) != ck.n_out:
+        raise MXNetError("rtc: the body takes %d input(s) and %d output(s);"
+                         " got %d and %d" % (ck.n_in, ck.n_out, len(ins),
+                                              len(outs)))
+    ref = outs[0]
+    shape, dev = ref.shape, ref.get_device()
+    for ts in (ins, outs):
+        for t in ts:
+            if t.dtype is not _F32 or t.shape != shape \
+                    or t.get_device() != dev or not t.is_contiguous() \
+                    or (dev < 0 and t.device != ref.device):
+                _refuse_tensors(ck, ins, outs)
     if ref.numel() >= 2 ** 31:
         raise MXNetError("rtc: %d elements is too many (< 2**31)"
                          % ref.numel())
 
 
-def _write_source(text, name):
-    """Save ``text`` as ``build/rtc/<name>.py`` unless it is there; the
+def _write_source(text, tag):
+    """Save ``text`` as ``build/rtc/<tag>/rtc.cu`` unless it is there; the
     write goes to a name of this process first and is renamed into
     place."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    path = os.path.join(_BUILD_DIR, name + ".py")
+    d = os.path.join(_BUILD_DIR, tag)
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "rtc.cu")
     if not os.path.exists(path):
         tmp = "%s.%d.tmp" % (path, os.getpid())
         with open(tmp, "w") as f:
@@ -153,53 +186,90 @@ def _write_source(text, name):
     return path
 
 
-def _build_triton(ck, key):
-    """Generate, save and import the kernel for ``key``; returns its
-    ``@triton.jit`` function."""
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          os.path.join(_REPO_ROOT, "build", "triton"))
-    text = rtc_codegen.triton_source(ck)
-    name = "rtc_" + hashlib.sha256(
-        (text + repr(key)).encode()).hexdigest()[:32]
-    path = _write_source(text, name)
-    mod_name = "mxnet_tpu_torch_" + name
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[mod_name] = mod
-    spec.loader.exec_module(mod)
-    rtc_kernel.compiles += 1
-    return mod.rtc_kernel
-
-
-_BUILT = {}     # (body digest, shape, n_in, n_out, device) -> jit function
-
-
-def _launcher(ck, key):
-    """The built kernel of ``key``, built on first use."""
-    fn = _BUILT.get(key)
-    if fn is None:
-        fn = _BUILT[key] = _build_triton(ck, key)
+def _build(ck):
+    """Generate, save and build the body's CUDA (or load the library
+    built from the same text); returns its ``mx_rtc``."""
+    text = rtc_codegen.cuda_source(ck)
+    tag = build.digest(text, FLAGS)[:32]
+    src = _write_source(text, tag)
+    lib, _ = build.nvcc_library(src, os.path.join(os.path.dirname(src),
+                                                  "librtc.so"), FLAGS)
+    fn = lib.mx_rtc
+    P = ctypes.c_void_p
+    fn.argtypes = [P, P, ctypes.c_longlong, P, P]
+    fn.restype = ctypes.c_int
     return fn
 
 
-def rtc_kernel(ck, ins, outs):
+_LIBS = {}      # body digest -> mx_rtc of its library
+_CALLS = {}     # (body digest, n, device, addresses mod 16, plan args) -> _Call
+
+
+class _Call(NamedTuple):
+    """What a push hands ``mx_rtc``, made once per key: the C array of
+    the refs' pointers (``ptrs``; inputs at address ``ins``, outputs at
+    ``outs``) and the packed plan (``packed``, at ``plan``)."""
+    fn: object
+    ptrs: object
+    ins: int
+    outs: int
+    packed: object
+    plan: int
+
+
+def _library(ck):
+    """The body's ``mx_rtc``, built (or loaded) on first use."""
+    fn = _LIBS.get(ck.digest)
+    if fn is None:
+        fn = _build(ck)
+        with _LOCK:
+            if ck.digest not in _LIBS:
+                _LIBS[ck.digest] = fn
+                rtc_kernel.compiles += 1
+            fn = _LIBS[ck.digest]
+    return fn
+
+
+def _prepare(ck, key):
+    _, n, dev, offsets, plan_args = key
+    fn = _library(ck)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = stream.plan(n, offsets, ck.n_in, ck.n_out, sms=sms,
+                    **dict((("store", STORE),) + plan_args))
+    ptrs = (ctypes.c_uint64 * len(offsets))()
+    packed = (ctypes.c_longlong * 13)(*p.packed())
+    base = ctypes.addressof(ptrs)
+    call = _CALLS[key] = _Call(fn, ptrs, base, base + 8 * ck.n_in, packed,
+                               ctypes.addressof(packed))
+    return call
+
+
+def rtc_kernel(ck, ins, outs, **plan_args):
     """Compute the checked body over ``ins`` into ``outs`` (lists of
     tensors). CPU tensors take the plain version; CUDA tensors launch the
-    generated Triton kernel or raise."""
+    body's CUDA kernel or raise. ``plan_args`` (``stream.plan``'s: store,
+    tile bytes, stages, run, evict_first) replace the plan's defaults and
+    ``STORE``; a caller measuring other plans passes them."""
     check_tensors(ck, ins, outs)
-    if outs[0].device.type == "cpu":
-        return rtc_plain(ck, ins, outs)
-    if outs[0].device.type != "cuda":
-        raise MXNetError("rtc: tensors on %s are not supported"
-                         % outs[0].device)
-    n = outs[0].numel()
+    o = outs[0]
+    if not o.is_cuda:
+        if o.device.type == "cpu":
+            return rtc_plain(ck, ins, outs)
+        raise MXNetError("rtc: tensors on %s are not supported" % o.device)
+    n = o.numel()
     if n == 0:
         return None
-    key = (ck.digest, tuple(outs[0].shape), ck.n_in, ck.n_out,
-           str(outs[0].device))
-    fn = _launcher(ck, key)
-    grid = (-(-n // BLOCK),)
-    fn[grid](*ins, *outs, N=n, BLOCK=BLOCK, num_warps=4)
+    ptrs = [t.data_ptr() for t in ins] + [t.data_ptr() for t in outs]
+    dev = o.get_device()
+    key = (ck.digest, n, dev, tuple([p & 15 for p in ptrs]),
+           tuple(plan_args.items()) if plan_args else ())
+    call = _CALLS.get(key) or _prepare(ck, key)
+    call.ptrs[:] = ptrs
+    err = call.fn(call.ins, call.outs, n, call.plan,
+                  torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        raise MXNetError("rtc: kernel launch failed with CUDA error %d"
+                         % err)
     rtc_kernel.launches += 1
     return None
 

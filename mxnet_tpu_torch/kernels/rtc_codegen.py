@@ -1,4 +1,4 @@
-"""Checker and Triton code generator for ``mx.rtc`` kernel bodies.
+"""Checker and CUDA code generator for ``mx.rtc`` kernel bodies.
 
 A body is the JAX package's kernel language (``mxnet_tpu/rtc.py``):
 Python over ``<name>_ref`` refs, read and written whole with ``[...]``,
@@ -19,34 +19,43 @@ pushed to, so the plain version never accepts what the kernel refuses.
 
 ``a ** k`` is lowered here, for the plain version and the kernel alike,
 to the square-and-multiply product that ``jax.lax.integer_pow`` computes,
-so both round the same way. ``triton_source`` turns a checked kernel into
-the text of one ``@triton.jit`` function: a flat 1-D grid over ``N``
-elements in blocks of ``BLOCK``, one masked ``tl.load`` per input ref and
-one masked ``tl.store`` per output ref. This module imports no Triton, so
-the CPU tests read the generated text.
+so both round the same way. ``cuda_source`` turns a checked kernel into
+the text of one CUDA file: the body as a device function over float
+values, instantiated in the streaming engine (``csrc/stream.cuh``), which
+reads every input once and writes every output once. Each float
+operation is one correctly rounded intrinsic (``__fmul_rn``,
+``__fadd_rn``, ...), so ``x * 2.0 + y`` rounds twice, as the plain
+version's two torch ops do, and no multiply and add fuse into an fma.
+The CPU tests read the generated text; nvcc builds it on the card
+(``kernels/rtc.py``).
 """
 from __future__ import annotations
 
 import ast
 import copy
 import hashlib
+import math
 import textwrap
+
+import numpy
 
 from ..base import MXNetError
 
-__all__ = ["CheckedKernel", "check_kernel", "triton_source", "FUNCS",
+__all__ = ["CheckedKernel", "check_kernel", "cuda_source", "FUNCS",
            "MAX_POW"]
 
-# jnp function -> (arity, Triton spelling)
+# jnp function -> (arity, CUDA spelling): the accurate library functions
+# (no fast-math intrinsic), a correctly rounded sqrt, and a maximum and
+# minimum that propagate NaN as jnp's do (CUDA's fmaxf/fminf do not)
 FUNCS = {
-    "exp": (1, "tl.exp({0})"),
-    "log": (1, "tl.log({0})"),
-    "sqrt": (1, "tl.sqrt_rn({0})"),
-    "tanh": (1, "libdevice.tanh({0})"),
-    "abs": (1, "tl.abs({0})"),
-    "maximum": (2, "tl.maximum({0}, {1}, propagate_nan=tl.PropagateNan.ALL)"),
-    "minimum": (2, "tl.minimum({0}, {1}, propagate_nan=tl.PropagateNan.ALL)"),
-    "where": (3, "tl.where({0}, {1}, {2})"),
+    "exp": (1, "expf({0})"),
+    "log": (1, "logf({0})"),
+    "sqrt": (1, "__fsqrt_rn({0})"),
+    "tanh": (1, "tanhf({0})"),
+    "abs": (1, "fabsf({0})"),
+    "maximum": (2, "mx_maximum({0}, {1})"),
+    "minimum": (2, "mx_minimum({0}, {1})"),
+    "where": (3, "({0} ? {1} : {2})"),
 }
 MAX_POW = 8
 _BINOPS = {ast.Add: "+", ast.Sub: "-", ast.Mult: "*", ast.Div: "/"}
@@ -312,63 +321,146 @@ def check_kernel(source, n_in=None):
 
 
 # ---------------------------------------------------------------------------
-# Triton source
+# CUDA source
 # ---------------------------------------------------------------------------
+_C_BINOPS = {ast.Add: "__fadd_rn", ast.Sub: "__fsub_rn", ast.Mult: "__fmul_rn",
+             ast.Div: "__fdiv_rn"}
+# device functions a body may call, emitted where it calls them
+_HELPERS = {
+    "mx_maximum": "// jnp.maximum: a NaN in either argument is the result\n"
+                  "__device__ __forceinline__ float mx_maximum(float a, "
+                  "float b) {\n"
+                  "  return a != a ? a : (b != b ? b : fmaxf(a, b));\n}\n\n",
+    "mx_minimum": "// jnp.minimum: a NaN in either argument is the result\n"
+                  "__device__ __forceinline__ float mx_minimum(float a, "
+                  "float b) {\n"
+                  "  return a != a ? a : (b != b ? b : fminf(a, b));\n}\n\n",
+}
+# C name prefix and type of a local of each kind
+_LOCAL = {ARRAY: ("v_", "float"), SCALAR: ("s_", "double"),
+          MASK: ("m_", "bool")}
+
+
+def _double_literal(v):
+    if math.isfinite(v):
+        return repr(v)
+    return "%s__longlong_as_double(0x7ff0000000000000LL)" % (
+        "-" if v < 0 else "")
+
+
+def _float_literal(v):
+    """The float32 that the plain version makes of the Python float ``v``
+    (rounded to nearest), as a C float literal."""
+    with numpy.errstate(over="ignore"):
+        f = numpy.float32(v)
+    if numpy.isfinite(f):
+        return str(f) + "f"
+    return "%s__int_as_float(0x7f800000)" % ("-" if f < 0 else "")
+
+
 class _Emitter(object):
+    """C expressions of a checked body. Array values are float and every
+    float operation is one correctly rounded intrinsic, as the plain
+    version rounds each torch op once; constant (scalar) subexpressions
+    are double, as Python computes them, and become float where they
+    meet an array, as torch casts a Python scalar."""
+
     def __init__(self, ck):
         self.ref_var = {p: ("in%d" % i if i < ck.n_in
                             else "out%d" % (i - ck.n_in))
                         for i, p in enumerate(ck.params)}
+        self.kinds = {}         # local name -> kind of its last value
 
     def expr(self, node):
+        """(kind, C text) of an expression; scalar text is double."""
         if isinstance(node, ast.Constant):
-            return repr(node.value)
+            return SCALAR, _double_literal(node.value)
         if isinstance(node, ast.Name):
-            return "v_" + node.id
+            kind = self.kinds[node.id]
+            return kind, _LOCAL[kind][0] + node.id
         if isinstance(node, ast.Subscript):
-            return self.ref_var[node.value.id]
+            return ARRAY, self.ref_var[node.value.id]
         if isinstance(node, ast.UnaryOp):
-            return "(%s%s)" % ("-" if isinstance(node.op, ast.USub) else "+",
-                               self.expr(node.operand))
+            kind, val = self.expr(node.operand)
+            return kind, ("(-%s)" % val if isinstance(node.op, ast.USub)
+                          else val)
         if isinstance(node, ast.BinOp):
             # a lowered power arrives as nested products, emitted as they
             # stand: the same order as the plain version evaluates them
-            return "(%s %s %s)" % (self.expr(node.left),
-                                   _BINOPS[type(node.op)],
-                                   self.expr(node.right))
+            ka, a = self.expr(node.left)
+            kb, b = self.expr(node.right)
+            if ARRAY not in (ka, kb):
+                return SCALAR, "(%s %s %s)" % (a, _BINOPS[type(node.op)], b)
+            return ARRAY, "%s(%s, %s)" % (
+                _C_BINOPS[type(node.op)], self.as_float(node.left, ka, a),
+                self.as_float(node.right, kb, b))
         if isinstance(node, ast.Compare):
-            return "(%s %s %s)" % (self.expr(node.left),
-                                   _CMPOPS[type(node.ops[0])],
-                                   self.expr(node.comparators[0]))
+            (ka, a), (kb, b) = (self.expr(node.left),
+                                self.expr(node.comparators[0]))
+            return MASK, "(%s %s %s)" % (
+                self.as_float(node.left, ka, a), _CMPOPS[type(node.ops[0])],
+                self.as_float(node.comparators[0], kb, b))
         if isinstance(node, ast.Call):
-            return FUNCS[node.func.attr][1].format(
-                *[self.expr(a) for a in node.args])
+            args = []
+            for i, arg in enumerate(node.args):
+                kind, val = self.expr(arg)
+                args.append(val if kind == MASK else
+                            self.as_float(arg, kind, val))
+            return ARRAY, FUNCS[node.func.attr][1].format(*args)
         raise AssertionError(type(node))   # the checker admits no other
 
+    @staticmethod
+    def as_float(node, kind, text):
+        if kind != SCALAR:
+            return text
+        if isinstance(node, ast.Constant):
+            return _float_literal(node.value)
+        return "(float)%s" % text
 
-def triton_source(ck, kernel_name="rtc_kernel"):
-    """The text of a module with one ``@triton.jit`` function computing the
-    checked kernel over flat float32 arrays of ``N`` elements."""
+
+def cuda_source(ck):
+    """The text of one CUDA file that computes the checked kernel over
+    flat float32 arrays: the body as ``Body::apply`` over float values
+    (statements in the order the checker lowered them), the streaming
+    engine (``csrc/stream.cuh``) instantiated with it, and the C entry
+    ``mx_rtc(ins, outs, n, plan, stream)``, which returns the launch's
+    ``cudaError_t``."""
     em = _Emitter(ck)
-    ins = ["in%d_ptr" % i for i in range(ck.n_in)]
-    outs = ["out%d_ptr" % j for j in range(ck.n_out)]
-    body = ["pid = tl.program_id(0)",
-            "offs = pid * BLOCK + tl.arange(0, BLOCK)",
-            "mask = offs < N"]
-    body += ["in%d = tl.load(in%d_ptr + offs, mask=mask)" % (i, i)
-             for i in range(ck.n_in)]
-    for kind, target, _, val in ck.stmts:
-        body.append("%s = %s" % ("v_" + target if kind == "local"
-                                 else em.ref_var[target], em.expr(val)))
-    body += ["tl.store(out%d_ptr + offs, out%d, mask=mask)" % (j, j)
-             for j in range(ck.n_out)]
-    header = ('"""Generated by mxnet_tpu_torch.kernels.rtc_codegen from the '
-              'rtc body:\n\n%s\n"""\n' % textwrap.indent(ck.source, "    "))
-    return (header +
-            "import triton\n"
-            "import triton.language as tl\n"
-            "from triton.language.extra import libdevice\n\n\n"
-            "@triton.jit\n"
-            "def %s(%s, N: tl.constexpr, BLOCK: tl.constexpr):\n" %
-            (kernel_name, ", ".join(ins + outs)) +
-            "".join("    %s\n" % line for line in body))
+    lines = ["const float in%d = in[%d];" % (i, i) for i in range(ck.n_in)]
+    declared = set()
+    for kind, target, vkind, val in ck.stmts:
+        k, text = em.expr(val)
+        if kind == "local":
+            em.kinds[target] = k
+            prefix, ctype = _LOCAL[k]
+            name = prefix + target
+        else:
+            name, ctype = em.ref_var[target], "float"
+            text = em.as_float(val, k, text)
+        lines.append("%s%s = %s;" % ("" if name in declared
+                                     else ctype + " ", name, text))
+        declared.add(name)
+    lines += ["out[%d] = out%d;" % (j, j) for j in range(ck.n_out)]
+    header = "".join("//     %s\n" % line if line else "//\n"
+                     for line in ck.source.splitlines())
+    helpers = "".join(_HELPERS[f] for f in sorted(_HELPERS)
+                      if any(f + "(" in line for line in lines))
+    return (
+        "// Generated by mxnet_tpu_torch.kernels.rtc_codegen from the rtc "
+        "body:\n//\n" + header +
+        "//\n// Built by kernels/rtc.py with nvcc -fmad=false -prec-div=true"
+        " -prec-sqrt=true.\n"
+        "#include \"stream.cuh\"\n\n"
+        "namespace {\n\n" + helpers +
+        "struct Body {\n"
+        "  static constexpr int kIn = %d;\n"
+        "  static constexpr int kOut = %d;\n"
+        "  static __device__ __forceinline__ void apply(const float* in, "
+        "float* out) {\n" % (ck.n_in, ck.n_out) +
+        "".join("    %s\n" % line for line in lines) +
+        "  }\n};\n\n}  // namespace\n\n"
+        "extern \"C\" int mx_rtc(const float* const* ins, float* const* "
+        "outs,\n                      long long n, const long long* plan, "
+        "void* stream) {\n"
+        "  return mxstream::launch_rtc<Body>(ins, outs, n, plan, stream);\n"
+        "}\n")

@@ -6,8 +6,9 @@ calls, so one body text runs through both packages. The port accepts the
 subset that one fused elementwise float32 pass computes (see
 ``kernels/rtc_codegen.py``) and checks a body once, at construction:
 anything outside it raises ``MXNetError`` on the CPU and on the card
-alike. On a CUDA device a body runs as a Triton kernel generated from it
-(``kernels/rtc.py``); on the CPU, as its plain PyTorch version.
+alike. On a CUDA device a body runs as CUDA generated from it on the
+port's streaming engine and built with nvcc (``kernels/rtc.py``); on the
+CPU, as its plain PyTorch version.
 
     rtc = mx.rtc.Rtc('axpy', [('x', x), ('y', y)], [('z', z)],
                      "z_ref[...] = x_ref[...] * 2.0 + y_ref[...]")

@@ -4,14 +4,16 @@
     python -m mxnet_tpu_torch.tools.bn_probe --copy-sweep
 
 copies the reference probe's array, (128, 256·3136) bfloat16 (205.5 MB),
-with the port's CUDA copy kernel (``kernels/copy.py``) at each tile size,
-and with ``Tensor.copy_``. For each it prints one JSON line: the call time
+with the port's CUDA copy kernel (``kernels/copy.py``, the streaming
+engine's bulk copy) at each configuration of ``COPY_SWEEP`` (stage
+bytes, stages, tiles per block or persistent blocks, L2 policy), and with
+``Tensor.copy_``. For each it prints one JSON line: the call time
 (median of CUDA-event pairs around one call, host enqueue included), the
 device time (``graph_ms``), the host enqueue time (``enqueue_us``), the
 device rate in GB/s (2·bytes/s: every byte is read and written) and its
 share of the H100's 3.35 TB/s. The best device rate is the port's
-measured copy roofline, against which the streaming kernels are judged. It needs a CUDA card and fails
-without one. The BatchNorm kernels themselves are timed by
+measured copy roofline, against which the streaming kernels are judged.
+It needs a CUDA card and fails without one. The BatchNorm kernels themselves are timed by
 ``chip_smoke.py``.
 """
 from __future__ import annotations
@@ -35,12 +37,13 @@ GRAPH_CALLS = 20                   # calls in one timed CUDA graph
 
 
 def copy_plan():
-    """Bytes of the array, the byte bound in ms, and per tile size the
-    kernel's launch plan (vectors, tail bytes, blocks)."""
+    """Bytes of the array, the byte bound in ms, and per swept
+    configuration (stage bytes, stages, run, evict_first) the kernel's
+    launch plan (``stream.Plan``)."""
     n_bytes = COPY_SHAPE[0] * COPY_SHAPE[1] * 2     # bfloat16
     bound_ms = 1e3 * 2 * n_bytes / HBM_BYTES_PER_S
-    return n_bytes, bound_ms, {t: copy_kernel.plan(n_bytes, t)
-                               for t in copy_kernel.TILE_BYTES}
+    return n_bytes, bound_ms, {c: copy_kernel.plan(n_bytes, *c)
+                               for c in copy_kernel.COPY_SWEEP}
 
 
 def cuda_time(fn, reps=20, warm=3):
@@ -121,8 +124,8 @@ def enqueue_us(fn, reps=20):
 
 
 def copy_sweep(reps=20):
-    """Time the copy kernel at every tile size and ``copy_`` on the
-    reference's array; returns one dict per row. Each row's output is
+    """Time the copy kernel at every swept configuration and ``copy_`` on
+    the reference's array; returns one dict per row. Each row's output is
     checked bit for bit against the input."""
     if not torch.cuda.is_available():
         raise MXNetError("bn_probe: the copy sweep measures a CUDA card and "
@@ -132,11 +135,11 @@ def copy_sweep(reps=20):
     x = torch.randn(COPY_SHAPE, device="cuda", generator=gen).to(
         torch.bfloat16)
     out = torch.empty_like(x)
-    runs = [("kernel", t, (lambda t=t: copy_kernel.copy(x, out, t)))
-            for t in copy_kernel.TILE_BYTES]
+    runs = [("kernel", c, (lambda c=c: copy_kernel.copy(x, out, *c)))
+            for c in copy_kernel.COPY_SWEEP]
     runs.append(("copy_", None, lambda: copy_kernel.copy_plain(x, out)))
     rows = []
-    for route, tile, fn in runs:
+    for route, config, fn in runs:
         out.zero_()
         fn()
         torch.cuda.synchronize()
@@ -146,15 +149,16 @@ def copy_sweep(reps=20):
         device_ms, method = graph_ms([fn] * GRAPH_CALLS)
         gbps = 2 * n_bytes / (device_ms * 1e-3) / 1e9
         row = {"route": route,
-               "config": None if tile is None else {"tile_bytes": tile},
+               "config": None if config is None else dict(zip(
+                   ("stage_bytes", "stages", "run", "evict_first"), config)),
                "bytes": n_bytes,
                "ms": ms, "device_ms": device_ms, "device_ms_by": method,
                "enqueue_us": enqueue_us(fn), "gb_per_s": gbps,
                "call_gb_per_s": 2 * n_bytes / (ms * 1e-3) / 1e9,
                "share_of_3_35_tb_per_s": gbps * 1e9 / HBM_BYTES_PER_S,
                "bound_ms": bound_ms, "bitwise_equal": exact}
-        if tile is not None:
-            row["blocks"] = plans[tile][2]
+        if config is not None:
+            row["blocks"] = plans[config].grid
         rows.append(row)
     return rows
 
@@ -162,8 +166,9 @@ def copy_sweep(reps=20):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--copy-sweep", action="store_true",
-                    help="time the copy kernel at each tile size, and "
-                         "copy_, on the reference probe's array")
+                    help="time the copy kernel at each swept stage "
+                         "configuration, and copy_, on the reference "
+                         "probe's array")
     args = ap.parse_args(argv)
     if not args.copy_sweep:
         ap.error("only --copy-sweep is ported; chip_smoke.py times the "

@@ -3,9 +3,10 @@ CPU.
 
 The CUDA kernel itself runs only on the card (``chip_smoke.py`` and
 ``python -m mxnet_tpu_torch.tools.bn_probe --copy-sweep``). Here: the
-plain version, the launch planning, the probe's array and bound, and the
-wrapper's refusals, through its checking helper, which reads only tensor
-metadata.
+plain version, the launch plans of the streaming engine's copy (head,
+body, tail, tiles, grid per swept stage configuration), the probe's
+array and bound, and the wrapper's refusals, through its checking
+helper, which reads only tensor metadata.
 """
 import numpy as np
 import pytest
@@ -22,33 +23,43 @@ torch.set_num_threads(2)
                                    torch.uint8])
 def test_plain_copy_is_exact_on_the_cpu(dtype):
     x = torch.from_numpy(np.random.RandomState(0).randn(7, 13)).to(dtype)
-    out = C.copy(x, tile_bytes=16)
+    out = C.copy(x, stage_bytes=16384, stages=4, run=4)
     assert out.data_ptr() != x.data_ptr()
     assert torch.equal(out, x)
     dst = torch.empty_like(x)
     assert C.copy(x, dst) is dst and torch.equal(dst, x)
 
 
-@pytest.mark.parametrize("n_bytes,tile,want", [
-    (16, 16, (1, 0, 1)),
-    (17, 16, (1, 1, 1)),
-    (15, 64, (0, 15, 1)),
-    (4096, 16, (256, 0, 1)),
-    (4097, 16, (256, 1, 1)),     # the tail rides in block 0
-    (4112, 16, (257, 0, 2)),
-    (256 * 64 * 3 + 10, 64, (3072, 10, 3)),
-    (256 * 256 * 2, 256, (8192, 0, 2)),
+@pytest.mark.parametrize("n_bytes,config,want", [
+    (16, (16384, 4, 4), (0, 16, 0, 1, 1)),
+    (17, (16384, 4, 4), (0, 16, 1, 1, 1)),
+    (15, (8192, 8, 4), (0, 0, 15, 0, 1)),     # no body: the tail alone
+    (16384, (16384, 4, 4), (0, 16384, 0, 1, 1)),
+    (16385, (16384, 4, 4), (0, 16384, 1, 1, 1)),
+    (16400, (16384, 4, 1), (0, 16400, 0, 2, 2)),
+    # persistent: two 96 KB rings an SM, 132 SMs
+    (32768 * 1000 + 10, (32768, 3, None), (0, 32768000, 10, 1000, 264)),
+    (65536 * 200, (65536, 3, 4), (0, 13107200, 0, 200, 50)),
 ])
-def test_copy_plan(n_bytes, tile, want):
-    assert C.plan(n_bytes, tile) == want
-    n_vec, tail, blocks = want
-    assert n_vec * 16 + tail == n_bytes
-    assert blocks * C.THREADS * (tile // 16) >= n_vec
+def test_copy_plan(n_bytes, config, want):
+    p = C.plan(n_bytes, *config)
+    assert (p.head, p.body, p.tail, p.tiles, p.grid) == want
+    assert p.kind == "bulk" and p.store == "stage"
+    assert p.threads == C.THREADS == 32
+    assert p.head + p.body + p.tail == n_bytes and p.body % 16 == 0
+    assert p.tile == config[0] and p.stages == config[1]
+    assert p.tiles * p.tile >= p.body > (p.tiles - 1) * p.tile or \
+        p.body == p.tiles == 0
+    assert p.smem == config[0] * config[1]
 
 
-def test_copy_plan_refuses_other_tiles():
+@pytest.mark.parametrize("config", [(1000, 4), (0, 4), (16384, 0),
+                                    (16384, 17), (131072, 2), (16384, 4, 0)])
+def test_copy_plan_refuses_other_tiles(config):
+    """Stages of whole 16-byte units, 1..16 of them, in one block's 227
+    KB of shared memory; runs of at least one tile."""
     with pytest.raises(tmx.MXNetError):
-        C.plan(1024, 32)
+        C.plan(1024, *config)
 
 
 def test_probe_copies_the_reference_array():
@@ -57,9 +68,15 @@ def test_probe_copies_the_reference_array():
     assert n_bytes == 128 * 256 * 3136 * 2 == 205520896
     # read once and written once at 3.35 TB/s
     assert bound_ms == pytest.approx(0.1227, abs=1e-4)
-    assert sorted(plans) == [16, 64, 256]
-    assert plans[16] == (12845056, 0, 50176)
-    assert plans[256] == (12845056, 0, 3136)
+    assert sorted(plans, key=str) == sorted(C.COPY_SWEEP, key=str)
+    # runs of 4 and 16 tiles; persistent blocks: three 64 KB rings an SM
+    assert [(plans[c].tiles, plans[c].grid) for c in C.COPY_SWEEP] == [
+        (25088, 6272), (12544, 3136), (6272, 1568), (25088, 1568),
+        (12544, 396), (25088, 6272)]
+    assert [plans[c].evict_first for c in C.COPY_SWEEP] == \
+        [False] * 5 + [True]
+    assert all(p.body == n_bytes and p.tail == 0 for p in plans.values())
+    assert (C.STAGE_BYTES, C.STAGES, C.RUN, False) in C.COPY_SWEEP
 
 
 def test_probe_needs_a_card():

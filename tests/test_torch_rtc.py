@@ -7,10 +7,15 @@ the port's (its plain PyTorch version on the CPU), within rtol 1e-6: the
 bodies are elementwise float32, so only the transcendental functions'
 last bits may differ. Where a sum of such terms, each of magnitude ~1,
 cancels toward 0, one ulp of a term is the error that remains: atol is
-2**-22, two ulps at 1.0. Also: the bodies the port refuses, its build cache,
-and the Triton source its code generator writes (checked as text: the
-kernel itself runs only on the card, through ``chip_smoke.py``).
+2**-22, two ulps at 1.0. Also: the bodies the port refuses, its build cache
+(one build per body, whatever the shape), and the CUDA source its code
+generator writes, checked as text (correctly rounded intrinsics, no fast
+math, NaN-propagating maximum and minimum): the kernel itself runs only on
+the card, through ``chip_smoke.py``.
 """
+import ctypes
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +24,7 @@ import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.kernels import rtc as K
-from mxnet_tpu_torch.kernels import rtc_codegen
+from mxnet_tpu_torch.kernels import rtc_codegen, stream
 
 torch.set_num_threads(2)
 
@@ -140,20 +145,64 @@ def test_rtc_refuses_inputs_on_two_devices():
         pk([x, meta], [(4, 8)])
 
 
-def test_second_push_with_the_same_key_does_not_rebuild(monkeypatch):
-    """The launcher's cache, with the Triton build replaced by a counter
-    (a CPU cannot build Triton kernels)."""
+def _fake_launch(monkeypatch):
+    """The launcher with the build replaced by a counter and CUDA's device
+    queries by H100 numbers: a CPU builds and launches nothing."""
     built = []
-    monkeypatch.setattr(K, "_build_triton",
-                        lambda ck, key: built.append(key) or object())
-    monkeypatch.setattr(K, "_BUILT", {})
+
+    def build(ck):
+        built.append(ck.digest)
+        return lambda *args: 0
+    monkeypatch.setattr(K, "_build", build)
+    monkeypatch.setattr(K, "_LIBS", {})
+    monkeypatch.setattr(K, "_CALLS", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": 132}))
+    return built
+
+
+def test_second_push_with_the_same_key_does_not_rebuild(monkeypatch):
+    """One build per body: a second key of the same body (another shape,
+    other addresses mod 16, the other store) prepares a new launch and
+    reuses the library; another body builds once more."""
+    built = _fake_launch(monkeypatch)
+    compiles = K.rtc_kernel.compiles
     ck = rtc_codegen.check_kernel("def k(x_ref, o_ref):\n"
                                   "    o_ref[...] = x_ref[...] ** 2\n")
-    key = (ck.digest, (8, 128), 1, 1, "cuda:0")
-    first = K._launcher(ck, key)
-    assert K._launcher(ck, key) is first
-    K._launcher(ck, key[:1] + ((4, 128),) + key[2:])
-    assert len(built) == 2
+    key = (ck.digest, 8 * 128, 0, (0, 0), ())
+    first = K._prepare(ck, key)
+    assert K._CALLS[key] is first
+    for other in [(ck.digest, 4 * 128, 0, (0, 0), ()),
+                  (ck.digest, 8 * 128, 0, (4, 8), ()),
+                  (ck.digest, 8 * 128, 0, (0, 0), (("store", "bulk"),))]:
+        call = K._prepare(ck, other)
+        assert call.fn is first.fn and call.plan != first.plan
+    assert built == [ck.digest]
+    ck2 = rtc_codegen.check_kernel("def k(x_ref, o_ref):\n"
+                                   "    o_ref[...] = x_ref[...] ** 3\n")
+    K._prepare(ck2, (ck2.digest, 8 * 128, 0, (0, 0), ()))
+    assert built == [ck.digest, ck2.digest]
+    assert K.rtc_kernel.compiles == compiles + 2
+
+
+def test_prepared_launch_packs_pointers_and_plan(monkeypatch):
+    """The pointer array holds the inputs then the outputs, and the
+    packed plan is ``stream.plan`` of the key."""
+    _fake_launch(monkeypatch)
+    ck = rtc_codegen.check_kernel(
+        "def _kernel(x_ref, y_ref, s_ref, d_ref):\n"
+        "    s_ref[...] = x_ref[...] + y_ref[...]\n"
+        "    d_ref[...] = x_ref[...] - y_ref[...]\n", n_in=2)
+    call = K._prepare(ck, (ck.digest, 1000, 0, (8, 0, 8, 4), ()))
+    assert call.outs - call.ins == 16 and len(call.ptrs) == 4
+    assert tuple(call.packed) == stream.plan(
+        1000, (8, 0, 8, 4), 2, 2).packed()
+    bulk = K._prepare(ck, (ck.digest, 1000, 0, (0,) * 4,
+                           (("store", "bulk"), ("run", None))))
+    assert tuple(bulk.packed) == stream.plan(
+        1000, (0,) * 4, 2, 2, store="bulk", run=None).packed()
+    assert call.plan == ctypes.addressof(call.packed)
 
 
 def test_build_source_file_is_written_once(monkeypatch, tmp_path):
@@ -162,24 +211,57 @@ def test_build_source_file_is_written_once(monkeypatch, tmp_path):
     assert open(path).read() == "A = 1\n"
     K._write_source("A = 2\n", "rtc_x")
     assert open(path).read() == "A = 1\n"
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["rtc_x.py"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["rtc_x"]
+    assert sorted(p.name for p in (tmp_path / "rtc_x").iterdir()) == \
+        ["rtc.cu"]
 
 
-AXPY_TRITON = '''\
-import triton
-import triton.language as tl
-from triton.language.extra import libdevice
+def test_build_is_named_by_the_body_not_the_shape(monkeypatch, tmp_path):
+    """``_build`` writes ``build/rtc/<digest>/rtc.cu`` and asks nvcc for
+    ``librtc.so`` beside it, with the numerics flags; the digest covers
+    the generated text, so the same body always lands in one place."""
+    monkeypatch.setattr(K, "_BUILD_DIR", str(tmp_path))
+    asked = []
+
+    class Lib(object):
+        mx_rtc = type("F", (), {})()
+
+    def nvcc(src, lib_path, flags):
+        asked.append((src, lib_path, flags))
+        return Lib(), True
+    monkeypatch.setattr(K.build, "nvcc_library", nvcc)
+    ck = rtc_codegen.check_kernel("def k(x_ref, o_ref):\n"
+                                  "    o_ref[...] = x_ref[...] * 3.0\n")
+    K._build(ck)
+    K._build(ck)
+    (src, lib_path, flags), again = asked
+    assert again == asked[0]
+    assert os.path.dirname(src) == os.path.dirname(lib_path)
+    assert os.path.basename(lib_path) == "librtc.so"
+    assert open(src).read() == rtc_codegen.cuda_source(ck)
+    assert {"-fmad=false", "-prec-div=true", "-prec-sqrt=true"} <= set(flags)
+    assert "--use_fast_math" not in flags
+    assert len(os.listdir(tmp_path)) == 1
 
 
-@triton.jit
-def rtc_kernel(in0_ptr, in1_ptr, out0_ptr, N: tl.constexpr, BLOCK: tl.constexpr):
-    pid = tl.program_id(0)
-    offs = pid * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < N
-    in0 = tl.load(in0_ptr + offs, mask=mask)
-    in1 = tl.load(in1_ptr + offs, mask=mask)
-    out0 = ((in0 * 2.0) + in1)
-    tl.store(out0_ptr + offs, out0, mask=mask)
+AXPY_CUDA = '''\
+struct Body {
+  static constexpr int kIn = 2;
+  static constexpr int kOut = 1;
+  static __device__ __forceinline__ void apply(const float* in, float* out) {
+    const float in0 = in[0];
+    const float in1 = in[1];
+    float out0 = __fadd_rn(__fmul_rn(in0, 2.0f), in1);
+    out[0] = out0;
+  }
+};
+
+}  // namespace
+
+extern "C" int mx_rtc(const float* const* ins, float* const* outs,
+                      long long n, const long long* plan, void* stream) {
+  return mxstream::launch_rtc<Body>(ins, outs, n, plan, stream);
+}
 '''
 
 
@@ -187,21 +269,98 @@ def test_codegen_axpy_source_is_golden():
     _, _, body = BODIES["axpy"]
     ck = rtc_codegen.check_kernel(
         "def _kernel(x_ref, y_ref, z_ref):\n    %s\n" % body, n_in=2)
-    src = rtc_codegen.triton_source(ck)
-    assert src.endswith(AXPY_TRITON)
-    assert src.count("tl.load(") == 2 and src.count("mask=mask)") == 3
-    assert src.count("tl.store(") == 1
-    compile(src, "<generated>", "exec")     # valid Python
+    src = rtc_codegen.cuda_source(ck)
+    assert src.endswith(AXPY_CUDA)
+    assert src.count('#include "stream.cuh"') == 1
+    assert "//         z_ref[...] = x_ref[...] * 2.0 + y_ref[...]\n" in src
+    # two roundings, as the plain version's two torch ops: no fma
+    assert "fmaf(" not in src and "__fmaf" not in src
 
 
 def test_codegen_lowers_powers_and_functions():
     ck = rtc_codegen.check_kernel(
         "def k(x_ref, o_ref):\n"
         "    o_ref[...] = jnp.tanh(x_ref[...]) ** 3 + jnp.sqrt(x_ref[...])\n")
-    src = rtc_codegen.triton_source(ck)
+    src = rtc_codegen.cuda_source(ck)
     assert "**" not in src
     # lax.integer_pow's square-and-multiply: x * (x * x)
-    t = "libdevice.tanh(in0)"
-    assert "(%s * (%s * %s))" % (t, t, t) in src
-    assert "tl.sqrt_rn(in0)" in src
-    compile(src, "<generated>", "exec")
+    t = "tanhf(in0)"
+    assert "__fmul_rn(%s, __fmul_rn(%s, %s))" % (t, t, t) in src
+    assert "__fsqrt_rn(in0)" in src
+    for fn, spelled in [("exp", "expf(in0)"), ("log", "logf(in0)"),
+                        ("abs", "fabsf(in0)")]:
+        ck = rtc_codegen.check_kernel(
+            "def k(x_ref, o_ref):\n    o_ref[...] = jnp.%s(x_ref[...])\n"
+            % fn)
+        assert "float out0 = %s;" % spelled in rtc_codegen.cuda_source(ck)
+
+
+def test_codegen_maximum_and_minimum_propagate_nan():
+    ck = rtc_codegen.check_kernel(
+        "def k(x_ref, y_ref, o_ref):\n"
+        "    o_ref[...] = jnp.maximum(x_ref[...], y_ref[...]) "
+        "- jnp.minimum(x_ref[...], 0.5)\n")
+    src = rtc_codegen.cuda_source(ck)
+    assert "__fsub_rn(mx_maximum(in0, in1), mx_minimum(in0, 0.5f))" in src
+    for name, fn in (("mx_maximum", "fmaxf"), ("mx_minimum", "fminf")):
+        body = src[src.index("float %s(" % name):]
+        body = body[:body.index("}")]
+        # NaN in either argument is the result; fmaxf/fminf drop it
+        assert "a != a ? a : (b != b ? b : %s(a, b))" % fn in body
+
+
+def test_codegen_constants_round_as_the_plain_version():
+    """A Python constant meets a float32 array as the float torch makes
+    of it; constant arithmetic stays in double, as Python's; comparisons
+    compare floats; locals keep their kind."""
+    ck = rtc_codegen.check_kernel(
+        "def k(x_ref, o_ref):\n"
+        "    c = 0.1 * 3.0\n"
+        "    m = x_ref[...] > c\n"
+        "    t = x_ref[...] - 0.1\n"
+        "    t = t * t\n"
+        "    o_ref[...] = jnp.where(m, t, -c) / 1e40\n")
+    src = rtc_codegen.cuda_source(ck)
+    assert "double s_c = (0.1 * 3.0);" in src
+    assert "bool m_m = (in0 > (float)s_c);" in src
+    assert "float v_t = __fsub_rn(in0, 0.1f);" in src
+    assert "    v_t = __fmul_rn(v_t, v_t);" in src
+    # 1e40 overflows float32 to inf, as torch's cast of the scalar does
+    assert "float out0 = __fdiv_rn((m_m ? v_t : (float)(-s_c)), " \
+        "__int_as_float(0x7f800000));" in src
+
+
+@pytest.mark.parametrize("name", sorted(BODIES))
+def test_codegen_uses_no_fast_math(name):
+    in_names, out_names, body = BODIES[name]
+    ck = rtc_codegen.check_kernel(
+        "def _kernel(%s):\n%s\n" % (
+            ", ".join("%s_ref" % n for n in in_names + out_names),
+            "".join("    %s\n" % line for line in body.splitlines())),
+        n_in=len(in_names))
+    src = rtc_codegen.cuda_source(ck)
+    for fast in ("__expf", "__logf", "__fdividef", "__tanhf", "__sinf",
+                 "__powf", "__fmaf", "use_fast_math"):
+        assert fast not in src, fast
+    assert src.count("out[") == len(out_names)
+    assert "kIn = %d;" % len(in_names) in src
+
+
+@pytest.mark.parametrize("nvcc", ["/nonexistent/bin/nvcc", "false"])
+def test_failed_build_raises(monkeypatch, tmp_path, nvcc):
+    """No nvcc, or nvcc failing, raises MXNetError and leaves no library
+    behind; nothing falls back."""
+    monkeypatch.setattr(K.build, "_nvcc", lambda: nvcc)
+    src = tmp_path / "k.cu"
+    src.write_text("int x;\n")
+    lib = tmp_path / "out" / "libk.so"
+    with pytest.raises(tmx.MXNetError):
+        K.build.nvcc_library(str(src), str(lib))
+    assert not lib.exists()
+
+
+def test_build_digest_covers_text_and_flags():
+    d = K.build.digest("A", ())
+    assert d == K.build.digest("A", ()) and len(d) == 64
+    assert d != K.build.digest("B", ())
+    assert d != K.build.digest("A", K.FLAGS)
