@@ -56,9 +56,7 @@ def digest(text, flags=()):
 
 def nvcc_library(source, lib_path, flags=()):
     """Compile the CUDA file ``source`` into the shared library
-    ``lib_path`` unless that file exists, and load it. Returns (library,
-    whether this call built it)."""
-    built = False
+    ``lib_path`` unless that file exists, and return it loaded."""
     if not os.path.exists(lib_path):
         os.makedirs(os.path.dirname(lib_path), exist_ok=True)
         tmp = "%s.%d.tmp" % (lib_path, os.getpid())
@@ -73,19 +71,18 @@ def nvcc_library(source, lib_path, flags=()):
                              % (source, res.returncode,
                                 (res.stderr or res.stdout)[-4000:]))
         os.replace(tmp, lib_path)
-        built = True
     try:
-        return ctypes.CDLL(lib_path), built
+        return ctypes.CDLL(lib_path)
     except OSError as e:
         raise MXNetError("loading %s failed (%s)" % (lib_path, e))
 
 
-def cuda_library(name, source, flags=()):
+def cuda_library(name, source):
     """Build ``csrc/<source>`` into ``build/cuda/<name>/`` (no-op when a
     library of the same inputs is there) and return it loaded."""
     path = os.path.join(CSRC, source)
     with open(path) as f:
-        tag = digest(f.read(), flags)[:16]
+        tag = digest(f.read())[:16]
     lib_path = os.path.join(_REPO_ROOT, "build", "cuda", name,
                             "lib%s-%s.so" % (name, tag))
-    return nvcc_library(path, lib_path, flags)[0]
+    return nvcc_library(path, lib_path)

@@ -192,8 +192,8 @@ def _build(ck):
     text = rtc_codegen.cuda_source(ck)
     tag = build.digest(text, FLAGS)[:32]
     src = _write_source(text, tag)
-    lib, _ = build.nvcc_library(src, os.path.join(os.path.dirname(src),
-                                                  "librtc.so"), FLAGS)
+    lib = build.nvcc_library(src, os.path.join(os.path.dirname(src),
+                                               "librtc.so"), FLAGS)
     fn = lib.mx_rtc
     P = ctypes.c_void_p
     fn.argtypes = [P, P, ctypes.c_longlong, P, P]

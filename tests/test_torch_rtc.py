@@ -228,7 +228,7 @@ def test_build_is_named_by_the_body_not_the_shape(monkeypatch, tmp_path):
 
     def nvcc(src, lib_path, flags):
         asked.append((src, lib_path, flags))
-        return Lib(), True
+        return Lib()
     monkeypatch.setattr(K.build, "nvcc_library", nvcc)
     ck = rtc_codegen.check_kernel("def k(x_ref, o_ref):\n"
                                   "    o_ref[...] = x_ref[...] * 3.0\n")
