@@ -13,9 +13,10 @@
 //   (b + 1) * run), run = ceil(tiles / gridDim.x), so the plan's grid
 //   sets the run: SMs x blocks per SM makes the blocks persistent (one
 //   wave), more blocks make short runs that the hardware schedules as
-//   SMs free up. On the H100 short runs (2 to 4 tiles) measured up to 5%
-//   faster than persistent blocks, whose static split waits for the
-//   slowest SM; kernels/stream.py plans short runs unless asked.
+//   SMs free up. On an H100 (700 W) short runs of 2 to 4 tiles measured
+//   6-11% faster than persistent blocks, whose static split waits for
+//   the slowest SM (chip_smoke.py phases 2 and 6 time both); so
+//   kernels/stream.py plans short runs unless asked.
 // * Bulk plan: a ring of `stages` stages in dynamic shared memory, each
 //   holding one tile of every input. One thread arms a stage's mbarrier
 //   with the tile's bytes and issues one cp.async.bulk (the TMA's linear
@@ -33,8 +34,8 @@
 //     store, so no byte passes through registers; a stage is refilled
 //     only after its store has read it.
 //   With `evict_first` set, bulk loads and stores carry an
-//   L2::evict_first cache policy (every byte is touched once); on the
-//   H100 that measured slower, so plans leave it off unless asked.
+//   L2::evict_first cache policy (every byte is touched once); on an
+//   H100 it measured no faster, so plans leave it off unless asked.
 // * Alignment. Bulk copies need 16-byte aligned addresses and sizes in
 //   multiples of 16 bytes. The bulk plan runs when every ref has the same
 //   address mod 16: the `head` elements up to the first 16-byte boundary
