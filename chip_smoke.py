@@ -15,8 +15,8 @@ result line) if any phase fails:
 1. device: the card's name and power limit, the torch and CUDA versions,
    and the build's seconds;
 2. copy: the copy probe (``python -m mxnet_tpu_torch.tools.bn_probe
-   --copy-sweep``): the streaming engine's bulk copy at each swept (stage
-   bytes, stages) and ``copy_`` on a (128, 256·3136) bf16 array, bit for
+   --copy-sweep``): the streaming engine's copy at each swept number of
+   vectors per thread and ``copy_`` on a (128, 256·3136) bf16 array, bit for
    bit, each with its call time (one CUDA-event pair around one call),
    device time (20 calls in one CUDA graph) and host enqueue time; the
    best device rate is the measured copy roofline; then every
@@ -50,13 +50,11 @@ result line) if any phase fails:
    each against its plain version (+ − ×, ``where`` and ``maximum`` bit
    for bit); the bodies were built once each in the build phase, so no
    push compiles; every body again at both shapes in each case of
-   ``RTC_CASES`` (refs 4 bytes off 16-byte boundaries, refs that differ
-   mod 16 and so take the register plan, the other store, persistent
-   blocks, one stage, the L2 evict-first policy); then at full size each
-   body's call, device and enqueue times, those of ``torch.add`` and
+   ``RTC_CASES`` (refs 4 bytes off 16-byte boundaries, and refs that
+   differ mod 16, some of which move as 4-byte words); then at full size
+   each body's call, device and enqueue times, those of ``torch.add`` and
    ``torch.square`` for the two bodies one PyTorch call computes, the
-   device time of each plan variant, the plain version's time and the
-   byte bound;
+   plain version's time and the byte bound;
 7. fit: ResNet-50 through ``mod.fit`` on 8 synthetic batches (numpy seed
    0) with 2 eval batches, SGD with a FactorScheduler; exactly 51 × 8
    launches of each BatchNorm kernel, none from scoring;
@@ -535,9 +533,6 @@ def card_vs_cpu(mx, K):
 # ---------------------------------------------------------------------------
 # phase 2: the copy probe
 # ---------------------------------------------------------------------------
-COPY_RINGS = ((16384, 1, 4, False), (8192, 2, 8, False))
-
-
 def copy_phase(C, card):
     """The copy sweep through its entry point, with the copy kernel's
     count reset just before and read just after. Returns the kernels-line
@@ -552,9 +547,8 @@ def copy_phase(C, card):
     for row in rows:
         emit({"phase": "copy", **row})
     best = max(rows, key=lambda r: r["gb_per_s"])
-    default = dict(zip(("stage_bytes", "stages", "run", "evict_first"),
-                       (C.STAGE_BYTES, C.STAGES, C.RUN, False)))
-    kern = next(r for r in rows if r["config"] == default)
+    kern = next(r for r in rows
+                if r["config"] and r["config"]["unroll"] == C.UNROLL)
     lib = next(r for r in rows if r["route"] == "copy_")
     times = ("ms", "device_ms", "enqueue_us")
     emit({"phase": "copy_roofline", "measured_copy_gb_per_s":
@@ -565,14 +559,14 @@ def copy_phase(C, card):
           "bound_ms": kern["bound_ms"], "launches": launches,
           "seconds_incl_build": time.time() - t0, "card": card})
     # ragged byte counts (a tail of 3 and 15 bytes; 5 bytes: no body), in
-    # every swept configuration and in rings of one and two stages
+    # every swept configuration
     ragged = {}
     gen = torch.Generator(device="cuda").manual_seed(3)
     for n_bytes in (5, 1000003, 12345679):
         x = torch.randint(0, 256, (n_bytes,), dtype=torch.uint8,
                           device="cuda", generator=gen)
-        ragged[n_bytes] = all(torch.equal(C.copy(x, None, *c), x)
-                              for c in C.COPY_SWEEP + COPY_RINGS)
+        ragged[n_bytes] = all(torch.equal(C.copy(x, None, u), x)
+                              for u in C.COPY_SWEEP)
     emit({"phase": "copy_ragged", "bitwise_equal": ragged})
     if not all(r["bitwise_equal"] for r in rows) or launches == 0 \
             or not all(ragged.values()):
@@ -636,32 +630,24 @@ def rtc_errors(kern, plain, exact):
 
 def rtc_times(R, rtc, xs, ys, copy_rate):
     """Call ms, device ms (one set of inputs: 205–411 MB, far above L2)
-    and host enqueue µs of one body's kernel (``R.STORE``), and of the
-    PyTorch call that computes the same function where there is one
-    (``rtc_library``; None elsewhere); the device ms of the plans of
-    ``RTC_PLAN_VARIANTS``; the plain version's call ms; the byte bound
-    (each input read once, each output written once) at 3.35 TB/s and at
-    the measured copy rate."""
+    and host enqueue µs of one body's kernel, and of the PyTorch call that
+    computes the same function where there is one (``rtc_library``; None
+    elsewhere); the plain version's call ms; the byte bound (each input
+    read once, each output written once) at 3.35 TB/s and at the measured
+    copy rate."""
     from mxnet_tpu_torch.tools.bn_probe import (GRAPH_CALLS, cuda_time,
                                                 enqueue_us, graph_ms)
+    ck = rtc._ck
     ins, outs = [a._read() for a in xs], [a._read() for a in ys]
-
-    def kern(**plan_args):
-        R.rtc_kernel(rtc._ck, ins, outs, **plan_args)
 
     def three(fn):
         dev, method = graph_ms([fn] * GRAPH_CALLS)
         return cuda_time(fn), dev, enqueue_us(fn), method
 
-    ms, dev, enq, by = three(kern)
+    ms, dev, enq, by = three(lambda: R.rtc_kernel(ck, ins, outs))
     nbytes = (len(ins) + len(outs)) * 4 * ins[0].numel()
-    t = {"store": R.STORE, "ms": ms, "device_ms": dev, "enqueue_us": enq,
-         "device_ms_by_plan": {
-             name: graph_ms([functools.partial(kern, **args)]
-                            * GRAPH_CALLS)[0]
-             for name, args in RTC_PLAN_VARIANTS.items()},
-         "plain_ms": cuda_time(lambda: R.rtc_plain(rtc._ck, ins, outs),
-                               reps=5),
+    t = {"ms": ms, "device_ms": dev, "enqueue_us": enq,
+         "plain_ms": cuda_time(lambda: R.rtc_plain(ck, ins, outs), reps=5),
          "library": None, "library_ms": None, "library_device_ms": None,
          "library_enqueue_us": None, "device_ms_by": [by],
          "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
@@ -675,26 +661,13 @@ def rtc_times(R, rtc, xs, ys, copy_rate):
     return t
 
 
-# plans of the bulk kind timed beside the default (``stream.plan``'s
-# arguments): the other store, persistent blocks, the L2 evict-first policy
-RTC_PLAN_VARIANTS = {"store_regs": {"store": "regs"},
-                     "store_bulk": {"store": "bulk"},
-                     "persistent": {"run": None},
-                     "evict_first": {"evict_first": True}}
-
-# the plan check's cases: (element offsets of the inputs and outputs,
-# stream.plan arguments). Refs 4 bytes past a 16-byte boundary (the bulk
-# plan with a head and a tail); refs that differ mod 16 (the register
-# plan: the first input and output at 8 bytes, the second input at 0, the
-# second output at 4); aligned refs in the store that R.STORE is not, in
-# persistent blocks (the ring wraps), through one stage, and with the L2
-# evict-first policy
-RTC_CASES = {"offset_4": ((1, 1), (1, 1), {}),
-             "mixed": ((2, 0), (2, 1), {}),
-             "other_store": ((0, 0), (0, 0), None),
-             "persistent": ((0, 0), (0, 0), {"run": None}),
-             "one_stage": ((0, 0), (0, 0), {"stages": 1, "run": 4}),
-             "evict_first": ((0, 0), (0, 0), {"evict_first": True})}
+# the plan check's cases: element offsets of the inputs and outputs.
+# Refs 4 bytes past a 16-byte boundary (a head of 3 elements, every ref
+# as vectors); refs that differ mod 16 (the first input and output at 8
+# bytes: vectors; the second input at 0 and the second output at 4:
+# words)
+RTC_CASES = {"offset_4": ((1, 1), (1, 1)),
+             "mixed": ((2, 0), (2, 1))}
 
 
 def rtc_plans(R, runs):
@@ -704,39 +677,36 @@ def rtc_plans(R, runs):
     import torch
     from mxnet_tpu_torch.kernels import stream
     from mxnet_tpu_torch.tools.bn_probe import GRAPH_CALLS, graph_ms
-    other = {"store": "bulk" if R.STORE == "regs" else "regs"}
     rows, times = [], {}
     for shape, name, exact, rtc, xs, _ in runs:
         ck, n = rtc._ck, xs[0].size
         src = [x._read() for x in xs]
-        for case, (e_in, e_out, args) in sorted(RTC_CASES.items()):
-            args = other if args is None else args
+        for case, (e_in, e_out) in sorted(RTC_CASES.items()):
 
             def view(e, fill=None):
                 v = torch.empty(n + 4, device="cuda")[e:e + n].view(shape)
                 return v.copy_(fill) if fill is not None else v
             ins = [view(e_in[i], x) for i, x in enumerate(src)]
             outs = [view(e_out[j]) for j in range(ck.n_out)]
-            R.rtc_kernel(ck, ins, outs, **args)
+            R.rtc_kernel(ck, ins, outs)
             plain = [torch.empty_like(ins[0]) for _ in outs]
             R.rtc_plain(ck, ins, plain)
             torch.cuda.synchronize()
-            p = stream.plan(n, tuple(t.data_ptr() % 16 for t in ins + outs),
-                            ck.n_in, ck.n_out,
-                            **dict((("store", R.STORE),) + tuple(
-                                args.items())))
+            p_refs = ins + outs
+            p = stream.plan(n, tuple(t.data_ptr() % 16 for t in p_refs),
+                            ck.n_in, ck.n_out)
             for j, (o, q) in enumerate(zip(outs, plain)):
                 err, bad = rtc_errors(o, q, exact)
                 rows.append({"phase": "rtc_plan", "body": name,
                              "shape": list(shape), "case": case,
-                             "plan": p.kind, "store": p.store,
                              "head": p.head, "tail": p.tail,
-                             "grid": p.grid, "stages": p.stages,
-                             "vec_mask": p.vec_mask, "output": j,
-                             "max_abs_err": err, "outside": bad})
+                             "grid": p.grid, "vec_mask": p.vec_mask,
+                             "words": p.vec_mask != 2 ** len(p_refs) - 1,
+                             "output": j, "max_abs_err": err,
+                             "outside": bad})
             if name == "axpy" and shape == RTC_SHAPES[0]:
                 times[case] = graph_ms([lambda: R.rtc_kernel(
-                    ck, ins, outs, **args)] * GRAPH_CALLS)[0]
+                    ck, ins, outs)] * GRAPH_CALLS)[0]
             del ins, outs, plain
     return rows, times
 
@@ -752,8 +722,8 @@ def rtc_phase(mx, R, card, copy_rate):
     """Push every body through ``mx.rtc.Rtc`` on the card at both shapes
     (counts reset just before, read just after; one key pushed twice;
     the bodies were built in the build phase, one build each), then hold
-    each output against the plain version on the same inputs, check both
-    plans and both stores (``rtc_plans``) and time every body at full size
+    each output against the plain version on the same inputs, check refs
+    off 16-byte boundaries (``rtc_plans``) and time every body at full size
     (``rtc_times``)."""
     import torch
     from mxnet_tpu_torch.tools.bn_probe import enqueue_us
@@ -808,7 +778,7 @@ def rtc_phase(mx, R, card, copy_rate):
         emit(row)
         if row["outside"]:
             failures.append(row)
-    kinds = {(r["plan"], r["store"]) for r in plan_rows}
+    words = {r["words"] for r in plan_rows}
 
     timed = {name: rtc_times(R, rtc, xs, ys, copy_rate)
              for shape, name, _, rtc, xs, ys in runs
@@ -824,16 +794,14 @@ def rtc_phase(mx, R, card, copy_rate):
            "compiles": R.rtc_kernel.compiles,
            "compiles_in_pushes": push_compiles,
            "recompiles_on_second_push": recompiles,
-           "plans_checked": sorted(kinds),
+           "refs_as_words_and_as_vectors_checked": sorted(words),
            "axpy_device_ms_by_case": case_ms,
            "first_push_s": first_push_s, "second_push_s": second_push_s,
            "check_tensors_us": check_us, "card": card}
     emit(row)
     if failures or recompiles or push_compiles or \
             R.rtc_kernel.compiles != len(RTC_BODIES) or \
-            launches != len(runs) + 1 or \
-            kinds != {("bulk", "regs"), ("bulk", "bulk"),
-                      ("register", "regs")}:
+            launches != len(runs) + 1 or words != {False, True}:
         raise RuntimeError("rtc phase failed: %d output(s) out of "
                            "tolerance; %s" % (len(failures),
                                               json.dumps(row)))

@@ -9,19 +9,18 @@ the copy rate that bounds every streaming kernel of the port (the
 roofline), on the same engine that runs the rtc bodies.
 
 What bounds it: bytes, read once and written once. The kernel is the
-engine's bulk plan with the ``"stage"`` store: one-warp blocks, each
-taking ``run`` tiles through a ring of ``stages`` stages of
-``stage_bytes`` in shared memory, filled by ``cp.async.bulk`` loads and
-sent straight back by bulk stores, so no byte passes through registers.
-``COPY_SWEEP`` lists the configurations the probe times (runs, persistent
-blocks, the L2 evict-first policy); the bytes past the last whole 16 are
-copied one by one. The TPU kernel's column
-blocks served VMEM and are not kept.
+engine's pass over 16-byte vectors with streaming loads and stores, each
+thread taking ``unroll`` vectors a round, every load before the first
+store; ``COPY_SWEEP`` lists the vectors per thread the probe times (16,
+64 and 256 bytes in flight per thread). The bytes past the last whole 16
+are copied one by one. The TPU kernel's column blocks served VMEM and
+are not kept.
 
 Build: ``kernels/build.py`` compiles the source with ``nvcc`` for
 ``sm_90a`` into ``build/cuda/mxnet_tpu_torch_copy`` at first use
 (seconds); the library is called through ``ctypes``, one call per copy,
-with the plan packed once per (bytes, configuration).
+with the plan packed once per (bytes, configuration). The C entry makes
+the tensors' device current for the launch.
 
 Dispatch: ``copy`` runs the plain version, ``out.copy_(x)``, only for
 tensors on the CPU; that is also the one PyTorch call that computes the
@@ -39,27 +38,18 @@ from . import stream
 from .build import cuda_library
 
 __all__ = ["copy", "copy_plain", "check_copy", "plan", "COPY_SWEEP",
-           "STAGE_BYTES", "STAGES", "RUN", "THREADS"]
+           "UNROLL"]
 
-# (stage bytes, stages, run, evict_first) the probe sweeps: runs of 4 and
-# 16 stages per block, persistent blocks (run None), and the L2
-# evict-first policy
-COPY_SWEEP = ((8192, 4, 4, False), (16384, 4, 4, False),
-              (32768, 3, 4, False), (8192, 4, 16, False),
-              (16384, 4, None, False), (8192, 4, 4, True))
-STAGE_BYTES, STAGES, RUN = 8192, 4, 4     # the default configuration
-THREADS = 32                       # one warp; lane 0 drives the ring
+COPY_SWEEP = stream.COPY_UNROLLS   # vectors per thread the probe sweeps
+UNROLL = 1                         # the default
 _VEC = 16
 _LIB = []      # the loaded library, once built
-_PLANS = {}    # (bytes, configuration) -> address of the packed plan
+_PLANS = {}    # (bytes, unroll) -> address of the packed plan
 
 
-def plan(n_bytes, stage_bytes=STAGE_BYTES, stages=STAGES, run=RUN,
-         evict_first=False):
+def plan(n_bytes, unroll=UNROLL):
     """The engine's plan (``stream.Plan``) of a copy of ``n_bytes``."""
-    return stream.plan(n_bytes, (0, 0), 1, 1, elem_bytes=1, store="stage",
-                       tile_bytes=stage_bytes, stages=stages, run=run,
-                       threads=THREADS, evict_first=evict_first)
+    return stream.plan(n_bytes, (0, 0), 1, 1, elem_bytes=1, unroll=unroll)
 
 
 def check_copy(x, out):
@@ -91,7 +81,7 @@ def _library():
         return _LIB[0]
     lib = cuda_library("mxnet_tpu_torch_copy", "copy.cu")
     P = ctypes.c_void_p
-    lib.mx_copy.argtypes = [P, P, ctypes.c_longlong, P, P]
+    lib.mx_copy.argtypes = [P, P, ctypes.c_longlong, P, ctypes.c_int, P]
     lib.mx_copy.restype = ctypes.c_int
     _LIB.append(lib)
     return lib
@@ -100,19 +90,20 @@ def _library():
 _ARRAYS = []   # the packed plans, kept alive
 
 
-def _packed(n_bytes, *config):
+def _packed(n_bytes, unroll):
     """The address of the packed plan of the key (``_PLANS``), made on
     first use."""
-    arr = (ctypes.c_longlong * 13)(*plan(n_bytes, *config).packed())
+    packed = plan(n_bytes, unroll).packed()
+    arr = (ctypes.c_longlong * len(packed))(*packed)
     _ARRAYS.append(arr)
-    addr = _PLANS[(n_bytes,) + config] = ctypes.addressof(arr)
+    addr = _PLANS[(n_bytes, unroll)] = ctypes.addressof(arr)
     return addr
 
 
-def copy(x, out=None, stage_bytes=STAGE_BYTES, stages=STAGES, run=RUN,
-         evict_first=False):
+def copy(x, out=None, unroll=UNROLL):
     """Copy ``x`` into ``out`` (a new contiguous tensor when None) and
-    return ``out``; the other arguments choose the plan (``plan``)."""
+    return ``out``, with ``unroll`` vectors per thread a round
+    (``COPY_SWEEP``)."""
     if out is None:
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if not x.is_cuda:
@@ -124,10 +115,10 @@ def copy(x, out=None, stage_bytes=STAGE_BYTES, stages=STAGES, run=RUN,
     if n_bytes == 0:
         return out
     lib = _LIB[0] if _LIB else _library()
-    key = (n_bytes, stage_bytes, stages, run, evict_first)
-    packed = _PLANS.get(key) or _packed(*key)
-    err = lib.mx_copy(x.data_ptr(), out.data_ptr(), n_bytes, packed,
-                      torch._C._cuda_getCurrentRawStream(x.get_device()))
+    packed = _PLANS.get((n_bytes, unroll)) or _packed(n_bytes, unroll)
+    dev = x.get_device()
+    err = lib.mx_copy(x.data_ptr(), out.data_ptr(), n_bytes, packed, dev,
+                      torch._C._cuda_getCurrentRawStream(dev))
     if err:
         raise MXNetError("copy: kernel launch failed with CUDA error %d"
                          % err)

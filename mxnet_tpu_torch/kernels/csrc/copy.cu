@@ -7,20 +7,18 @@
 // bf16 array through VMEM to measure the block-DMA ceiling.
 //
 // Bound: bytes. Every byte is read once and written once; no arithmetic.
-// Design: the engine's bulk plan with the "stage" store. Persistent
-// blocks of one warp; lane 0 keeps a ring of stages in shared memory
-// filled by cp.async.bulk loads (L2::evict_first) and sends each stage
-// straight back with a bulk store, so no byte passes through registers.
-// The stage bytes and stage count set the bytes in flight per SM; the
-// probe sweeps them. The n % 16 bytes past the last whole 16 bytes are
-// copied byte by byte by the last block's lanes.
+// Design: the engine's pass over 16-byte vectors (uint4) with streaming
+// loads and stores; each thread moves `unroll` vectors a round, all loads
+// before the first store, so `unroll` sets the bytes in flight per thread
+// (the probe sweeps 1, 4 and 16 vectors). The n % 16 bytes past the last
+// whole vector are copied byte by byte by the last block's first threads.
 #include "stream.cuh"
 
-// Copies n_bytes from src to dst (both 16-byte aligned) on `stream` as
-// the packed plan (kernels/stream.py, store "stage") says. Returns the
+// Copies n_bytes from src to dst (both 16-byte aligned, on `device`) on
+// `stream` as the packed plan (kernels/stream.py) says. Returns the
 // launch's cudaError_t (0 on success); a plan that does not fit returns
 // cudaErrorInvalidValue without launching.
 extern "C" int mx_copy(const void* src, void* dst, long long n_bytes,
-                       const long long* plan, void* stream) {
-  return mxstream::launch_copy(src, dst, n_bytes, plan, stream);
+                       const long long* plan, int device, void* stream) {
+  return mxstream::launch_copy(src, dst, n_bytes, plan, device, stream);
 }

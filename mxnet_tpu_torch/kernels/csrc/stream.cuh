@@ -7,44 +7,33 @@
 //
 // Bound: bytes. Every input byte is read once and every output byte
 // written once, with a few operations per element at most, far below the
-// card's ~295 operations per byte. So the design keeps device memory busy:
+// card's ~295 operations per byte. So the design keeps device memory busy
+// with 16-byte accesses and enough of them in flight:
 //
-// * Runs of tiles. Block b walks the contiguous tiles [b * run,
-//   (b + 1) * run), run = ceil(tiles / gridDim.x), so the plan's grid
-//   sets the run: SMs x blocks per SM makes the blocks persistent (one
-//   wave), more blocks make short runs that the hardware schedules as
-//   SMs free up. On an H100 (700 W) short runs of 2 to 4 tiles measured
-//   6-11% faster than persistent blocks, whose static split waits for
-//   the slowest SM (chip_smoke.py phases 2 and 6 time both); so
-//   kernels/stream.py plans short runs unless asked.
-// * Bulk plan: a ring of `stages` stages in dynamic shared memory, each
-//   holding one tile of every input. One thread arms a stage's mbarrier
-//   with the tile's bytes and issues one cp.async.bulk (the TMA's linear
-//   copy) per input; the block waits on the barrier's phase parity,
-//   applies the body from shared memory and writes the results, and the
-//   stage is refilled with the tile `stages` further on. The loads of the
-//   other stages stay in flight meanwhile.
-//   - store "regs": results go from registers as 16-byte streaming
-//     stores (st.global.cs);
-//   - store "bulk": results go to an output stage (two per output, in
-//     turn) and back to memory with cp.async.bulk ... bulk_group; an
-//     output stage is rewritten only after its store has read it
-//     (cp.async.bulk.wait_group.read);
-//   - store "stage" (copy): the input stage itself goes back with a bulk
-//     store, so no byte passes through registers; a stage is refilled
-//     only after its store has read it.
-//   With `evict_first` set, bulk loads and stores carry an
-//   L2::evict_first cache policy (every byte is touched once); on an
-//   H100 it measured no faster, so plans leave it off unless asked.
-// * Alignment. Bulk copies need 16-byte aligned addresses and sizes in
-//   multiples of 16 bytes. The bulk plan runs when every ref has the same
-//   address mod 16: the `head` elements up to the first 16-byte boundary
-//   and the `tail` after the last whole 16 bytes move with plain loads
-//   (the last block does them). Refs that differ mod 16 take the register
-//   plan: a grid-stride loop over 4-element vectors aligned to the first
-//   output, each ref loaded and stored as one 16-byte vector where its
-//   own address allows (bit r of vec_mask) and as four 4-byte words
-//   otherwise, `stages` vectors in flight per thread.
+// * Vectors. The body is cut into 16-byte vectors (4 floats, or 16 bytes
+//   for copy) and the vectors into tiles of threads x `unroll`. Block b
+//   takes tiles b, b + gridDim.x, ... (the plan's grid gives each block
+//   one); thread t moves vectors t, t + threads, ... of a tile, every load
+//   before its first store, so a thread keeps `unroll` vectors of every
+//   input in flight, a warp's accesses are whole 512-byte runs and a
+//   block's one contiguous stretch. Loads and stores take the default
+//   caching. On an H100 (700 W), vectors a grid's width apart in one
+//   thread ran a copy of 16 vectors a thread at half speed, and streaming
+//   hints (ld/st.global.cs) cost 1.3-2.6% on four of six kernels and
+//   gained 1.1% on one (tools/stream_ab.py; PERF.md, section 6).
+// * Alignment. Vectors are aligned to the first output: the `head`
+//   elements before its first 16-byte boundary and the `tail` after the
+//   last whole vector move one by one (the last block's first threads do
+//   them). A ref whose own address is aligned at the first output's
+//   vectors (bit r of vec_mask, inputs first) moves as one 16-byte
+//   access, any other as four 4-byte words. Copy buffers are 16-byte
+//   aligned: no head, every vector whole.
+// * Devices. The C entries take the device of the refs, make it current
+//   for the launch and restore the caller's device.
+//
+// A bulk plan (cp.async.bulk into a ring of shared-memory stages on an
+// mbarrier, results by bulk stores) measured no faster for rtc and 1.2-
+// 1.6% slower for copy on an H100 (PERF.md, section 6): not kept.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,153 +41,21 @@
 
 namespace mxstream {
 // Internal linkage: each library that includes the header keeps its own
-// kernels and its own cached shared-memory limits, whatever else the
-// process has loaded.
+// kernels, whatever else the process has loaded.
 namespace {
 
-enum Kind : long long { kBulk = 0, kRegister = 1 };
-enum Store : long long { kStoreRegs = 0, kStoreBulk = 1, kStoreStage = 2 };
-constexpr int kMaxStages = 16;
-constexpr int kMaxThreads = 1024;
+// Threads per block. Also the launch bound: a copy of 16 vectors per
+// thread needs more than the 64 registers a bound of 1024 leaves, and
+// spilled to run at half speed on an H100.
+constexpr int kThreads = 256;
 
-// The plan as kernels/stream.py packs it: 13 int64 in Plan._fields order.
-// Counts are in elements (floats for rtc, bytes for copy); the body
-// starts at element `head`, and tile t covers body elements
-// [t * tile, min((t + 1) * tile, body)).
+// The plan as kernels/stream.py packs it: 7 int64 in Plan._fields order.
+// Counts are in elements (floats for rtc, bytes for copy); vector v covers
+// elements [head + 4 v, head + 4 v + 4) of a float pass and bytes
+// [16 v, 16 v + 16) of a copy.
 struct Plan {
-  long long kind, store, head, body, tail, tile, tiles, stages, grid,
-      threads, smem, vec_mask, evict_first;
+  long long head, body, tail, vectors, unroll, grid, vec_mask;
 };
-
-// ---------------------------------------------------------------------------
-// PTX wrappers: mbarrier, bulk copies, cache policy
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Arrive once and expect `bytes` of transactions in the current phase.
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(policy));
-  return policy;
-}
-
-// Global -> shared, `bytes` (a multiple of 16) completing on `bar`; with
-// the L2 cache policy `policy` unless it is 0.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar,
-                                          uint64_t policy) {
-  if (policy)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
-        : "memory");
-  else
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-}
-
-// Shared -> global, `bytes` (a multiple of 16), in the open bulk group;
-// with the L2 cache policy `policy` unless it is 0.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes, uint64_t policy) {
-  if (policy)
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
-        " [%0], [%1], %2, %3;\n" ::"l"(dst),
-        "r"(smem_addr(src)), "r"(bytes), "l"(policy)
-        : "memory");
-  else
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-            dst),
-        "r"(smem_addr(src)), "r"(bytes)
-        : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N bulk groups still read their shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-// Wait until every bulk group has completed its writes.
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Order this thread's shared-memory writes before later bulk copies.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// ---------------------------------------------------------------------------
-// The tiles of one block
-// ---------------------------------------------------------------------------
-// Block b walks the contiguous run of tiles [b * run, (b + 1) * run),
-// run = ceil(tiles / gridDim.x), cut at the last tile: the plan's grid
-// sets the run. Returns the number of tiles of this block.
-__device__ __forceinline__ long long block_tiles(const Plan& p) {
-  const long long run = (p.tiles + gridDim.x - 1) / gridDim.x;
-  const long long left = p.tiles - blockIdx.x * run;
-  return left <= 0 ? 0 : (left < run ? left : run);
-}
-
-// First element (from the start of the body) and element count of the
-// k-th tile of this block.
-__device__ __forceinline__ void tile_span(const Plan& p, long long k,
-                                          long long* first, uint32_t* count) {
-  const long long run = (p.tiles + gridDim.x - 1) / gridDim.x;
-  *first = (blockIdx.x * run + k) * p.tile;
-  const long long left = p.body - *first;
-  *count = static_cast<uint32_t>(left < p.tile ? left : p.tile);
-}
 
 template <int kIn, int kOut>
 struct Refs {
@@ -207,7 +64,7 @@ struct Refs {
 };
 
 // The head and tail elements of an rtc pass, by the last block's first
-// threads, with plain loads and stores.
+// threads.
 template <class Body>
 __device__ __forceinline__ void rtc_edges(const Refs<Body::kIn, Body::kOut>& r,
                                           const Plan& p) {
@@ -223,130 +80,39 @@ __device__ __forceinline__ void rtc_edges(const Refs<Body::kIn, Body::kOut>& r,
   for (int j = 0; j < Body::kOut; ++j) r.out[j][e] = o[j];
 }
 
-// ---------------------------------------------------------------------------
-// Bulk plan for rtc: a ring of input stages, stores from registers or
-// through output stages
-// ---------------------------------------------------------------------------
-template <class Body, bool kBulkStore>
-__global__ void __launch_bounds__(kMaxThreads)
-    rtc_bulk(Refs<Body::kIn, Body::kOut> r, Plan p) {
-  constexpr int kIn = Body::kIn, kOut = Body::kOut;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ uint64_t full[kMaxStages];
-  float* ring = reinterpret_cast<float*>(smem);
-  float* out_ring = ring + p.stages * kIn * p.tile;   // [2][kOut][tile]
-  const int tid = threadIdx.x;
-  const long long my = block_tiles(p);
-  const uint64_t policy = p.evict_first ? evict_first_policy() : 0;
-
-  if (tid == 0) {
-    for (int s = 0; s < p.stages; ++s) bar_init(&full[s], 1);
-    bar_init_fence();
-  }
-  __syncthreads();
-  rtc_edges<Body>(r, p);
-
-  auto refill = [&](long long k, int s) {
-    long long first;
-    uint32_t count;
-    tile_span(p, k, &first, &count);
-    bar_expect(&full[s], count * 4u * kIn);
-#pragma unroll
-    for (int j = 0; j < kIn; ++j)
-      bulk_load(ring + (s * kIn + j) * p.tile, r.in[j] + p.head + first,
-                count * 4u, &full[s], policy);
-  };
-  if (tid == 0)
-    for (long long k = 0; k < my && k < p.stages; ++k)
-      refill(k, static_cast<int>(k));
-
-  for (long long k = 0; k < my; ++k) {
-    const int s = static_cast<int>(k % p.stages);
-    long long first;
-    uint32_t count;
-    tile_span(p, k, &first, &count);
-    bar_wait(&full[s], static_cast<uint32_t>((k / p.stages) & 1));
-    float* ob = out_ring + (k & 1) * kOut * p.tile;
-    if (kBulkStore) {
-      // the store of tile k - 2 has read output stage k & 1
-      if (tid == 0) bulk_wait_read<1>();
-      __syncthreads();
-    }
-    const float* sb = ring + s * kIn * p.tile;
-    for (uint32_t i = 4 * tid; i < count; i += 4 * blockDim.x) {
-      float4 v[kIn];
-#pragma unroll
-      for (int j = 0; j < kIn; ++j)
-        v[j] = *reinterpret_cast<const float4*>(sb + j * p.tile + i);
-      float4 w[kOut];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float a[kIn], o[kOut];
-#pragma unroll
-        for (int j = 0; j < kIn; ++j) a[j] = reinterpret_cast<float*>(&v[j])[q];
-        Body::apply(a, o);
-#pragma unroll
-        for (int j = 0; j < kOut; ++j) reinterpret_cast<float*>(&w[j])[q] = o[j];
-      }
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        if (kBulkStore)
-          *reinterpret_cast<float4*>(ob + j * p.tile + i) = w[j];
-        else
-          __stcs(reinterpret_cast<float4*>(r.out[j] + p.head + first + i),
-                 w[j]);
-      }
-    }
-    if (kBulkStore) fence_proxy_async();
-    __syncthreads();   // every thread is done with input stage s
-    if (tid == 0) {
-      if (kBulkStore) {
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          bulk_store(r.out[j] + p.head + first, ob + j * p.tile, count * 4u,
-                     policy);
-        bulk_commit();
-      }
-      if (k + p.stages < my) refill(k + p.stages, s);
-    }
-  }
-  if (kBulkStore && tid == 0) bulk_wait_all();
-}
-
-// ---------------------------------------------------------------------------
-// Register plan for rtc: refs that differ in their address mod 16
-// ---------------------------------------------------------------------------
 __device__ __forceinline__ float4 load4(const float* p, bool vec) {
-  if (vec) return __ldcs(reinterpret_cast<const float4*>(p));
-  return make_float4(__ldcs(p), __ldcs(p + 1), __ldcs(p + 2), __ldcs(p + 3));
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v, bool vec) {
   if (vec) {
-    __stcs(reinterpret_cast<float4*>(p), v);
+    *reinterpret_cast<float4*>(p) = v;
   } else {
-    __stcs(p, v.x);
-    __stcs(p + 1, v.y);
-    __stcs(p + 2, v.z);
-    __stcs(p + 3, v.w);
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+    p[3] = v.w;
   }
 }
 
+// ---------------------------------------------------------------------------
+// rtc: the body over 4-float vectors
+// ---------------------------------------------------------------------------
 template <class Body, int kUnroll>
-__global__ void __launch_bounds__(kMaxThreads)
-    rtc_register(Refs<Body::kIn, Body::kOut> r, Plan p) {
+__global__ void __launch_bounds__(kThreads)
+    rtc_stream(Refs<Body::kIn, Body::kOut> r, Plan p) {
   constexpr int kIn = Body::kIn, kOut = Body::kOut;
   rtc_edges<Body>(r, p);
-  const long long nvec = p.tiles;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j0 = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-       j0 < nvec; j0 += stride * kUnroll) {
+  const long long nvec = p.vectors;
+  const long long tile = static_cast<long long>(blockDim.x) * kUnroll;
+  for (long long base = blockIdx.x * tile + threadIdx.x; base < nvec;
+       base += gridDim.x * tile) {
     float4 v[kUnroll][kIn];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const long long e = p.head + 4 * (j0 + u * stride);
-      if (j0 + u * stride < nvec) {
+      const long long e = p.head + 4 * (base + u * blockDim.x);
+      if (base + u * blockDim.x < nvec) {
 #pragma unroll
         for (int j = 0; j < kIn; ++j)
           v[u][j] = load4(r.in[j] + e, (p.vec_mask >> j) & 1);
@@ -354,8 +120,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const long long e = p.head + 4 * (j0 + u * stride);
-      if (j0 + u * stride >= nvec) continue;
+      const long long e = p.head + 4 * (base + u * blockDim.x);
+      if (base + u * blockDim.x >= nvec) continue;
       float4 w[kOut];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -375,127 +141,97 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Copy: the input stage goes straight back with a bulk store
+// Copy: 16-byte vectors straight back
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(32)
-    copy_stage(const unsigned char* src, unsigned char* dst, Plan p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ uint64_t full[kMaxStages];
-  const int lane = threadIdx.x;
-  // the tail bytes, by the last block's lanes (the head is empty: both
-  // buffers are 16-byte aligned)
-  if (blockIdx.x == gridDim.x - 1 && lane < p.tail)
-    dst[p.body + lane] = src[p.body + lane];
-  if (lane != 0) return;
-  const long long my = block_tiles(p);
-  const uint64_t policy = p.evict_first ? evict_first_policy() : 0;
-  for (int s = 0; s < p.stages; ++s) bar_init(&full[s], 1);
-  bar_init_fence();
-
-  auto refill = [&](long long k, int s) {
-    long long first;
-    uint32_t count;
-    tile_span(p, k, &first, &count);
-    bar_expect(&full[s], count);
-    bulk_load(smem + s * p.tile, src + first, count, &full[s], policy);
-  };
-  for (long long k = 0; k < my && k < p.stages; ++k)
-    refill(k, static_cast<int>(k));
-  for (long long k = 0; k < my; ++k) {
-    const int s = static_cast<int>(k % p.stages);
-    long long first;
-    uint32_t count;
-    tile_span(p, k, &first, &count);
-    bar_wait(&full[s], static_cast<uint32_t>((k / p.stages) & 1));
-    bulk_store(dst + first, smem + s * p.tile, count, policy);
-    bulk_commit();
-    if (p.stages == 1) {
-      // one stage: once this store has read it, load the next tile
-      if (k + 1 < my) {
-        bulk_wait_read<0>();
-        refill(k + 1, 0);
-      }
-    } else if (k >= 1 && k - 1 + p.stages < my) {
-      // once the store of tile k - 1 has read its stage, refill it with
-      // the tile `stages` after k - 1, so that this store stays in flight
-      bulk_wait_read<1>();
-      refill(k - 1 + p.stages, static_cast<int>((k - 1) % p.stages));
+template <int kUnroll>
+__global__ void __launch_bounds__(kThreads)
+    copy_stream(const unsigned char* src, unsigned char* dst, Plan p) {
+  // the tail bytes, by the last block's first threads
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < p.tail)
+    dst[p.body + threadIdx.x] = src[p.body + threadIdx.x];
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  const long long nvec = p.vectors;
+  const long long tile = static_cast<long long>(blockDim.x) * kUnroll;
+  for (long long base = blockIdx.x * tile + threadIdx.x; base < nvec;
+       base += gridDim.x * tile) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = base + u * blockDim.x;
+      if (j < nvec) v[u] = __ldg(s + j);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = base + u * blockDim.x;
+      if (j < nvec) d[j] = v[u];
     }
   }
-  bulk_wait_all();
 }
 
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-// Raise the kernel's dynamic shared memory limit to `bytes` (once per
-// larger size; the static barriers count against the default 48 KB too).
-template <class K>
-cudaError_t allow_smem(K kernel, long long bytes, long long* allowed) {
-  if (bytes <= *allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess) *allowed = bytes;
-  return err;
-}
+// Makes `device` current for the launches of its scope and then restores
+// the caller's device, as PyTorch's device guard does.
+struct DeviceGuard {
+  int prev = -1, device;
+  cudaError_t err;
+  explicit DeviceGuard(int d) : device(d) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (err == cudaSuccess && prev != device) cudaSetDevice(prev);
+  }
+};
 
 inline bool plan_ok(const Plan& p, long long n) {
   return p.head + p.body + p.tail == n && p.grid >= 1 &&
-         p.threads >= 32 && p.threads <= kMaxThreads &&
-         p.stages >= 1 && p.stages <= kMaxStages &&
-         p.head + p.tail <= p.threads;
+         p.head + p.tail <= kThreads;
 }
 
-constexpr int kRegisterUnroll = 4;
+// The rtc passes' vectors in flight per thread.
+constexpr int kRtcUnroll = 2;
 
-// Launch the rtc pass of `Body` over n elements on `stream` as `plan`
-// says; returns the launch's cudaError_t (cudaErrorInvalidValue, without
-// launching, for a plan that does not fit n or the body).
+// Launch the rtc pass of `Body` over n elements on `stream` of `device`
+// as `plan` says; returns the launch's cudaError_t (cudaErrorInvalidValue,
+// without launching, for a plan that does not fit n).
 template <class Body>
 int launch_rtc(const float* const* ins, float* const* outs, long long n,
-               const long long* plan, void* stream) {
+               const long long* plan, int device, void* stream) {
   const Plan& p = *reinterpret_cast<const Plan*>(plan);
-  if (!plan_ok(p, n) ||
-      (p.kind == kRegister && p.stages != kRegisterUnroll) ||
-      (p.kind == kBulk && p.store == kStoreStage))
+  if (!plan_ok(p, n) || p.unroll != kRtcUnroll || p.body != 4 * p.vectors)
     return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   Refs<Body::kIn, Body::kOut> r;
   for (int j = 0; j < Body::kIn; ++j) r.in[j] = ins[j];
   for (int j = 0; j < Body::kOut; ++j) r.out[j] = outs[j];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(p.grid)), block(
-      static_cast<unsigned>(p.threads));
-  if (p.kind == kRegister) {
-    rtc_register<Body, kRegisterUnroll><<<grid, block, 0, s>>>(r, p);
-  } else if (p.store == kStoreBulk) {
-    static long long allowed = 0;
-    cudaError_t err = allow_smem(rtc_bulk<Body, true>, p.smem, &allowed);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rtc_bulk<Body, true><<<grid, block, p.smem, s>>>(r, p);
-  } else {
-    static long long allowed = 0;
-    cudaError_t err = allow_smem(rtc_bulk<Body, false>, p.smem, &allowed);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rtc_bulk<Body, false><<<grid, block, p.smem, s>>>(r, p);
-  }
+  rtc_stream<Body, kRtcUnroll><<<static_cast<unsigned>(p.grid), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(r, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the copy of n bytes (both buffers 16-byte aligned).
+// Launch the copy of n bytes (both buffers 16-byte aligned) on `stream`
+// of `device`, with 1, 4 or 16 vectors in flight per thread (`unroll`).
 inline int launch_copy(const void* src, void* dst, long long n,
-                       const long long* plan, void* stream) {
+                       const long long* plan, int device, void* stream) {
   const Plan& p = *reinterpret_cast<const Plan*>(plan);
-  if (!plan_ok(p, n) || p.kind != kBulk || p.store != kStoreStage ||
-      p.head != 0 || p.threads != 32)
+  if (!plan_ok(p, n) || p.head != 0 || p.body != 16 * p.vectors)
     return static_cast<int>(cudaErrorInvalidValue);
-  static long long allowed = 0;
-  cudaError_t err = allow_smem(copy_stage, p.smem, &allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  copy_stage<<<static_cast<unsigned>(p.grid), 32, p.smem,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(src),
-      static_cast<unsigned char*>(dst), p);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  const dim3 grid(static_cast<unsigned>(p.grid)), block(kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const unsigned char*>(src);
+  auto* b = static_cast<unsigned char*>(dst);
+  switch (p.unroll) {
+    case 1: copy_stream<1><<<grid, block, 0, s>>>(a, b, p); break;
+    case 4: copy_stream<4><<<grid, block, 0, s>>>(a, b, p); break;
+    case 16: copy_stream<16><<<grid, block, 0, s>>>(a, b, p); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,12 +12,10 @@ What bounds it on the H100: bytes. A body in the supported language does
 a few operations per element, far below the card's ~295 operations per
 byte, so the least time is one read of every input and one write of every
 output at the memory rate. ``rtc_codegen.cuda_source`` instantiates the
-streaming engine (``csrc/stream.cuh``) with the body: blocks stream runs
-of tiles of every input through shared-memory stages with bulk
-asynchronous copies (``stream.plan``: the bulk plan when every ref has
-the same address mod 16, else the register plan), and the results leave
-through output stages and bulk stores (``STORE = "bulk"``) or as 16-byte
-streaming stores from registers (``"regs"``).
+streaming engine (``csrc/stream.cuh``) with the body: each thread takes
+16-byte vectors of every ref, several a round, with streaming loads and
+stores (``stream.plan``: vectors aligned to the first output, a ref off
+that alignment moving as words).
 
 Build: the generated source is written to ``build/rtc/<digest>/rtc.cu``
 (under a temporary name, then renamed, so processes never race on one
@@ -31,7 +29,8 @@ on disk. ``n`` is an argument of the C entry, not of the build.
 
 Host path: one ``ctypes`` call per push. The pointer array and the packed
 plan are made once per (body, elements, device, addresses mod 16) key;
-a push writes the data pointers into the array and calls.
+a push writes the data pointers into the array and calls. The C entry
+makes the refs' device current for the launch.
 
 Dispatch: ``rtc_kernel`` runs the plain version only for tensors on the
 CPU. CUDA tensors launch the kernel or raise ``MXNetError`` (a failed
@@ -51,9 +50,8 @@ import torch
 from ..base import MXNetError
 from . import build, rtc_codegen, stream
 
-__all__ = ["rtc_kernel", "rtc_plain", "check_tensors", "STORE", "FLAGS"]
+__all__ = ["rtc_kernel", "rtc_plain", "check_tensors", "FLAGS"]
 
-STORE = "bulk"      # how a bulk plan's results leave: "regs" or "bulk"
 FLAGS = ("-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -196,13 +194,13 @@ def _build(ck):
                                                "librtc.so"), FLAGS)
     fn = lib.mx_rtc
     P = ctypes.c_void_p
-    fn.argtypes = [P, P, ctypes.c_longlong, P, P]
+    fn.argtypes = [P, P, ctypes.c_longlong, P, ctypes.c_int, P]
     fn.restype = ctypes.c_int
     return fn
 
 
 _LIBS = {}      # body digest -> mx_rtc of its library
-_CALLS = {}     # (body digest, n, device, addresses mod 16, plan args) -> _Call
+_CALLS = {}     # (body digest, n, device, addresses mod 16) -> _Call
 
 
 class _Call(NamedTuple):
@@ -231,25 +229,35 @@ def _library(ck):
 
 
 def _prepare(ck, key):
-    _, n, dev, offsets, plan_args = key
+    """The ``_Call`` of the key, made on first use."""
+    _, n, _, offsets = key
     fn = _library(ck)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    p = stream.plan(n, offsets, ck.n_in, ck.n_out, sms=sms,
-                    **dict((("store", STORE),) + plan_args))
     ptrs = (ctypes.c_uint64 * len(offsets))()
-    packed = (ctypes.c_longlong * 13)(*p.packed())
+    packed = stream.plan(n, offsets, ck.n_in, ck.n_out).packed()
+    arr = (ctypes.c_longlong * len(packed))(*packed)
     base = ctypes.addressof(ptrs)
-    call = _CALLS[key] = _Call(fn, ptrs, base, base + 8 * ck.n_in, packed,
-                               ctypes.addressof(packed))
+    call = _CALLS[key] = _Call(fn, ptrs, base, base + 8 * ck.n_in, arr,
+                               ctypes.addressof(arr))
     return call
 
 
-def rtc_kernel(ck, ins, outs, **plan_args):
+def _launch(call, ptrs, n, dev):
+    """Launch the prepared ``call`` over the CUDA refs at ``ptrs``
+    (inputs, then outputs) of ``n`` elements on device ``dev``'s current
+    stream."""
+    call.ptrs[:] = ptrs
+    err = call.fn(call.ins, call.outs, n, call.plan, dev,
+                  torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        raise MXNetError("rtc: kernel launch failed with CUDA error %d"
+                         % err)
+    rtc_kernel.launches += 1
+
+
+def rtc_kernel(ck, ins, outs):
     """Compute the checked body over ``ins`` into ``outs`` (lists of
     tensors). CPU tensors take the plain version; CUDA tensors launch the
-    body's CUDA kernel or raise. ``plan_args`` (``stream.plan``'s: store,
-    tile bytes, stages, run, evict_first) replace the plan's defaults and
-    ``STORE``; a caller measuring other plans passes them."""
+    body's CUDA kernel or raise."""
     check_tensors(ck, ins, outs)
     o = outs[0]
     if not o.is_cuda:
@@ -261,16 +269,8 @@ def rtc_kernel(ck, ins, outs, **plan_args):
         return None
     ptrs = [t.data_ptr() for t in ins] + [t.data_ptr() for t in outs]
     dev = o.get_device()
-    key = (ck.digest, n, dev, tuple([p & 15 for p in ptrs]),
-           tuple(plan_args.items()) if plan_args else ())
-    call = _CALLS.get(key) or _prepare(ck, key)
-    call.ptrs[:] = ptrs
-    err = call.fn(call.ins, call.outs, n, call.plan,
-                  torch._C._cuda_getCurrentRawStream(dev))
-    if err:
-        raise MXNetError("rtc: kernel launch failed with CUDA error %d"
-                         % err)
-    rtc_kernel.launches += 1
+    key = (ck.digest, n, dev, tuple([p & 15 for p in ptrs]))
+    _launch(_CALLS.get(key) or _prepare(ck, key), ptrs, n, dev)
     return None
 
 

@@ -423,8 +423,8 @@ def cuda_source(ck):
     flat float32 arrays: the body as ``Body::apply`` over float values
     (statements in the order the checker lowered them), the streaming
     engine (``csrc/stream.cuh``) instantiated with it, and the C entry
-    ``mx_rtc(ins, outs, n, plan, stream)``, which returns the launch's
-    ``cudaError_t``."""
+    ``mx_rtc(ins, outs, n, plan, device, stream)``, which returns the
+    launch's ``cudaError_t``."""
     em = _Emitter(ck)
     lines = ["const float in%d = in[%d];" % (i, i) for i in range(ck.n_in)]
     declared = set()
@@ -461,6 +461,7 @@ def cuda_source(ck):
         "  }\n};\n\n}  // namespace\n\n"
         "extern \"C\" int mx_rtc(const float* const* ins, float* const* "
         "outs,\n                      long long n, const long long* plan, "
-        "void* stream) {\n"
-        "  return mxstream::launch_rtc<Body>(ins, outs, n, plan, stream);\n"
+        "int device,\n                      void* stream) {\n"
+        "  return mxstream::launch_rtc<Body>(ins, outs, n, plan, device, "
+        "stream);\n"
         "}\n")

@@ -7,30 +7,14 @@ function that mirrors the C side, as ``batchnorm.plan`` does for the
 BatchNorm kernels: the wrappers call it once per key and hand the C
 function ``Plan.packed()``.
 
-Two plans:
-
-* ``bulk``: every ref has the same address mod 16. A ring of ``stages``
-  stages in shared memory, each one tile of ``tile`` elements of every
-  input, filled by ``cp.async.bulk`` copies that complete on an mbarrier.
-  The ``head`` elements before the first 16-byte boundary and the
-  ``tail`` after the last whole 16 bytes move with plain loads. Results
-  leave by ``store``: ``"regs"`` (16-byte streaming stores from
-  registers), ``"bulk"`` (an output stage, two per output, sent back with
-  a bulk store) or ``"stage"`` (copy: the input stage itself goes back).
-  Block b takes the contiguous ``run`` tiles from tile b·run, so the
-  grid is ``ceil(tiles / run)``; ``run=None`` makes the blocks persistent
-  instead (SMs × blocks per SM, one wave, each with ``tiles / grid``).
-* ``register``: the refs differ mod 16, so no common boundary exists for
-  bulk copies. Each thread takes ``REGISTER_UNROLL`` 4-element vectors
-  aligned to the first output (``stages`` = that count in flight); ref r
-  moves as one 16-byte vector where its own address allows (bit r of
-  ``vec_mask``, inputs first) and as four words otherwise. ``tile`` is 4
-  (one vector) and ``tiles`` the number of vectors.
-
-Blocks per SM follow from the shared memory a block takes (its ring, the
-static barriers and the 1 KB the system keeps per block), from 2048
-threads and from 32 blocks per SM (H100). ``evict_first`` gives the bulk
-copies an ``L2::evict_first`` cache policy.
+The body is cut into 16-byte vectors aligned to the first output: the
+``head`` elements before its first 16-byte boundary and the ``tail``
+after the last whole vector move one by one. Each thread takes
+``unroll`` vectors a round (``RTC_UNROLL`` for rtc; the copy probe sweeps
+1, 4 and 16), and the grid gives every thread one round. Ref r moves as
+one 16-byte access where its own address is aligned at those vectors
+(bit r of ``vec_mask``, inputs first) and as four words otherwise. A
+copy's buffers are 16-byte aligned: no head, every vector whole.
 """
 from __future__ import annotations
 
@@ -38,123 +22,62 @@ from typing import NamedTuple
 
 from ..base import MXNetError
 
-__all__ = ["Plan", "plan", "KINDS", "STORES", "SMS", "SMEM_PER_SM",
-           "SMEM_PER_BLOCK", "TILE_BYTES", "RUN", "RING_BYTES", "THREADS",
-           "REGISTER_UNROLL", "MAX_STAGES"]
+__all__ = ["Plan", "plan", "RTC_UNROLL", "COPY_UNROLLS", "THREADS"]
 
-KINDS = ("bulk", "register")
-STORES = ("regs", "bulk", "stage")
-SMS = 132                    # H100 SXM
-SMEM_PER_SM = 233472         # 228 KB of shared memory an SM gives blocks
-SMEM_PER_BLOCK = 232448      # 227 KB, the most one block may take
-SMEM_RESERVED = 1024         # kept by the system for each block
-SMEM_STATIC = 128            # the stages' mbarriers (kMaxStages × 8 bytes)
-MAX_THREADS_PER_SM = 2048
-MAX_BLOCKS_PER_SM = 32
-MAX_STAGES = 16              # kMaxStages in stream.cuh
-TILE_BYTES = 8192            # rtc: bytes of one ref's tile
-RUN = 2                      # rtc: tiles per block
-RING_BYTES = 96 * 1024       # persistent blocks: shared memory of a ring
-THREADS = 256                # rtc: threads per block
-REGISTER_UNROLL = 4          # kRegisterUnroll in stream.cuh
-_VEC = 16                    # bytes of one bulk unit or vector
+RTC_UNROLL = 2               # kRtcUnroll in stream.cuh
+COPY_UNROLLS = (1, 4, 16)    # the copy kernels launch_copy instantiates
+THREADS = 256                # kThreads in stream.cuh: threads per block
+_VEC = 16                    # bytes of one vector
 
 
 class Plan(NamedTuple):
-    """One launch: ``kind`` and ``store`` as above; ``head``, ``body``
-    and ``tail`` elements (in order, summing to n); ``tile`` elements per
-    tile and ``tiles`` tiles of the body; ``stages`` of the ring (register
-    plan: vectors in flight per thread); ``grid`` blocks of ``threads``;
-    ``smem`` bytes of dynamic shared memory per block; ``vec_mask`` (register
-    plan) the refs that move as 16-byte vectors; ``evict_first`` (bulk
-    plan) whether bulk copies carry the L2 evict-first policy."""
-    kind: str
-    store: str
+    """One launch: ``head``, ``body`` and ``tail`` elements (in order,
+    summing to n); ``vectors`` 16-byte vectors of the body; ``unroll``
+    vectors per thread a round; ``grid`` blocks of ``THREADS``;
+    ``vec_mask`` the refs that move as 16-byte accesses."""
     head: int
     body: int
     tail: int
-    tile: int
-    tiles: int
-    stages: int
+    vectors: int
+    unroll: int
     grid: int
-    threads: int
-    smem: int
     vec_mask: int
-    evict_first: bool
 
     def packed(self):
-        """The 13 int64 the C side reads as ``mxstream::Plan``."""
-        return (KINDS.index(self.kind), STORES.index(self.store)) + \
-            tuple(int(v) for v in self[2:])
+        """The 7 int64 the C side reads as ``mxstream::Plan``."""
+        return tuple(int(v) for v in self)
 
 
-def _cdiv(a, b):
-    return -(-a // b)
-
-
-def _persistent(tiles, smem, threads, sms):
-    """One wave of blocks: SMs × blocks per SM, no more than ``tiles``."""
-    per_sm = min(SMEM_PER_SM // (smem + SMEM_STATIC + SMEM_RESERVED),
-                 MAX_THREADS_PER_SM // threads, MAX_BLOCKS_PER_SM)
-    return max(1, min(tiles, sms * per_sm))
-
-
-def plan(n, offsets, n_in, n_out, elem_bytes=4, store="regs",
-         tile_bytes=TILE_BYTES, stages=None, run=RUN, threads=THREADS,
-         sms=SMS, evict_first=False):
+def plan(n, offsets, n_in, n_out, elem_bytes=4, unroll=RTC_UNROLL):
     """The plan of one pass over ``n`` elements of ``elem_bytes`` bytes
-    whose refs (inputs, then outputs) sit at the addresses mod 16
-    ``offsets``. ``tile_bytes`` is the bytes of one ref's tile (a stage
-    holds ``n_in`` of them; for copy a stage is one tile). ``stages``
-    defaults to ``run`` (a block loads its whole run at once), or for
-    persistent blocks (``run=None``) to as many as ``RING_BYTES`` holds,
-    2 to ``MAX_STAGES``."""
+    (4: floats, an rtc pass; 1: bytes, a copy) whose refs (inputs, then
+    outputs) sit at the addresses mod 16 ``offsets``."""
     if len(offsets) != n_in + n_out or n_in < 1 or n_out < 1:
         raise MXNetError("stream plan: %d offsets for %d input(s) and %d "
                          "output(s)" % (len(offsets), n_in, n_out))
+    if elem_bytes == 4:
+        if unroll != RTC_UNROLL:
+            raise MXNetError("stream plan: an rtc pass takes %d vectors a "
+                             "round, not %r" % (RTC_UNROLL, unroll))
+    elif elem_bytes == 1:
+        if n_in + n_out != 2 or any(offsets):
+            raise MXNetError("stream plan: a copy takes one 16-byte aligned "
+                             "source and destination; got offsets %s"
+                             % (offsets,))
+        if unroll not in COPY_UNROLLS:
+            raise MXNetError("stream plan: a copy takes %s vectors a round, "
+                             "not %r" % (COPY_UNROLLS, unroll))
+    else:
+        raise MXNetError("stream plan: %d-byte elements; the engine maps "
+                         "floats or copies bytes" % elem_bytes)
     if any(o % elem_bytes or not 0 <= o < _VEC for o in offsets):
         raise MXNetError("stream plan: offsets %s are not addresses mod 16 "
                          "of %d-byte elements" % (offsets, elem_bytes))
-    if store not in STORES or (store == "stage") != (elem_bytes == 1):
-        raise MXNetError("stream plan: store %r does not fit %d-byte "
-                         "elements" % (store, elem_bytes))
-    if threads % 32 or not 32 <= threads <= 1024:
-        raise MXNetError("stream plan: %d threads per block" % threads)
-    if run is not None and run < 1:
-        raise MXNetError("stream plan: a run of %r tiles" % (run,))
     per_vec = _VEC // elem_bytes
-    if len(set(offsets)) > 1:
-        # register plan: vectors aligned to the first output
-        head = min(n, (_VEC - offsets[n_in]) % _VEC // elem_bytes)
-        body = (n - head) // per_vec * per_vec
-        mask = sum(1 << r for r, o in enumerate(offsets)
-                   if (o + head * elem_bytes) % _VEC == 0)
-        tiles = body // per_vec
-        return Plan("register", "regs", head, body, n - head - body,
-                    per_vec, tiles, REGISTER_UNROLL,
-                    max(1, _cdiv(tiles, threads * REGISTER_UNROLL)),
-                    threads, 0, mask, False)
-    if tile_bytes % _VEC or tile_bytes < _VEC:
-        raise MXNetError("stream plan: a tile of %d bytes is not a multiple "
-                         "of 16" % tile_bytes)
-    out_ring = 2 * n_out * tile_bytes if store == "bulk" else 0
-    stage_bytes = n_in * tile_bytes
-    if stages is None:
-        stages = min(run, MAX_STAGES) if run is not None else max(
-            2, min(MAX_STAGES, (RING_BYTES - out_ring) // stage_bytes))
-    if not 1 <= stages <= MAX_STAGES:
-        raise MXNetError("stream plan: %d stages (1..%d)"
-                         % (stages, MAX_STAGES))
-    smem = stages * stage_bytes + out_ring
-    if smem + SMEM_STATIC > SMEM_PER_BLOCK:
-        raise MXNetError("stream plan: %d stages of %d bytes take %d bytes "
-                         "of shared memory, more than a block's %d"
-                         % (stages, stage_bytes, smem, SMEM_PER_BLOCK))
-    head = min(n, (_VEC - offsets[0]) % _VEC // elem_bytes)
-    body = (n - head) // per_vec * per_vec
-    tile = tile_bytes // elem_bytes
-    tiles = _cdiv(body, tile)
-    grid = _persistent(tiles, smem, threads, sms) if run is None else \
-        max(1, _cdiv(tiles, run))
-    return Plan("bulk", store, head, body, n - head - body, tile, tiles,
-                stages, grid, threads, smem, 0, bool(evict_first))
+    head = min(n, (_VEC - offsets[n_in]) % _VEC // elem_bytes)
+    vectors = (n - head) // per_vec
+    body = vectors * per_vec
+    mask = sum(1 << r for r, o in enumerate(offsets)
+               if (o + head * elem_bytes) % _VEC == 0)
+    return Plan(head, body, n - head - body, vectors, unroll,
+                max(1, -(-vectors // (THREADS * unroll))), mask)

@@ -5,8 +5,8 @@
 
 copies the reference probe's array, (128, 256·3136) bfloat16 (205.5 MB),
 with the port's CUDA copy kernel (``kernels/copy.py``, the streaming
-engine's bulk copy) at each configuration of ``COPY_SWEEP`` (stage
-bytes, stages, tiles per block or persistent blocks, L2 policy), and with
+engine's copy) at each number of 16-byte vectors per thread of
+``COPY_SWEEP``, and with
 ``Tensor.copy_``. For each it prints one JSON line: the call time
 (median of CUDA-event pairs around one call, host enqueue included), the
 device time (``graph_ms``), the host enqueue time (``enqueue_us``), the
@@ -37,13 +37,12 @@ GRAPH_CALLS = 20                   # calls in one timed CUDA graph
 
 
 def copy_plan():
-    """Bytes of the array, the byte bound in ms, and per swept
-    configuration (stage bytes, stages, run, evict_first) the kernel's
-    launch plan (``stream.Plan``)."""
+    """Bytes of the array, the byte bound in ms, and per swept number of
+    vectors per thread the kernel's launch plan (``stream.Plan``)."""
     n_bytes = COPY_SHAPE[0] * COPY_SHAPE[1] * 2     # bfloat16
     bound_ms = 1e3 * 2 * n_bytes / HBM_BYTES_PER_S
-    return n_bytes, bound_ms, {c: copy_kernel.plan(n_bytes, *c)
-                               for c in copy_kernel.COPY_SWEEP}
+    return n_bytes, bound_ms, {u: copy_kernel.plan(n_bytes, u)
+                               for u in copy_kernel.COPY_SWEEP}
 
 
 def cuda_time(fn, reps=20, warm=3):
@@ -135,8 +134,8 @@ def copy_sweep(reps=20):
     x = torch.randn(COPY_SHAPE, device="cuda", generator=gen).to(
         torch.bfloat16)
     out = torch.empty_like(x)
-    runs = [("kernel", c, (lambda c=c: copy_kernel.copy(x, out, *c)))
-            for c in copy_kernel.COPY_SWEEP]
+    runs = [("kernel", u, (lambda u=u: copy_kernel.copy(x, out, u)))
+            for u in copy_kernel.COPY_SWEEP]
     runs.append(("copy_", None, lambda: copy_kernel.copy_plain(x, out)))
     rows = []
     for route, config, fn in runs:
@@ -149,8 +148,8 @@ def copy_sweep(reps=20):
         device_ms, method = graph_ms([fn] * GRAPH_CALLS)
         gbps = 2 * n_bytes / (device_ms * 1e-3) / 1e9
         row = {"route": route,
-               "config": None if config is None else dict(zip(
-                   ("stage_bytes", "stages", "run", "evict_first"), config)),
+               "config": None if config is None else {
+                   "unroll": config, "bytes_per_thread": 16 * config},
                "bytes": n_bytes,
                "ms": ms, "device_ms": device_ms, "device_ms_by": method,
                "enqueue_us": enqueue_us(fn), "gb_per_s": gbps,
@@ -166,8 +165,8 @@ def copy_sweep(reps=20):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--copy-sweep", action="store_true",
-                    help="time the copy kernel at each swept stage "
-                         "configuration, and copy_, on the reference "
+                    help="time the copy kernel at each swept number "
+                         "of vectors per thread, and copy_, on the reference "
                          "probe's array")
     args = ap.parse_args(argv)
     if not args.copy_sweep:

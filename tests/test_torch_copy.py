@@ -4,16 +4,19 @@ CPU.
 The CUDA kernel itself runs only on the card (``chip_smoke.py`` and
 ``python -m mxnet_tpu_torch.tools.bn_probe --copy-sweep``). Here: the
 plain version, the launch plans of the streaming engine's copy (head,
-body, tail, tiles, grid per swept stage configuration), the probe's
+body, tail, vectors, grid per swept number of vectors per thread), the probe's
 array and bound, and the wrapper's refusals, through its checking
 helper, which reads only tensor metadata.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.kernels import copy as C
+from mxnet_tpu_torch.kernels import stream
 from mxnet_tpu_torch.tools import bn_probe
 
 torch.set_num_threads(2)
@@ -23,43 +26,39 @@ torch.set_num_threads(2)
                                    torch.uint8])
 def test_plain_copy_is_exact_on_the_cpu(dtype):
     x = torch.from_numpy(np.random.RandomState(0).randn(7, 13)).to(dtype)
-    out = C.copy(x, stage_bytes=16384, stages=4, run=4)
+    out = C.copy(x, unroll=4)
     assert out.data_ptr() != x.data_ptr()
     assert torch.equal(out, x)
     dst = torch.empty_like(x)
     assert C.copy(x, dst) is dst and torch.equal(dst, x)
 
 
-@pytest.mark.parametrize("n_bytes,config,want", [
-    (16, (16384, 4, 4), (0, 16, 0, 1, 1)),
-    (17, (16384, 4, 4), (0, 16, 1, 1, 1)),
-    (15, (8192, 8, 4), (0, 0, 15, 0, 1)),     # no body: the tail alone
-    (16384, (16384, 4, 4), (0, 16384, 0, 1, 1)),
-    (16385, (16384, 4, 4), (0, 16384, 1, 1, 1)),
-    (16400, (16384, 4, 1), (0, 16400, 0, 2, 2)),
-    # persistent: two 96 KB rings an SM, 132 SMs
-    (32768 * 1000 + 10, (32768, 3, None), (0, 32768000, 10, 1000, 264)),
-    (65536 * 200, (65536, 3, 4), (0, 13107200, 0, 200, 50)),
+@pytest.mark.parametrize("n_bytes,unroll,want", [
+    (16, 1, (0, 16, 0, 1, 1)),
+    (17, 1, (0, 16, 1, 1, 1)),
+    (15, 4, (0, 0, 15, 0, 1)),     # no whole vector: the tail alone
+    (16384, 4, (0, 16384, 0, 1024, 1)),
+    (16385, 1, (0, 16384, 1, 1024, 4)),
+    (16400, 16, (0, 16400, 0, 1025, 1)),
+    (32768 * 1000 + 10, 4, (0, 32768000, 10, 2048000, 2000)),
+    (65536 * 200, 16, (0, 13107200, 0, 819200, 200)),
 ])
-def test_copy_plan(n_bytes, config, want):
-    p = C.plan(n_bytes, *config)
-    assert (p.head, p.body, p.tail, p.tiles, p.grid) == want
-    assert p.kind == "bulk" and p.store == "stage"
-    assert p.threads == C.THREADS == 32
-    assert p.head + p.body + p.tail == n_bytes and p.body % 16 == 0
-    assert p.tile == config[0] and p.stages == config[1]
-    assert p.tiles * p.tile >= p.body > (p.tiles - 1) * p.tile or \
-        p.body == p.tiles == 0
-    assert p.smem == config[0] * config[1]
+def test_copy_plan(n_bytes, unroll, want):
+    p = C.plan(n_bytes, unroll)
+    assert (p.head, p.body, p.tail, p.vectors, p.grid) == want
+    assert p.unroll == unroll and p.vec_mask == 0b11
+    assert p.head + p.body + p.tail == n_bytes and p.body == 16 * p.vectors
+    # one round of `unroll` vectors for every thread of the grid
+    per_block = stream.THREADS * unroll
+    assert p.grid * per_block >= p.vectors > (p.grid - 1) * per_block \
+        or p.vectors == 0
 
 
-@pytest.mark.parametrize("config", [(1000, 4), (0, 4), (16384, 0),
-                                    (16384, 17), (131072, 2), (16384, 4, 0)])
-def test_copy_plan_refuses_other_tiles(config):
-    """Stages of whole 16-byte units, 1..16 of them, in one block's 227
-    KB of shared memory; runs of at least one tile."""
+@pytest.mark.parametrize("unroll", [0, 2, 3, 8, 32, 64])
+def test_copy_plan_refuses_other_tiles(unroll):
+    """The copy kernels take 1, 4 or 16 vectors a thread a round."""
     with pytest.raises(tmx.MXNetError):
-        C.plan(1024, *config)
+        C.plan(1024, unroll)
 
 
 def test_probe_copies_the_reference_array():
@@ -68,15 +67,12 @@ def test_probe_copies_the_reference_array():
     assert n_bytes == 128 * 256 * 3136 * 2 == 205520896
     # read once and written once at 3.35 TB/s
     assert bound_ms == pytest.approx(0.1227, abs=1e-4)
-    assert sorted(plans, key=str) == sorted(C.COPY_SWEEP, key=str)
-    # runs of 4 and 16 tiles; persistent blocks: three 64 KB rings an SM
-    assert [(plans[c].tiles, plans[c].grid) for c in C.COPY_SWEEP] == [
-        (25088, 6272), (12544, 3136), (6272, 1568), (25088, 1568),
-        (12544, 396), (25088, 6272)]
-    assert [plans[c].evict_first for c in C.COPY_SWEEP] == \
-        [False] * 5 + [True]
+    assert sorted(plans) == sorted(C.COPY_SWEEP)
+    # 16, 64 and 256 bytes in flight per thread, one round each
+    assert [(plans[u].vectors, plans[u].grid) for u in C.COPY_SWEEP] == [
+        (12845056, 50176), (12845056, 12544), (12845056, 3136)]
     assert all(p.body == n_bytes and p.tail == 0 for p in plans.values())
-    assert (C.STAGE_BYTES, C.STAGES, C.RUN, False) in C.COPY_SWEEP
+    assert C.UNROLL in C.COPY_SWEEP
 
 
 def test_probe_needs_a_card():
@@ -84,6 +80,20 @@ def test_probe_needs_a_card():
         pytest.skip("a card is present: the sweep runs in chip_smoke.py")
     with pytest.raises(tmx.MXNetError):
         bn_probe.copy_sweep(reps=1)
+
+
+def test_ab_tool_loads_another_checkout_under_its_own_name():
+    """The A/B tool imports a second checkout's package beside this one
+    (here: this checkout again) without touching ``mxnet_tpu_torch``."""
+    from mxnet_tpu_torch.tools import stream_ab
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    other = stream_ab.load_checkout(root, name="ab_test_mxnet_tpu_torch")
+    assert other.kernels.copy.copy is not C.copy
+    assert other.kernels.copy.COPY_SWEEP == C.COPY_SWEEP
+    assert other.rtc.Rtc is not tmx.rtc.Rtc
+    if not torch.cuda.is_available():
+        with pytest.raises(tmx.MXNetError):
+            stream_ab.main(["--other", root])
 
 
 def test_probe_cli_wants_the_copy_sweep_flag():

@@ -146,8 +146,8 @@ def test_rtc_refuses_inputs_on_two_devices():
 
 
 def _fake_launch(monkeypatch):
-    """The launcher with the build replaced by a counter and CUDA's device
-    queries by H100 numbers: a CPU builds and launches nothing."""
+    """The launcher with the build replaced by a counter: a CPU builds
+    and launches nothing."""
     built = []
 
     def build(ck):
@@ -156,32 +156,29 @@ def _fake_launch(monkeypatch):
     monkeypatch.setattr(K, "_build", build)
     monkeypatch.setattr(K, "_LIBS", {})
     monkeypatch.setattr(K, "_CALLS", {})
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda dev: type("P", (), {
-                            "multi_processor_count": 132}))
     return built
 
 
 def test_second_push_with_the_same_key_does_not_rebuild(monkeypatch):
     """One build per body: a second key of the same body (another shape,
-    other addresses mod 16, the other store) prepares a new launch and
+    other addresses mod 16, another device) prepares a new launch and
     reuses the library; another body builds once more."""
     built = _fake_launch(monkeypatch)
     compiles = K.rtc_kernel.compiles
     ck = rtc_codegen.check_kernel("def k(x_ref, o_ref):\n"
                                   "    o_ref[...] = x_ref[...] ** 2\n")
-    key = (ck.digest, 8 * 128, 0, (0, 0), ())
+    key = (ck.digest, 8 * 128, 0, (0, 0))
     first = K._prepare(ck, key)
     assert K._CALLS[key] is first
-    for other in [(ck.digest, 4 * 128, 0, (0, 0), ()),
-                  (ck.digest, 8 * 128, 0, (4, 8), ()),
-                  (ck.digest, 8 * 128, 0, (0, 0), (("store", "bulk"),))]:
+    for other in [(ck.digest, 4 * 128, 0, (0, 0)),
+                  (ck.digest, 8 * 128, 0, (4, 8)),
+                  (ck.digest, 8 * 128, 1, (0, 0))]:
         call = K._prepare(ck, other)
         assert call.fn is first.fn and call.plan != first.plan
     assert built == [ck.digest]
     ck2 = rtc_codegen.check_kernel("def k(x_ref, o_ref):\n"
                                    "    o_ref[...] = x_ref[...] ** 3\n")
-    K._prepare(ck2, (ck2.digest, 8 * 128, 0, (0, 0), ()))
+    K._prepare(ck2, (ck2.digest, 8 * 128, 0, (0, 0)))
     assert built == [ck.digest, ck2.digest]
     assert K.rtc_kernel.compiles == compiles + 2
 
@@ -194,15 +191,44 @@ def test_prepared_launch_packs_pointers_and_plan(monkeypatch):
         "def _kernel(x_ref, y_ref, s_ref, d_ref):\n"
         "    s_ref[...] = x_ref[...] + y_ref[...]\n"
         "    d_ref[...] = x_ref[...] - y_ref[...]\n", n_in=2)
-    call = K._prepare(ck, (ck.digest, 1000, 0, (8, 0, 8, 4), ()))
+    call = K._prepare(ck, (ck.digest, 1000, 0, (8, 0, 8, 4)))
     assert call.outs - call.ins == 16 and len(call.ptrs) == 4
     assert tuple(call.packed) == stream.plan(
         1000, (8, 0, 8, 4), 2, 2).packed()
-    bulk = K._prepare(ck, (ck.digest, 1000, 0, (0,) * 4,
-                           (("store", "bulk"), ("run", None))))
-    assert tuple(bulk.packed) == stream.plan(
-        1000, (0,) * 4, 2, 2, store="bulk", run=None).packed()
+    aligned = K._prepare(ck, (ck.digest, 1000, 0, (0,) * 4))
+    assert tuple(aligned.packed) == stream.plan(
+        1000, (0,) * 4, 2, 2).packed()
     assert call.plan == ctypes.addressof(call.packed)
+    assert aligned.fn is call.fn
+    assert tuple(aligned.packed) != tuple(call.packed)
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_launch_passes_pointers_device_and_stream(monkeypatch, err):
+    """A launch hands the C entry the pointer arrays, n, the packed plan,
+    the refs' device and that device's current stream, counts itself,
+    and raises on a CUDA error without counting."""
+    _fake_launch(monkeypatch)
+    seen = []
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda dev: 1000 + dev, raising=False)
+    ck = rtc_codegen.check_kernel("def k(x_ref, y_ref, o_ref):\n"
+                                  "    o_ref[...] = x_ref[...] + y_ref[...]\n")
+    call = K._prepare(ck, (ck.digest, 64, 3, (0,) * 3))
+
+    def fn(*args):
+        seen.append((list(call.ptrs),) + args)
+        return err
+    call = call._replace(fn=fn)
+    launches = K.rtc_kernel.launches
+    if err:
+        with pytest.raises(tmx.MXNetError, match="CUDA error 700"):
+            K._launch(call, [16, 32, 48], 64, 3)
+    else:
+        K._launch(call, [16, 32, 48], 64, 3)
+    assert seen == [([16, 32, 48], call.ins, call.outs, 64, call.plan, 3,
+                     1003)]
+    assert K.rtc_kernel.launches == launches + (0 if err else 1)
 
 
 def test_build_source_file_is_written_once(monkeypatch, tmp_path):
@@ -259,8 +285,9 @@ struct Body {
 }  // namespace
 
 extern "C" int mx_rtc(const float* const* ins, float* const* outs,
-                      long long n, const long long* plan, void* stream) {
-  return mxstream::launch_rtc<Body>(ins, outs, n, plan, stream);
+                      long long n, const long long* plan, int device,
+                      void* stream) {
+  return mxstream::launch_rtc<Body>(ins, outs, n, plan, device, stream);
 }
 '''
 

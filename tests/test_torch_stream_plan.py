@@ -1,14 +1,12 @@
 """Launch plans of the port's streaming engine (``kernels/stream.py``,
 mirroring ``kernels/csrc/stream.cuh``), on the CPU.
 
-The engine runs only on the card (``chip_smoke.py`` phases 2 and 6, which
-run every plan and store there). Here: ``plan`` picks the bulk plan when
-every ref has the same address mod 16 and the register plan otherwise;
-the head and tail around the 16-byte body for offsets 0, 4, 8 and 12
-bytes; the vectors of the register plan; stages, tiles and the
-persistent grid from one block's shared memory; the refusals; and that
-the packed plan, its enums and constants match the C header field for
-field.
+The engine runs only on the card (``chip_smoke.py`` phases 2 and 6). Here:
+the head and tail around the 16-byte vectors for offsets 0, 4, 8 and 12
+bytes; which refs move as vectors and which as words when the refs
+differ mod 16; vectors, rounds and grid; the copy sweep's plans; the
+refusals; and that the packed plan and its constants match the C header
+field for field.
 """
 import ast
 import os
@@ -28,54 +26,36 @@ N = 32 * 256 * 56 * 56      # one ResNet-50 activation
 
 @pytest.mark.parametrize("offset,head,tail", [
     (0, 0, 0), (4, 3, 1), (8, 2, 2), (12, 1, 3)])
-def test_bulk_plan_head_and_tail(offset, head, tail):
-    """Refs that share an address mod 16 take the bulk plan; the head
-    reaches the first 16-byte boundary, the tail is what is left past
-    the last whole 4 floats."""
+def test_plan_head_and_tail(offset, head, tail):
+    """Refs that share an address mod 16 all move as vectors; the head
+    reaches the first 16-byte boundary, the tail is what is left past the
+    last whole 4 floats."""
     p = stream.plan(N, (offset,) * 3, 2, 1)
-    assert p.kind == "bulk" and p.store == "regs"
-    assert (p.head, p.tail) == (head, tail)
-    assert p.head + p.body + p.tail == N and p.body % 4 == 0
+    assert (p.head, p.tail, p.vec_mask) == (head, tail, 0b111)
+    assert p.head + p.body + p.tail == N and p.body == 4 * p.vectors
     assert (offset + 4 * p.head) % 16 == 0
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 7])
-def test_bulk_plan_smaller_than_its_head(n):
+def test_plan_smaller_than_its_head(n):
     p = stream.plan(n, (4, 4), 1, 1)
     assert p.head == min(n, 3)
     assert p.head + p.body + p.tail == n
-    assert p.tiles == (1 if p.body else 0) and p.grid == 1
+    assert p.vectors == (1 if n == 7 else 0) and p.grid == 1
 
 
-def test_bulk_plan_stages_tiles_and_grid():
-    """An 8 KB tile per input and runs of 2 tiles a block, each block
-    loading its run at once; persistent blocks (no run) fill 96 KB of
-    ring and one wave of SMs × blocks per SM (each ring plus its barriers
-    and the system's 1 KB within 228 KB)."""
+def test_plan_vectors_rounds_and_grid():
+    """256 threads a block, 2 vectors a thread a round, one round for
+    every thread of the grid."""
     axpy = stream.plan(N, (0, 0, 0), 2, 1)
-    assert (axpy.tile, axpy.stages, axpy.smem) == (2048, 2, 32768)
-    assert (axpy.tiles, axpy.grid, axpy.threads) == (12544, 6272, 256)
-    assert not axpy.evict_first
-    square = stream.plan(N, (0, 0), 1, 1)
-    assert (square.stages, square.smem, square.grid) == (2, 16384, 6272)
-    # the bulk store keeps two output stages per output
-    bulk = stream.plan(N, (0, 0, 0), 2, 1, store="bulk")
-    assert (bulk.stages, bulk.smem) == (2, 2 * 16384 + 2 * 8192)
-    persistent = stream.plan(N, (0, 0, 0), 2, 1, run=None)
-    assert (persistent.stages, persistent.smem) == (6, 98304)
-    assert persistent.grid == 2 * 132
-    two = stream.plan(N, (0,) * 4, 2, 2, store="bulk", run=None)
-    assert (two.stages, two.smem, two.grid) == (4, 98304, 264)
-    long_run = stream.plan(N, (0, 0, 0), 2, 1, run=8, stages=3)
-    assert (long_run.grid, long_run.stages) == (1568, 3)
+    assert (axpy.vectors, axpy.unroll, stream.THREADS) == (N // 4, 2, 256)
+    assert axpy.grid == N // (4 * 256 * 2) == 12544
+    two = stream.plan(N, (0,) * 4, 2, 2)
+    assert two[:6] == axpy[:6] and two.vec_mask == 0b1111
     small = stream.plan(5000, (0, 0, 0), 2, 1)
-    assert (small.tiles, small.grid) == (3, 2)
-    assert small.body == 5000 and small.tail == 0
-    for p in (axpy, square, bulk, persistent, two, long_run, small):
-        per_sm = stream.SMEM_PER_SM // (p.smem + 128 + 1024)
-        assert p.smem + 128 <= stream.SMEM_PER_BLOCK and per_sm >= 1
-        assert p.grid <= max(1, p.tiles)
-    assert stream.plan(N, (0, 0, 0), 2, 1, evict_first=True).evict_first
+    assert (small.vectors, small.grid, small.tail) == (1250, 3, 0)
+    ragged = stream.plan(5 * 3 * 17 * 13, (0, 0), 1, 1)
+    assert (ragged.vectors, ragged.tail, ragged.grid) == (828, 3, 2)
 
 
 @pytest.mark.parametrize("offsets,head,mask", [
@@ -84,53 +64,50 @@ def test_bulk_plan_stages_tiles_and_grid():
     ((4, 8, 12), 1, 0b100),
     ((8, 0, 8, 4), 2, 0b0101),   # two outputs: the first sets the vectors
 ])
-def test_register_plan_for_refs_that_differ_mod_16(offsets, head, mask):
+def test_refs_that_differ_mod_16_move_as_words(offsets, head, mask):
     n_out = len(offsets) - 2
     p = stream.plan(3315, offsets, 2, n_out)
-    assert p.kind == "register" and p.store == "regs"
     assert (p.head, p.vec_mask) == (head, mask)
-    assert p.head + p.body + p.tail == 3315 and p.body % 4 == 0
-    assert (p.tile, p.tiles) == (4, p.body // 4)
-    assert p.stages == stream.REGISTER_UNROLL and p.smem == 0
-    assert p.grid == -(-p.tiles // (256 * stream.REGISTER_UNROLL))
-    # the store a caller asks for applies to the bulk plan only
-    assert stream.plan(3315, offsets, 2, n_out, store="bulk") == p
+    assert p.head + p.body + p.tail == 3315 and p.body == 4 * p.vectors
+    assert p.unroll == stream.RTC_UNROLL
+    assert p.grid == -(-p.vectors // (256 * stream.RTC_UNROLL))
 
 
-def test_register_plan_grid_at_full_size():
+def test_plan_grid_at_full_size_with_words():
     p = stream.plan(N, (8, 0, 8), 2, 1)
-    # one pass of 4 vectors per thread
-    assert p.grid == N // (4 * 256 * 4) == 6272
+    # one round of 2 vectors per thread
+    assert p.grid == (N - 4) // (4 * 256 * 2) + 1 == 12544
 
 
 def test_copy_plans_of_the_sweep():
-    """Copy moves bytes: 16-byte aligned buffers, no head, the stage
-    straight back, one warp a block."""
-    for stage_bytes, stages, run, evict in C.COPY_SWEEP:
-        p = stream.plan(1000003, (0, 0), 1, 1, elem_bytes=1, store="stage",
-                        tile_bytes=stage_bytes, stages=stages, run=run,
-                        threads=32, evict_first=evict)
+    """Copy moves bytes: 16-byte aligned buffers, no head, 16-byte
+    vectors, the bytes past the last whole one in the tail."""
+    assert C.COPY_SWEEP == stream.COPY_UNROLLS == (1, 4, 16)
+    for unroll in C.COPY_SWEEP:
+        p = stream.plan(1000003, (0, 0), 1, 1, elem_bytes=1, unroll=unroll)
         assert (p.head, p.body, p.tail) == (0, 1000000, 3)
-        assert p.tiles == -(-1000000 // stage_bytes)
-        assert p.smem == stage_bytes * stages and p.evict_first == evict
-        assert p.grid == (-(-p.tiles // run) if run else min(p.tiles, 396))
+        assert (p.vectors, p.vec_mask) == (62500, 0b11)
+        assert p.grid == -(-62500 // (256 * unroll))
+        assert C.plan(1000003, unroll) == p
 
 
-@pytest.mark.parametrize("case", ["offsets", "unaligned", "store_bytes",
-                                  "store_floats", "threads", "tile",
-                                  "stages", "smem", "run"])
+@pytest.mark.parametrize("case", ["offsets", "unaligned", "out_of_range",
+                                  "elem_bytes", "copy_refs", "copy_mixed",
+                                  "rtc_unroll", "copy_unroll",
+                                  "copy_floats", "negative"])
 def test_plan_refuses(case):
     args = dict(n=1024, offsets=(0, 0), n_in=1, n_out=1)
     args.update({
         "offsets": dict(offsets=(0, 0, 0)),
         "unaligned": dict(offsets=(2, 2)),
-        "store_bytes": dict(elem_bytes=1, store="regs"),
-        "store_floats": dict(store="stage"),
-        "threads": dict(threads=100),
-        "tile": dict(tile_bytes=1000),
-        "stages": dict(stages=17),
-        "smem": dict(tile_bytes=65536, stages=4),
-        "run": dict(run=0),
+        "out_of_range": dict(offsets=(16, 16)),
+        "elem_bytes": dict(elem_bytes=2),
+        "copy_refs": dict(elem_bytes=1, offsets=(0, 0, 0), n_in=2),
+        "copy_mixed": dict(elem_bytes=1, offsets=(0, 8)),
+        "rtc_unroll": dict(unroll=4),
+        "copy_unroll": dict(elem_bytes=1, unroll=2),
+        "copy_floats": dict(elem_bytes=1, offsets=(4, 4)),
+        "negative": dict(offsets=(-4, -4)),
     }[case])
     with pytest.raises(tmx.MXNetError):
         stream.plan(**args)
@@ -145,20 +122,13 @@ def test_packed_plan_matches_the_c_struct():
     src = _header()
     struct = re.search(r"struct Plan \{\s*long long ([^;]*);", src).group(1)
     assert [f.strip() for f in struct.split(",")] == list(stream.Plan._fields)
-    p = stream.plan(N, (4, 4, 4), 2, 1)
-    packed = p.packed()
-    assert len(packed) == 13 and packed[2:] == tuple(p[2:12]) + (0,)
-    assert stream.plan(N, (0,) * 3, 2, 1, evict_first=True).packed()[-1] == 1
-    kinds = re.search(r"enum Kind : long long \{([^}]*)\}", src).group(1)
-    stores = re.search(r"enum Store : long long \{([^}]*)\}", src).group(1)
-    assert [int(v.split("=")[1]) for v in kinds.split(",")] == \
-        list(range(len(stream.KINDS)))
-    assert [v.split("=")[0].strip() for v in stores.split(",")] == \
-        ["kStoreRegs", "kStoreBulk", "kStoreStage"]
-    assert stream.STORES == ("regs", "bulk", "stage")
-    assert "kMaxStages = %d;" % stream.MAX_STAGES in src
-    assert "kRegisterUnroll = %d;" % stream.REGISTER_UNROLL in src
-    assert stream.SMEM_STATIC == 8 * stream.MAX_STAGES
+    p = stream.plan(N, (4, 8, 4), 2, 1)
+    assert p.packed() == tuple(p) and len(p.packed()) == 7
+    assert "kRtcUnroll = %d;" % stream.RTC_UNROLL in src
+    assert "kThreads = %d;" % stream.THREADS in src
+    launch_copy = src[src.index("inline int launch_copy"):]
+    assert tuple(int(c) for c in re.findall(r"case (\d+):", launch_copy)) \
+        == stream.COPY_UNROLLS
 
 
 def test_port_imports_no_triton_jax_or_the_jax_package():
