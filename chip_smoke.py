@@ -58,7 +58,21 @@ result line) if any phase fails:
 7. fit: ResNet-50 through ``mod.fit`` on 8 synthetic batches (numpy seed
    0) with 2 eval batches, SGD with a FactorScheduler; exactly 51 × 8
    launches of each BatchNorm kernel, none from scoring;
-8. the kernels line, the card's nvidia-smi line, and the result line.
+8. serving: the trained ResNet-50 behind ``serving.Predictor``
+   (max_batch_size 32: buckets 2, 4, 8, 16, 32) and ``DynamicBatcher``:
+   warmup (5 compiles, one parameter set under all buckets); parity
+   (served rows bit for bit equal to ``Module.predict`` through a module
+   bound at each launch's bucket, for requests that fit, pad and are
+   chunked; the same rows from buckets 2 and 32 within a relative L2 of
+   1e-5; one more training step of the source leaves served rows as
+   they were); per bucket the forward's device time (CUDA events, and a
+   CUDA graph replay), host enqueue, call, host→card copy and readback
+   times; 8 clients for 10 s of bench.py's request mix through the
+   batcher (requests/s, rows/s, p50/p99, batch fill, rejects, compiles
+   after warmup: 0, launches per bucket, the device's estimated busy
+   share); each client's last rows checked bit for bit; and no
+   BatchNorm kernel launched while serving;
+9. the kernels line, the card's nvidia-smi line, and the result line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -103,6 +117,10 @@ TOL = {
     # multiply and add
     "rtc_transcendental": 1e-6,
     "rtc_exact_ulps": 0,
+    # served rows of one request from bucket 2 against bucket 32, as
+    # relative L2 error of the softmax outputs: cuDNN and cuBLAS may pick
+    # other algorithms at another batch size
+    "serve_cross_bucket": 1e-5,
     # card vs CPU, ResNet-50 at batch 2, as relative L2 error
     # ‖card − cpu‖/‖cpu‖. The softmax outputs, and the gradients one
     # layer below them (fc1_weight, bn1_gamma), agree to ~1e-5; 1e-4.
@@ -893,6 +911,348 @@ def fit_phase(mx, K, card, hand_img_per_s):
             and abs(lr - want_lr) < 1e-12 and np.isfinite(acc)
             and len(stamps) == FIT_BATCHES):
         raise RuntimeError("fit phase failed: %s" % json.dumps(row))
+    return mod
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serving
+# ---------------------------------------------------------------------------
+SERVE_MAX_BATCH = 32
+SERVE_SIZES = (1, 2, 3, 8, 16)     # bench.py _bench_serve's request mix
+SERVE_CLIENTS, SERVE_SECONDS = 8, 10.0
+SERVE_PARITY_ROWS = (2, 4, 5, 8, 16, 32, 70)   # 5 pads to 8, 70 chunks
+
+
+def rows_iter(mx, x):
+    """An iterator of one batch holding exactly the rows ``x``: no
+    iterator padding, so a batch shorter than the bound shape reaches
+    ``Module.forward`` as it is (which pads it with zero rows)."""
+    class _Rows(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size=len(x))
+            self.done = False
+
+        def reset(self):
+            self.done = False
+
+        def next(self):
+            if self.done:
+                raise StopIteration
+            self.done = True
+            return mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
+                                   label=None, pad=0)
+    return _Rows()
+
+
+def rel_l2(a, b):
+    import numpy as np
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def serve_shared_params(pred, source):
+    """Whether every bucket computes from the top bucket's parameter and
+    aux tensors (same storage), none shared with the source module; and
+    their megabytes."""
+    base = pred._modules[pred.max_batch_size]._exec_group.execs[0]
+    src = source._exec_group.execs[0]
+    names = [("arg", n) for n in source._param_names] + \
+        [("aux", n) for n in base.aux_names]
+
+    def tensor(ex, kind, n):
+        return (ex.arg_dict if kind == "arg" else ex.aux_dict)[n]._read()
+
+    one_copy = all(
+        tensor(m._exec_group.execs[0], k, n).data_ptr()
+        == tensor(base, k, n).data_ptr()
+        for m in pred._modules.values() for k, n in names)
+    apart = all(tensor(src, k, n).data_ptr() != tensor(base, k, n).data_ptr()
+                for k, n in names)
+    mb = sum(tensor(base, k, n).nbytes for k, n in names) / 1e6
+    return one_copy and apart, len(names), mb
+
+
+def forward_op_counts(ex):
+    """PyTorch operators one eval forward of executor ``ex`` dispatches:
+    (all, those that are not views or detaches, by name). Each of the
+    latter is at least one kernel launch the host enqueues."""
+    from collections import Counter
+    from torch.utils._python_dispatch import TorchDispatchMode
+    views = {"view", "_unsafe_view", "reshape", "expand", "t", "detach",
+             "alias", "slice", "select", "_reshape_alias", "as_strided",
+             "unsqueeze", "squeeze", "permute", "transpose"}
+    ops = Counter()
+
+    class _Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    with _Count():
+        ex.forward(is_train=False)
+    launching = {k: v for k, v in ops.items() if k not in views}
+    return sum(ops.values()), sum(launching.values()), launching
+
+
+def serve_bucket_times(pred, b, x):
+    """One bucket's times: the bound forward (data already on the card)
+    by CUDA events (median of 10 after 3 warm) and as a CUDA graph
+    replay (device only), its host enqueue, ``Predictor.predict`` on
+    exactly ``b`` rows (pad, host→card copy, forward, readback), and the
+    copy and the readback alone."""
+    import torch
+    from mxnet_tpu_torch.tools.bn_probe import cuda_time, graph_ms
+    m = pred._modules[b]
+    ex = m._exec_group.execs[0]
+    pred.predict(x)          # the bound data now holds the request
+
+    def forward():
+        ex.forward(is_train=False)
+
+    event_ms = cuda_time(forward, reps=10, warm=3)
+    enqueue = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    device_ms, method = graph_ms([forward] * 3)
+    for _ in range(3):
+        pred.predict(x)
+    calls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        pred.predict(x)
+        calls.append(1e3 * (time.perf_counter() - t0))
+    call_ms = statistics.median(calls)
+    data = m._exec_group.data_arrays[0][0]
+
+    def to_card():
+        data[:] = x
+
+    return {"bucket": b, "forward_event_ms": event_ms,
+            "forward_device_ms": device_ms, "device_ms_by": method,
+            "forward_enqueue_ms": statistics.median(enqueue),
+            "call_ms": call_ms, "host_to_card_ms": host_ms(to_card, 10),
+            "readback_ms": host_ms(lambda: m.get_outputs()[0][:b].asnumpy(),
+                                   10),
+            "rows_per_s": b / (call_ms / 1e3)}
+
+
+def serve_load(mx, pred, pools):
+    """``SERVE_CLIENTS`` threads fire bench.py's mix at a DynamicBatcher
+    for ``SERVE_SECONDS``: each client takes its request sizes in turn
+    from its own pool, and answers QueueFull with a 2 ms sleep. Returns
+    (counts, each client's last (pool index, outputs))."""
+    import threading
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving import DynamicBatcher, QueueFull
+    lock = threading.Lock()
+    done, rows, last, errors = [0], [0], {}, []
+    batcher = DynamicBatcher(pred, max_queue=32, max_wait_ms=2.0)
+    stop_at = time.perf_counter() + SERVE_SECONDS
+
+    def client(i):
+        k = i
+        try:
+            while time.perf_counter() < stop_at:
+                idx = k % len(SERVE_SIZES)
+                k += 1
+                try:
+                    out = batcher.predict(pools[i][idx], timeout=120)
+                except QueueFull:
+                    time.sleep(0.002)
+                    continue
+                with lock:
+                    done[0] += 1
+                    rows[0] += SERVE_SIZES[idx]
+                last[i] = (idx, out)
+        except Exception as e:  # noqa: BLE001 — reported, fails the phase
+            errors.append("client %d: %r" % (i, e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    telemetry.enable()          # request traces: host clocks only
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SERVE_SECONDS + 150)
+    finally:
+        batcher.shutdown(drain=True, timeout=120)
+        telemetry.disable()
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        errors.append("a client did not finish")
+    return {"wall_s": wall, "completed": done[0], "rows": rows[0],
+            "errors": errors}, last
+
+
+def serving_phase(mx, K, card, mod):
+    """The trained ResNet-50 served through Predictor and DynamicBatcher
+    (module docstring, phase 8). Fails on any failed check."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.serving import Predictor
+    failed = []
+
+    def check(name, ok, row):
+        emit(row)
+        if not ok:
+            failed.append(name)
+
+    shape = dict(mod.data_shapes)["data"][1:]
+    rs = np.random.RandomState(1)
+    X = rs.randn(max(SERVE_PARITY_ROWS), *shape).astype(np.float32)
+    torch.cuda.synchronize()
+    K.bn_fwd.launches = 0
+    K.bn_bwd.launches = 0
+
+    # 1. warmup
+    t0 = time.perf_counter()
+    pred = Predictor(mod, max_batch_size=SERVE_MAX_BATCH)
+    stats = pred.warmup()
+    one_copy, n_tensors, mb = serve_shared_params(pred, mod)
+    n_ops, n_launching, by_op = forward_op_counts(
+        pred._modules[2]._exec_group.execs[0])
+    check("warmup", stats["compiles"] == 5 and one_copy and
+          pred.buckets == [2, 4, 8, 16, 32] and
+          not torch.backends.cudnn.benchmark,
+          {"phase": "serve_warmup", "buckets": pred.buckets,
+           "warmup_ms": stats["warmup_ms"], "compiles": stats["compiles"],
+           "setup_s": time.perf_counter() - t0,
+           "one_parameter_set": one_copy, "param_and_aux_tensors": n_tensors,
+           "param_and_aux_mb": mb, "forward_dispatched_ops": n_ops,
+           "forward_launching_ops": n_launching, "forward_ops_by_name": by_op,
+           "cudnn_benchmark": torch.backends.cudnn.benchmark, "card": card})
+
+    # 2. parity: Module.predict at each launch's bucket, bit for bit
+    arg, aux = mod.get_params()
+    refs = {}
+    for b in pred.buckets:
+        refs[b] = mx.mod.Module(mod.symbol, context=mod._context)
+        refs[b].bind(data_shapes=[("data", (b,) + shape)],
+                     for_training=False)
+        refs[b].set_params(arg, aux)
+    rows = []
+    for n in SERVE_PARITY_ROWS:
+        served = pred.predict(X[:n])
+        parts, start = [], 0
+        while start < n:
+            take = min(n - start, pred.max_batch_size)
+            parts.append(refs[pred.bucket_for(take)].predict(
+                rows_iter(mx, X[start:start + take])).asnumpy())
+            start += take
+        want = np.concatenate(parts)
+        rows.append({"rows": n, "buckets": [pred.bucket_for(min(
+                         n - s, pred.max_batch_size))
+                         for s in range(0, n, pred.max_batch_size)],
+                     "bitwise_equal": bool(np.array_equal(served, want)),
+                     "max_abs_err": float(np.abs(served - want).max()),
+                     "finite": bool(np.isfinite(served).all()),
+                     "shape": list(served.shape)})
+    del refs
+    pad5 = pred.predict(X[:5])
+    pad_free = bool(np.array_equal(pad5, pred.predict(X[:8])[:5]))
+    b2, b32 = pred.predict(X[:2]), pred.predict(X[:32])[:2]
+    cross = rel_l2(b2, b32)
+    # snapshot: one more training step of the source module
+    before = pred.predict(X[:8])
+    w0 = arg["fc1_weight"].asnumpy().copy()
+    saved = (K.bn_fwd.launches, K.bn_bwd.launches)
+    labels = rs.randint(0, 1000, (BATCH,)).astype(np.float32)
+    mod.forward_backward(mx.io.DataBatch(
+        [mx.nd.array(X[:BATCH], ctx=mx.cpu())],
+        [mx.nd.array(labels, ctx=mx.cpu())]))
+    mod.update()
+    torch.cuda.synchronize()
+    step_launches = [K.bn_fwd.launches - saved[0],
+                     K.bn_bwd.launches - saved[1]]
+    K.bn_fwd.launches, K.bn_bwd.launches = saved
+    moved = not np.array_equal(w0, mod.get_params()[0]["fc1_weight"]
+                               .asnumpy())
+    snapshot = moved and bool(np.array_equal(before, pred.predict(X[:8])))
+    check("parity", all(r["bitwise_equal"] and r["finite"] for r in rows)
+          and pad_free and cross <= TOL["serve_cross_bucket"] and snapshot,
+          {"phase": "serve_parity", "requests": rows,
+           "pad_rows_change_nothing": pad_free,
+           "bucket2_vs_bucket32_rel_l2": cross,
+           "bucket2_vs_bucket32_bitwise": bool(np.array_equal(b2, b32)),
+           "tolerance": TOL["serve_cross_bucket"],
+           "snapshot_held": snapshot, "source_params_moved": moved,
+           "train_step_bn_launches": step_launches, "card": card})
+
+    # 3. bucket times
+    times = {}
+    for b in pred.buckets:
+        times[b] = serve_bucket_times(pred, b, X[:b])
+        emit({"phase": "serve_bucket", **times[b], "card": card})
+
+    # 4. load through the batcher, on a predictor of its own (fresh stats)
+    lp = Predictor(mod, max_batch_size=SERVE_MAX_BATCH)
+    lp.warmup()
+    compiles0 = lp.stats()["compiles"]
+    pools = [[np.random.RandomState(100 + i).rand(n, *shape)
+              .astype(np.float32) for n in SERVE_SIZES]
+             for i in range(SERVE_CLIENTS)]
+    load, last = serve_load(mx, lp, pools)
+    s = lp.stats()
+    wall_ms = 1e3 * load["wall_s"]
+    hits = s["bucket_hits"]
+    busy = {k: sum(n * times[b][k] for b, n in hits.items()) / wall_ms
+            for k in ("forward_device_ms", "forward_event_ms")}
+    lat = s["latency_ms"]
+    # mean ms of each request-trace phase, per bucket: device = host→card
+    # copy, forward and readback; pad = the host's zero rows; resolve =
+    # joining the requests' rows before the launch and slicing after
+    hists = lp._stats.scope.snapshot()["histograms"]
+    phases = {b: {p[:-3]: h["sum"] / h["count"]
+                  for p in ("queue_wait_ms", "coalesce_wait_ms", "pad_ms",
+                            "device_ms", "resolve_ms")
+                  for h in [hists.get("b%d.phase_%s" % (b, p))]
+                  if h and h["count"]}
+              for b in sorted(hits)}
+    check("load", not load["errors"] and s["compiles"] == compiles0 and
+          load["completed"] > 0 and s["errors"] == 0,
+          {"phase": "serve_load", "clients": SERVE_CLIENTS,
+           "seconds": load["wall_s"], "request_rows": list(SERVE_SIZES),
+           "max_queue": 32, "max_wait_ms": 2.0,
+           "requests_per_s": load["completed"] / load["wall_s"],
+           "rows_per_s": load["rows"] / load["wall_s"],
+           "completed": load["completed"],
+           "latency_ms_p50": lat["p50"], "latency_ms_p99": lat["p99"],
+           "latency_ms_mean": lat["mean"], "latency_samples": lat["count"],
+           "batch_fill": s["batch_fill"], "rejected": s["rejected"],
+           "timeouts": s["timeouts"], "errors": load["errors"],
+           "post_warmup_compiles": s["compiles"] - compiles0,
+           "launches_per_bucket": hits, "launches": s["batches"],
+           "device_busy_share_by_graph_ms": busy["forward_device_ms"],
+           "device_busy_share_by_event_ms": busy["forward_event_ms"],
+           "phase_mean_ms_by_bucket": phases, "card": card})
+
+    # 5. routing: each client's last rows are its own, bit for bit
+    routing = []
+    for i in range(SERVE_CLIENTS):
+        idx, out = last[i]
+        x = pools[i][idx]
+        direct = lp.predict(x)
+        matched = [b for b in lp.buckets if b >= len(x) and np.array_equal(
+            out, lp._run_bucket(b, {"data": x}, len(x))[0])]
+        routing.append({"client": i, "rows": len(x),
+                        "direct_bitwise": bool(np.array_equal(out, direct)),
+                        "bitwise_in_buckets": matched,
+                        "rel_l2_to_direct": rel_l2(out, direct)})
+    check("routing", all(r["bitwise_in_buckets"] for r in routing),
+          {"phase": "serve_routing", "clients": routing, "card": card})
+
+    # 6. no BatchNorm kernel ran while serving
+    torch.cuda.synchronize()
+    bn = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches}
+    check("no_kernels", bn == {"bn_fwd": 0, "bn_bwd": 0},
+          {"phase": "serve_kernels", "bn_launches_while_serving": bn})
+    if failed:
+        raise RuntimeError("serving phase failed: %s" % ", ".join(failed))
 
 
 def build_kernels(builds):
@@ -952,7 +1312,8 @@ def main():
     launches, hand_img_per_s = main_path(mx, K, card)
     card_vs_cpu(mx, K)
     rtc_entry = rtc_phase(mx, R, card, copy_rate)
-    fit_phase(mx, K, card, hand_img_per_s)
+    trained = fit_phase(mx, K, card, hand_img_per_s)
+    serving_phase(mx, K, card, trained)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}

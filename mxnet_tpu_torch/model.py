@@ -4,6 +4,7 @@ use the JAX package's formats, so either package reads the other's."""
 from __future__ import annotations
 
 from .base import MXNetError
+from .checkpoint import pack_params
 from . import ndarray as nd
 from . import symbol as sym_mod
 
@@ -24,9 +25,8 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
     prefixed names, atomic write)."""
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
-    packed = {("arg:%s" % k): v for k, v in arg_params.items()}
-    packed.update({("aux:%s" % k): v for k, v in aux_params.items()})
-    nd.save("%s-%04d.params" % (prefix, epoch), packed)
+    nd.save("%s-%04d.params" % (prefix, epoch),
+            pack_params(arg_params, aux_params))
 
 
 def load_checkpoint(prefix, epoch, ctx=None):

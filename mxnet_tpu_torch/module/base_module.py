@@ -15,14 +15,36 @@ import logging
 import time
 from collections import namedtuple
 
+import numpy as onp
+import torch
+
 from .. import metric as metric_mod
 from .. import ndarray as nd
 from ..initializer import Uniform
 
-__all__ = ["BaseModule", "BatchEndParam"]
+__all__ = ["BaseModule", "BatchEndParam", "pad_batch_rows"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def pad_batch_rows(arr, target_rows):
+    """Zero-pad ``arr`` (NDArray, numpy array or tensor) along axis 0
+    up to ``target_rows`` and return the raw padded array — the ONE
+    pad rule every fixed-shape launch shares: the serving bucketer
+    (``serving.Predictor``) pads a request up to its batch bucket, and
+    ``Module.forward`` pads an eval batch shorter than the bound shape.
+    Host arrays pad on the host; a tensor pads on its own device, so a
+    tensor on the card is never read back to pad it."""
+    vals = arr._read() if hasattr(arr, "_read") else arr
+    n = vals.shape[0]
+    if n >= target_rows:
+        return vals
+    if isinstance(vals, onp.ndarray):
+        fill = onp.zeros((target_rows - n,) + vals.shape[1:], vals.dtype)
+        return onp.concatenate([vals, fill])
+    fill = vals.new_zeros((target_rows - n,) + tuple(vals.shape[1:]))
+    return torch.cat([vals, fill])
 
 
 def _as_list(obj):
@@ -69,8 +91,8 @@ class BaseModule(object):
 
     def _unpadded_outputs(self, batch, copy=False):
         """The outputs without the rows the iterator padded the batch
-        with."""
-        pad = batch.pad or 0
+        with, nor those ``forward`` added to reach the bound shape."""
+        pad = (batch.pad or 0) + getattr(self, "_eval_pad_extra", 0)
         keep = slice(None) if not pad else slice(0, -pad)
         outs = [out[keep] for out in self.get_outputs()]
         return [o.copy() for o in outs] if copy else outs

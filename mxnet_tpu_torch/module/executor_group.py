@@ -4,8 +4,11 @@
 Binds one Executor over the symbol with BatchNorm→ReLU pairs fused
 (``executor.fuse_bn_relu``), so training runs through the BatchNorm(+ReLU)
 kernels with the mask recomputed in the backward. The arg/aux lists and
-the output names do not change under the fusion. Splitting a batch over
-several devices comes with a later slice of the port.
+the output names do not change under the fusion. A group bound with a
+``shared_group`` takes that group's parameter and aux arrays as its own
+(the same tensors), so groups bound at several batch sizes hold one copy
+of the parameters. Splitting a batch over several devices comes with a
+later slice of the port.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ __all__ = ["DataParallelExecutorGroup"]
 class DataParallelExecutorGroup(object):
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
-                 grad_req="write"):
+                 grad_req="write", shared_group=None):
         if len(contexts) != 1:
             raise MXNetError("this slice of the port binds one device")
         symbol = fuse_bn_relu(symbol)
@@ -48,10 +51,11 @@ class DataParallelExecutorGroup(object):
             self.grad_req.update(grad_req)
         else:
             raise ValueError("invalid grad_req")
-        self.bind_exec(data_shapes, label_shapes)
+        self.bind_exec(data_shapes, label_shapes, shared_group)
 
-    def bind_exec(self, data_shapes, label_shapes):
-        """Allocate arguments, gradients and aux states; bind."""
+    def bind_exec(self, data_shapes, label_shapes, shared_group=None):
+        """Allocate arguments, gradients and aux states (parameters and
+        aux taken from ``shared_group`` when given); bind."""
         self.batch_size = data_shapes[0][1][0]
         self.data_shapes = data_shapes
         self.label_shapes = label_shapes
@@ -60,12 +64,28 @@ class DataParallelExecutorGroup(object):
         if label_shapes is not None:
             input_shapes.update(dict(label_shapes))
         arg_shapes, _, aux_shapes = self.symbol.infer_shape(**input_shapes)
+        shared_args, shared_aux = {}, {}
+        if shared_group is not None:
+            shared_ex = shared_group.execs[0]
+            shared_args = {n: shared_ex.arg_dict[n] for n in self.param_names}
+            shared_aux = shared_ex.aux_dict
+
+        def alloc(name, shape, shared):
+            arr = shared.get(name)
+            if arr is None:
+                return nd.zeros(shape, ctx=ctx)
+            if arr.shape != tuple(shape):
+                raise MXNetError("shared %s has shape %s, this bind needs %s"
+                                 % (name, arr.shape, tuple(shape)))
+            return arr
+
         args, grads = [], {}
         for name, shape in zip(self.arg_names, arg_shapes):
-            args.append(nd.zeros(shape, ctx=ctx))
+            args.append(alloc(name, shape, shared_args))
             if self.grad_req[name] != "null":
                 grads[name] = nd.zeros(shape, ctx=ctx)
-        aux = [nd.zeros(s, ctx=ctx) for s in aux_shapes]
+        aux = [alloc(name, shape, shared_aux)
+               for name, shape in zip(self.aux_names, aux_shapes)]
         ex = self.symbol.bind(ctx, args, args_grad=grads,
                               grad_req=self.grad_req, aux_states=aux)
         self.execs = [ex]

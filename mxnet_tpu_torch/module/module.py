@@ -1,11 +1,11 @@
 """Module — symbol + context + params + optimizer (PyTorch counterpart of
 ``mxnet_tpu/module/module.py``) on one device, through the classic
-``DataParallelExecutorGroup`` route: bind, init_params, init_optimizer,
-forward, backward, update, update_metric, get_params, and checkpoints in
-the JAX package's file format (``save_checkpoint``, ``Module.load``).
-``fit``, ``score`` and ``predict`` come from ``BaseModule``. The fused
-one-program step and multi-device binding come with later slices of the
-port.
+``DataParallelExecutorGroup`` route: bind (with ``shared_module=`` for
+inference), init_params, init_optimizer, forward, backward, update,
+update_metric, get_params, and checkpoints in the JAX package's file
+format (``save_checkpoint``, ``Module.load``). ``fit``, ``score`` and
+``predict`` come from ``BaseModule``. The fused one-program step and
+multi-device binding come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from .. import optimizer as opt
 from ..base import MXNetError
 from ..initializer import Uniform, InitDesc
 from ..model import _update_params, load_checkpoint, save_checkpoint
-from .base_module import BaseModule
+from .base_module import BaseModule, pad_batch_rows
 from .executor_group import DataParallelExecutorGroup
 
 __all__ = ["Module"]
@@ -43,6 +43,8 @@ class Module(BaseModule):
         self._symbol = symbol
         data_names = list(data_names or [])
         label_names = list(label_names or [])
+        self._data_names = data_names
+        self._label_names = label_names
         input_names = data_names + label_names
         self._param_names = [x for x in symbol.list_arguments()
                              if x not in input_names]
@@ -54,6 +56,18 @@ class Module(BaseModule):
         self._optimizer = None
         self._updater = None
         self._exec_group = None
+        self._eval_pad_extra = 0
+
+    @property
+    def output_names(self):
+        return self._symbol.list_outputs()
+
+    @property
+    def data_shapes(self):
+        """The bound (name, shape) pairs of the data inputs."""
+        if not self.binded:
+            raise MXNetError("call bind first")
+        return list(self._exec_group.data_shapes)
 
     @staticmethod
     def load(prefix, epoch, **kwargs):
@@ -128,16 +142,33 @@ class Module(BaseModule):
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
-        """Bind the executor group for the given input shapes."""
+        """Bind the executor group for the given input shapes.
+
+        ``shared_module`` (a bound, initialized Module over the same
+        parameters; inference binds only): this module computes from
+        the shared module's parameter and aux tensors themselves, the
+        same storage, so one ``set_params`` on either reaches both."""
         if force_rebind:
             self.binded = False
             self._exec_group = None
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
-        if shared_module is not None or inputs_need_grad:
-            raise MXNetError("shared_module and inputs_need_grad come with "
-                             "a later slice of the port")
+        if inputs_need_grad:
+            raise MXNetError("inputs_need_grad comes with a later slice of "
+                             "the port")
+        shared_group = None
+        if shared_module is not None:
+            if for_training:
+                raise MXNetError("shared_module binds for inference only "
+                                 "(for_training=False) in this slice of "
+                                 "the port")
+            if not (isinstance(shared_module, Module) and
+                    shared_module.binded and
+                    shared_module.params_initialized):
+                raise MXNetError("shared_module must be a bound Module "
+                                 "with initialized parameters")
+            shared_group = shared_module._exec_group
         self.for_training = for_training
         self.binded = True
         data_shapes = [(x[0], tuple(x[1])) for x in data_shapes]
@@ -146,8 +177,13 @@ class Module(BaseModule):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, data_shapes, label_shapes,
             self._param_names, for_training, self._fixed_param_names,
-            grad_req)
-        if self.params_initialized:
+            grad_req, shared_group)
+        if shared_module is not None:
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self._params_dirty = False
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -174,7 +210,31 @@ class Module(BaseModule):
     def forward(self, data_batch, is_train=None):
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params first")
+        self._eval_pad_extra = 0
+        train = self.for_training if is_train is None else bool(is_train)
+        if not train:
+            data_batch = self._pad_eval_tail(data_batch)
         self._exec_group.forward(data_batch, is_train)
+
+    def _pad_eval_tail(self, batch):
+        """An eval batch with fewer rows than the bound batch runs
+        zero-padded to the bound shape (``pad_batch_rows``, the rule the
+        serving buckets use). Rows are independent in an eval forward;
+        the extra rows are dropped again by ``_unpadded_outputs`` and
+        ``update_metric`` through ``_eval_pad_extra``."""
+        from ..io import DataBatch
+        target = self._exec_group.batch_size
+        rows = batch.data[0].shape[0] if batch.data else 0
+        if rows == 0 or rows >= target:
+            return batch
+        data = [pad_batch_rows(d, target) for d in batch.data]
+        label = None
+        if batch.label:
+            label = [None if lb is None else pad_batch_rows(lb, target)
+                     for lb in batch.label]
+        self._eval_pad_extra = target - rows
+        return DataBatch(data=data, label=label, pad=batch.pad,
+                         index=batch.index)
 
     def backward(self, out_grads=None):
         if not (self.binded and self.params_initialized):
@@ -194,5 +254,14 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         """Add this batch's outputs against ``labels`` to ``eval_metric``
-        (one readback of the outputs)."""
+        (one readback of the outputs); after a tail-padded eval forward,
+        only the real rows count."""
+        extra = self._eval_pad_extra
+        if extra:
+            keep = self._exec_group.batch_size - extra
+            outs = [o[0:keep] for o in self.get_outputs()]
+            labels = [lb if lb is None or lb.shape[0] <= keep
+                      else lb[0:keep] for lb in (labels or [])]
+            eval_metric.update(labels, outs)
+            return
         self._exec_group.update_metric(eval_metric, labels)

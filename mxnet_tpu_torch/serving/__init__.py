@@ -1,0 +1,46 @@
+"""mxnet_tpu_torch.serving — online inference on the card: dynamic
+batching over batch-size buckets, with backpressure and tenancy (the
+image-model half of ``mxnet_tpu/serving``).
+
+* :class:`Predictor` — binds a trained/loaded Module for inference, one
+  module per padded batch-size bucket, all on one set of parameter
+  tensors; ``warmup()`` runs every bucket once before traffic, and
+  served rows equal, bit for bit, ``Module.predict`` at the bucket's
+  batch.
+* :class:`DynamicBatcher` — bounded request queue + background worker
+  that coalesces concurrent requests into one bucket-padded launch
+  within a ``max_wait_ms`` window; queue-full rejection, per-request
+  timeouts, graceful shutdown. Hosts several named :class:`Tenant`
+  models behind one queue, with SLO-driven admission: a tenant whose own
+  burn windows breach is shed (:class:`TenantShed`) while co-hosted
+  tenants keep serving.
+* :class:`ServingStats` — one snapshot (``stats()``) of latency
+  p50/p95/p99, batch-fill ratio, queue depth and the compile counter;
+  with telemetry enabled, per-request phase traces too.
+
+Quick start::
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import Predictor, DynamicBatcher
+
+    pred = Predictor(trained_module, max_batch_size=32)
+    pred.warmup()                      # every bucket's first forward
+    with DynamicBatcher(pred, max_queue=256, max_wait_ms=2) as srv:
+        probs = srv.submit(x).result()   # from any number of threads
+    print(pred.stats())
+
+The decode engine and the persistent executable cache come with later
+slices of the port.
+"""
+from __future__ import annotations
+
+from .batcher import DynamicBatcher
+from .errors import (QueueFull, RequestAbandoned, RequestTimeout,
+                     ServerClosed, TenantShed, WorkerCrashed)
+from .predictor import Predictor
+from .stats import ServingStats
+from .tenancy import Tenant
+
+__all__ = ["Predictor", "DynamicBatcher", "ServingStats", "Tenant",
+           "QueueFull", "RequestAbandoned", "RequestTimeout",
+           "ServerClosed", "TenantShed", "WorkerCrashed"]

@@ -1,0 +1,413 @@
+"""Predictor — online inference over a trained Module, one bound module
+per batch-size bucket (the port's counterpart of
+``mxnet_tpu/serving/predictor.py``).
+
+``Module.predict`` loops over a whole ``DataIter``: fine for offline
+eval, no good for online traffic, where requests come in every size.
+The Predictor serves them at a few fixed shapes (the ``DynamicBatcher``
+coalesces concurrent requests into full launches):
+
+* it binds one inference Module per **batch-size bucket** (powers of
+  two from 2 up to ``max_batch_size`` by default), all bound with
+  ``shared_module=`` to the top bucket's module, so every bucket
+  computes from ONE set of parameter and aux tensors on the device;
+* a request of ``n`` rows is zero-padded up to the smallest bucket
+  ``>= n`` and the outputs sliced back to ``n``, so steady-state traffic
+  only ever runs the buckets' shapes. ``warmup()`` runs every bucket
+  once before traffic: that first forward is where cuDNN picks its
+  algorithms for the bucket's shapes and the caching allocator grows,
+  and the ``compiles`` counter in ``stats()`` counts exactly those
+  first forwards ("zero compiles after warmup"). An eval forward is
+  row-independent, so the served rows equal, bit for bit, the same rows
+  through a Module bound at the bucket's batch and run with
+  ``predict``;
+* requests larger than the top bucket are chunked across launches.
+
+Parameters are copied from the source module at construction, so a
+later training step on the source never changes served rows; rebuild
+the Predictor to pick up new weights. A launch copies the padded rows
+to the card and reads the outputs back; that readback is the launch's
+only synchronisation with the device.
+
+Not in this slice of the port (each raises ``MXNetError`` instead of
+being ignored): the persistent executable cache (``warmup(cache_dir=)``,
+``MXNET_COMPILE_CACHE_DIR``), precision modes other than float32 and
+calibrated int8 serving (``calibration=``), and CheckpointManager
+sources for :meth:`Predictor.load`.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+
+import numpy as onp
+import torch
+
+from .. import telemetry
+from ..base import MXNetError
+from ..checkpoint import pack_params, params_digest
+from ..context import Context
+from ..io import DataBatch
+from ..module import Module
+from ..module.base_module import pad_batch_rows
+from .stats import ServingStats
+
+__all__ = ["Predictor"]
+
+_LATER = "comes with a later slice of the port"
+
+
+class Predictor:
+    """Bind a trained/loaded :class:`Module` for online inference.
+
+    Parameters
+    ----------
+    module : Module
+        Source of symbol + parameters. May be a live (bound) training
+        module or an unbound ``Module.load`` result; its parameters are
+        copied — later training steps do not leak into serving.
+    data_shapes : list of (name, shape), optional
+        Input descriptors; the batch dimension is replaced per bucket.
+        Defaults to the source module's bound ``data_shapes``.
+    buckets : list of int, optional
+        Explicit batch-size buckets, each at least 2. Default: powers of
+        two from 2 up to ``max_batch_size``.
+    max_batch_size : int
+        Top bucket for the default power-of-two ladder (ignored when
+        ``buckets`` is given). Larger requests are chunked.
+    context : Context or list of Context, optional
+        The serving device; defaults to the source module's.
+    calibration : optional
+        Static int8 activation ranges in the JAX package; refused here
+        (int8 serving comes with a later slice of the port).
+    """
+
+    def __init__(self, module, data_shapes=None, buckets=None,
+                 max_batch_size=32, context=None, logger=None,
+                 latency_window=2048, calibration=None):
+        if not isinstance(module, Module):
+            raise MXNetError(
+                "Predictor needs a plain Module (got %s); for wrapper "
+                "modules serve the underlying Module"
+                % type(module).__name__)
+        if calibration is not None:
+            raise MXNetError("calibrated int8 serving (calibration=) %s"
+                             % _LATER)
+        self.logger = logger or logging.getLogger("mxnet_tpu_torch.serving")
+        self._stats = ServingStats(latency_window=latency_window)
+        self._lock = threading.RLock()
+
+        # -- source introspection --------------------------------------
+        symbol = module.symbol
+        if module.binded and module.params_initialized:
+            arg_params, aux_params = module.get_params()
+        elif module.params_initialized and module._arg_params is not None:
+            arg_params = module._arg_params
+            aux_params = module._aux_params or {}
+        else:
+            raise MXNetError(
+                "Predictor needs initialized parameters: bind+init the "
+                "module, or load it from params files first")
+        if data_shapes is None:
+            if not module.binded:
+                raise MXNetError(
+                    "data_shapes is required when the source module is "
+                    "not bound (e.g. a Module.load result)")
+            data_shapes = module.data_shapes
+        self._params_digest = params_digest(
+            symbol.tojson(), pack_params(arg_params, aux_params))
+        self._data_descs = [(name, tuple(shape))
+                            for name, shape in data_shapes]
+        if context is None:
+            contexts = list(module._context)
+        elif isinstance(context, Context):
+            contexts = [context]
+        else:
+            contexts = list(context)
+
+        # -- bucket ladder ---------------------------------------------
+        # one device: the data-parallel factor is the context count
+        dp = len(contexts)
+        if buckets is None:
+            # the ladder starts at 2 (not 1): a 1-row batch takes a
+            # matrix-vector path with another accumulation order, and
+            # padding one zero row is free
+            b, buckets = max(2, int(dp)), []
+            while b <= max_batch_size:
+                buckets.append(b)
+                b *= 2
+            if not buckets:
+                raise MXNetError(
+                    "max_batch_size=%d is smaller than the data-parallel "
+                    "factor %d — no bucket fits" % (max_batch_size, dp))
+        else:
+            buckets = sorted({int(b) for b in buckets})
+            if not buckets:
+                raise MXNetError("buckets must not be empty")
+            bad = [b for b in buckets if b <= 0 or b % dp]
+            if bad:
+                raise MXNetError(
+                    "buckets %r must be positive multiples of the "
+                    "data-parallel factor %d (the context "
+                    "count) so every bucket shards evenly" % (bad, dp))
+            if buckets[0] == 1:
+                raise MXNetError(
+                    "a 1-row bucket breaks the bitwise-parity contract "
+                    "(a batch-1 product takes a matrix-vector path that "
+                    "accumulates in another order); use a minimum bucket "
+                    "of 2 — padding the one extra row is free")
+        self._buckets = buckets
+
+        # -- one inference module per bucket, ONE set of param tensors -
+        def _shapes_at(b):
+            return [(name, (b,) + shape[1:])
+                    for name, shape in self._data_descs]
+
+        def _make():
+            return Module(symbol, data_names=module._data_names,
+                          label_names=module._label_names,
+                          logger=self.logger, context=contexts)
+
+        base = _make()
+        base.bind(data_shapes=_shapes_at(buckets[-1]), for_training=False)
+        base.set_params(arg_params, aux_params)
+        self._modules = {buckets[-1]: base}
+        for b in buckets[:-1]:
+            m = _make()
+            m.bind(data_shapes=_shapes_at(b), for_training=False,
+                   shared_module=base)
+            self._modules[b] = m
+        self._base = base
+        self._launched = set()    # buckets whose first forward has run
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def load(source, epoch=None, data_shapes=None, data_names=("data",),
+             label_names=("softmax_label",), context=None, precision=None,
+             **kwargs):
+        """Predictor straight from a legacy checkpoint: ``source`` is the
+        ``prefix`` of ``prefix-symbol.json`` + ``prefix-%04d.params``
+        (either package's) and ``epoch`` selects the params file. Routes
+        through :meth:`Module.load`. A CheckpointManager (or checkpoint
+        directory) source and a ``precision=`` other than ``"f32"``
+        raise: they come with later slices of the port."""
+        if precision not in (None, "f32"):
+            raise MXNetError("precision mode %r %s; the port serves "
+                             "float32" % (precision, _LATER))
+        if not isinstance(source, str) or epoch is None or \
+                os.path.isdir(source):
+            raise MXNetError(
+                "Predictor.load from a CheckpointManager or checkpoint "
+                "directory %s; pass a legacy prefix and an epoch" % _LATER)
+        mod = Module.load(source, epoch, data_names=list(data_names),
+                          label_names=list(label_names), context=context)
+        return Predictor(mod, data_shapes=data_shapes, context=context,
+                         **kwargs)
+
+    # ------------------------------------------------------------------
+    @property
+    def buckets(self):
+        return list(self._buckets)
+
+    @property
+    def max_batch_size(self):
+        return self._buckets[-1]
+
+    @property
+    def output_names(self):
+        return list(self._base.output_names)
+
+    @property
+    def data_names(self):
+        return [name for name, _ in self._data_descs]
+
+    def stats(self):
+        """Snapshot of the serving counters: request outcomes, latency
+        percentiles, batch-fill ratio, queue depth, compile count (the
+        JAX package's keys)."""
+        return self._stats.snapshot()
+
+    # ------------------------------------------------------------------
+    def _normalize(self, data):
+        """Accept an array (numpy, NDArray or tensor) for single-input
+        nets, a list/tuple in ``data_names`` order, or a name->array
+        dict; return (name->float32 array dict, n_rows). Feature dims are
+        validated against the bound shapes so a malformed request fails
+        at submit time, not on the batcher thread. Host data becomes a
+        numpy array; a tensor on the card stays there (it pads on the
+        card) and serves the same rows as the same request from host
+        memory."""
+        names = self.data_names
+        if isinstance(data, dict):
+            arrays = dict(data)
+        elif isinstance(data, (list, tuple)):
+            arrays = dict(zip(names, data))
+        else:
+            if len(names) != 1:
+                raise ValueError(
+                    "this net has %d inputs %r; pass a dict or a list"
+                    % (len(names), names))
+            arrays = {names[0]: data}
+        missing = [n for n in names if n not in arrays]
+        if missing:
+            raise ValueError("request is missing input(s) %r" % missing)
+        out, rows = {}, None
+        for name, shape in self._data_descs:
+            v = arrays[name]
+            if hasattr(v, "_read"):
+                v = v._read()
+            if isinstance(v, torch.Tensor):
+                v = v.detach()
+                v = v.float() if v.is_cuda else v.float().numpy()
+            if not isinstance(v, torch.Tensor):
+                v = onp.ascontiguousarray(v, dtype=onp.float32)
+            if tuple(v.shape[1:]) != tuple(shape[1:]):
+                raise ValueError(
+                    "input %r has row shape %r, bound shape wants %r"
+                    % (name, tuple(v.shape[1:]), tuple(shape[1:])))
+            if rows is None:
+                rows = v.shape[0]
+            elif v.shape[0] != rows:
+                raise ValueError(
+                    "inputs disagree on row count: %d vs %d"
+                    % (v.shape[0], rows))
+            out[name] = v
+        if not rows:
+            raise ValueError("request has zero rows")
+        return out, rows
+
+    def bucket_for(self, n):
+        """Smallest bucket that fits ``n`` rows (the top bucket for
+        oversized requests — those are chunked)."""
+        for b in self._buckets:
+            if b >= n:
+                return b
+        return self._buckets[-1]
+
+    # ------------------------------------------------------------------
+    @property
+    def params_digest(self):
+        """Structural identity of (symbol, param shapes/dtypes): the
+        JAX package's ``params_digest`` of the same inputs."""
+        return self._params_digest
+
+    def warmup_report(self):
+        """Per-bucket outcome of the last :meth:`warmup`:
+        ``{bucket: {"warmup_ms", "source"}}``; ``source`` is ``"eager"``
+        (the port runs each bucket's first forward eagerly; the JAX
+        package's ``"jit"``)."""
+        return {b: dict(r) for b, r in
+                getattr(self, "_warmup_report", {}).items()}
+
+    def warmup(self, cache_dir=None):
+        """Run every bucket's first forward BEFORE traffic (zero rows,
+        read back); afterwards ``stats()['compiles']`` equals the bucket
+        count and stays frozen. Each bucket's wall time, readback
+        included, publishes as a ``serving.<i>.b<bucket>.warmup_ms``
+        gauge (also ``stats()["warmup_ms"]``). Returns the stats
+        snapshot. The persistent executable cache (``cache_dir=``,
+        ``MXNET_COMPILE_CACHE_DIR``) raises: it comes with a later slice
+        of the port."""
+        if cache_dir is not None or os.environ.get("MXNET_COMPILE_CACHE_DIR"):
+            raise MXNetError(
+                "the persistent executable cache (warmup(cache_dir=...), "
+                "MXNET_COMPILE_CACHE_DIR) %s" % _LATER)
+        report = {}
+        with self._lock:
+            for b in self._buckets:
+                t0 = time.perf_counter()
+                zeros = {name: onp.zeros((b,) + shape[1:], onp.float32)
+                         for name, shape in self._data_descs}
+                self._run_bucket(b, zeros, b, warmup=True)
+                ms = (time.perf_counter() - t0) * 1000.0
+                self._stats.note_warmup_bucket(b, ms)
+                report[b] = {"warmup_ms": round(ms, 3), "source": "eager"}
+        self._warmup_report = report
+        return self.stats()
+
+    def release(self):
+        """Drop this Predictor's ``serving.<i>`` registry scope (see
+        :meth:`ServingStats.release`) — call when discarding a
+        Predictor in a long-lived multi-tenant process."""
+        self._stats.release()
+
+    def predict(self, data):
+        """Serve one request synchronously (no batching): pad to the
+        bucket, launch, slice. Returns a single numpy array for
+        single-output nets, else a list in ``output_names`` order.
+        Thread-safe; for concurrent callers prefer a
+        :class:`DynamicBatcher`, which coalesces them into fewer,
+        fuller launches."""
+        tracing = telemetry.enabled()
+        arrays, rows = self._normalize(data)
+        t0 = time.perf_counter()
+        self._stats.note_request()
+        timing = {} if tracing else None
+        outs = self._predict_rows(arrays, rows, timing=timing)
+        t1 = time.perf_counter()
+        self._stats.note_completed((t1 - t0) * 1000.0)
+        if tracing:
+            # direct path: no queue, no coalescing — the trace is pad +
+            # device + the residual dispatch/slice overhead
+            self._stats.note_trace(
+                self._stats.new_request_id(), rows,
+                self.bucket_for(rows), {
+                    "pad_ms": timing.get("pad_ms", 0.0),
+                    "device_ms": timing.get("device_ms", 0.0),
+                    "resolve_ms": max(
+                        (t1 - t0) * 1000.0 - timing.get("pad_ms", 0.0)
+                        - timing.get("device_ms", 0.0), 0.0)})
+        return outs[0] if len(outs) == 1 else outs
+
+    def _predict_rows(self, arrays, rows, timing=None):
+        """Serve ``rows`` normalized rows; always returns the list of
+        per-output numpy arrays. The batcher calls this directly (it
+        does its own request accounting). ``timing`` (a dict) receives
+        accumulated ``pad_ms`` / ``device_ms`` clocks for the request
+        trace — chunked oversized requests accumulate across launches."""
+        parts = []
+        with self._lock:
+            start = 0
+            while start < rows:
+                take = min(rows - start, self._buckets[-1])
+                chunk = {k: v[start:start + take]
+                         for k, v in arrays.items()} if (start or
+                                                         take < rows) \
+                    else arrays
+                parts.append(self._run_bucket(self.bucket_for(take),
+                                              chunk, take,
+                                              timing=timing))
+                start += take
+        if len(parts) == 1:
+            return parts[0]
+        return [onp.concatenate([p[i] for p in parts])
+                for i in range(len(parts[0]))]
+
+    def _run_bucket(self, bucket, arrays, rows, warmup=False,
+                    timing=None):
+        """One device launch at ``bucket``: zero-pad the request rows
+        up to the bucket's bound shape (``pad_batch_rows``), run the
+        bucket's module, and read back only the real rows."""
+        mod = self._modules[bucket]
+        t_pad = time.perf_counter() if timing is not None else 0.0
+        batch = DataBatch(
+            data=[pad_batch_rows(arrays[name], bucket)
+                  for name, _ in self._data_descs],
+            label=None, pad=bucket - rows)
+        if timing is not None:
+            t0 = time.perf_counter()
+            timing["pad_ms"] = timing.get("pad_ms", 0.0) \
+                + (t0 - t_pad) * 1000.0
+        with telemetry.span("serving.launch", bucket=bucket, rows=rows):
+            mod.forward(batch, is_train=False)
+            outs = [o[:rows].asnumpy() for o in mod.get_outputs()]
+        if timing is not None:
+            timing["device_ms"] = timing.get("device_ms", 0.0) \
+                + (time.perf_counter() - t0) * 1000.0
+        if bucket not in self._launched:
+            self._launched.add(bucket)
+            self._stats.note_compile()
+        self._stats.note_batch(bucket, rows, warmup=warmup)
+        return outs
