@@ -72,7 +72,28 @@ result line) if any phase fails:
    after warmup: 0, launches per bucket, the device's estimated busy
    share); each client's last rows checked bit for bit; and no
    BatchNorm kernel launched while serving;
-9. the kernels line, the card's nvidia-smi line, and the result line.
+9. cifar_twin: the CIFAR twin ``mxnet_tpu_torch.examples.train_cifar10``
+   (resnet-20 at its published width: 16/32/64 channels, 28² crops, 10
+   classes, batch 128, float32, seed 7, cuDNN deterministic). The BN
+   kernels against their plain versions and timed at every resnet-20
+   BatchNorm shape (as in phase 3), and checked at the 2-row shapes; then
+   ``main`` in process for 3 epochs (96 steps) with a checkpoint per
+   epoch, ``--serve-smoke`` and ``--min-accuracy 0.9``: fit img/s,
+   exactly 20 × 96 launches of each BN kernel, each save's blocking
+   snapshot and async commit, the entry's bytes, the restore; the
+   served rows' largest relative L2 error against ``Module.predict``
+   and, from ``tools/batch_parity.py``, the first node of the eval
+   forward whose rows change between 128 and 32, 8 or 2 rows; a
+   ``CheckpointManager.save`` of the card's weights followed at once by
+   an in-place update of them, whose entry must hold the values at save
+   time and whose RNG state gives back the card's generator; the same
+   command in a subprocess with ``--exit-after-epoch 1`` (exit 66, one
+   committed entry) and again with ``--resume``, whose ``params_digest``
+   must equal the in-process run's; and ``reshape``: a training step at
+   128 rows, one at 2 rows and an eval forward at 4×3×32×32 on the same
+   parameter tensors (``data_ptr`` unchanged), 20 + 20 BN launches per
+   training step and none in the eval;
+10. the kernels line, the card's nvidia-smi line, and the result line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -297,16 +318,16 @@ def check_kernels(K):
     return worst
 
 
-def resnet50_bn_shapes(mx, batch):
-    """Counter of (input shape, fix_gamma, relu, need_dx) over the 51
-    BatchNorms of ResNet-50 after the BN+ReLU fusion. need_dx is False for
-    the BatchNorm of the data, whose gradient the executor never asks
-    for."""
+def model_bn_shapes(mx, network, image_shape, num_classes, batch):
+    """Counter of (input shape, fix_gamma, relu, need_dx) over the
+    BatchNorms of a zoo network after the BN+ReLU fusion (ResNet-50: 51;
+    resnet-20: 20). need_dx is False for the BatchNorm of the data, whose
+    gradient the executor never asks for."""
     from mxnet_tpu_torch.executor import fuse_bn_relu
-    sym = fuse_bn_relu(mx.models.get_symbol("resnet-50", num_classes=1000,
-                                            image_shape=(3, 224, 224)))
+    sym = fuse_bn_relu(mx.models.get_symbol(network, num_classes=num_classes,
+                                            image_shape=image_shape))
     internals = sym.get_internals()
-    _, out_shapes, _ = internals.infer_shape(data=(batch, 3, 224, 224),
+    _, out_shapes, _ = internals.infer_shape(data=(batch,) + image_shape,
                                              softmax_label=(batch,))
     shape_of = dict(zip(internals.list_outputs(), out_shapes))
     counts = {}
@@ -322,7 +343,7 @@ def resnet50_bn_shapes(mx, batch):
     return counts
 
 
-def time_kernels(K, counts, copy_bytes_per_s):
+def time_kernels(K, counts, copy_bytes_per_s, model="resnet-50"):
     """At every BatchNorm shape of the step (float32, the main path's
     flags): both kernels held against their plain versions (the data's
     backward without dx, as the main path calls it), then the per-shape
@@ -408,7 +429,7 @@ def time_kernels(K, counts, copy_bytes_per_s):
             lib_bwd, bwd_sweeps, 16, "bwd")
         at_copy = {"bn_fwd": 1e3 * 2 * numel * 4 / copy_bytes_per_s,
                    "bn_bwd": 1e3 * bwd_sweeps * numel * 4 / copy_bytes_per_s}
-        out = {"phase": "kernel_times", "shape": list(shape),
+        out = {"phase": "kernel_times", "model": model, "shape": list(shape),
                "fix_gamma": fix_gamma, "relu": relu, "need_dx": need_dx,
                "per_step": n, "check": check, "bn_fwd": fwd, "bn_bwd": bwd,
                "bound_ms_at_measured_copy": at_copy}
@@ -1255,6 +1276,266 @@ def serving_phase(mx, K, card, mod):
         raise RuntimeError("serving phase failed: %s" % ", ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the CIFAR twin (resnet-20) through fit, checkpoints and reshape
+# ---------------------------------------------------------------------------
+TWIN_ARGS = ["--gpus", "0", "--seed", "7", "--num-epochs", "3"]
+TWIN_BATCH, TWIN_STEPS = 128, 3 * 4096 // 128    # 3 epochs of 32 batches
+TWIN_IMAGE = (3, 28, 28)
+TWIN_MIN_ACCURACY = 0.9
+
+
+def twin_bn_shapes(mx, batch):
+    return model_bn_shapes(mx, "resnet-20", TWIN_IMAGE, 10, batch)
+
+
+def twin_bn_check(K, counts):
+    """Both kernels against their plain versions at every BatchNorm shape
+    of the given counter (float32, the main path's flags, PR 3's
+    tolerances); raises on a disagreement."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    failed = []
+    for (shape, fix_gamma, relu, need_dx), n in sorted(counts.items()):
+        fields, ok, _, _ = compare_case(K, bn_inputs(shape, torch.float32,
+                                                     gen),
+                                        torch.float32, relu, fix_gamma,
+                                        False, need_dx)
+        row = {"phase": "cifar_twin_bn_check", "shape": list(shape),
+               "fix_gamma": fix_gamma, "relu": relu, "need_dx": need_dx,
+               "per_step": n,
+               "plan": {"fwd": plan_name(K, "fwd", shape, torch.float32),
+                        "bwd": plan_name(K, "bwd", shape, torch.float32,
+                                         need_dx)},
+               **fields, "ok": ok}
+        emit(row)
+        if not ok:
+            failed.append(list(shape))
+    if failed:
+        raise RuntimeError("BN kernels disagree at resnet-20 shapes %s"
+                           % failed)
+
+
+def twin_subprocess(args, cwd):
+    """The CIFAR twin in a process of its own; (exit code, output tail)."""
+    res = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.examples.train_cifar10"]
+        + args, capture_output=True, text=True, timeout=600, cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    return res.returncode, (res.stdout[-1500:] + res.stderr[-3000:])
+
+
+def snapshot_check(mx, mod):
+    """``CheckpointManager.save`` of the card's weights, then an in-place
+    update of those tensors right after it returns: the committed entry
+    must hold the values at save time. The entry's RNG state (taken by
+    ``save``) must also give back the card's generator: the draw after
+    the save repeats after ``set_state``."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    grp = mod._exec_group
+    ws = {n: mx.nd.NDArray(a[0]._read().clone())
+          for n, a in zip(mod._param_names, grp.param_arrays)}
+    before = {n: w.asnumpy() for n, w in ws.items()}
+    mgr = CheckpointManager(os.path.join(ROOT, "build", "cifar_twin",
+                                         "snapshot"))
+    gen = mx.random.generator(torch.device("cuda", 0))
+    torch.rand(5, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(0, ws, async_save=True)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():
+        for w in ws.values():
+            w._read().mul_(-3.0).add_(1.0)
+    draw = torch.rand(5, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    mgr.wait_until_finished()
+    entry = mgr.restore(0)
+    equal = all(np.array_equal(entry.params[n], before[n]) for n in before)
+    mutated = not any(np.array_equal(ws[n].asnumpy(), before[n])
+                      for n in before)
+    mx.random.set_state(entry.rng)
+    again = torch.rand(5, device="cuda",
+                       generator=mx.random.generator(torch.device("cuda", 0)))
+    rng_ok = "cuda:0" in entry.rng["torch"] and torch.equal(draw, again)
+    return {"async_save_call_ms": save_ms, "entry_equals_save_time": equal,
+            "weights_mutated_after_save": mutated,
+            "card_generator_restored": rng_ok,
+            "ok": equal and mutated and rng_ok}
+
+
+def reshape_check(mx, K, mod, n_bn):
+    """One training step at batch 128, one at 2 rows (a re-bind through
+    ``reshape``), then an eval forward at a new spatial shape: every
+    parameter and aux tensor keeps its ``data_ptr``, and each training
+    step launches each BN kernel once per BatchNorm."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(11)
+    grp = mod._exec_group
+    ptrs = [a[0]._read().data_ptr() for a in grp.param_arrays
+            + grp.aux_arrays]
+
+    def batch(n, hw):
+        x = rs.rand(n, 3, hw, hw).astype(np.float32)
+        y = rs.randint(0, 10, (n,)).astype(np.float32)
+        return mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                               [mx.nd.array(y, ctx=mx.cpu())])
+
+    torch.cuda.synchronize()
+    K.bn_fwd.launches = K.bn_bwd.launches = 0
+    shapes = []
+    for n in (TWIN_BATCH, 2):
+        mod.forward_backward(batch(n, TWIN_IMAGE[1]))
+        mod.update()
+        shapes.append(mod.get_outputs()[0].shape)
+    torch.cuda.synchronize()
+    launches = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches}
+    mod.forward(batch(4, 32), is_train=False)
+    out = mod.get_outputs()[0].asnumpy()
+    shapes.append(out.shape)
+    grp = mod._exec_group
+    same = ptrs == [a[0]._read().data_ptr() for a in grp.param_arrays
+                    + grp.aux_arrays]
+    eval_launches = {"bn_fwd": K.bn_fwd.launches - launches["bn_fwd"],
+                     "bn_bwd": K.bn_bwd.launches - launches["bn_bwd"]}
+    want = {"bn_fwd": 2 * n_bn, "bn_bwd": 2 * n_bn}
+    row = {"phase": "cifar_twin_reshape",
+           "output_shapes": [list(s) for s in shapes],
+           "param_data_ptrs_unchanged": same, "launches": launches,
+           "want": want, "eval_launches": eval_launches,
+           "finite": bool(np.isfinite(out).all())}
+    row["ok"] = (same and launches == want and row["finite"]
+                 and eval_launches == {"bn_fwd": 0, "bn_bwd": 0}
+                 and shapes == [(TWIN_BATCH, 10), (2, 10), (4, 10)])
+    emit(row)
+    return row["ok"]
+
+
+def cifar_twin_phase(mx, K, card, copy_rate):
+    """The CIFAR twin (resnet-20, 16/32/64 channels, 28² crops, 10
+    classes, batch 128, float32) on ``gpu(0)``: its BN kernels against
+    their plain versions and timed at every resnet-20 shape, and checked
+    at the 2-row shapes; in process, 3 epochs through ``fit`` with a
+    checkpoint per epoch and the serving smoke (BN launches counted from
+    0); preempted after epoch 1 in a subprocess (exit 66) and resumed in
+    another, which must reach the in-process run's ``params_digest``; the
+    card's snapshot under an in-place update; ``reshape``. Returns the
+    launches of the in-process run."""
+    import shutil
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.examples import train_cifar10
+    from mxnet_tpu_torch.tools.batch_parity import batch_parity
+    counts = twin_bn_shapes(mx, TWIN_BATCH)
+    n_bn = sum(counts.values())
+    tot, _, _ = time_kernels(K, counts, copy_rate, model="resnet-20")
+    emit({"phase": "kernel_times_per_step", "model": "resnet-20",
+          "batch": TWIN_BATCH, "card": card, **tot})
+    twin_bn_check(K, twin_bn_shapes(mx, 2))
+
+    work = os.path.join(ROOT, "build", "cifar_twin")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    failed = []
+
+    def check(name, ok, row):
+        row["ok"] = bool(ok)
+        emit(row)
+        if not ok:
+            failed.append(name)
+
+    # in process: 3 epochs, a checkpoint per epoch, the serving smoke
+    ckpt = telemetry.registry().scope("checkpoint")
+    keys = ("saves", "snapshot_ms", "save_ms", "bytes_written")
+    c0 = {k: ckpt.counter(k).value for k in keys}
+    torch.cuda.synchronize()
+    K.bn_fwd.launches = K.bn_bwd.launches = 0
+    res = train_cifar10.main(TWIN_ARGS + [
+        "--serve-smoke", "--min-accuracy", str(TWIN_MIN_ACCURACY),
+        "--checkpoint-dir", os.path.join(work, "straight"),
+        "--params-digest-out", os.path.join(work, "straight.txt")])
+    torch.cuda.synchronize()
+    launches = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches}
+    saves = {k: ckpt.counter(k).value - c0[k] for k in keys}
+    want = n_bn * TWIN_STEPS
+    mgr = CheckpointManager(os.path.join(work, "straight"))
+    t0 = time.perf_counter()
+    entry = mgr.restore()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    mod = res["module"]
+    arg_np, aux_np = mx.checkpoint.split_params(entry.params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.set_params({k: mx.nd.array(v, ctx=mx.cpu()) for k, v in
+                    arg_np.items()},
+                   {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in
+                    aux_np.items()})
+    torch.cuda.synchronize()
+    to_card_ms = 1e3 * (time.perf_counter() - t0)
+    n = max(saves["saves"], 1)
+    check("fit", launches == {"bn_fwd": want, "bn_bwd": want}
+          and res["accuracy"] >= TWIN_MIN_ACCURACY and mgr.all_steps()
+          == [0, 1, 2] and saves["saves"] == 3, {
+              "phase": "cifar_twin_fit", "network": "resnet-20",
+              "image": list(TWIN_IMAGE), "classes": 10,
+              "batch": TWIN_BATCH, "steps": TWIN_STEPS,
+              "fit_s": res["fit_s"], "fit_img_per_s": res["fit_img_per_s"],
+              "launches": launches, "want": {"bn_fwd": want,
+                                             "bn_bwd": want},
+              "accuracy": res["accuracy"],
+              "min_accuracy": TWIN_MIN_ACCURACY,
+              "params_digest": res["params_digest"],
+              "serving": {k: res["serving"][k] for k in
+                          ("completed", "compiles", "batch_fill",
+                           "max_rel_l2", "bitwise_requests")},
+              "checkpoint": {
+                  "steps": mgr.all_steps(), "saves": saves["saves"],
+                  "snapshot_ms_per_save": saves["snapshot_ms"] / n,
+                  "async_commit_ms_per_save": saves["save_ms"] / n,
+                  "bytes_per_entry": saves["bytes_written"] / n,
+                  "restore_ms": restore_ms,
+                  "restore_to_card_ms": to_card_ms},
+              "card": card})
+    # where the served rows part from Module.predict's: the first node of
+    # the eval forward whose rows depend on the batch size
+    x = train_cifar10.synthetic_cifar(np.random.RandomState(0))[0][:128]
+    for row in batch_parity(mod, x, [TWIN_BATCH, 32, 8, 2]):
+        emit({"phase": "cifar_twin_batch_parity", **row})
+    snap = snapshot_check(mx, mod)
+    check("snapshot", snap.pop("ok"), {"phase": "cifar_twin_snapshot",
+                                       **snap, "card": card})
+
+    # as subprocesses: preempted after epoch 1, then resumed
+    ck = os.path.join(work, "preempt")
+    rc, tail = twin_subprocess(TWIN_ARGS + ["--checkpoint-dir", ck,
+                                            "--exit-after-epoch", "1"], work)
+    steps = CheckpointManager(ck).all_steps()
+    check("preempt", rc == 66 and steps == [0], {
+        "phase": "cifar_twin_preempt", "exit_code": rc,
+        "committed_steps": steps, "tail": tail if rc != 66 else None})
+    digest_path = os.path.join(work, "resumed.txt")
+    rc, tail = twin_subprocess(TWIN_ARGS + [
+        "--checkpoint-dir", ck, "--resume",
+        "--params-digest-out", digest_path], work)
+    resumed = open(digest_path).read().strip() if rc == 0 else None
+    check("resume", rc == 0 and resumed == res["params_digest"], {
+        "phase": "cifar_twin_resume", "exit_code": rc,
+        "params_digest": resumed, "uninterrupted": res["params_digest"],
+        "bit_for_bit": resumed == res["params_digest"],
+        "committed_steps": CheckpointManager(ck).all_steps(),
+        "tail": tail if rc != 0 else None})
+    if not reshape_check(mx, K, mod, n_bn):
+        failed.append("reshape")
+    if failed:
+        raise RuntimeError("cifar_twin phase failed: %s" % ", ".join(failed))
+    return launches
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1303,7 +1584,8 @@ def main():
     copy_entry, copy_rate = copy_phase(C, card)
     worst = check_kernels(K)
     totals, at_copy, worst_step = time_kernels(
-        K, resnet50_bn_shapes(mx, BATCH), copy_rate)
+        K, model_bn_shapes(mx, "resnet-50", (3, 224, 224), 1000, BATCH),
+        copy_rate)
     worst = {k: max(worst[k], worst_step[k]) for k in worst}
     emit({"phase": "kernel_times_per_step", "batch": BATCH,
           "card": card, **totals,
@@ -1314,12 +1596,15 @@ def main():
     rtc_entry = rtc_phase(mx, R, card, copy_rate)
     trained = fit_phase(mx, K, card, hand_img_per_s)
     serving_phase(mx, K, card, trained)
+    del trained
+    twin_launches = cifar_twin_phase(mx, K, card, copy_rate)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
     kernels = [dict(name=k, route="cuda",
                     source="mxnet_tpu_torch/kernels/csrc/batchnorm.cu",
                     replaces=replaces[k], launches=launches[k],
+                    launches_cifar_twin=twin_launches[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     **{key: totals[k][key] for key in
                        ("ms", "plain_ms", "bound_ms", "library_ms")})

@@ -9,7 +9,7 @@ The card runs asynchronously: a callback that looks only at
 ``param.nbatch`` measures how fast the host enqueues work. Reading
 ``param.eval_metric`` reads the batch's outputs back, which waits for the
 card, so ``Speedometer`` with a metric attached measures the card. The JAX
-package's checkpoint manager and host-wait report are not ported.
+package's host-wait report is not ported.
 """
 from __future__ import annotations
 
@@ -20,22 +20,33 @@ __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
            "Speedometer"]
 
 
-def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+def module_checkpoint(mod, prefix=None, period=1,
+                      save_optimizer_states=False, manager=None,
+                      async_save=True):
     """Epoch callback: save ``mod`` every ``period`` epochs as
-    ``prefix-symbol.json`` + ``prefix-%04d.params``."""
+    ``prefix-%04d.params`` (+ ``.states``), and/or, with ``manager=`` (a
+    ``CheckpointManager``), as a step entry numbered by the 0-based epoch
+    just completed — what ``fit(resume_from=manager)`` continues after.
+    Raises ``ValueError`` with neither a prefix nor a manager."""
+    if prefix is None and manager is None:
+        raise ValueError("module_checkpoint needs a prefix or a manager")
     period = max(1, int(period))
 
     def _callback(iter_no, sym=None, arg=None, aux=None):
         epoch = iter_no + 1
         if epoch % period == 0:
-            mod.save_checkpoint(prefix, epoch, save_optimizer_states)
+            if manager is not None:
+                mod.save_checkpoint(prefix, iter_no, save_optimizer_states,
+                                    manager=manager, async_save=async_save)
+            if prefix is not None:
+                mod.save_checkpoint(prefix, epoch, save_optimizer_states)
 
     return _callback
 
 
 def do_checkpoint(prefix, period=1):
     """Epoch callback: save the passed symbol and params every ``period``
-    epochs."""
+    epochs (the FeedForward-era twin of :func:`module_checkpoint`)."""
     from .model import save_checkpoint
     period = max(1, int(period))
 

@@ -13,12 +13,19 @@ autograd:
   gradients default to ones; loss ops ignore them) and writes the
   gradients honouring grad_req ``write``/``add``/``null``.
 * aux states (BatchNorm moving stats) are written back after each
-  training forward.
+  training forward;
+* with a monitor callback installed (``set_monitor_callback``, as
+  ``Monitor.install`` does) every op output is handed to it, while the
+  monitor is active;
+* ``reshape`` binds the symbol again at new input shapes, keeping every
+  array whose shape does not change (the parameters).
 
 Segmented (rematerialised) and pipelined evaluation are not in this
 slice of the port.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -117,7 +124,7 @@ def _build_eval(symbol):
     heads = symbol._heads
     aux_ids = {id(n) for n in aux_nodes}
 
-    def eval_fn(arg_vals, aux_vals, is_train):
+    def eval_fn(arg_vals, aux_vals, is_train, tap=None):
         env = {}
         for n, v in zip(arg_nodes, arg_vals):
             env[(id(n), 0)] = v
@@ -131,6 +138,12 @@ def _build_eval(symbol):
             n_out = n.op.num_outputs(n.attrs)
             for oi in range(n_out):
                 env[(id(n), oi)] = res[oi]
+            if tap is not None:
+                if n_out == 1:
+                    tap("%s_output" % n.name, res[0])
+                else:
+                    for oi in range(n_out):
+                        tap("%s_output%d" % (n.name, oi), res[oi])
             n_args = len(n.op.list_arguments(n.attrs))
             for (src, _), newv in zip(n.inputs[n_args:], res[n_out:]):
                 if id(src) in aux_ids:
@@ -182,6 +195,7 @@ class Executor:
         self.outputs = [nd.zeros(s, ctx=ctx) for s in out_shapes]
         self.output_dict = dict(zip(symbol.list_outputs(), self.outputs))
         self._graph = None   # (outputs, leaves) of the last train forward
+        self._monitor_callback = None
 
     @staticmethod
     def _normalize(arrays, names, what):
@@ -206,17 +220,24 @@ class Executor:
         vals = [a._read() for a in self.arg_arrays]
         aux_vals = [a._read() for a in self.aux_arrays]
         self._graph = None
+        tap = None
+        if self._monitor_active():
+            cb = self._monitor_callback
+
+            def tap(name, val):
+                cb(name, nd.NDArray(val.detach(), ctx=self._ctx))
         if is_train and self._diff_idx:
             leaves = []
             for i in self._diff_idx:
                 vals[i] = vals[i].detach().requires_grad_(True)
                 leaves.append(vals[i])
             with torch.enable_grad():
-                outs, new_aux = self._eval_fn(vals, aux_vals, True)
+                outs, new_aux = self._eval_fn(vals, aux_vals, True, tap)
             self._graph = (outs, leaves)
         else:
             with torch.no_grad():
-                outs, new_aux = self._eval_fn(vals, aux_vals, bool(is_train))
+                outs, new_aux = self._eval_fn(vals, aux_vals, bool(is_train),
+                                              tap)
             if is_train:   # nothing to differentiate: backward is a no-op
                 self._graph = ((), [])
         for o, v in zip(self.outputs, outs):
@@ -258,6 +279,70 @@ class Executor:
                 buf._write(buf._read() + g)
             else:
                 buf._write(g)
+
+    def set_monitor_callback(self, callback):
+        """Hand every op output of later forwards to
+        ``callback(name, NDArray)``."""
+        self._monitor_callback = callback
+
+    def _monitor_active(self):
+        cb = self._monitor_callback
+        if cb is None:
+            return False
+        # a Monitor gates its taps with ``activated`` (tic/toc); a plain
+        # callable taps every forward
+        return getattr(getattr(cb, "__self__", None), "activated",
+                       True) is not False
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor bound at the input shapes in ``kwargs``.
+
+        An array whose shape does not change is the same array in the
+        new executor (parameters, their gradients, aux states). As in
+        the reference, an array not named in ``kwargs`` may change shape
+        only with ``partial_shaping``; one that grows needs
+        ``allow_up_sizing`` and is allocated anew; one that does not
+        grow becomes a view of the old array's storage."""
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+
+        def resize(name, new_shape, arr, specified):
+            new_shape = tuple(new_shape)
+            if arr.shape == new_shape:
+                return arr
+            if not (partial_shaping or specified):
+                raise MXNetError(
+                    "Shape of unspecified array %s changed. This can cause "
+                    "the new executor to not share parameters with the old "
+                    "one. Set partial_shaping=True if intended." % name)
+            n = math.prod(new_shape)
+            if n > arr.size:
+                if not allow_up_sizing:
+                    raise MXNetError(
+                        "New shape of %s larger than original; set "
+                        "allow_up_sizing=True to allocate a new array."
+                        % name)
+                return nd.zeros(new_shape, ctx=arr.context, dtype=arr.dtype)
+            return nd.NDArray(arr._read().reshape(-1)[:n].view(new_shape),
+                              ctx=arr.context)
+
+        new_args, grads = {}, None
+        if any(g is not None for g in self.grad_arrays):
+            grads = {}
+        for name, new_shape, arr in zip(self.arg_names, arg_shapes,
+                                        self.arg_arrays):
+            new_args[name] = resize(name, new_shape, arr, name in kwargs)
+            g = self.grad_dict.get(name)
+            if g is not None:
+                grads[name] = resize("grad of " + name, new_shape, g,
+                                     name in kwargs)
+        new_aux = {name: resize(name, new_shape, arr, True)
+                   for name, new_shape, arr in zip(
+                       self.aux_names, aux_shapes, self.aux_arrays)}
+        ex = Executor(self._symbol, self._ctx, new_args, grads,
+                      self._grad_req, new_aux)
+        ex._monitor_callback = self._monitor_callback
+        return ex
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):

@@ -1,6 +1,6 @@
 """Data batches and in-memory iterators (PyTorch counterpart of
-``mxnet_tpu/io.py``: ``DataDesc``, ``DataBatch``, ``DataIter`` and
-``NDArrayIter``).
+``mxnet_tpu/io.py``: ``DataDesc``, ``DataBatch``, ``DataIter``,
+``NDArrayIter`` and ``MNISTIter``).
 
 Batches stay on the host (CPU NDArrays); the executor group copies each
 into its bound arrays on the card. ``NDArrayIter(shuffle=True)`` draws
@@ -10,13 +10,17 @@ its order from numpy's global generator, as the JAX package does, so one
 from __future__ import annotations
 
 import collections
+import gzip
+import os
+import struct
 
 import numpy as onp
 
+from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray, array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter"]
 
 
 class DataDesc(collections.namedtuple("DataDesc", ["name", "shape"])):
@@ -153,6 +157,10 @@ class NDArrayIter(DataIter):
         return [DataDesc(k, tuple([self.batch_size] + list(v.shape[1:])),
                          v.dtype) for k, v in self.label]
 
+    def hard_reset(self):
+        """Rewind to the first batch, dropping any rolled-over rows."""
+        self.cursor = -self.batch_size
+
     def reset(self):
         if self.last_batch_handle == "roll_over" and \
                 self.cursor > self.num_data:
@@ -187,3 +195,55 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+class MNISTIter(DataIter):
+    """MNIST idx-format reader (plain or gzipped idx files): images
+    scaled to [0, 1] as (n, 1, 28, 28), or (n, 784) with ``flat``;
+    shuffled once with ``RandomState(seed)``; incomplete last batch
+    dropped."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=0,
+                 input_shape=None, **kwargs):
+        super().__init__(batch_size)
+        imgs = self._read_idx(image)
+        labels = self._read_idx(label)
+        if flat:
+            imgs = imgs.reshape(imgs.shape[0], -1)
+        else:
+            imgs = imgs.reshape(imgs.shape[0], 1, imgs.shape[1],
+                                imgs.shape[2])
+        imgs = imgs.astype(onp.float32) / 255.0
+        if shuffle:
+            perm = onp.random.RandomState(seed).permutation(imgs.shape[0])
+            imgs, labels = imgs[perm], labels[perm]
+        self._iter = NDArrayIter(imgs, labels.astype(onp.float32),
+                                 batch_size=batch_size,
+                                 last_batch_handle="discard")
+        self.provide_data = self._iter.provide_data
+        self.provide_label = self._iter.provide_label
+
+    @staticmethod
+    def _read_idx(path):
+        if not os.path.exists(path):
+            if not os.path.exists(path + ".gz"):
+                raise MXNetError("MNIST file %s not found" % path)
+            path = path + ".gz"
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rb") as f:
+            magic = struct.unpack(">I", f.read(4))[0]
+            ndim = magic & 0xFF
+            dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+            data = onp.frombuffer(f.read(), dtype=onp.uint8)
+        return data.reshape(dims)
+
+    def reset(self):
+        self._iter.reset()
+
+    def next(self):
+        return self._iter.next()
+
+    def iter_next(self):
+        return self._iter.iter_next()

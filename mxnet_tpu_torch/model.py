@@ -3,9 +3,7 @@
 use the JAX package's formats, so either package reads the other's."""
 from __future__ import annotations
 
-from .base import MXNetError
-from .checkpoint import pack_params
-from . import ndarray as nd
+from .checkpoint import load_params_file, save_params_file
 from . import symbol as sym_mod
 
 __all__ = ["save_checkpoint", "load_checkpoint"]
@@ -25,21 +23,13 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
     prefixed names, atomic write)."""
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
-    nd.save("%s-%04d.params" % (prefix, epoch),
-            pack_params(arg_params, aux_params))
+    save_params_file("%s-%04d.params" % (prefix, epoch), arg_params,
+                     aux_params)
 
 
 def load_checkpoint(prefix, epoch, ctx=None):
     """(symbol, arg_params, aux_params) of a checkpoint, arrays on ctx."""
     symbol = sym_mod.load("%s-symbol.json" % prefix)
-    arg_params, aux_params = {}, {}
-    for k, v in nd.load("%s-%04d.params" % (prefix, epoch), ctx=ctx).items():
-        kind, _, name = k.partition(":")
-        if kind == "arg":
-            arg_params[name] = v
-        elif kind == "aux":
-            aux_params[name] = v
-        else:
-            raise MXNetError("invalid checkpoint param key %r "
-                             "(want arg:/aux: prefix)" % (k,))
+    arg_params, aux_params = load_params_file(
+        "%s-%04d.params" % (prefix, epoch), ctx=ctx)
     return symbol, arg_params, aux_params

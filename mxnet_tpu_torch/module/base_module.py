@@ -5,9 +5,13 @@
 init_optimizer, then per batch forward_backward, update, update_metric
 and the batch-end callbacks; at each epoch's end it logs the training
 metric, syncs the parameters (get_params + set_params), calls the
-epoch-end callbacks and scores ``eval_data``. What the JAX ``fit`` layers
-on top of it (telemetry, the training guardian, resume, ``batch_group``,
-device prefetch, the device-side metric tally, monitors) is not ported.
+epoch-end callbacks and scores ``eval_data``. ``resume_from=`` restarts
+an interrupted run from a checkpoint entry (parameters, optimizer
+states, RNG state), and ``monitor=`` taps the op outputs of every
+``interval``-th batch. What else the JAX ``fit`` layers on top
+(telemetry, the training guardian, ``batch_group``, device prefetch, the
+device-side metric tally, step-granular resume) comes with later slices:
+those arguments are accepted at None and refused otherwise.
 """
 from __future__ import annotations
 
@@ -18,8 +22,10 @@ from collections import namedtuple
 import numpy as onp
 import torch
 
+from .. import context as ctx_mod
 from .. import metric as metric_mod
 from .. import ndarray as nd
+from ..base import MXNetError
 from ..initializer import Uniform
 
 __all__ = ["BaseModule", "BatchEndParam", "pad_batch_rows"]
@@ -149,19 +155,43 @@ class BaseModule(object):
             eval_end_callback=None, eval_batch_end_callback=None,
             initializer=Uniform(0.01), arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, resume_from=None, batch_group=None,
+            prefetch_to_device=None, guardian=None):
         """Train on a data iterator for epochs ``begin_epoch`` up to
-        ``num_epoch``."""
+        ``num_epoch``.
+
+        ``resume_from`` (a ``CheckpointManager``, its directory, or a
+        restored ``Checkpoint``) restores the latest committed entry's
+        parameters, optimizer states and RNG state after init and
+        continues at the epoch after it; a manager with no entry starts
+        fresh. ``monitor`` (a ``Monitor``) is installed and ticked around
+        every batch. ``batch_group``, ``prefetch_to_device`` and
+        ``guardian`` come with later slices of the port and must be
+        None."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
+        for name, value, where in (
+                ("batch_group", batch_group, "the grouped-step slice"),
+                ("prefetch_to_device", prefetch_to_device,
+                 "the device-feed slice (mxnet_tpu/data)"),
+                ("guardian", guardian,
+                 "the guardian slice (mxnet_tpu/guardian)")):
+            if value is not None:
+                raise MXNetError("fit(%s=%r) comes with %s of the port"
+                                 % (name, value, where))
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if resume_from is not None:
+            begin_epoch = self._resume_from(resume_from, begin_epoch)
         if validation_metric is None:
             validation_metric = eval_metric
         validation_metric = metric_mod.create(validation_metric)
@@ -171,9 +201,13 @@ class BaseModule(object):
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 self._fire(batch_end_callback, epoch, nbatch, eval_metric,
                            locals())
             for name, val in eval_metric.get_name_value():
@@ -196,12 +230,58 @@ class BaseModule(object):
                                      name, val)
             train_data.reset()
 
+    def _resume_from(self, resume_from, begin_epoch):
+        """Restore training state from a checkpoint entry and return the
+        epoch to continue at."""
+        from .. import random as random_mod
+        from ..checkpoint import CheckpointManager, split_params
+        if isinstance(resume_from, str):
+            resume_from = CheckpointManager(resume_from)
+        if isinstance(resume_from, CheckpointManager):
+            if resume_from.latest() is None:
+                self.logger.info("resume_from: no committed checkpoint in "
+                                 "%s; starting fresh", resume_from.directory)
+                return begin_epoch
+            ckpt = resume_from.restore()
+        else:
+            ckpt = resume_from
+        if ckpt.extra.get("nbatch") is not None:
+            raise MXNetError(
+                "checkpoint step %d is step-granular (nbatch=%s, written by "
+                "ElasticTrainer); resuming inside an epoch comes with the "
+                "dist slice of the port" % (ckpt.step, ckpt.extra["nbatch"]))
+        cpu = ctx_mod.cpu()
+        arg_np, aux_np = split_params(ckpt.params)
+        self.set_params(
+            {k: nd.array(v, ctx=cpu, dtype=v.dtype) for k, v in arg_np.items()},
+            {k: nd.array(v, ctx=cpu, dtype=v.dtype) for k, v in aux_np.items()})
+        if ckpt.optimizer_state is not None:
+            self.load_optimizer_states(ckpt.optimizer_state)
+        if ckpt.rng is not None:
+            random_mod.set_state(ckpt.rng)
+        epoch = int(ckpt.extra.get("epoch", ckpt.step))
+        self.logger.info("resumed from checkpoint step %d (continuing at "
+                         "epoch %d)", ckpt.step, epoch + 1)
+        return epoch + 1
+
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True):
         """Copy the given parameters in (the initializer is not used)."""
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
+
+    def save_params(self, fname):
+        """Write the parameters as a legacy flat ``.params`` file."""
+        from ..checkpoint import save_params_file
+        arg_params, aux_params = self.get_params()
+        save_params_file(fname, arg_params, aux_params)
+
+    def load_params(self, fname):
+        """Set the parameters from a legacy flat ``.params`` file."""
+        from ..checkpoint import load_params_file
+        arg_params, aux_params = load_params_file(fname, ctx=ctx_mod.cpu())
+        self.set_params(arg_params, aux_params)
 
     @property
     def symbol(self):

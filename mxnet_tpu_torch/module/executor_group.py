@@ -7,7 +7,9 @@ kernels with the mask recomputed in the backward. The arg/aux lists and
 the output names do not change under the fusion. A group bound with a
 ``shared_group`` takes that group's parameter and aux arrays as its own
 (the same tensors), so groups bound at several batch sizes hold one copy
-of the parameters. Splitting a batch over several devices comes with a
+of the parameters. ``reshape`` binds again at new input shapes through
+``Executor.reshape``: parameters, aux states and their gradients stay
+the same tensors. Splitting a batch over several devices comes with a
 later slice of the port.
 """
 from __future__ import annotations
@@ -22,7 +24,8 @@ __all__ = ["DataParallelExecutorGroup"]
 class DataParallelExecutorGroup(object):
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
-                 grad_req="write", shared_group=None):
+                 grad_req="write", shared_group=None,
+                 inputs_need_grad=False):
         if len(contexts) != 1:
             raise MXNetError("this slice of the port binds one device")
         symbol = fuse_bn_relu(symbol)
@@ -32,9 +35,12 @@ class DataParallelExecutorGroup(object):
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
         self.fixed_param_names = fixed_param_names or []
+        self._monitor = None
         if not for_training:
             grad_req = "null"
+        data_names = [x[0] for x in data_shapes]
 
         if isinstance(grad_req, str):
             self.grad_req = {}
@@ -42,6 +48,8 @@ class DataParallelExecutorGroup(object):
                 if k in self.param_names:
                     self.grad_req[k] = "null" if k in self.fixed_param_names \
                         else grad_req
+                elif k in data_names and inputs_need_grad:
+                    self.grad_req[k] = grad_req
                 else:
                     self.grad_req[k] = "null"
         elif isinstance(grad_req, (list, tuple)):
@@ -56,9 +64,6 @@ class DataParallelExecutorGroup(object):
     def bind_exec(self, data_shapes, label_shapes, shared_group=None):
         """Allocate arguments, gradients and aux states (parameters and
         aux taken from ``shared_group`` when given); bind."""
-        self.batch_size = data_shapes[0][1][0]
-        self.data_shapes = data_shapes
-        self.label_shapes = label_shapes
         ctx = self.contexts[0]
         input_shapes = dict(data_shapes)
         if label_shapes is not None:
@@ -86,8 +91,30 @@ class DataParallelExecutorGroup(object):
                 grads[name] = nd.zeros(shape, ctx=ctx)
         aux = [alloc(name, shape, shared_aux)
                for name, shape in zip(self.aux_names, aux_shapes)]
-        ex = self.symbol.bind(ctx, args, args_grad=grads,
-                              grad_req=self.grad_req, aux_states=aux)
+        self._wire(self.symbol.bind(ctx, args, args_grad=grads,
+                                    grad_req=self.grad_req, aux_states=aux),
+                   data_shapes, label_shapes)
+
+    def reshape(self, data_shapes, label_shapes):
+        """Bind again at new input shapes. Every array whose shape does
+        not change (parameters, aux states, their gradients) is the same
+        tensor afterwards; inputs that shrink become views of the old
+        input arrays, inputs that grow are allocated."""
+        input_shapes = dict(data_shapes)
+        if label_shapes is not None:
+            input_shapes.update(dict(label_shapes))
+        old = self.execs[0]
+        ex = old.reshape(partial_shaping=True, allow_up_sizing=True,
+                         **input_shapes)
+        if self._monitor is not None:
+            self._monitor.exes.remove(old)
+            self._monitor.install(ex)
+        self._wire(ex, data_shapes, label_shapes)
+
+    def _wire(self, ex, data_shapes, label_shapes):
+        self.batch_size = data_shapes[0][1][0]
+        self.data_shapes = data_shapes
+        self.label_shapes = label_shapes
         self.execs = [ex]
         self.param_arrays = [[ex.arg_dict[n]] for n in self.param_names]
         self.grad_arrays = [[ex.grad_dict[n]]
@@ -118,6 +145,16 @@ class DataParallelExecutorGroup(object):
             for src, dst in zip(data_batch.label, self.label_arrays):
                 dst[0][:] = src
         self.execs[0].forward(is_train=is_train)
+
+    def install_monitor(self, mon):
+        self._monitor = mon
+        for ex in self.execs:
+            mon.install(ex)
+
+    def get_input_grads(self, merge_multi_context=True):
+        grads = [self.execs[0].grad_dict[name] for name, _ in
+                 self.data_shapes]
+        return grads if merge_multi_context else [[g] for g in grads]
 
     def backward(self, out_grads=None):
         if not self.for_training:

@@ -1,22 +1,26 @@
 """Module — symbol + context + params + optimizer (PyTorch counterpart of
 ``mxnet_tpu/module/module.py``) on one device, through the classic
 ``DataParallelExecutorGroup`` route: bind (with ``shared_module=`` for
-inference), init_params, init_optimizer, forward, backward, update,
-update_metric, get_params, and checkpoints in the JAX package's file
-format (``save_checkpoint``, ``Module.load``). ``fit``, ``score`` and
-``predict`` come from ``BaseModule``. The fused one-program step and
-multi-device binding come with later slices of the port.
+inference), reshape, init_params, init_optimizer, forward, backward,
+update, update_metric, get_params, monitors, and checkpoints in the JAX
+package's formats: legacy prefix files and ``CheckpointManager`` entries
+(``save_checkpoint``, ``Module.load``, optimizer states). ``fit``,
+``score`` and ``predict`` come from ``BaseModule``. A batch whose shapes
+differ from the bound ones re-binds through ``reshape`` on the same
+parameters. The fused one-program step, precision modes and multi-device
+binding come with later slices of the port.
 """
 from __future__ import annotations
 
 import logging
+import os
 
 from .. import context as ctx_mod
 from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..initializer import Uniform, InitDesc
-from ..model import _update_params, load_checkpoint, save_checkpoint
+from ..model import _update_params, load_checkpoint
 from .base_module import BaseModule, pad_batch_rows
 from .executor_group import DataParallelExecutorGroup
 
@@ -29,8 +33,12 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None):
+                 context=None, fixed_param_names=None, precision=None):
         super().__init__(logger=logger)
+        if precision is not None:
+            raise MXNetError("Module(precision=%r): precision modes come "
+                             "with the precision slice of the port "
+                             "(mxnet_tpu/precision)" % (precision,))
         if context is None:
             context = ctx_mod.current_context()
         if isinstance(context, ctx_mod.Context):
@@ -55,8 +63,19 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
+        self._preload_opt_states = None
         self._exec_group = None
         self._eval_pad_extra = 0
+        self.inputs_need_grad = False
+
+    # ------------------------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
 
     @property
     def output_names(self):
@@ -65,31 +84,172 @@ class Module(BaseModule):
     @property
     def data_shapes(self):
         """The bound (name, shape) pairs of the data inputs."""
-        if not self.binded:
-            raise MXNetError("call bind first")
+        self._need_bind()
         return list(self._exec_group.data_shapes)
 
+    @property
+    def label_shapes(self):
+        """The bound (name, shape) pairs of the labels, or None."""
+        self._need_bind()
+        shapes = self._exec_group.label_shapes
+        return None if shapes is None else list(shapes)
+
+    @property
+    def output_shapes(self):
+        """(name, shape) of each output at the bound shapes."""
+        self._need_bind()
+        return list(zip(self.output_names,
+                        [o.shape for o in self._exec_group.get_outputs()]))
+
+    def _need_bind(self):
+        if not self.binded:
+            raise MXNetError("call bind first")
+
+    # ----------------------------------------------------------- persistence
     @staticmethod
-    def load(prefix, epoch, **kwargs):
-        """A Module over the checkpoint ``prefix-symbol.json`` +
-        ``prefix-%04d.params`` (either package's); the parameters are set
-        when it is bound. ``kwargs`` go to ``Module``."""
+    def load(prefix, epoch=None, load_optimizer_states=False, **kwargs):
+        """A Module over a checkpoint of either package; the parameters
+        are set when it is bound, the optimizer states (with
+        ``load_optimizer_states``) when its optimizer is created.
+
+        ``prefix`` is a legacy file prefix (``prefix-symbol.json`` +
+        ``prefix-%04d.params``, ``epoch`` required), or a
+        ``CheckpointManager`` or its directory: then ``epoch`` selects a
+        committed step (default: the latest) and the symbol comes from
+        the entry. A prefix that also names a directory without
+        committed entries stays a prefix. ``kwargs`` go to ``Module``."""
+        from ..checkpoint import CheckpointManager
+        from ..checkpoint.manager import is_checkpoint_dir
+        if isinstance(prefix, CheckpointManager) or (
+                isinstance(prefix, str) and os.path.isdir(prefix) and
+                (epoch is None or is_checkpoint_dir(prefix))):
+            return Module._load_from_manager(prefix, epoch,
+                                             load_optimizer_states, **kwargs)
+        if epoch is None:
+            raise MXNetError("epoch is required when loading from a legacy "
+                             "prefix")
         sym, args, auxs = load_checkpoint(prefix, epoch, ctx=ctx_mod.cpu())
         mod = Module(symbol=sym, **kwargs)
         mod._arg_params = args
         mod._aux_params = auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
-    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
-        """Write ``prefix-symbol.json`` and ``prefix-%04d.params``."""
+    @staticmethod
+    def _load_from_manager(manager, step=None, load_optimizer_states=False,
+                           **kwargs):
+        """A Module over a ``CheckpointManager`` entry, which carries its
+        symbol JSON in the manifest's ``extra``."""
+        from .. import symbol as sym_mod
+        from ..checkpoint import CheckpointManager, split_params
+        if not isinstance(manager, CheckpointManager):
+            manager = CheckpointManager(manager)
+        ckpt = manager.restore(step)
+        sym_json = ckpt.extra.get("symbol")
+        if sym_json is None:
+            raise MXNetError(
+                "checkpoint step %d in %s carries no symbol — it was not "
+                "saved by Module.save_checkpoint(manager=...)"
+                % (ckpt.step, manager.directory))
+        mode = str(ckpt.extra.get("precision_mode", "f32"))
+        if mode != "f32":
+            raise MXNetError(
+                "checkpoint step %d was saved under precision mode %r; "
+                "precision modes come with the precision slice of the "
+                "port" % (ckpt.step, mode))
+        arg_np, aux_np = split_params(ckpt.params)
+        mod = Module(symbol=sym_mod.load_json(sym_json), **kwargs)
+        mod._ckpt_params_digest = ckpt.extra.get("params_digest")
+        cpu = ctx_mod.cpu()
+        mod._arg_params = {k: nd.array(v, ctx=cpu, dtype=v.dtype)
+                           for k, v in arg_np.items()}
+        mod._aux_params = {k: nd.array(v, ctx=cpu, dtype=v.dtype)
+                           for k, v in aux_np.items()}
+        mod.params_initialized = True
+        if load_optimizer_states:
+            if ckpt.optimizer_state is None:
+                raise MXNetError(
+                    "checkpoint step %d in %s has no optimizer state "
+                    "(save with save_optimizer_states=True)"
+                    % (ckpt.step, manager.directory))
+            mod._preload_opt_states = ckpt.optimizer_state
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        manager=None, async_save=True, extra=None):
+        """Save symbol, parameters and, with ``save_optimizer_states``,
+        the optimizer states.
+
+        Without ``manager``: ``prefix-symbol.json``,
+        ``prefix-%04d.params`` and ``prefix-%04d.states``. With
+        ``manager=`` (a ``CheckpointManager``): one step entry numbered
+        ``epoch``, async by default, carrying the symbol, the epoch, the
+        RNG state and ``params_digest`` in its manifest, so that
+        ``fit(resume_from=manager)`` restores everything; ``prefix`` is
+        then ignored and may be None. ``extra`` merges into the
+        manifest's metadata."""
+        if manager is not None:
+            return self._save_to_manager(manager, epoch,
+                                         save_optimizer_states, async_save,
+                                         extra)
+        self._symbol.save("%s-symbol.json" % prefix)
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(param_name)
+        self.logger.info('Saved checkpoint to "%s"', param_name)
         if save_optimizer_states:
-            raise MXNetError("saving optimizer states comes with a later "
-                             "slice of the port")
-        arg_params, aux_params = self.get_params()
-        save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
-        self.logger.info('Saved checkpoint to "%s-%04d.params"', prefix,
-                         epoch)
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            self.logger.info('Saved optimizer state to "%s"', state_name)
+
+    def _save_to_manager(self, manager, step, save_optimizer_states,
+                         async_save, extra=None):
+        from ..checkpoint import pack_params, params_digest
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("call bind and init_params first")
+        grp = self._exec_group
+        # the bound tensors themselves: the manager copies each to the
+        # host before save() returns, one copy from the card
+        arrays = pack_params(
+            {n: a[0] for n, a in zip(self._param_names, grp.param_arrays)},
+            {n: a[0] for n, a in zip(self._aux_names, grp.aux_arrays)})
+        opt_state = None
+        if save_optimizer_states:
+            if not self.optimizer_initialized:
+                raise MXNetError("call init_optimizer first")
+            opt_state = self._updater.get_states()
+        sym_json = self._symbol.tojson()
+        merged = {"epoch": int(step), "symbol": sym_json,
+                  "precision_mode": "f32",
+                  "params_digest": params_digest(sym_json, arrays)}
+        if extra:
+            merged.update(extra)
+        manager.save(step, arrays, optimizer_state=opt_state, extra=merged,
+                     async_save=async_save)
+        self.logger.info('Staged checkpoint step %d into "%s"%s', step,
+                         manager.directory,
+                         " (async)" if async_save else "")
+        return step
+
+    def save_optimizer_states(self, fname):
+        """Write the optimizer states (``Updater.get_states``) to
+        ``fname``."""
+        if not self.optimizer_initialized:
+            raise MXNetError("call init_optimizer first")
+        from ..checkpoint.serialize import atomic_write_bytes
+        atomic_write_bytes(fname, self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Restore optimizer states from a ``.states`` file or from the
+        raw bytes of a checkpoint entry."""
+        if not self.optimizer_initialized:
+            raise MXNetError("call init_optimizer first")
+        if isinstance(fname, (bytes, bytearray)):
+            self._updater.set_states(bytes(fname))
+            return
+        with open(fname, "rb") as fin:
+            self._updater.set_states(fin.read())
 
     def get_params(self):
         """(arg_params, aux_params) as CPU NDArrays, synced from the
@@ -151,12 +311,10 @@ class Module(BaseModule):
         if force_rebind:
             self.binded = False
             self._exec_group = None
+            self._eval_pad_extra = 0
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
-        if inputs_need_grad:
-            raise MXNetError("inputs_need_grad comes with a later slice of "
-                             "the port")
         shared_group = None
         if shared_module is not None:
             if for_training:
@@ -170,14 +328,13 @@ class Module(BaseModule):
                                  "with initialized parameters")
             shared_group = shared_module._exec_group
         self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
         self.binded = True
-        data_shapes = [(x[0], tuple(x[1])) for x in data_shapes]
-        label_shapes = [(x[0], tuple(x[1])) for x in label_shapes] \
-            if label_shapes else None
+        data_shapes, label_shapes = _shape_pairs(data_shapes, label_shapes)
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, data_shapes, label_shapes,
             self._param_names, for_training, self._fixed_param_names,
-            grad_req, shared_group)
+            grad_req, shared_group, inputs_need_grad)
         if shared_module is not None:
             self.params_initialized = True
             self._arg_params = shared_module._arg_params
@@ -206,27 +363,76 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def borrow_optimizer(self, shared_module):
+        """Train with ``shared_module``'s optimizer and updater (one
+        optimizer state for modules over the same parameters)."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("shared_module has no optimizer")
+        self._optimizer = shared_module._optimizer
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Bind again at new input shapes on the same parameters: every
+        parameter and aux tensor keeps its storage."""
+        self._need_bind()
+        data_shapes, label_shapes = _shape_pairs(data_shapes, label_shapes)
+        self._exec_group.reshape(data_shapes, label_shapes)
 
     def forward(self, data_batch, is_train=None):
+        """Run the forward on ``data_batch``. An eval batch that is only
+        short runs padded to the bound shape; any other batch whose
+        shapes differ from the bound ones re-binds through ``reshape``
+        first."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params first")
         self._eval_pad_extra = 0
         train = self.for_training if is_train is None else bool(is_train)
         if not train:
             data_batch = self._pad_eval_tail(data_batch)
+        self._reshape_to(data_batch)
         self._exec_group.forward(data_batch, is_train)
 
+    def _reshape_to(self, batch):
+        """Re-bind at ``batch``'s shapes when they differ from the bound
+        ones. Labels take the batch's shapes, or, when it has none, the
+        bound ones with the new batch size."""
+        grp = self._exec_group
+        new = [tuple(d.shape) for d in batch.data]
+        if new == [tuple(s) for _, s in grp.data_shapes]:
+            return
+        data_shapes = [(name, shape) for (name, _), shape
+                       in zip(grp.data_shapes, new)]
+        label_shapes = grp.label_shapes
+        if label_shapes and batch.label:
+            label_shapes = [(name, tuple(lb.shape)) for (name, _), lb
+                            in zip(label_shapes, batch.label)]
+        elif label_shapes:
+            label_shapes = [(name, (new[0][0],) + tuple(shape[1:]))
+                            for name, shape in label_shapes]
+        self.reshape(data_shapes, label_shapes)
+
     def _pad_eval_tail(self, batch):
-        """An eval batch with fewer rows than the bound batch runs
-        zero-padded to the bound shape (``pad_batch_rows``, the rule the
-        serving buckets use). Rows are independent in an eval forward;
-        the extra rows are dropped again by ``_unpadded_outputs`` and
-        ``update_metric`` through ``_eval_pad_extra``."""
+        """An eval batch with fewer rows than the bound batch, and the
+        bound trailing dimensions, runs zero-padded to the bound shape
+        (``pad_batch_rows``, the rule the serving buckets use). Rows are
+        independent in an eval forward; the extra rows are dropped again
+        by ``_unpadded_outputs`` and ``update_metric`` through
+        ``_eval_pad_extra``. A batch whose other dimensions differ is a
+        true reshape and is returned as it is."""
         from ..io import DataBatch
         target = self._exec_group.batch_size
         rows = batch.data[0].shape[0] if batch.data else 0
         if rows == 0 or rows >= target:
             return batch
+        for (_name, shape), arr in zip(self._exec_group.data_shapes,
+                                       batch.data):
+            if tuple(arr.shape[1:]) != tuple(shape[1:]):
+                return batch
         data = [pad_batch_rows(d, target) for d in batch.data]
         label = None
         if batch.label:
@@ -252,6 +458,19 @@ class Module(BaseModule):
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs(merge_multi_context)
 
+    def get_input_grads(self, merge_multi_context=True):
+        """The gradients of the data inputs (bind with
+        ``inputs_need_grad=True``)."""
+        if not (self.binded and self.params_initialized and
+                self.inputs_need_grad):
+            raise MXNetError("bind with inputs_need_grad=True first")
+        return self._exec_group.get_input_grads(merge_multi_context)
+
+    def install_monitor(self, mon):
+        """Tap every op output of this module's executor into ``mon``."""
+        self._need_bind()
+        self._exec_group.install_monitor(mon)
+
     def update_metric(self, eval_metric, labels):
         """Add this batch's outputs against ``labels`` to ``eval_metric``
         (one readback of the outputs); after a tail-padded eval forward,
@@ -265,3 +484,11 @@ class Module(BaseModule):
             eval_metric.update(labels, outs)
             return
         self._exec_group.update_metric(eval_metric, labels)
+
+
+def _shape_pairs(data_shapes, label_shapes):
+    """(name, shape tuple) pairs of data and labels (labels: or None)."""
+    data = [(x[0], tuple(x[1])) for x in data_shapes]
+    label = [(x[0], tuple(x[1])) for x in label_shapes] \
+        if label_shapes else None
+    return data, label

@@ -14,7 +14,6 @@ the JAX package (``nd.sgd_mom_update(w, g, m, out=[w, m], ...)``).
 """
 from __future__ import annotations
 
-import os
 import sys
 
 import numpy as onp
@@ -93,6 +92,23 @@ class NDArray:
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy().copy()
+
+    def asscalar(self):
+        """The value of a one-element array as a numpy scalar."""
+        if self.size != 1:
+            raise ValueError("The current array is not a scalar")
+        return self.asnumpy().reshape(-1)[0]
+
+    def astype(self, dtype):
+        """A copy converted to ``dtype``, on the same context."""
+        return NDArray(self._t.detach().to(torch_dtype(dtype), copy=True),
+                       ctx=self._ctx)
+
+    def as_in_context(self, context):
+        """This array if it is on ``context``, else a copy there."""
+        if self.context == context:
+            return self
+        return self.copyto(context)
 
     def wait_to_read(self):
         """Block until this array's value is computed."""
@@ -209,6 +225,33 @@ class NDArray:
     def __neg__(self):
         return NDArray(-self._t, ctx=self._ctx)
 
+    # ------------------------------------------------- reductions, layout
+    # (the registered operators of the same names, as in the JAX package)
+    def sum(self, *args, **kwargs):
+        return sum(self, *args, **kwargs)
+
+    def mean(self, *args, **kwargs):
+        return mean(self, *args, **kwargs)
+
+    def max(self, *args, **kwargs):
+        return max(self, *args, **kwargs)
+
+    def min(self, *args, **kwargs):
+        return min(self, *args, **kwargs)
+
+    def argmax(self, *args, **kwargs):
+        return argmax(self, *args, **kwargs)
+
+    def transpose(self, *args, **kwargs):
+        return transpose(self, *args, **kwargs)
+
+    def flatten(self):
+        return flatten(self)
+
+    @property
+    def T(self):
+        return self if self.ndim <= 1 else transpose(self)
+
 
 # ---------------------------------------------------------------------------
 # imperative invoke: run a registered op on NDArrays
@@ -314,7 +357,7 @@ def save(fname, data):
     """Save a list or str->NDArray dict of NDArrays to file.
 
     The write is crash-atomic: content goes to ``fname + ".tmp"``, is
-    fsynced, then renamed over ``fname``."""
+    fsynced, then renamed over ``fname`` (``checkpoint.serialize``)."""
     if isinstance(data, NDArray):
         data = [data]
     if isinstance(data, dict):
@@ -324,12 +367,9 @@ def save(fname, data):
         arrs = {"arr_%d" % i: v.asnumpy() for i, v in enumerate(data)}
     else:
         raise ValueError("data needs to either be a NDArray, dict or list")
-    tmp = fname + ".tmp"
-    with open(tmp, "wb") as f:
-        onp.savez(f, __mx_format__=fmt, **arrs)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, fname)
+    from .checkpoint.serialize import atomic_write_stream
+    atomic_write_stream(fname, lambda f: onp.savez(f, __mx_format__=fmt,
+                                                   **arrs))
 
 
 def load(fname, ctx=None):

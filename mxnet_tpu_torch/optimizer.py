@@ -8,10 +8,20 @@ momentum, so each update lands in place. A learning-rate scheduler reads
 step updates every parameter through ``Updater.update_multi``, which, in
 the JAX package's order, counts the step's updates first and then reads
 each parameter's lr, so every parameter of step k sees ``num_update`` k.
+
+``Updater.get_states``/``set_states`` carry the optimizer state and its
+update clock in the JAX package's v2 envelope, with numpy leaves: a
+restored state goes back onto its weight's device at the first update.
 """
 from __future__ import annotations
 
-from .ndarray import zeros, sgd_update, sgd_mom_update
+import io
+import pickle
+
+import numpy
+
+from .base import MXNetError
+from .ndarray import NDArray, array, zeros, sgd_update, sgd_mom_update
 
 __all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
            "register"]
@@ -146,17 +156,64 @@ class SGD(Optimizer):
             sgd_update(weight, grad, out=weight, **kwargs)
 
 
+def _map_leaves(state, fn):
+    """``state`` (None, a leaf, or a tuple/list tree) with ``fn`` applied
+    to every leaf."""
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return type(state)(_map_leaves(s, fn) for s in state)
+    return fn(state)
+
+
+def _host_leaf(leaf):
+    return leaf.asnumpy() if isinstance(leaf, NDArray) else \
+        numpy.asarray(leaf)
+
+
+class _StateUnpickler(pickle.Unpickler):
+    """Unpickles only what ``get_states`` writes: builtins and numpy. A
+    payload of the JAX package (leaves that are its NDArrays or JAX
+    arrays) is refused with the name of the package that wrote it."""
+
+    def find_class(self, module, name):
+        top = module.split(".")[0]
+        if top in ("numpy", "builtins"):
+            return super().find_class(module, name)
+        if top in ("mxnet_tpu", "jax", "jaxlib", "ml_dtypes"):
+            raise MXNetError(
+                "optimizer-state payload was written by the JAX package "
+                "(mxnet_tpu): its leaves are %s.%s; the port reads the "
+                "payloads it writes (numpy leaves) and no others"
+                % (module, name))
+        raise MXNetError("optimizer-state payload holds %s.%s, which the "
+                         "port does not read" % (module, name))
+
+
 class Updater(object):
     """Per-index optimizer state holder (the reference's get_updater)."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
+        self._on_host = set()   # restored indices whose leaves are numpy
 
-    def __call__(self, index, grad, weight):
+    def _state(self, index, weight):
+        """The state of ``index``, created on first use; restored numpy
+        leaves move onto ``weight``'s device here."""
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+            return self.states[index]
+        st = self.states[index]
+        if index in self._on_host:
+            self._on_host.discard(index)
+            st = _map_leaves(st, lambda leaf: array(
+                leaf, ctx=weight.context, dtype=leaf.dtype))
+            self.states[index] = st
+        return st
+
+    def __call__(self, index, grad, weight):
+        self.optimizer.update(index, weight, grad, self._state(index, weight))
 
     def update_multi(self, triples):
         """Update every (index, grad, weight) of one step: count them all,
@@ -164,12 +221,60 @@ class Updater(object):
         ``Updater.update_multi`` order)."""
         opt = self.optimizer
         for index, _, weight in triples:
-            if index not in self.states:
-                self.states[index] = opt.create_state(index, weight)
+            self._state(index, weight)
             opt._update_count(index)
         for index, grad, weight in triples:
             opt._apply(weight, grad, self.states[index], opt._get_lr(index),
                        opt._get_wd(index))
+
+    @staticmethod
+    def _leaf_dtypes(state):
+        """Nested per-leaf dtype names of one state tree."""
+        return _map_leaves(state, lambda leaf: numpy.dtype(
+            _host_leaf(leaf).dtype).name)
+
+    def get_states(self):
+        """The states and the update clock as bytes: the JAX package's
+        v2 envelope (``num_update``, ``index_update_count``,
+        ``state_dtype``, ``state_dtypes``) with numpy leaves."""
+        opt = self.optimizer
+        states = {k: _map_leaves(st, _host_leaf)
+                  for k, st in self.states.items()}
+        return pickle.dumps({
+            "__fmt__": 2,
+            "states": states,
+            "num_update": int(opt.num_update),
+            "index_update_count": dict(opt._index_update_count),
+            "state_dtype": None,
+            "state_dtypes": {k: self._leaf_dtypes(st)
+                             for k, st in states.items()},
+        })
+
+    def set_states(self, states):
+        """Restore :meth:`get_states` bytes, update clock included, so a
+        resumed run's lr schedule continues where the saved run stopped.
+        Payloads the port did not write raise :class:`MXNetError`."""
+        payload = _StateUnpickler(io.BytesIO(states)).load()
+        if not (isinstance(payload, dict) and payload.get("__fmt__") == 2):
+            raise MXNetError("optimizer-state payload is not the v2 "
+                             "envelope that Updater.get_states writes")
+        if payload.get("state_dtype") not in (None, "float32"):
+            raise MXNetError(
+                "optimizer-state payload was saved with state_dtype=%s; "
+                "reduced-precision optimizer state comes with the "
+                "precision slice of the port" % payload["state_dtype"])
+        if payload.get("state_dtypes") != {
+                k: self._leaf_dtypes(st)
+                for k, st in payload["states"].items()}:
+            raise MXNetError(
+                "optimizer-state payload is internally inconsistent: the "
+                "per-leaf dtype record does not match the state leaves "
+                "(payload corrupted or hand-edited)")
+        self.states = dict(payload["states"])
+        self._on_host = set(self.states)
+        opt = self.optimizer
+        opt.num_update = int(payload["num_update"])
+        opt._index_update_count = dict(payload["index_update_count"])
 
 
 def get_updater(optimizer):

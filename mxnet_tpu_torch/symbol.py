@@ -83,6 +83,19 @@ class Symbol:
     def list_auxiliary_states(self):
         return [n.name for n in self._topo() if n.op is None and n.is_aux]
 
+    @property
+    def name(self):
+        """The name of a single-output symbol's node, else None."""
+        if len(self._heads) == 1:
+            return self._heads[0][0].name
+        return None
+
+    def attr(self, key):
+        """A user attribute of a single-output symbol's node, or None."""
+        if len(self._heads) == 1:
+            return self._heads[0][0]._attr_dict.get(key)
+        return None
+
     def attr_dict(self):
         ret = {}
         for n in self._topo():
@@ -97,6 +110,16 @@ class Symbol:
         """Symbol whose outputs are every node's outputs."""
         return Symbol([(n, i) for n in self._topo()
                        for i in range(n.num_outputs())])
+
+    def get_children(self):
+        """The inputs of a single-output symbol's node as one Symbol, or
+        None for a variable or a multi-output symbol."""
+        if len(self._heads) != 1:
+            return None
+        node = self._heads[0][0]
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
 
     def __add__(self, other):
         if not isinstance(other, Symbol):

@@ -3,8 +3,8 @@ without dx, on the CPU.
 
 The kernels themselves run only on the card (``chip_smoke.py`` phase 3).
 Here: ``plan`` picks block, cluster or split for every BatchNorm of a
-ResNet-50 step at batch 32 as the slab table of ``kernels/batchnorm.py``
-says, stays within one H100 block's shared memory and the portable
+ResNet-50 step at batch 32 and of a resnet-20 step at batch 128 (the
+CIFAR twin) as the slab table of ``kernels/batchnorm.py`` says, stays within one H100 block's shared memory and the portable
 cluster sizes, and flags planes that cannot move in 16-byte units; the
 per-channel buffer the wrapper hands the kernels keeps the split scratch
 16-byte aligned. The backward without dx gives dβ and dγ of the full call
@@ -51,13 +51,34 @@ WANT = {
 }
 
 
+# resnet-20 at batch 128: a 28² channel's slab is 401,408 bytes of f32
+# (two of them in the backward), over one block's 231,424
+WANT_128 = {
+    F32: {28: (("cluster", 2), ("cluster", 4)),
+          14: (("block", 1), ("block", 1)),
+          7: (("block", 1), ("block", 1))},
+    BF16: {28: (("block", 1), ("cluster", 2)),
+           14: (("block", 1), ("block", 1)),
+           7: (("block", 1), ("block", 1))},
+}
+
+
 def _resnet50_shapes():
-    counts = chip_smoke.resnet50_bn_shapes(tmx, 32)
+    counts = chip_smoke.model_bn_shapes(tmx, "resnet-50", (3, 224, 224),
+                                        1000, 32)
     assert sum(counts.values()) == 51
     return sorted(counts)
 
 
+def _resnet20_shapes():
+    counts = chip_smoke.model_bn_shapes(tmx, "resnet-20", (3, 28, 28), 10,
+                                        128)
+    assert sum(counts.values()) == 20
+    return sorted(counts)
+
+
 RESNET50 = _resnet50_shapes()
+RESNET20 = _resnet20_shapes()
 
 
 def test_only_the_data_batchnorm_skips_dx():
@@ -66,15 +87,15 @@ def test_only_the_data_batchnorm_skips_dx():
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("key", RESNET50,
+@pytest.mark.parametrize("key", RESNET50 + RESNET20,
                          ids=["x".join(map(str, k[0]))
                               + ("-fixg" if k[1] else "")
                               + ("-relu" if k[2] else "")
                               + ("" if k[3] else "-nodx")
-                              for k in RESNET50])
+                              for k in RESNET50 + RESNET20])
 def test_plan_follows_the_slab_table(key, dtype):
     shape, _, _, need_dx = key
-    fwd, bwd = WANT[dtype][shape[2]]
+    fwd, bwd = (WANT if shape[0] == 32 else WANT_128)[dtype][shape[2]]
     pf = K.plan("fwd", shape, dtype)
     pb = K.plan("bwd", shape, dtype, need_dx)
     assert (pf.kind, pf.cluster) == fwd
