@@ -93,7 +93,29 @@ result line) if any phase fails:
    128 rows, one at 2 rows and an eval forward at 4×3×32×32 on the same
    parameter tensors (``data_ptr`` unchanged), 20 + 20 BN launches per
    training step and none in the eval;
-10. the kernels line, the card's nvidia-smi line, and the result line.
+10. decode: continuous-batching decode serving on ``gpu(0)``, float32,
+   TF32 off; no hand-written kernel lies on this path, and every kernel
+   counter (BN, copy, rtc), set to 0 just before, reads 0 after it.
+   (a) ``LSTMCharLM`` at bench.py's decode configuration (vocab 64,
+   hidden 64, embed 32, ``init_params(seed=7)``, 8 slots,
+   ``max_prefill_len`` 16, 24 prompts of 2–16 tokens from
+   ``RandomState(7)``, 64 new tokens each), greedy and at temperature
+   0.8: continuous and sequential tokens/s (over the steps' host time
+   and over the wall), TTFT p50/p99, average occupancy, host ms per
+   step; the continuous streams equal the sequential ones bit for bit
+   and ``compiles`` stays at its warmup count; ``prefill_parity`` at
+   every prompt length 1–40 (crossing the 16-token chunk); one step at
+   full occupancy: host ms, CUDA-event ms, device ms (a CUDA graph
+   replay) and the operators it dispatches; the first-token logits of
+   the 24 prompts within relative L2 1e-5 of the port's on the CPU.
+   (b) ``TransformerLM`` at example/transformer-lm's widths (V 32, D 64,
+   4 heads, window 16, 2 blocks, ``init_params(seed=0)``), 4 slots, 12
+   prompts of 3–40 tokens (the window slides): the same numbers and
+   gates. (c) ``python -m mxnet_tpu_torch.examples.decode_lm`` with its
+   default flags in a subprocess: exit 0, its parity, continuation and
+   throughput lines and the streams' sha256;
+11. the kernels line (each kernel's launches on every path, decode's
+   0 among them), the card's nvidia-smi line, and the result line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -1536,6 +1558,261 @@ def cifar_twin_phase(mx, K, card, copy_rate):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: decode serving (no hand-written kernel on this path)
+# ---------------------------------------------------------------------------
+# (a) bench.py's decode configuration (_bench_decode); (b) the widths of
+# example/transformer-lm (transformer_lm_tp.py: V, D, H, T, BLOCKS)
+DECODE_LSTM = {"vocab": 64, "hidden": 64, "embed": 32, "seed": 7,
+               "slots": 8, "max_prefill_len": 16, "requests": 24,
+               "prompt_len": (2, 17), "new_tokens": 64}
+DECODE_TRANSFORMER = {"vocab": 32, "embed": 64, "heads": 4, "window": 16,
+                      "blocks": 2, "seed": 0, "slots": 4,
+                      "max_prefill_len": 16, "requests": 12,
+                      "prompt_len": (3, 41), "new_tokens": 64}
+DECODE_TEMPERATURES = (0.0, 0.8)
+DECODE_PARITY_LENGTHS = range(1, 41)     # crosses the 16-token chunk
+# first-token logits, card vs the port on the CPU, relative L2: the same
+# float32 math; cuBLAS and the CPU's GEMMs sum in another order
+DECODE_CPU_REL_L2 = 1e-5
+
+
+def decode_model(cfg):
+    from mxnet_tpu_torch.serving.decode import LSTMCharLM, TransformerLM
+    if "hidden" in cfg:
+        return LSTMCharLM(cfg["vocab"], num_hidden=cfg["hidden"],
+                          num_embed=cfg["embed"])
+    return TransformerLM(cfg["vocab"], cfg["embed"], cfg["heads"],
+                         cfg["window"], cfg["blocks"])
+
+
+def decode_prompts(cfg):
+    import numpy as np
+    rng = np.random.RandomState(cfg["seed"])
+    lo, hi = cfg["prompt_len"]
+    return [list(map(int, rng.randint(0, cfg["vocab"], size=int(
+        rng.randint(lo, hi))))) for _ in range(cfg["requests"])]
+
+
+def decode_engine(mx, cfg, model, params, ctx, temperature):
+    from mxnet_tpu_torch.serving.decode import DecodeEngine
+    return DecodeEngine(model, params, slots=cfg["slots"],
+                        max_prefill_len=cfg["max_prefill_len"],
+                        temperature=temperature, start=False, context=ctx)
+
+
+def decode_run(mx, cfg, model, params, prompts, ctx, temperature):
+    """bench.py's decode load: every request queued before the scheduler
+    starts, then the same requests one at a time through a second
+    engine. Returns (continuous streams, sequential streams, row)."""
+    eng = decode_engine(mx, cfg, model, params, ctx, temperature)
+    warm = eng.warmup()
+    compiles = eng.stats()["compiles"]
+    reqs = [eng.submit(p, max_new_tokens=cfg["new_tokens"], seed=i)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    eng.start()
+    streams = [r.result(timeout=600) for r in reqs]
+    wall = time.perf_counter() - t0
+    eng.shutdown(drain=True)
+    st = eng.stats()
+    eng.release()
+    seq = decode_engine(mx, cfg, model, params, ctx, temperature)
+    seq.warmup()
+    seq.start()
+    t0 = time.perf_counter()
+    ref = [seq.generate(p, max_new_tokens=cfg["new_tokens"], seed=i,
+                        timeout=600) for i, p in enumerate(prompts)]
+    seq_wall = time.perf_counter() - t0
+    seq.shutdown(drain=True)
+    sst = seq.stats()
+    seq.release()
+    d, sd = st["decode"], sst["decode"]
+    row = {"temperature": temperature, "requests": len(prompts),
+           "tokens": d["tokens"], "steps": d["steps"],
+           "tokens_per_s": d["tokens_per_sec"],
+           "sequential_tokens_per_s": sd["tokens_per_sec"],
+           "tokens_per_s_wall": d["tokens"] / wall,
+           "sequential_tokens_per_s_wall": sd["tokens"] / seq_wall,
+           "wall_s": wall, "sequential_wall_s": seq_wall,
+           "ttft_ms_p50": d["ttft_ms"]["p50"],
+           "ttft_ms_p99": d["ttft_ms"]["p99"],
+           "avg_occupancy": d["avg_occupancy"],
+           "host_ms_per_step": 1e3 * eng._busy_s / max(d["steps"], 1),
+           "sequential_host_ms_per_step":
+               1e3 * seq._busy_s / max(sd["steps"], 1),
+           "warmup_ms": {k: v["warmup_ms"] for k, v in warm.items()},
+           "compiles_after_warmup": compiles,
+           "compiles_after_run": st["compiles"],
+           "bitwise_equal_sequential": streams == ref}
+    return streams, ref, row
+
+
+def decode_step_times(eng):
+    """One decode step at full occupancy on scratch state: its host time
+    (the engine's launch from the host vectors and the readback), CUDA
+    events around the launch (host dispatch gaps included), its device
+    time (a CUDA graph replay: kernels only) and the operators it
+    dispatches."""
+    import numpy as np
+    import torch
+    from collections import Counter
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from mxnet_tpu_torch.tools.bn_probe import cuda_time, graph_ms
+    n = eng.slots
+    toks = np.arange(n) % eng._model.vocab_size
+    ones = np.ones(n, np.int64)
+    seeds = np.arange(n)
+    with torch.no_grad():
+        state = eng._state_zeros(n)
+        d_tok, d_act, d_steps, d_seeds = eng._upload([toks, ones, ones,
+                                                      seeds])
+        act = d_act.bool()
+
+        def step():
+            return eng.step_device(state, d_tok, act, d_steps, d_seeds)
+
+        def launch():
+            _, nxt = eng._launch_step(state, toks, ones, ones, seeds,
+                                      eng._step_buf)
+            return nxt.cpu()
+
+        event_ms = cuda_time(step, reps=20, warm=3)
+        for _ in range(3):
+            launch()
+        host = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            launch()
+            host.append(1e3 * (time.perf_counter() - t0))
+        device_ms, method = graph_ms([step] * 3)
+        ops = Counter()
+
+        class _Count(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                ops[func.overloadpacket.__name__] += 1
+                return func(*args, **(kwargs or {}))
+
+        with _Count():
+            launch()
+    views = {"view", "_unsafe_view", "reshape", "expand", "t", "detach",
+             "alias", "slice", "select", "_reshape_alias", "as_strided",
+             "unsqueeze", "squeeze", "permute", "transpose", "split",
+             "chunk", "unbind"}
+    launching = {k: v for k, v in ops.items() if k not in views}
+    return {"step_host_ms": statistics.median(host),
+            "step_event_ms": event_ms, "step_device_ms": device_ms,
+            "device_ms_by": method, "ops_per_step": sum(ops.values()),
+            "launching_ops_per_step": sum(launching.values()),
+            "ops": dict(sorted(launching.items()))}
+
+
+def decode_first_logits(mx, cfg, model, params, prompts, ctx):
+    """Each prompt's final-position prefill logits (row 0) on ``ctx``."""
+    eng = decode_engine(mx, cfg, model, params, ctx, 0.0)
+    out = []
+    with eng._device_scope():
+        for p in prompts:
+            _, _, lg = eng._run_prefill_chunks(
+                eng._state_zeros(eng.slots), 0, p, 0)
+            out.append(lg[0].cpu().numpy())
+    eng.release()
+    return out
+
+
+def decode_model_phase(mx, name, cfg, card):
+    """(a) or (b): the continuous/sequential load at greedy and sampled
+    temperatures, prefill parity at every length 1–40, the step's times
+    and operators, and the first-token logits against the CPU. Returns
+    the names of the failed gates."""
+    import numpy as np
+    model = decode_model(cfg)
+    params = model.init_params(seed=cfg["seed"])
+    prompts = decode_prompts(cfg)
+    gpu = mx.gpu(0)
+    failed = []
+    for temperature in DECODE_TEMPERATURES:
+        _, _, row = decode_run(mx, cfg, model, params, prompts, gpu,
+                               temperature)
+        ok = (row["bitwise_equal_sequential"]
+              and row["compiles_after_run"] == row["compiles_after_warmup"])
+        emit({"phase": "decode_load", "model": name, **row, "ok": ok,
+              "card": card})
+        if not ok:
+            failed.append("%s load at temperature %g" % (name, temperature))
+    eng = decode_engine(mx, cfg, model, params, gpu, 0.0)
+    eng.warmup()
+    rng = np.random.RandomState(1)
+    parity = {L: eng.prefill_parity(list(map(int, rng.randint(
+        0, cfg["vocab"], size=L)))) for L in DECODE_PARITY_LENGTHS}
+    times = decode_step_times(eng)
+    bad = [L for L, ok in parity.items() if not ok]
+    emit({"phase": "decode_step", "model": name, "slots": cfg["slots"],
+          **times, "prefill_parity_lengths": [min(parity), max(parity)],
+          "prefill_parity_failed": bad,
+          "weight_bytes": eng.weight_bytes(),
+          "step_argument_bytes": eng.step_argument_bytes(),
+          "ok": not bad, "card": card})
+    eng.release()
+    if bad:
+        failed.append("%s prefill parity at lengths %s" % (name, bad))
+    card_logits = decode_first_logits(mx, cfg, model, params, prompts, gpu)
+    cpu_logits = decode_first_logits(mx, cfg, model, params, prompts,
+                                     mx.cpu())
+    errs = [rel_l2(a, b) for a, b in zip(card_logits, cpu_logits)]
+    ok = max(errs) <= DECODE_CPU_REL_L2
+    emit({"phase": "decode_card_vs_cpu", "model": name,
+          "prompts": len(errs), "max_rel_l2": max(errs),
+          "limit": DECODE_CPU_REL_L2, "ok": ok, "card": card})
+    if not ok:
+        failed.append("%s first-token logits vs CPU" % name)
+    return failed
+
+
+def decode_twin():
+    """The decode_lm twin with its default flags in a process of its
+    own: (exit code, the lines it prints, output tail)."""
+    res = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.examples.decode_lm"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    keep = ("parity:", "continuation:", "tokens/sec:", "streams sha256:",
+            "decode_lm:")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith(keep)]
+    return res.returncode, lines, res.stdout[-1500:] + res.stderr[-3000:]
+
+
+def decode_phase(mx, K, C, R, card):
+    """Decode serving on ``gpu(0)``: (a) the LSTM char-LM at bench.py's
+    configuration, (b) the transformer LM at example/transformer-lm's
+    widths, (c) the decode_lm twin in a subprocess. No hand-written
+    kernel lies on this path: every kernel counter reads 0 after it.
+    Returns those counts."""
+    for counter in (K.bn_fwd, K.bn_bwd, C.copy, R.rtc_kernel):
+        counter.launches = 0
+    failed = decode_model_phase(mx, "lstm_char_lm", DECODE_LSTM, card)
+    failed += decode_model_phase(mx, "transformer_lm", DECODE_TRANSFORMER,
+                                 card)
+    t0 = time.time()
+    rc, lines, tail = decode_twin()
+    twin_ok = rc == 0 and any(ln.startswith("decode_lm: all asserts passed")
+                              for ln in lines)
+    emit({"phase": "decode_twin", "exit_code": rc, "lines": lines,
+          "seconds": time.time() - t0, "ok": twin_ok,
+          "tail": None if twin_ok else tail, "card": card})
+    if not twin_ok:
+        failed.append("decode_lm twin")
+    launches = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches,
+                "copy": C.copy.launches, "rtc": R.rtc_kernel.launches}
+    emit({"phase": "decode_kernels", "launches": launches,
+          "ok": not any(launches.values())})
+    if any(launches.values()):
+        failed.append("kernel launches on the decode path %s" % launches)
+    if failed:
+        raise RuntimeError("decode phase failed: %s" % "; ".join(failed))
+    return launches
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1598,6 +1875,7 @@ def main():
     serving_phase(mx, K, card, trained)
     del trained
     twin_launches = cifar_twin_phase(mx, K, card, copy_rate)
+    decode_launches = decode_phase(mx, K, C, R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -1605,10 +1883,13 @@ def main():
                     source="mxnet_tpu_torch/kernels/csrc/batchnorm.cu",
                     replaces=replaces[k], launches=launches[k],
                     launches_cifar_twin=twin_launches[k],
+                    launches_decode=decode_launches[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     **{key: totals[k][key] for key in
                        ("ms", "plain_ms", "bound_ms", "library_ms")})
-               for k in ("bn_fwd", "bn_bwd")] + [rtc_entry, copy_entry]
+               for k in ("bn_fwd", "bn_bwd")] + [
+        dict(rtc_entry, launches_decode=decode_launches["rtc"]),
+        dict(copy_entry, launches_decode=decode_launches["copy"])]
     emit({"phase": "done", "seconds": time.time() - t_start})
     print(card)
     emit({"kernels": kernels})

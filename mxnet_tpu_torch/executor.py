@@ -131,7 +131,9 @@ def _build_eval(symbol):
         for n, v in zip(aux_nodes, aux_vals):
             env[(id(n), 0)] = v
         aux_out = {id(n): v for n, v in zip(aux_nodes, aux_vals)}
-        octx = OpContext(is_train=is_train)
+        # ops without inputs (_zeros) create on the arguments' device
+        octx = OpContext(is_train=is_train,
+                         device=arg_vals[0].device if arg_vals else None)
         for n in op_nodes:
             res = n.op.fcompute(n.attrs, [env[(id(s), oi)]
                                           for (s, oi) in n.inputs], octx)

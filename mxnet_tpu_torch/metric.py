@@ -2,18 +2,21 @@
 
 The same ``EvalMetric`` hierarchy, ``sum_metric / num_inst`` accumulators
 and ``create`` contract as the JAX package, for the metrics ``fit`` and
-``score`` use: ``Accuracy``, ``TopKAccuracy``, ``CrossEntropy``, ``Loss``
-and ``CompositeEvalMetric``. Updates run in numpy on the host, as the JAX
-package's host path does (``_as_np``): each batch's outputs are read back
-from the card once. The JAX package's device-side tally (``fused_stat``)
+``score`` use: ``Accuracy``, ``TopKAccuracy``, ``CrossEntropy``,
+``Perplexity``, ``Loss`` and ``CompositeEvalMetric``. Updates run in
+numpy on the host, as the JAX package's host path does (``_as_np``): each
+batch's outputs are read back from the card once. The JAX package's device-side tally (``fused_stat``)
 is not ported.
 """
 from __future__ import annotations
 
+import math
+
 import numpy
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "Loss", "check_label_shapes", "create"]
+           "CrossEntropy", "Perplexity", "Loss", "check_label_shapes",
+           "create"]
 
 
 def _as_np(x):
@@ -177,6 +180,37 @@ class CrossEntropy(EvalMetric):
             self.num_inst += ids.size
 
 
+class Perplexity(EvalMetric):
+    """exp(mean negative log-likelihood) over every scored position;
+    ``ignore_label`` masks padding. ``pred`` rows are probabilities over
+    the last axis, one row per label."""
+
+    def __init__(self, ignore_label, axis=-1):
+        super().__init__("Perplexity")
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        nll, count = 0.0, 0
+        for lab, out in zip(labels, preds):
+            probs = _as_np(out)
+            probs = probs.reshape(-1, probs.shape[-1])
+            ids = _as_np(lab).astype("int64").ravel()
+            chosen = probs[numpy.arange(ids.size), ids]
+            keep = numpy.ones(ids.size, bool) if self.ignore_label is None \
+                else ids != self.ignore_label
+            nll -= float(numpy.log(numpy.maximum(chosen, 1e-10))[keep].sum())
+            count += int(keep.sum())
+        self.sum_metric += nll
+        self.num_inst += count
+
+    def get(self):
+        if not self.num_inst:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
 class Loss(EvalMetric):
     """Mean of the raw outputs (for MakeLoss heads)."""
 
@@ -191,7 +225,8 @@ class Loss(EvalMetric):
 
 _REGISTRY = {
     "acc": Accuracy, "accuracy": Accuracy, "ce": CrossEntropy,
-    "top_k_accuracy": TopKAccuracy, "loss": Loss,
+    "top_k_accuracy": TopKAccuracy, "perplexity": Perplexity,
+    "loss": Loss,
 }
 
 

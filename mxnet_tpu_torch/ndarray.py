@@ -262,9 +262,13 @@ def invoke(op, inputs, raw_attrs, out=None):
     inputs."""
     attrs = _registry.parse_attrs(op, raw_attrs)
     n_aux = len(op.aux_names)
+    ctx = inputs[0].context if inputs else current_context()
     with torch.no_grad():
         results = op.fcompute(attrs, [x._t for x in inputs],
-                              _registry.OpContext(is_train=False))
+                              _registry.OpContext(
+                                  is_train=False,
+                                  device=None if inputs
+                                  else ctx.torch_device()))
     n_out = op.num_outputs(attrs)
     outs, aux_updates = list(results[:n_out]), list(results[n_out:])
     if n_aux and aux_updates:
@@ -272,7 +276,6 @@ def invoke(op, inputs, raw_attrs, out=None):
             nda._write(new)
     out_list = out if isinstance(out, (list, tuple)) else (
         [out] if out is not None else None)
-    ctx = inputs[0].context if inputs else current_context()
     wrapped = []
     for i, o in enumerate(outs):
         if out_list is not None and i < len(out_list) \

@@ -1,2 +1,3 @@
 """Operator implementations; importing this package registers them."""
-from . import nn, conv, matrix, elemwise, optimizer_ops, broadcast  # noqa: F401
+from . import (nn, conv, matrix, elemwise, optimizer_ops,  # noqa: F401
+               broadcast, init_ops)

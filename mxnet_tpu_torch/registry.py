@@ -13,6 +13,9 @@ with
 * aux state (BatchNorm moving stats): declared via ``aux_names``; fcompute
   receives aux tensors appended to inputs and returns aux updates appended
   to outputs (the executor writes them back).
+* arity: ``variable_args`` names the attr holding the input count
+  (Concat's ``num_args``); ``num_outputs`` may depend on attrs
+  (SliceChannel's ``num_outputs``).
 """
 from __future__ import annotations
 
@@ -29,12 +32,14 @@ _OP_REGISTRY = {}
 
 
 class OpContext:
-    """Per-invocation context handed to fcompute: the train flag."""
+    """Per-invocation context handed to fcompute: the train flag, and the
+    device that ops without inputs (``_zeros``) create their output on."""
 
-    __slots__ = ("is_train",)
+    __slots__ = ("is_train", "device")
 
-    def __init__(self, is_train=False):
+    def __init__(self, is_train=False, device=None):
         self.is_train = is_train
+        self.device = device if device is not None else torch.device("cpu")
 
 
 class OpDef:
@@ -42,7 +47,8 @@ class OpDef:
 
     def __init__(self, name, fcompute, arg_names=("data",),
                  out_names=("output",), aux_names=(), attr_types=None,
-                 infer_shape=None, alias=()):
+                 infer_shape=None, alias=(), variable_args=None,
+                 num_outputs=None):
         self.name = name
         self.fcompute = fcompute
         # arg_names may be a callable(attrs) -> names for ops whose input
@@ -53,17 +59,28 @@ class OpDef:
         self.attr_types = attr_types or {}
         self._infer_shape = infer_shape
         self.alias = tuple(alias)
+        self.variable_args = variable_args
+        self._num_outputs = num_outputs   # None, int or callable(attrs)
 
     def list_arguments(self, attrs=None):
+        if self.variable_args is not None:
+            n = int((attrs or {}).get(self.variable_args, 1))
+            return ["arg%d" % i for i in range(n)]
         if callable(self.arg_names):
             return list(self.arg_names(attrs or {}))
         return list(self.arg_names)
 
     def list_outputs(self, attrs=None):
-        return list(self.out_names)
+        n = self.num_outputs(attrs)
+        if n == len(self.out_names):
+            return list(self.out_names)
+        return ["%s%d" % (self.out_names[0], i) for i in range(n)]
 
     def num_outputs(self, attrs=None):
-        return len(self.out_names)
+        n = self._num_outputs
+        if n is None:
+            return len(self.out_names)
+        return n(attrs or {}) if callable(n) else int(n)
 
     def infer_shape(self, attrs, in_shapes, aux_shapes=None):
         """Return (in_shapes, out_shapes, aux_shapes), filling unknowns.

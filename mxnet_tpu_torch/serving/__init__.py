@@ -1,6 +1,7 @@
 """mxnet_tpu_torch.serving — online inference on the card: dynamic
-batching over batch-size buckets, with backpressure and tenancy (the
-image-model half of ``mxnet_tpu/serving``).
+batching over batch-size buckets, with backpressure and tenancy, and
+continuous-batching decode of sequence models (the port of
+``mxnet_tpu/serving``, without its executable cache).
 
 * :class:`Predictor` — binds a trained/loaded Module for inference, one
   module per padded batch-size bucket, all on one set of parameter
@@ -14,6 +15,12 @@ image-model half of ``mxnet_tpu/serving``).
   models behind one queue, with SLO-driven admission: a tenant whose own
   burn windows breach is shed (:class:`TenantShed`) while co-hosted
   tenants keep serving.
+* :class:`DecodeEngine` — continuous-batching decode of an
+  autoregressive model (:class:`LSTMCharLM`, :class:`TransformerLM`):
+  power-of-two prefill buckets, a slot-indexed state on the device, a
+  scheduler that admits and retires sequences between fixed-shape steps,
+  TTFT / per-token SLO trackers, and token streams bit for bit equal to
+  the same request decoded alone.
 * :class:`ServingStats` — one snapshot (``stats()``) of latency
   p50/p95/p99, batch-fill ratio, queue depth and the compile counter;
   with telemetry enabled, per-request phase traces too.
@@ -29,12 +36,13 @@ Quick start::
         probs = srv.submit(x).result()   # from any number of threads
     print(pred.stats())
 
-The decode engine and the persistent executable cache come with later
-slices of the port.
+The persistent executable cache comes with a later slice of the port.
 """
 from __future__ import annotations
 
 from .batcher import DynamicBatcher
+from .decode import (DecodeEngine, DecodeModel, DecodeRequest, LSTMCharLM,
+                     TransformerLM)
 from .errors import (QueueFull, RequestAbandoned, RequestTimeout,
                      ServerClosed, TenantShed, WorkerCrashed)
 from .predictor import Predictor
@@ -42,5 +50,7 @@ from .stats import ServingStats
 from .tenancy import Tenant
 
 __all__ = ["Predictor", "DynamicBatcher", "ServingStats", "Tenant",
+           "DecodeEngine", "DecodeModel", "DecodeRequest", "LSTMCharLM",
+           "TransformerLM",
            "QueueFull", "RequestAbandoned", "RequestTimeout",
            "ServerClosed", "TenantShed", "WorkerCrashed"]

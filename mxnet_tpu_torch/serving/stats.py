@@ -43,11 +43,17 @@ import time
 
 from .. import telemetry
 
-__all__ = ["ServingStats"]
+__all__ = ["ServingStats", "TRACE_PHASES", "DECODE_TRACE_PHASES"]
 
 # request-trace phase names, in wall-clock order
 TRACE_PHASES = ("queue_wait_ms", "coalesce_wait_ms", "pad_ms",
                 "device_ms", "resolve_ms")
+
+# the decode plane's phase decomposition (serving.decode): one request
+# spans a queue wait, its bucketed prefill, the continuous-batched
+# decode steps it was active for, and resolution
+DECODE_TRACE_PHASES = ("queue_wait_ms", "prefill_ms", "decode_ms",
+                       "resolve_ms")
 
 
 class ServingStats:
@@ -55,8 +61,8 @@ class ServingStats:
     with a bounded latency reservoir and a request-trace ring."""
 
     def __init__(self, latency_window=2048, scope=None,
-                 trace_capacity=None):
-        self._phases = TRACE_PHASES
+                 trace_capacity=None, phases=None):
+        self._phases = tuple(phases) if phases else TRACE_PHASES
         self._lock = threading.Lock()
         self._window = int(latency_window)
         self._lat = [0.0] * self._window
@@ -223,7 +229,9 @@ class ServingStats:
                    ts_end=None):
         """Record one request's phase-decomposed trace (callers gate on
         ``telemetry.enabled()`` — one branch when off). ``phases`` maps
-        phase name (:data:`TRACE_PHASES`) to ms; missing phases are 0.
+        phase name (this instance's phase set — :data:`TRACE_PHASES` by
+        default, :data:`DECODE_TRACE_PHASES` for a decode engine) to ms;
+        missing phases are 0.
         The trace lands in the bounded ring, each phase in its
         per-bucket histogram, and (for served requests) as Chrome-trace
         ``ph:X`` events in the span ring, next to the host spans."""
@@ -242,7 +250,8 @@ class ServingStats:
             self._traces.append(trace)
         if bucket:
             for p, ms in phases.items():
-                if ms or p in ("queue_wait_ms", "device_ms"):
+                if ms or p in ("queue_wait_ms", "device_ms",
+                               "decode_ms"):
                     self._phase_hist(trace["bucket"], p).observe(ms)
         elif phases.get("queue_wait_ms"):
             # never-launched outcomes (timeout, admission shed) have no

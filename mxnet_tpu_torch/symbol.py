@@ -20,7 +20,7 @@ from .attribute import AttrScope
 from .name import NameManager
 from . import registry as _registry
 
-__all__ = ["Symbol", "Variable", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -121,10 +121,47 @@ class Symbol:
             return None
         return Symbol(list(node.inputs))
 
+    def __getitem__(self, index):
+        """One output, by position."""
+        return Symbol([self._heads[index]])
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._heads)))
+
+    def __len__(self):
+        return len(self._heads)
+
+    # arithmetic, with a symbol or a number (the JAX package's rules)
     def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise TypeError("type %s not supported" % str(type(other)))
-        return _create("_plus", [self, other], {})
+        return _sym_binary(self, other, "_plus", "_plus_scalar")
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __sub__(self, other):
+        return _sym_binary(self, other, "_minus", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return _sym_binary(self, other, None, "_rminus_scalar")
+
+    def __mul__(self, other):
+        return _sym_binary(self, other, "_mul", "_mul_scalar")
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __div__(self, other):
+        return _sym_binary(self, other, "_div", "_div_scalar")
+
+    __truediv__ = __div__
+
+    def __rdiv__(self, other):
+        return _sym_binary(self, other, None, "_rdiv_scalar")
+
+    __rtruediv__ = __rdiv__
+
+    def __neg__(self):
+        return _sym_binary(self, -1.0, None, "_mul_scalar")
 
     def __repr__(self):
         return "<Symbol %s>" % ", ".join(self.list_outputs())
@@ -270,15 +307,29 @@ class Symbol:
 # ---------------------------------------------------------------------------
 # construction helpers
 # ---------------------------------------------------------------------------
-def Variable(name, attr=None, shape=None):
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             init=None):
     """Create a symbolic variable (mx.sym.Variable); ``shape`` seeds shape
-    inference."""
+    inference, ``lr_mult``/``wd_mult`` reach the optimizer and ``init``
+    (an Initializer) initializes this variable alone, as attributes."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     attr = dict(AttrScope.current().get(attr) or {})
     if shape is not None:
         attr["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        attr["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        attr["__wd_mult__"] = str(wd_mult)
+    if init is not None:
+        attr["__init__"] = init.dumps() if hasattr(init, "dumps") \
+            else str(init)
     return Symbol([(_Node(None, name, attr_dict=attr), 0)])
+
+
+def Group(symbols):
+    """One multi-output symbol of the given symbols' outputs."""
+    return Symbol([h for s in symbols for h in s._heads])
 
 
 def load(fname):
@@ -317,6 +368,18 @@ def load_json(json_str):
 # ---------------------------------------------------------------------------
 # symbol op wrappers, generated from the registry
 # ---------------------------------------------------------------------------
+def _sym_binary(lhs, rhs, op_name, scalar_op_name):
+    """``lhs <op> rhs``: the two-symbol op, or the scalar op with
+    ``scalar=rhs``."""
+    if isinstance(rhs, Symbol):
+        if op_name is None:
+            raise MXNetError("unsupported symbol operation")
+        return _create(op_name, [lhs, rhs], {})
+    if isinstance(rhs, (int, float)):
+        return _create(scalar_op_name, [lhs], {"scalar": float(rhs)})
+    raise TypeError("type %s not supported" % str(type(rhs)))
+
+
 def _create(op_name, input_syms, attrs, name=None, named_inputs=None):
     op = _registry.get_op(op_name)
     hint = op.name.lower().lstrip("_")
@@ -324,6 +387,8 @@ def _create(op_name, input_syms, attrs, name=None, named_inputs=None):
     name = NameManager.current().get(name, hint)
     user_attrs = AttrScope.current().get(None)
     attrs = _registry.parse_attrs(op, attrs)
+    if op.variable_args is not None and op.variable_args not in attrs:
+        attrs[op.variable_args] = len(input_syms)
 
     arg_names = op.list_arguments(attrs)
     named_inputs = named_inputs or {}

@@ -1,10 +1,13 @@
-"""The port's example twins (``mxnet_tpu_torch.examples.train_mnist`` and
-``.train_cifar10``) on the CPU (``--cpu``), run in subprocesses with
-timeouts as a user runs them: MNIST mlp and lenet; CIFAR resnet-8
-preempted after its first committed epoch (exit 66) and resumed, landing
-on the uninterrupted run's parameter digest bit for bit; one resnet-20
-epoch with the serving smoke; and every flag whose module the port does
-not have yet refused with ``MXNetError`` naming its slice.
+"""The port's example twins (``mxnet_tpu_torch.examples.train_mnist``,
+``.train_cifar10`` and ``.decode_lm``) on the CPU (``--cpu``), run in
+subprocesses with timeouts as a user runs them: MNIST mlp and lenet;
+CIFAR resnet-8 preempted after its first committed epoch (exit 66) and
+resumed, landing on the uninterrupted run's parameter digest bit for bit;
+one resnet-20 epoch with the serving smoke; the char-LM trained and
+served through the decode engine with the arguments
+``tests/test_examples.py`` gives the JAX script; and every flag whose
+module the port does not have yet refused with ``MXNetError`` naming its
+slice.
 """
 import os
 import subprocess
@@ -14,7 +17,7 @@ import pytest
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.checkpoint import CheckpointManager
-from mxnet_tpu_torch.examples import train_cifar10
+from mxnet_tpu_torch.examples import decode_lm, train_cifar10
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300
@@ -93,3 +96,19 @@ def test_train_cifar10_twin_refuses_later_flags(flag):
         argv.append(value)
     with pytest.raises(MXNetError, match="slice"):
         train_cifar10.main(argv)
+
+
+def test_decode_lm_twin(tmp_path):
+    """The JAX script's four checks: engine/module parity and the learned
+    continuation (each >= 0.9), continuous streams bit for bit equal to
+    sequential ones, and more tokens/s continuous than sequential."""
+    res = _ok(_run("decode_lm", ["--cpu", "--num-epochs", "3", "--seq-len",
+                                 "16", "--num-hidden", "64"], tmp_path))
+    assert "decode_lm: all asserts passed" in res.stdout
+    assert "parity: engine greedy matches module argmax" in res.stdout
+    assert "streams sha256: " in res.stdout
+
+
+def test_decode_lm_twin_refuses_int8_weights():
+    with pytest.raises(MXNetError, match="A6"):
+        decode_lm.main(["--cpu", "--int8-weights"])
