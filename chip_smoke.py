@@ -34,12 +34,17 @@ result line) if any phase fails:
    computes the same function (a yardstick the port never calls) and the
    least time the card's memory rate allows, at the data sheet's rate and
    at the measured copy roofline; at each of those shapes the kernels are
-   also held against their plain versions (float32, the main path's
-   flags);
+   also held against their plain versions (the main path's flags); all of
+   it in float32 and again in bfloat16 (the byte bound at 2 bytes an
+   element for x, y, du and dx; the library call on bfloat16 activations);
 4. main path: ResNet-50 (224², 1000 classes, batch 32, float32) through
-   ``mx.mod.Module(context=mx.gpu(0))`` with SGD (lr 0.1, momentum 0.9,
-   wd 1e-4, rescale 1/32): 5 forward_backward + update steps; the kernels'
-   launch counts must be 51 per step each;
+   ``mx.mod.Module(context=mx.gpu(0))`` on its default, fused route
+   (``MeshExecutorGroup``: one step function a batch) with SGD (lr 0.1,
+   momentum 0.9, wd 1e-4, rescale 1/32): 5 forward_backward + update
+   steps; the kernels' launch counts must be 51 per step each. Then the
+   fused and the classic route (``_allow_fused=False``), 3 steps each
+   from the same parameters with cuDNN deterministic: the parameters bit
+   for bit (else within relative L2 1e-6, with the reason);
 5. card vs CPU: one ResNet-50 forward_backward at batch 2 from identical
    weights on the card (kernels) and on the CPU (plain versions): softmax
    outputs and the gradients of fc1_weight, bn1_gamma,
@@ -72,6 +77,24 @@ result line) if any phase fails:
    after warmup: 0, launches per bucket, the device's estimated busy
    share); each client's last rows checked bit for bit; and no
    BatchNorm kernel launched while serving;
+   precision: ResNet-50 as in phase 4 (one synthetic batch, cuDNN
+   deterministic) in the modes ``f32``, ``bf16``, ``bf16_opt``,
+   ``combined`` and ``custom(remat=full)``, each twice from the same
+   parameters: ms a step (median of steps 2-5), img/s, peak memory
+   (``max_memory_allocated`` after ``reset_peak_memory_stats``), BN
+   launches a step and their dtype, finite outputs, changed parameters,
+   the loss scale. Gates: each mode repeats bit for bit; bf16's softmax
+   outputs after one step within relative L2 ``BF16_OUT_REL_L2`` of f32's;
+   ``combined`` and remat=full under f32's peak memory; exactly 51 BN
+   backwards a step and 51 forwards plus one replay per BatchNorm of the
+   remat segment plan, all bfloat16 in ``bf16``; ``fit(batch_group=4)``
+   over 8 batches equal to 8 per-batch ``fit`` steps bit for bit in
+   ``bf16``, and its device-tallied accuracy equal to the per-batch run's
+   host metric; a ``bf16_opt`` checkpoint restored by ``Module.load``
+   continues bit for bit; and, not gated, where an f32, a bf16 and a
+   ``combined`` step's time goes (``torch.profiler`` over 2 steps: host
+   wall, kernel and busy device time, the idle share, device time by
+   kernel kind);
 9. cifar_twin: the CIFAR twin ``mxnet_tpu_torch.examples.train_cifar10``
    (resnet-20 at its published width: 16/32/64 channels, 28² crops, 10
    classes, batch 128, float32, seed 7, cuDNN deterministic). The BN
@@ -92,7 +115,9 @@ result line) if any phase fails:
    must equal the in-process run's; and ``reshape``: a training step at
    128 rows, one at 2 rows and an eval forward at 4×3×32×32 on the same
    parameter tensors (``data_ptr`` unchanged), 20 + 20 BN launches per
-   training step and none in the eval;
+   training step and none in the eval; and twice in a subprocess with
+   ``--precision bf16 --batch-group 4``: accuracy >= 0.9 and the same
+   ``params_digest`` both times;
 10. decode: continuous-batching decode serving on ``gpu(0)``, float32,
    TF32 off; no hand-written kernel lies on this path, and every kernel
    counter (BN, copy, rtc), set to 0 just before, reads 0 after it.
@@ -115,7 +140,9 @@ result line) if any phase fails:
    default flags in a subprocess: exit 0, its parity, continuation and
    throughput lines and the streams' sha256;
 11. the kernels line (each kernel's launches on every path, decode's
-   0 among them), the card's nvidia-smi line, and the result line.
+   0 among them, and the BN kernels' bfloat16 launches and times), the
+   seconds of each phase, the card's nvidia-smi line, and the result
+   line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -136,6 +163,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores
 EPS = 2e-5
 BATCH = 32
+IMAGE = (3, 224, 224)
 STEPS = 5
 BN_PER_STEP = 51               # BatchNorms in ResNet-50, 50 fused with ReLU
 TOL = {
@@ -365,20 +393,24 @@ def model_bn_shapes(mx, network, image_shape, num_classes, batch):
     return counts
 
 
-def time_kernels(K, counts, copy_bytes_per_s, model="resnet-50"):
-    """At every BatchNorm shape of the step (float32, the main path's
-    flags): both kernels held against their plain versions (the data's
-    backward without dx, as the main path calls it), then the per-shape
-    and per-step times of the kernels, their plain versions and the
-    PyTorch yardsticks: call ms (one CUDA-event pair around one call, host
-    enqueue included), device ms (``graph_ms``) and host enqueue µs
-    (``enqueue_us``), beside the plan and the byte bound, also at the
-    measured copy rate ``copy_bytes_per_s``. Returns the per-step sums,
-    the bounds' sums at the copy rate and the worst float32 errors."""
+def time_kernels(K, counts, copy_bytes_per_s, model="resnet-50",
+                 dtype=None):
+    """At every BatchNorm shape of the step (the main path's flags, float32
+    unless ``dtype`` says bfloat16): both kernels held against their plain
+    versions (the data's backward without dx, as the main path calls it),
+    then the per-shape and per-step times of the kernels, their plain
+    versions and the PyTorch yardsticks: call ms (one CUDA-event pair
+    around one call, host enqueue included), device ms (``graph_ms``) and
+    host enqueue µs (``enqueue_us``), beside the plan and the byte bound
+    (x, y, du and dx at the dtype's size; the statistics are noise), also
+    at the measured copy rate ``copy_bytes_per_s``. Returns the per-step
+    sums, the bounds' sums at the copy rate and the worst errors."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.tools.bn_probe import (GRAPH_CALLS, cuda_time,
                                                 enqueue_us, graph_ms)
+    dtype = dtype or torch.float32
+    es = 2 if dtype == torch.bfloat16 else 4
     gen = torch.Generator(device="cuda").manual_seed(1)
     keys = ("ms", "device_ms", "enqueue_us", "plain_ms", "library_ms",
             "library_device_ms", "library_enqueue_us", "bound_ms")
@@ -387,8 +419,8 @@ def time_kernels(K, counts, copy_bytes_per_s, model="resnet-50"):
     worst = {"bn_fwd": 0.0, "bn_bwd": 0.0}
     failures = []
     for (shape, fix_gamma, relu, need_dx), n in sorted(counts.items()):
-        inputs = bn_inputs(shape, torch.float32, gen)
-        check, ok, _, _ = compare_case(K, inputs, torch.float32, relu,
+        inputs = bn_inputs(shape, dtype, gen)
+        check, ok, _, _ = compare_case(K, inputs, dtype, relu,
                                        fix_gamma, False, need_dx)
         check["ok"] = ok
         worst["bn_fwd"] = max(worst["bn_fwd"], check["y_max_abs_err"])
@@ -429,7 +461,7 @@ def time_kernels(K, counts, copy_bytes_per_s, model="resnet-50"):
             lib_dev, lib_method = graph_ms([functools.partial(lib, i)
                                             for i in range(GRAPH_CALLS)])
             return {
-                "plan": plan_name(K, op, shape, torch.float32, need_dx),
+                "plan": plan_name(K, op, shape, dtype, need_dx),
                 "ms": cuda_time(lambda: kern(0)), "device_ms": dev,
                 "enqueue_us": enqueue_us(lambda: kern(0)),
                 "plain_ms": cuda_time(plain, reps=5),
@@ -437,7 +469,7 @@ def time_kernels(K, counts, copy_bytes_per_s, model="resnet-50"):
                 "library_device_ms": lib_dev,
                 "library_enqueue_us": enqueue_us(lambda: lib(0)),
                 "device_ms_by": sorted({method, lib_method}),
-                "bound_ms": 1e3 * max(sweeps * numel * 4 / HBM_BYTES_PER_S,
+                "bound_ms": 1e3 * max(sweeps * numel * es / HBM_BYTES_PER_S,
                                       ops * numel / F32_FLOPS_PER_S)}
 
         # forward: read x, write y; ~7 float32 operations an element.
@@ -449,9 +481,10 @@ def time_kernels(K, counts, copy_bytes_per_s, model="resnet-50"):
         bwd = row(kern_bwd, lambda: K.bn_bwd_plain(
             du, x, rstd, mean, scale, shift, relu, need_dx=need_dx),
             lib_bwd, bwd_sweeps, 16, "bwd")
-        at_copy = {"bn_fwd": 1e3 * 2 * numel * 4 / copy_bytes_per_s,
-                   "bn_bwd": 1e3 * bwd_sweeps * numel * 4 / copy_bytes_per_s}
+        at_copy = {"bn_fwd": 1e3 * 2 * numel * es / copy_bytes_per_s,
+                   "bn_bwd": 1e3 * bwd_sweeps * numel * es / copy_bytes_per_s}
         out = {"phase": "kernel_times", "model": model, "shape": list(shape),
+               "dtype": str(dtype).replace("torch.", ""),
                "fix_gamma": fix_gamma, "relu": relu, "need_dx": need_dx,
                "per_step": n, "check": check, "bn_fwd": fwd, "bn_bwd": bwd,
                "bound_ms_at_measured_copy": at_copy}
@@ -473,11 +506,14 @@ def time_kernels(K, counts, copy_bytes_per_s, model="resnet-50"):
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
-def resnet50_module(mx, ctx, batch, arg_params=None, aux_params=None):
+def resnet50_module(mx, ctx, batch, arg_params=None, aux_params=None,
+                    **kwargs):
+    """ResNet-50 bound and initialised (Xavier from ``mx.random``'s seed,
+    or the given parameters); ``kwargs`` go to ``Module``."""
     sym = mx.models.get_symbol("resnet-50", num_classes=1000,
-                               image_shape=(3, 224, 224))
-    mod = mx.mod.Module(sym, context=ctx)
-    mod.bind(data_shapes=[("data", (batch, 3, 224, 224))],
+                               image_shape=IMAGE)
+    mod = mx.mod.Module(sym, context=ctx, **kwargs)
+    mod.bind(data_shapes=[("data", (batch,) + IMAGE)],
              label_shapes=[("softmax_label", (batch,))])
     mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
                                    magnitude=2), arg_params=arg_params,
@@ -488,7 +524,7 @@ def resnet50_module(mx, ctx, batch, arg_params=None, aux_params=None):
 def synthetic_batch(mx, ctx, batch, seed):
     import numpy as np
     rs = np.random.RandomState(seed)
-    x = rs.randn(batch, 3, 224, 224).astype(np.float32)
+    x = rs.randn(batch, *IMAGE).astype(np.float32)
     y = rs.randint(0, 1000, (batch,)).astype(np.float32)
     return mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
                            [mx.nd.array(y, ctx=ctx)])
@@ -526,6 +562,7 @@ def main_path(mx, K, card):
                   for k in before)
     ms = statistics.median(step_ms[1:])
     row = {"phase": "main_path", "model": "resnet-50", "image": [3, 224, 224],
+           "route": type(mod._exec_group).__name__,
            "classes": 1000, "batch": BATCH, "dtype": "float32",
            "steps": STEPS, "step_ms": step_ms, "ms_per_step": ms,
            "img_per_s": BATCH / (ms / 1e3), "launches": launches,
@@ -534,9 +571,84 @@ def main_path(mx, K, card):
     emit(row)
     want = BN_PER_STEP * STEPS
     if not (finite and changed and out.shape == (BATCH, 1000)
+            and row["route"] == "MeshExecutorGroup"
             and launches == {"bn_fwd": want, "bn_bwd": want}):
         raise RuntimeError("main path failed: %s" % json.dumps(row))
     return launches, row["img_per_s"]
+
+
+SGD_PARAMS = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+              "rescale_grad": 1.0 / BATCH}
+ROUTE_STEPS = 3
+ROUTE_REL_L2 = 1e-6     # the fallback limit if the routes are not bitwise
+
+
+class deterministic_cudnn(object):
+    """cuDNN's deterministic algorithms (and no autotuning) for a block."""
+
+    def __enter__(self):
+        import torch
+        b = torch.backends.cudnn
+        self.saved = (b.deterministic, b.benchmark)
+        b.deterministic, b.benchmark = True, False
+
+    def __exit__(self, *exc):
+        import torch
+        b = torch.backends.cudnn
+        b.deterministic, b.benchmark = self.saved
+
+
+def host_params(mod):
+    """A module's parameters and aux as host numpy arrays, by name."""
+    args, aux = mod.get_params()
+    return {k: v.asnumpy() for k, v in list(args.items()) +
+            list(aux.items())}
+
+
+def fused_vs_classic(mx, card):
+    """The fused route (the default) against the classic route
+    (``_allow_fused=False``): 3 ResNet-50 steps each from the same
+    parameters, cuDNN deterministic for both. The float32 parameters must
+    agree bit for bit; where they do not, the row names the parameters
+    that differ and the largest relative L2 distance, held to
+    ``ROUTE_REL_L2``."""
+    import numpy as np
+    ctx = mx.gpu(0)
+    batch = synthetic_batch(mx, ctx, BATCH, seed=0)
+    mx.random.seed(0)
+    res, args, aux = {}, None, None
+    with deterministic_cudnn():
+        for route, kw in (("fused", {}), ("classic",
+                                          {"_allow_fused": False})):
+            mod = resnet50_module(mx, ctx, BATCH, args, aux, **kw)
+            if args is None:
+                a, x = mod.get_params()
+                args = {k: v.copy() for k, v in a.items()}
+                aux = {k: v.copy() for k, v in x.items()}
+            mod.init_optimizer(optimizer="sgd", optimizer_params=SGD_PARAMS)
+            for _ in range(ROUTE_STEPS):
+                mod.forward_backward(batch)
+                mod.update()
+            res[route] = (type(mod._exec_group).__name__, host_params(mod))
+            del mod
+    (fk, fp), (ck, cp) = res["fused"], res["classic"]
+    differ = [k for k in fp if not np.array_equal(fp[k], cp[k])]
+    worst = max([rel_l2(fp[k], cp[k]) for k in differ] or [0.0])
+    row = {"phase": "main_path_routes", "steps": ROUTE_STEPS,
+           "groups": [fk, ck], "params": len(fp),
+           "bitwise_equal": not differ, "params_differing": differ[:10],
+           "n_params_differing": len(differ), "worst_rel_l2": worst,
+           "limit_rel_l2": ROUTE_REL_L2, "card": card}
+    if differ:
+        row["why"] = ("the two routes gave other bits on the card; the "
+                      "first differing parameters are listed (CPU: bit "
+                      "for bit, tests/test_torch_fused.py)")
+    row["ok"] = (fk == "MeshExecutorGroup" and
+                 ck == "DataParallelExecutorGroup" and worst <= ROUTE_REL_L2)
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError("fused and classic routes disagree: %s"
+                           % json.dumps(row))
 
 
 def card_vs_cpu(mx, K):
@@ -589,6 +701,351 @@ def card_vs_cpu(mx, K):
     emit(row)
     if not ok:
         raise RuntimeError("card and CPU disagree: %s" % json.dumps(row))
+
+
+# ---------------------------------------------------------------------------
+# phase precision: the precision modes on the fused route
+# ---------------------------------------------------------------------------
+PRECISION_MODES = ("f32", "bf16", "bf16_opt", "combined",
+                   "custom(remat=full)")
+PRECISION_STEPS = 5
+# bf16 softmax outputs after one step against f32's, relative L2: stated
+# before the first run from the port's own ResNet-50 on the CPU at batch
+# 4 (0.049); the card's cuDNN convolutions accumulate in float32 as the
+# CPU's do
+BF16_OUT_REL_L2 = 0.15
+GROUP_BATCHES, GROUP_K = 8, 4
+
+
+def precision_policy(mx, name):
+    if name == "custom(remat=full)":
+        return mx.precision.PrecisionPolicy(remat="full")
+    return name
+
+
+def bn_replays(mod):
+    """BatchNorm forwards a remat step replays, from the segment plan:
+    the backward replays every segment once, so each BatchNorm inside a
+    segment launches its forward a second time."""
+    fn = mod._exec_group._remat_eval_fn
+    if fn is None:
+        return 0
+    bns = {n.name for n in mod._exec_group.symbol._topo()
+           if n.op is not None and n.op.name == "BatchNorm"}
+    return sum(1 for seg in fn.segments for name in seg if name in bns)
+
+
+def precision_run(mx, K, name, args, aux, batch):
+    """One mode: ResNet-50 from ``args``/``aux``, SGD as phase 4,
+    ``PRECISION_STEPS`` steps on ``batch``. Returns (row, host params,
+    the first step's softmax outputs)."""
+    import gc
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    mod = resnet50_module(mx, mx.gpu(0), BATCH, args, aux,
+                          precision=precision_policy(mx, name))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SGD_PARAMS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in (K.bn_fwd, K.bn_bwd):
+        k.launches = k.launches_bf16 = 0
+    step_ms, first = [], None
+    for i in range(PRECISION_STEPS):
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            first = mod.get_outputs()[0].asnumpy()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: getattr(K, k).launches for k in ("bn_fwd", "bn_bwd")}
+    bf16 = {k: getattr(K, k).launches_bf16 for k in ("bn_fwd", "bn_bwd")}
+    params = host_params(mod)
+    ms = statistics.median(step_ms[1:])
+    replays = bn_replays(mod)
+    is_bf16 = mod._compute_dtype == "bfloat16"
+    want = {"bn_fwd": (BN_PER_STEP + replays) * PRECISION_STEPS,
+            "bn_bwd": BN_PER_STEP * PRECISION_STEPS}
+    want_bf16 = want if is_bf16 else {"bn_fwd": 0, "bn_bwd": 0}
+    states = [leaf for st in mod._updater.states.values()
+              for leaf in (st if isinstance(st, (tuple, list)) else [st])
+              if leaf is not None]
+    out = mod.get_outputs()[0].asnumpy()
+    row = {"mode": mod.precision_mode, "policy": mod._precision.describe()
+           if mod._precision is not None else None,
+           "steps": PRECISION_STEPS, "step_ms": step_ms, "ms_per_step": ms,
+           "img_per_s": BATCH / (ms / 1e3), "peak_memory_bytes": peak,
+           "bn_launches": launches, "bn_launches_bf16": bf16,
+           "bn_launches_per_step": {k: v / PRECISION_STEPS
+                                    for k, v in launches.items()},
+           "bn_dtype": "bfloat16" if is_bf16 else "float32",
+           "bn_replays_per_step": replays, "want_launches": want,
+           "optimizer_state_dtype": str(states[0]._read().dtype)
+           .replace("torch.", "") if states else None,
+           "loss_scale": mod._exec_group.loss_scale(),
+           "finite": bool(np.isfinite(out).all()) and all(
+               np.isfinite(v).all() for v in params.values()),
+           "params_changed": not np.array_equal(params["fc1_weight"],
+                                                args["fc1_weight"].asnumpy())}
+    row["launches_ok"] = launches == want and bf16 == want_bf16
+    del mod
+    return row, params, first
+
+
+def grouped_fit_check(mx, args, aux):
+    """``fit(batch_group=4)`` over 8 batches against 8 per-batch ``fit``
+    steps in ``bf16``: parameters bit for bit; the grouped run's device
+    tally of accuracy and cross-entropy against the per-batch run's host
+    metric (random labels over 1000 classes leave the accuracy near 0,
+    so the cross-entropy is the value that tells)."""
+    import numpy as np
+    rs = np.random.RandomState(3)
+    n = GROUP_BATCHES * BATCH
+    x = rs.randn(n, *IMAGE).astype(np.float32)
+    y = rs.randint(0, 1000, n).astype(np.float32)
+    res = {}
+    for name, group, device_metric in (("per_batch", None, "0"),
+                                       ("grouped", GROUP_K, "1")):
+        os.environ["MXNET_DEVICE_METRIC"] = device_metric
+        try:
+            mod = mx.mod.Module(mx.models.get_symbol(
+                "resnet-50", num_classes=1000, image_shape=IMAGE),
+                context=mx.gpu(0), precision="bf16")
+            metric = mx.metric.create(["acc", "ce"])
+            t0 = time.perf_counter()
+            mod.fit(mx.io.NDArrayIter(x, y, batch_size=BATCH),
+                    eval_metric=metric, arg_params=args, aux_params=aux,
+                    optimizer="sgd", optimizer_params=SGD_PARAMS,
+                    num_epoch=1, batch_group=group)
+            seconds = time.perf_counter() - t0
+        finally:
+            os.environ.pop("MXNET_DEVICE_METRIC", None)
+        res[name] = (host_params(mod), metric.get()[1], seconds,
+                     mod.grouped_train_engaged(),
+                     mod._exec_group._metric_live is metric)
+        del mod
+    (pa, acc_a, sa, ga, la), (pb, acc_b, sb, gb, lb) = res["per_batch"], \
+        res["grouped"]
+    bitwise = all(np.array_equal(pa[k], pb[k]) for k in pa)
+    return {"batches": GROUP_BATCHES, "batch_group": GROUP_K,
+            "params_bitwise_equal": bitwise,
+            "host_metric_acc_ce": acc_a, "device_tally_acc_ce": acc_b,
+            "grouped_engaged": gb and not ga,
+            "device_tally_live": lb and not la,
+            "fit_s": {"per_batch": sa, "grouped": sb},
+            "ok": bitwise and gb and not ga and lb and not la and
+            all(abs(a - b) <= 1e-5 * max(abs(a), 1e-30)
+                for a, b in zip(acc_a, acc_b))}
+
+
+def bf16_opt_resume_check(mx, args, aux, batch):
+    """A ``bf16_opt`` run checkpointed after 2 steps and continued 2 more,
+    against ``Module.load`` of that entry (the mode and the bf16
+    optimizer state adopted) continued the same 2 steps: bit for bit."""
+    import shutil
+    import numpy as np
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    path = os.path.join(ROOT, "build", "precision", "bf16_opt")
+    shutil.rmtree(path, ignore_errors=True)
+    mgr = CheckpointManager(path)
+    a = resnet50_module(mx, mx.gpu(0), BATCH, args, aux, precision="bf16_opt")
+    a.init_optimizer(optimizer="sgd", optimizer_params=SGD_PARAMS)
+    for _ in range(2):
+        a.forward_backward(batch)
+        a.update()
+    a.save_checkpoint(None, 2, save_optimizer_states=True, manager=mgr,
+                      async_save=False)
+    for _ in range(2):
+        a.forward_backward(batch)
+        a.update()
+    pa = host_params(a)
+    del a
+    b = mx.mod.Module.load(mgr, load_optimizer_states=True,
+                           context=mx.gpu(0))
+    b.bind(data_shapes=[("data", (BATCH,) + IMAGE)],
+           label_shapes=[("softmax_label", (BATCH,))])
+    b.init_optimizer(optimizer="sgd", optimizer_params=SGD_PARAMS)
+    for _ in range(2):
+        b.forward_backward(batch)
+        b.update()
+    pb = host_params(b)
+    mode = b.precision_mode
+    dtypes = sorted({str(leaf._read().dtype) for st in
+                     b._updater.states.values() for leaf in
+                     (st if isinstance(st, (tuple, list)) else [st])})
+    del b
+    bitwise = all(np.array_equal(pa[k], pb[k]) for k in pa)
+    return {"restored_mode": mode, "restored_state_dtypes": dtypes,
+            "continued_bitwise_equal": bitwise,
+            "ok": bitwise and mode == "bf16_opt" and
+            dtypes == ["torch.bfloat16"]}
+
+
+PROFILE_STEPS = 2
+KERNEL_KINDS = (
+    ("bn", ("fwd_slab", "bwd_slab", "fwd_partials", "fwd_apply",
+            "bwd_partials", "bwd_apply")),
+    ("conv_gemm", ("conv", "gemm", "xmma", "cutlass", "cudnn", "fprop",
+                   "dgrad", "wgrad", "nhwc", "nchw")),
+    ("elementwise", ("elementwise", "vectorized")),
+    ("reduce", ("reduce",)),
+    ("copy", ("copy", "memcpy", "memset", "fill")))
+
+
+def kernel_kind(name):
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def step_profile(mx, name, args, aux, batch):
+    """Where one step's time goes in mode ``name``: 5 steps timed on
+    the host clock (median of the last 3: the wall to a synchronise, and
+    the host's enqueue, until ``update()`` returns), then
+    ``PROFILE_STEPS`` steps under ``torch.profiler``: the host wall a
+    step, the kernels' summed device time and their busy time (union of
+    their intervals) a step, the device's idle share of the wall, and the
+    device time and kernel count by kind (conv/GEMM, BN kernels,
+    elementwise, reductions, copies, other). "not measured" where the
+    trace holds no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    mod = resnet50_module(mx, mx.gpu(0), BATCH, args, aux,
+                          precision=precision_policy(mx, name))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SGD_PARAMS)
+    enqueue, wall = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue.append(1e3 * (t1 - t0))
+        wall.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    del mod
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    row = {"mode": name, "steps": PROFILE_STEPS,
+           "unprofiled_ms_per_step": statistics.median(wall[2:]),
+           "unprofiled_host_enqueue_ms_per_step":
+               statistics.median(enqueue[2:]),
+           "host_wall_ms_per_step": wall_us / 1e3 / PROFILE_STEPS}
+    if not kern:
+        row["device"] = "not measured"
+        return row
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = max(spans[-1][1] - spans[0][0], 1e-9)
+    kinds, names = {}, {}
+    for e in kern:
+        us = e.time_range.end - e.time_range.start
+        k = kinds.setdefault(kernel_kind(e.name), [0.0, 0])
+        k[0] += us
+        k[1] += 1
+        names[e.name] = names.get(e.name, 0.0) + us
+    n = PROFILE_STEPS
+    row.update({
+        "kernels_per_step": len(kern) / n,
+        "kernel_ms_per_step": sum(v[0] for v in kinds.values()) / 1e3 / n,
+        "device_busy_ms_per_step": busy / 1e3 / n,
+        "device_idle_share_of_wall": 1.0 - busy / max(wall_us, 1e-9),
+        "device_idle_share_of_kernel_window": 1.0 - busy / window,
+        "by_kind": {k: {"ms_per_step": v[0] / 1e3 / n,
+                        "kernels_per_step": v[1] / n}
+                    for k, v in sorted(kinds.items())},
+        "top_kernels_ms_per_step": [
+            [nm[:80], us / 1e3 / n] for nm, us in
+            sorted(names.items(), key=lambda kv: -kv[1])[:6]]})
+    return row
+
+
+def precision_phase(mx, K, card):
+    """ResNet-50 (224², 1000 classes, batch 32, SGD as phase 4, one
+    synthetic batch, cuDNN deterministic) in each of ``PRECISION_MODES``,
+    twice from the same parameters: ms a step, img/s, peak memory, BN
+    launches a step and their dtype, finite outputs, changed parameters,
+    the loss scale. Gates: each mode repeats bit for bit; the bf16
+    softmax outputs after one step within ``BF16_OUT_REL_L2`` of f32's;
+    ``combined`` and remat=full under f32's peak memory; the exact BN
+    launch counts (replays from the segment plan); ``fit(batch_group=4)``
+    against 8 per-batch steps and the device tally against the host
+    metric; a bf16_opt checkpoint resumed bit for bit. Returns the bf16
+    mode's BN launches."""
+    import numpy as np
+    ctx = mx.gpu(0)
+    batch = synthetic_batch(mx, ctx, BATCH, seed=0)
+    mx.random.seed(0)
+    init = resnet50_module(mx, ctx, BATCH)
+    a, x = init.get_params()
+    args = {k: v.copy() for k, v in a.items()}
+    aux = {k: v.copy() for k, v in x.items()}
+    del init
+    rows, firsts, failed = {}, {}, []
+    with deterministic_cudnn():
+        for name in PRECISION_MODES:
+            row, params, first = precision_run(mx, K, name, args, aux, batch)
+            _, again, first2 = precision_run(mx, K, name, args, aux, batch)
+            row["repeat_bitwise_equal"] = all(
+                np.array_equal(params[k], again[k]) for k in params) and \
+                np.array_equal(first, first2)
+            del params, again
+            rows[name], firsts[name] = row, first
+        grouped = grouped_fit_check(mx, args, aux)
+        resume = bf16_opt_resume_check(mx, args, aux, batch)
+        profiles = []
+        for name in ("f32", "bf16", "combined"):
+            try:
+                profiles.append(step_profile(mx, name, args, aux, batch))
+            except Exception as e:     # diagnostics: never fail the phase
+                profiles.append({"mode": name, "device": "not measured",
+                                 "error": repr(e)})
+    rel = rel_l2(firsts["bf16"], firsts["f32"])
+    peak32 = rows["f32"]["peak_memory_bytes"]
+    for name, row in rows.items():
+        row["ok"] = (row["repeat_bitwise_equal"] and row["finite"] and
+                     row["params_changed"] and row["launches_ok"])
+        if name in ("combined", "custom(remat=full)"):
+            row["peak_below_f32"] = row["peak_memory_bytes"] < peak32
+            row["ok"] = row["ok"] and row["peak_below_f32"]
+        if name == "bf16":
+            row["out_rel_l2_vs_f32"] = rel
+            row["out_limit"] = BF16_OUT_REL_L2
+            row["ok"] = row["ok"] and rel <= BF16_OUT_REL_L2
+        emit({"phase": "precision", "card": card, **row})
+        if not row["ok"]:
+            failed.append(name)
+    emit({"phase": "precision_grouped_fit", "mode": "bf16", **grouped,
+          "card": card})
+    emit({"phase": "precision_bf16_opt_resume", **resume, "card": card})
+    for prof in profiles:
+        emit({"phase": "precision_profile", **prof, "card": card})
+    failed += [n for n, r in (("grouped fit", grouped),
+                              ("bf16_opt resume", resume)) if not r["ok"]]
+    if failed:
+        raise RuntimeError("precision phase failed: %s" % ", ".join(failed))
+    return rows["bf16"]["bn_launches_bf16"]
 
 
 # ---------------------------------------------------------------------------
@@ -1305,6 +1762,7 @@ TWIN_ARGS = ["--gpus", "0", "--seed", "7", "--num-epochs", "3"]
 TWIN_BATCH, TWIN_STEPS = 128, 3 * 4096 // 128    # 3 epochs of 32 batches
 TWIN_IMAGE = (3, 28, 28)
 TWIN_MIN_ACCURACY = 0.9
+TWIN_BF16_ARGS = ["--precision", "bf16", "--batch-group", "4"]
 
 
 def twin_bn_shapes(mx, batch):
@@ -1553,6 +2011,28 @@ def cifar_twin_phase(mx, K, card, copy_rate):
         "tail": tail if rc != 0 else None})
     if not reshape_check(mx, K, mod, n_bn):
         failed.append("reshape")
+    # bf16 with grouped steps, twice in subprocesses: the accuracy gate
+    # and a params_digest that repeats
+    digests, accs, tails = [], [], []
+    for i in range(2):
+        paths = [os.path.join(work, "bf16_%s%d.txt" % (k, i))
+                 for k in ("digest", "acc")]
+        t0 = time.time()
+        rc, tail = twin_subprocess(TWIN_ARGS + TWIN_BF16_ARGS + [
+            "--min-accuracy", str(TWIN_MIN_ACCURACY),
+            "--params-digest-out", paths[0], "--acc-out", paths[1]], work)
+        ok = rc == 0
+        digests.append(open(paths[0]).read().strip() if ok else None)
+        accs.append(float(open(paths[1]).read()) if ok else None)
+        tails.append(None if ok else tail)
+        emit({"phase": "cifar_twin_bf16_run", "run": i, "exit_code": rc,
+              "seconds": time.time() - t0})
+    check("bf16_grouped", None not in digests and digests[0] == digests[1]
+          and min(accs) >= TWIN_MIN_ACCURACY, {
+              "phase": "cifar_twin_bf16_grouped", "args": TWIN_BF16_ARGS,
+              "params_digests": digests, "accuracy": accs,
+              "min_accuracy": TWIN_MIN_ACCURACY,
+              "digest_repeats": digests[0] == digests[1], "tails": tails})
     if failed:
         raise RuntimeError("cifar_twin phase failed: %s" % ", ".join(failed))
     return launches
@@ -1858,24 +2338,43 @@ def main():
     emit({"phase": "build", "libraries": len(builds),
           "seconds": build_kernels(builds)})
 
-    copy_entry, copy_rate = copy_phase(C, card)
-    worst = check_kernels(K)
-    totals, at_copy, worst_step = time_kernels(
-        K, model_bn_shapes(mx, "resnet-50", (3, 224, 224), 1000, BATCH),
-        copy_rate)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.time()
+        try:
+            return fn(*a)
+        finally:
+            seconds[name] = time.time() - t0
+
+    copy_entry, copy_rate = timed("copy", copy_phase, C, card)
+    worst = timed("kernels", check_kernels, K)
+    r50 = model_bn_shapes(mx, "resnet-50", (3, 224, 224), 1000, BATCH)
+    totals, at_copy, worst_step = timed("kernel_times", time_kernels, K,
+                                        r50, copy_rate)
     worst = {k: max(worst[k], worst_step[k]) for k in worst}
     emit({"phase": "kernel_times_per_step", "batch": BATCH,
-          "card": card, **totals,
+          "dtype": "float32", "card": card, **totals,
           "bound_ms_at_measured_copy": at_copy,
           "measured_copy_gb_per_s": copy_rate / 1e9})
-    launches, hand_img_per_s = main_path(mx, K, card)
-    card_vs_cpu(mx, K)
-    rtc_entry = rtc_phase(mx, R, card, copy_rate)
-    trained = fit_phase(mx, K, card, hand_img_per_s)
-    serving_phase(mx, K, card, trained)
+    totals16, at_copy16, worst16 = timed(
+        "kernel_times_bf16", time_kernels, K, r50, copy_rate, "resnet-50",
+        torch.bfloat16)
+    emit({"phase": "kernel_times_per_step", "batch": BATCH,
+          "dtype": "bfloat16", "card": card, **totals16,
+          "bound_ms_at_measured_copy": at_copy16, "worst_abs_err": worst16,
+          "measured_copy_gb_per_s": copy_rate / 1e9})
+    launches, hand_img_per_s = timed("main_path", main_path, mx, K, card)
+    timed("main_path_routes", fused_vs_classic, mx, card)
+    timed("card_vs_cpu", card_vs_cpu, mx, K)
+    rtc_entry = timed("rtc", rtc_phase, mx, R, card, copy_rate)
+    trained = timed("fit", fit_phase, mx, K, card, hand_img_per_s)
+    timed("serving", serving_phase, mx, K, card, trained)
     del trained
-    twin_launches = cifar_twin_phase(mx, K, card, copy_rate)
-    decode_launches = decode_phase(mx, K, C, R, card)
+    launches16 = timed("precision", precision_phase, mx, K, card)
+    twin_launches = timed("cifar_twin", cifar_twin_phase, mx, K, card,
+                          copy_rate)
+    decode_launches = timed("decode", decode_phase, mx, K, C, R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -1884,13 +2383,19 @@ def main():
                     replaces=replaces[k], launches=launches[k],
                     launches_cifar_twin=twin_launches[k],
                     launches_decode=decode_launches[k],
+                    launches_bf16=launches16[k],
                     max_abs_err=worst[k], bound_by="bytes",
+                    max_abs_err_bf16=worst16[k],
                     **{key: totals[k][key] for key in
-                       ("ms", "plain_ms", "bound_ms", "library_ms")})
+                       ("ms", "plain_ms", "bound_ms", "library_ms")},
+                    **{key + "_bf16": totals16[k][key] for key in
+                       ("ms", "device_ms", "plain_ms", "bound_ms",
+                        "library_ms")})
                for k in ("bn_fwd", "bn_bwd")] + [
         dict(rtc_entry, launches_decode=decode_launches["rtc"]),
         dict(copy_entry, launches_decode=decode_launches["copy"])]
-    emit({"phase": "done", "seconds": time.time() - t_start})
+    emit({"phase": "done", "seconds": time.time() - t_start,
+          "phase_seconds": seconds})
     print(card)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,7 @@ Same ``import … as mx`` surface as ``mxnet_tpu`` for the slices ported so
 far (``mx.nd``, ``mx.sym``, ``mx.mod``, ``mx.init``, ``mx.optimizer``,
 ``mx.lr_scheduler``, ``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.rtc``,
 ``mx.models``, ``mx.checkpoint``, ``mx.monitor``, ``mx.telemetry``,
-``mx.serving``, ``mx.rnn``). It
+``mx.serving``, ``mx.rnn``, ``mx.precision``). It
 imports torch and numpy, never JAX and
 nothing of ``mxnet_tpu``. Entry points run on ``gpu(0)`` unless the caller
 passes ``mx.cpu()``.
@@ -35,9 +35,10 @@ from . import monitor as mon
 from . import telemetry
 from . import serving
 from . import rnn
+from . import precision
 
 __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "current_context", "random", "nd", "sym", "init",
            "optimizer", "lr_scheduler", "io", "metric", "callback", "rtc",
            "model", "mod", "models", "convert", "checkpoint", "monitor",
-           "mon", "telemetry", "serving", "rnn"]
+           "mon", "telemetry", "serving", "rnn", "precision"]

@@ -154,8 +154,12 @@ def snapshot(value):
         value = value._read()
     if isinstance(value, torch.Tensor):
         if value.dtype == torch.bfloat16:
-            raise MXNetError("bfloat16 arrays are checkpointed with the "
-                             "precision slice of the port")
+            # no precision mode writes one: parameters and aux stay
+            # float32 masters, and bfloat16 optimizer state travels in the
+            # optimizer payload as uint16 words (Updater.get_states)
+            raise MXNetError("a bfloat16 array is not a checkpoint array: "
+                             "parameters and aux are float32 in every "
+                             "precision mode")
         return [(None, value.detach().cpu().numpy().copy())]
     return [(None, onp.array(value))]
 

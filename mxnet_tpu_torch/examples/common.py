@@ -1,4 +1,5 @@
-"""What the example twins share: the device they train on."""
+"""What the example twins share: the device they train on, and the
+precision and grouped-step flags."""
 import torch
 
 import mxnet_tpu_torch as mx
@@ -19,3 +20,46 @@ def device_context(args):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return mx.gpu(ids[0])
+
+
+def add_precision_args(parser):
+    """``--precision``, ``--opt-state-dtype``, ``--remat`` and
+    ``--batch-group``, as the JAX scripts take them."""
+    parser.add_argument("--precision", default=None,
+                        help="precision mode (mx.precision.MODES: f32, "
+                             "bf16, bf16_opt, combined)")
+    parser.add_argument("--opt-state-dtype", default=None,
+                        help="optimizer-state storage dtype (float32 or "
+                             "bfloat16); with --remat an ad-hoc policy "
+                             "when --precision is not given")
+    parser.add_argument("--remat", default=None,
+                        help="remat policy of the training step (none, "
+                             "full, dots_saveable, offload_bn_stats)")
+    parser.add_argument("--batch-group", type=int, default=None,
+                        help="train K batches per grouped step (one copy "
+                             "per input, K steps in one call); the "
+                             "numbers equal per-batch training")
+
+
+def precision_policy(parser, args):
+    """The mode name of ``--precision``, or an ad-hoc PrecisionPolicy of
+    ``--opt-state-dtype``/``--remat``, or None."""
+    extra = args.opt_state_dtype or args.remat
+    if args.precision is not None and extra:
+        parser.error("--precision is a complete mode; do not combine it "
+                     "with --opt-state-dtype/--remat")
+    if extra:
+        return mx.precision.PrecisionPolicy(
+            opt_state_dtype=args.opt_state_dtype, remat=args.remat)
+    return args.precision
+
+
+def check_grouped(mod, batch_group):
+    """With ``--batch-group`` K > 1 the grouped step must have run: a
+    silent per-batch fallback would make the flag a no-op."""
+    trained = mod._optimizer is not None and mod._optimizer.num_update > 0
+    if batch_group and batch_group > 1 and trained and \
+            not mod.grouped_train_engaged():
+        raise mx.MXNetError("--batch-group %d requested but the grouped "
+                            "step never ran (fit trained per batch)"
+                            % batch_group)

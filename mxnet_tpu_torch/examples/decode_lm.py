@@ -20,7 +20,7 @@ JAX script's four claims:
 
 Unlike the JAX script, which trains on the CPU, the twin trains and
 serves on ``gpu(0)`` (or ``--gpus``/``--tpus``) unless ``--cpu`` is given.
-``--int8-weights`` is refused: weight-only int8 comes with the precision
+``--int8-weights`` is refused: weight-only int8 comes with the quant
 slice of the port (ROADMAP A6). ``main(argv)`` returns a dict of the
 results, the streams' sha256 among them.
 """
@@ -85,7 +85,7 @@ def main(argv=None):
     parser.add_argument("--max-new", type=int, default=32)
     parser.add_argument("--int8-weights", action="store_true",
                         help="serve through weight-only int8 (refused: the "
-                        "precision slice of the port, ROADMAP A6)")
+                        "quant slice of the port, ROADMAP A6)")
     parser.add_argument("--tpus", "--gpus", dest="tpus", default=None,
                         help="the card's id (one device)")
     parser.add_argument("--cpu", action="store_true",
@@ -95,7 +95,7 @@ def main(argv=None):
     if args.int8_weights:
         raise mx.MXNetError(
             "--int8-weights: weight-only int8 decode comes with the "
-            "precision slice of the port (ROADMAP A6)")
+            "quant slice of the port (ROADMAP A6)")
     logging.basicConfig(level=logging.INFO)
     ctx = device_context(args)
     parity_floor = 0.9

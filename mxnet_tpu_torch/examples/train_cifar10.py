@@ -3,7 +3,9 @@ train_cifar10.py``.
 
     python -m mxnet_tpu_torch.examples.train_cifar10 [--network resnet-20]
         [--cpu] [--seed 7] [--checkpoint-dir D [--resume]
-        [--exit-after-epoch 1]] [--serve-smoke] ...
+        [--exit-after-epoch 1]] [--serve-smoke] [--precision bf16]
+        [--opt-state-dtype bfloat16] [--remat dots_saveable]
+        [--batch-group 4] ...
 
 Uses a real CIFAR-10 python-pickle batch directory when ``--data-dir`` has
 one, else the JAX script's synthetic CIFAR-shaped data (the same seed, so
@@ -32,7 +34,9 @@ import torch
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import models
-from mxnet_tpu_torch.examples.common import device_context
+from mxnet_tpu_torch.examples.common import (add_precision_args,
+                                             check_grouped, device_context,
+                                             precision_policy)
 
 # Served rows against Module.predict, as relative L2 per request. The JAX
 # script holds them bit for bit; here Module.predict runs at 128 rows and
@@ -43,11 +47,7 @@ SERVE_REL_L2 = 1e-5
 
 # flag -> the slice of the port that brings its module
 LATER_SLICES = {
-    "batch_group": "the grouped-step slice (fit(batch_group=))",
     "prefetch_device": "the device-feed slice (mxnet_tpu/data)",
-    "precision": "the precision slice (mxnet_tpu/precision)",
-    "opt_state_dtype": "the precision slice (mxnet_tpu/precision)",
-    "remat": "the precision slice (mxnet_tpu/precision)",
     "fault_plan": "the faults slice (mxnet_tpu/faults)",
     "guardian": "the guardian slice (mxnet_tpu/guardian)",
     "device_augment": "the device-augment slice (mxnet_tpu/data)",
@@ -199,8 +199,8 @@ def parse_args(argv=None):
                              "Predictor + DynamicBatcher under concurrent "
                              "clients and hold the rows to Module.predict "
                              "(within SERVE_REL_L2)")
+    add_precision_args(parser)
     # refused until their modules are ported (LATER_SLICES)
-    parser.add_argument("--batch-group", type=int, default=None)
     parser.add_argument("--prefetch-device", type=int, default=None)
     parser.add_argument("--telemetry-jsonl", default=None)
     parser.add_argument("--telemetry-port", type=int, default=None)
@@ -211,12 +211,10 @@ def parse_args(argv=None):
     parser.add_argument("--augment-placement", default=None,
                         choices=["device", "host"])
     parser.add_argument("--cache-dataset", action="store_true", default=None)
-    parser.add_argument("--precision", default=None)
-    parser.add_argument("--opt-state-dtype", default=None)
-    parser.add_argument("--remat", default=None)
     parser.add_argument("--fault-plan", default=None)
     parser.add_argument("--guardian", action="store_true", default=None)
     args = parser.parse_args(argv)
+    args.precision_policy = precision_policy(parser, args)
     for dest, where in LATER_SLICES.items():
         if getattr(args, dest) is not None:
             raise mx.MXNetError("--%s comes with %s of the port"
@@ -253,7 +251,10 @@ def main(argv=None):
 
     net = models.get_symbol(args.network, num_classes=10,
                             image_shape=(3, 28, 28))
-    mod = mx.mod.Module(net, context=ctx)
+    mod = mx.mod.Module(net, context=ctx, precision=args.precision_policy)
+    if args.precision_policy is not None:
+        logging.info("precision mode: %s (%r)", mod.precision_mode,
+                     mod._precision.describe())
     train = mx.io.NDArrayIter(Xtr, ytr, batch_size=args.batch_size,
                               shuffle=True)
     val = mx.io.NDArrayIter(Xte, yte, batch_size=args.batch_size)
@@ -290,9 +291,11 @@ def main(argv=None):
             batch_end_callback=[mx.callback.Speedometer(args.batch_size, 20),
                                 _stamp],
             epoch_end_callback=callbacks or None,
-            resume_from=manager if args.resume else None)
+            resume_from=manager if args.resume else None,
+            batch_group=args.batch_group)
     if manager is not None:
         manager.wait_until_finished()
+    check_grouped(mod, args.batch_group)
     result = {"fit_s": time.perf_counter() - t0, "module": mod,
               "manager": manager}
     span = sum(t[-1] - t[0] for t in stamps.values() if len(t) > 1)

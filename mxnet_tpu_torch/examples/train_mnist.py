@@ -17,7 +17,9 @@ import numpy as np
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import models
-from mxnet_tpu_torch.examples.common import device_context
+from mxnet_tpu_torch.examples.common import (add_precision_args,
+                                             check_grouped, device_context,
+                                             precision_policy)
 
 
 def get_iters(args):
@@ -62,13 +64,15 @@ def main(argv=None):
     parser.add_argument("--num-epochs", type=int, default=10)
     parser.add_argument("--kv-store", default="local")
     parser.add_argument("--model-prefix", default=None)
+    add_precision_args(parser)
     args = parser.parse_args(argv)
+    policy = precision_policy(parser, args)
 
     logging.basicConfig(level=logging.INFO)
     ctx = device_context(args)
     net = models.get_symbol(args.network, num_classes=10)
     train, val = get_iters(args)
-    mod = mx.mod.Module(net, context=ctx)
+    mod = mx.mod.Module(net, context=ctx, precision=policy)
     checkpoint = None
     if args.model_prefix:
         checkpoint = mx.callback.do_checkpoint(args.model_prefix)
@@ -77,7 +81,8 @@ def main(argv=None):
             initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
             optimizer_params={"learning_rate": args.lr, "momentum": 0.9},
             batch_end_callback=mx.callback.Speedometer(args.batch_size, 20),
-            epoch_end_callback=checkpoint)
+            epoch_end_callback=checkpoint, batch_group=args.batch_group)
+    check_grouped(mod, args.batch_group)
     score = mod.score(val, "acc")
     print("final validation:", score)
     return score

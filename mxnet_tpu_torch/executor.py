@@ -20,8 +20,10 @@ autograd:
 * ``reshape`` binds the symbol again at new input shapes, keeping every
   array whose shape does not change (the parameters).
 
-Segmented (rematerialised) and pipelined evaluation are not in this
-slice of the port.
+``_build_eval_segmented`` is the rematerialising evaluator of the fused
+route's ``remat`` policies (about √N segments under
+``torch.utils.checkpoint``). Pipelined evaluation is not in this slice
+of the port.
 """
 from __future__ import annotations
 
@@ -34,6 +36,27 @@ from .registry import OpContext
 from . import ndarray as nd
 
 __all__ = ["Executor", "fuse_bn_relu"]
+
+
+def _run_node(n, env, octx, aux_ids, aux_sink, tap=None):
+    """Evaluate op node ``n`` from ``env`` (slot -> tensor) into ``env``;
+    hand each aux update to ``aux_sink(id, tensor)`` and each output to
+    ``tap``."""
+    res = n.op.fcompute(n.attrs, [env[(id(s), oi)] for (s, oi) in n.inputs],
+                        octx)
+    n_out = n.op.num_outputs(n.attrs)
+    for oi in range(n_out):
+        env[(id(n), oi)] = res[oi]
+    if tap is not None:
+        if n_out == 1:
+            tap("%s_output" % n.name, res[0])
+        else:
+            for oi in range(n_out):
+                tap("%s_output%d" % (n.name, oi), res[oi])
+    n_args = len(n.op.list_arguments(n.attrs))
+    for (src, _), newv in zip(n.inputs[n_args:], res[n_out:]):
+        if id(src) in aux_ids:
+            aux_sink(id(src), newv.detach())
 
 
 def fuse_bn_relu(symbol):
@@ -135,24 +158,125 @@ def _build_eval(symbol):
         octx = OpContext(is_train=is_train,
                          device=arg_vals[0].device if arg_vals else None)
         for n in op_nodes:
-            res = n.op.fcompute(n.attrs, [env[(id(s), oi)]
-                                          for (s, oi) in n.inputs], octx)
-            n_out = n.op.num_outputs(n.attrs)
-            for oi in range(n_out):
-                env[(id(n), oi)] = res[oi]
-            if tap is not None:
-                if n_out == 1:
-                    tap("%s_output" % n.name, res[0])
-                else:
-                    for oi in range(n_out):
-                        tap("%s_output%d" % (n.name, oi), res[oi])
-            n_args = len(n.op.list_arguments(n.attrs))
-            for (src, _), newv in zip(n.inputs[n_args:], res[n_out:]):
-                if id(src) in aux_ids:
-                    aux_out[id(src)] = newv.detach()
+            _run_node(n, env, octx, aux_ids, aux_out.__setitem__, tap)
         outs = tuple(env[(id(n), oi)] for (n, oi) in heads)
         return outs, tuple(aux_out[id(n)] for n in aux_nodes)
 
+    return eval_fn
+
+
+def _build_eval_segmented(symbol, remat="full", n_segments=None):
+    """Like :func:`_build_eval`, training only, with the op sequence split
+    into about √N contiguous segments, each run under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: only the
+    values that cross a segment boundary stay alive from the forward to
+    the backward, and the backward replays one segment at a time (the
+    JAX package's ``_build_eval_segmented``, with the same liveness
+    plan, computed once here).
+
+    ``remat`` is a canonical policy (``precision.canon_remat``):
+    ``"full"`` recomputes everything inside a segment; ``"dots"`` and
+    ``"bn_stats"`` keep convolution and matmul outputs through
+    ``create_selective_checkpoint_contexts``; a callable is used as the
+    selective-checkpoint policy itself.
+
+    The aux updates (BatchNorm moving stats) are taken from the first
+    forward only: ops compute them out of place and the segment returns
+    them, so a segment the backward replays never applies the EMA
+    again. No monitor taps. The returned function carries ``segments``,
+    the op-node names of each segment."""
+    import functools
+
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    from .precision.policy import remat_checkpoint_policy
+
+    order = symbol._topo()
+    op_nodes = [n for n in order if n.op is not None]
+    n_ops = len(op_nodes)
+    if n_ops == 0:
+        # nothing to checkpoint: the plain evaluator is already optimal
+        return _build_eval(symbol)
+    arg_nodes = [n for n in order if n.op is None and not n.is_aux]
+    aux_nodes = [n for n in order if n.op is None and n.is_aux]
+    heads = symbol._heads
+    aux_ids = {id(n) for n in aux_nodes}
+    if n_segments is None:
+        n_segments = max(1, int(math.ceil(math.sqrt(n_ops))))
+    seg_size = int(math.ceil(n_ops / float(n_segments)))
+    segments = [op_nodes[i:i + seg_size]
+                for i in range(0, n_ops, seg_size)]
+
+    # liveness: per segment, the slots it reads from before it and the
+    # products read after it (or heads)
+    head_slots = {(id(n), oi) for (n, oi) in heads}
+    produced_in, consumed_in = {}, {}
+    for si, seg in enumerate(segments):
+        for n in seg:
+            for oi in range(n.op.num_outputs(n.attrs)):
+                produced_in[(id(n), oi)] = si
+            for (src, oi) in n.inputs:
+                consumed_in.setdefault((id(src), oi), set()).add(si)
+    plan = []   # (segment, in_slots, out_slots, aux ids it updates)
+    for si, seg in enumerate(segments):
+        in_slots, seen = [], set()
+        for n in seg:
+            for (src, oi) in n.inputs:
+                slot = (id(src), oi)
+                if produced_in.get(slot, -1) != si and slot not in seen:
+                    seen.add(slot)
+                    in_slots.append(slot)
+        out_slots, aux_updates = [], []
+        for n in seg:
+            for oi in range(n.op.num_outputs(n.attrs)):
+                slot = (id(n), oi)
+                if any(sj > si for sj in consumed_in.get(slot, ())) or \
+                        slot in head_slots:
+                    out_slots.append(slot)
+            if n.op.aux_names:
+                n_args = len(n.op.list_arguments(n.attrs))
+                aux_updates.extend(id(src) for (src, _) in
+                                   n.inputs[n_args:] if id(src) in aux_ids)
+        plan.append((seg, tuple(in_slots), tuple(out_slots),
+                     tuple(aux_updates)))
+
+    policy = remat_checkpoint_policy(remat)
+    kwargs = {"use_reentrant": False}
+    if policy is not None:
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+
+    def eval_fn(arg_vals, aux_vals, is_train, tap=None):
+        if tap is not None:
+            raise MXNetError("segmented remat has no monitor taps")
+        env = {}
+        for n, v in zip(arg_nodes, arg_vals):
+            env[(id(n), 0)] = v
+        for n, v in zip(aux_nodes, aux_vals):
+            env[(id(n), 0)] = v
+        aux_out = {id(n): v for n, v in zip(aux_nodes, aux_vals)}
+        octx = OpContext(is_train=is_train,
+                         device=arg_vals[0].device if arg_vals else None)
+        for seg, in_slots, out_slots, aux_updates in plan:
+
+            def seg_fn(*in_vals, _seg=seg, _in=in_slots, _out=out_slots,
+                       _upd=aux_updates):
+                local = dict(zip(_in, in_vals))
+                upd = {}
+                for n in _seg:
+                    _run_node(n, local, octx, aux_ids, upd.__setitem__)
+                return (tuple(local[s] for s in _out)
+                        + tuple(upd[a] for a in _upd))
+
+            res = checkpoint(seg_fn, *[env[s] for s in in_slots], **kwargs)
+            for slot, v in zip(out_slots, res):
+                env[slot] = v
+            for aid, v in zip(aux_updates, res[len(out_slots):]):
+                aux_out[aid] = v
+        outs = tuple(env[(id(n), oi)] for (n, oi) in heads)
+        return outs, tuple(aux_out[id(n)] for n in aux_nodes)
+
+    eval_fn.segments = [[n.name for n in seg] for seg in segments]
     return eval_fn
 
 

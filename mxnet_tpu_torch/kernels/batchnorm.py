@@ -62,7 +62,8 @@ Dispatch: the plain version runs only for tensors on the CPU. A CUDA
 tensor launches the kernels or raises ``MXNetError`` (a dtype, shape or
 layout they do not take, a failed build, a refused launch); nothing falls
 back. ``bn_fwd.launches`` and ``bn_bwd.launches`` count calls that
-launched, never plain runs.
+launched, never plain runs; ``launches_bf16`` counts those of them on
+bfloat16 activations.
 """
 from __future__ import annotations
 
@@ -348,6 +349,7 @@ def bn_fwd(x, gamma, beta, c, eps, fix_gamma, relu, exact):
         bool(fix_gamma), bool(relu), bool(exact), dev, _stream(dev)),
         "bn_fwd")
     bn_fwd.launches += 1
+    bn_fwd.launches_bf16 += x.dtype == torch.bfloat16
     stats = buf if call.rows == 5 else buf[:5]
     mean, var, rstd, scale, shift = stats.unbind(0)
     return y, mean, var, rstd, scale, shift
@@ -376,9 +378,10 @@ def bn_bwd(du, x, rstd, mean, scale, shift, relu, need_dx=True):
         ptr + 4 * call.scratch_row * x.shape[1], call.plan_ptr, bool(relu),
         dev, _stream(dev)), "bn_bwd")
     bn_bwd.launches += 1
+    bn_bwd.launches_bf16 += x.dtype == torch.bfloat16
     dbeta, dgamma = (buf if call.rows == 2 else buf[:2]).unbind(0)
     return dx, dbeta, dgamma
 
 
-bn_fwd.launches = 0
-bn_bwd.launches = 0
+bn_fwd.launches = bn_fwd.launches_bf16 = 0
+bn_bwd.launches = bn_bwd.launches_bf16 = 0

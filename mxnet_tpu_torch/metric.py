@@ -3,10 +3,18 @@
 The same ``EvalMetric`` hierarchy, ``sum_metric / num_inst`` accumulators
 and ``create`` contract as the JAX package, for the metrics ``fit`` and
 ``score`` use: ``Accuracy``, ``TopKAccuracy``, ``CrossEntropy``,
-``Perplexity``, ``Loss`` and ``CompositeEvalMetric``. Updates run in
-numpy on the host, as the JAX package's host path does (``_as_np``): each
-batch's outputs are read back from the card once. The JAX package's device-side tally (``fused_stat``)
-is not ported.
+``Perplexity``, ``Loss``, ``CompositeEvalMetric`` and ``CustomMetric``.
+``update`` runs in numpy on the host, as the JAX package's host path does
+(``_as_np``): each batch's outputs are read back from the card once.
+
+The device-side tally: every metric but ``CustomMetric`` also has a
+``fused_stat`` — a function ``stat(torch, labels, preds)`` that returns
+this batch's ``(sum, count)`` (a tensor on the outputs' device or a Python
+number; a composite returns one pair per leaf metric) and equals what
+``update`` would add. ``Module.fit`` and ``score`` on the fused route
+(``MeshExecutorGroup.enable_device_metric`` / ``score_device``) add those
+rows into a device tally inside the step, and the metric reads it back
+once, in ``get``: no per-batch readback.
 """
 from __future__ import annotations
 
@@ -15,8 +23,8 @@ import math
 import numpy
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "Perplexity", "Loss", "check_label_shapes",
-           "create"]
+           "CrossEntropy", "Perplexity", "Loss", "CustomMetric", "np",
+           "check_label_shapes", "create"]
 
 
 def _as_np(x):
@@ -43,6 +51,8 @@ class EvalMetric(object):
     def __init__(self, name, num=None):
         self.name = name
         self.num = num
+        self._dev_read = None   # () -> numpy (n_slots, 2) device tally
+        self._dev_zero = None   # () -> None, resets the device tally
         self.reset()
 
     def update(self, label, pred):
@@ -52,8 +62,11 @@ class EvalMetric(object):
         many = self.num is not None
         self.sum_metric = [0.0] * self.num if many else 0.0
         self.num_inst = [0] * self.num if many else 0
+        if self._dev_zero is not None:
+            self._dev_zero()
 
     def get(self):
+        self._drain_device()
         if self.num is None:
             if not self.num_inst:
                 return (self.name, float("nan"))
@@ -70,6 +83,42 @@ class EvalMetric(object):
 
     def __str__(self):
         return "EvalMetric: {}".format(dict(self.get_name_value()))
+
+    # -- the device tally ----------------------------------------------
+    def fused_stat(self):
+        """The device-side statistic, or ``None`` (host path only): a
+        function ``stat(torch, labels, preds) -> (sum, count)`` that runs
+        on the outputs' device without reading anything back and equals
+        what ``update`` adds to ``sum_metric`` / ``num_inst``."""
+        return None
+
+    def _leaf_stats(self):
+        """Flat list of per-row stat functions (None: host only)."""
+        return [self.fused_stat()]
+
+    def _bind_device_tally(self, reader, zeroer):
+        """Attach a device tally (the fused Module route calls this)."""
+        self._dev_read = reader
+        self._dev_zero = zeroer
+
+    def _unbind_device_tally(self):
+        self._dev_read = self._dev_zero = None
+
+    def _drain_device(self):
+        """Fold the device tally into the host sums (one readback)."""
+        if self._dev_read is None:
+            return
+        tally = numpy.asarray(self._dev_read())
+        self._dev_zero()
+        self._fold_tally(tally)
+
+    def _fold_tally(self, tally):
+        self.sum_metric += float(tally[0, 0])
+        self.num_inst += int(round(float(tally[0, 1])))
+
+    def _n_slots(self):
+        """Rows this metric occupies in a shared device tally."""
+        return 1
 
 
 class CompositeEvalMetric(EvalMetric):
@@ -92,10 +141,42 @@ class CompositeEvalMetric(EvalMetric):
     def reset(self):
         for child in getattr(self, "metrics", []):
             child.reset()
+        if getattr(self, "_dev_zero", None) is not None:
+            self._dev_zero()
 
     def get(self):
+        self._drain_device()
         parts = [child.get() for child in self.metrics]
         return ([p[0] for p in parts], [p[1] for p in parts])
+
+    def _leaf_stats(self):
+        flat = []
+        for child in self.metrics:
+            flat.extend(child._leaf_stats())
+        return flat
+
+    def fused_stat(self):
+        # the leaves' rows, flattened so nested composites line up with
+        # the recursive _fold_tally / _n_slots layout
+        stats = self._leaf_stats()
+        if not stats or any(s is None for s in stats):
+            return None
+
+        def stat(xp, labels, preds):
+            return [s(xp, labels, preds) for s in stats]
+
+        stat.n_slots = len(stats)
+        return stat
+
+    def _fold_tally(self, tally):
+        row = 0
+        for child in self.metrics:
+            n = child._n_slots()
+            child._fold_tally(tally[row:row + n])
+            row += n
+
+    def _n_slots(self):
+        return sum(child._n_slots() for child in self.metrics)
 
 
 def _decide_labels(scores, label_shape):
@@ -130,6 +211,23 @@ class Accuracy(EvalMetric):
             self.sum_metric += int((got == want).sum())
             self.num_inst += want.size
 
+    def fused_stat(self):
+        select = self._select
+
+        def stat(xp, labels, preds):
+            hits, seen = 0.0, 0
+            for lab, out in zip(labels, select(preds)):
+                decided = out.argmax(dim=1) \
+                    if out.dim() > 1 and tuple(out.shape) != \
+                    tuple(lab.shape) else out
+                eq = decided.to(xp.int32).reshape(-1) == \
+                    lab.to(xp.int32).reshape(-1)
+                hits = hits + eq.sum().to(xp.float32)
+                seen += eq.numel()
+            return hits, seen
+
+        return stat
+
 
 class TopKAccuracy(EvalMetric):
     """Fraction of samples whose label lands in the top-k scores
@@ -160,6 +258,26 @@ class TopKAccuracy(EvalMetric):
             self.sum_metric += hits
             self.num_inst += want.size
 
+    def fused_stat(self):
+        top_k = self.top_k
+
+        def stat(xp, labels, preds):
+            hits, seen = 0.0, 0
+            for lab, out in zip(labels, preds):
+                want = lab.to(xp.int32).reshape(-1)
+                if out.dim() == 1:
+                    eq = out.to(xp.int32) == want
+                    hits = hits + eq.sum().to(xp.float32)
+                else:
+                    k = min(top_k, out.shape[1])
+                    kset = xp.topk(out.to(xp.float32), k, dim=1).indices
+                    inset = (kset == want[:, None]).any(dim=1)
+                    hits = hits + inset.sum().to(xp.float32)
+                seen += want.numel()
+            return hits, seen
+
+        return stat
+
 
 class CrossEntropy(EvalMetric):
     """Mean -log p(label) over samples; ``pred`` rows are probabilities."""
@@ -178,6 +296,21 @@ class CrossEntropy(EvalMetric):
             chosen = probs[numpy.arange(ids.size), ids]
             self.sum_metric += float(-numpy.log(chosen + self.eps).sum())
             self.num_inst += ids.size
+
+    def fused_stat(self):
+        eps = self.eps
+
+        def stat(xp, labels, preds):
+            total, seen = 0.0, 0
+            for lab, out in zip(labels, preds):
+                ids = lab.to(xp.int64).reshape(-1)
+                chosen = xp.gather(out.to(xp.float32), 1,
+                                   ids[:, None])[:, 0]
+                total = total - xp.log(chosen + eps).sum()
+                seen += ids.numel()
+            return total, seen
+
+        return stat
 
 
 class Perplexity(EvalMetric):
@@ -206,9 +339,31 @@ class Perplexity(EvalMetric):
         self.num_inst += count
 
     def get(self):
+        self._drain_device()
         if not self.num_inst:
             return (self.name, float("nan"))
         return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+    def fused_stat(self):
+        ignore = self.ignore_label
+
+        def stat(xp, labels, preds):
+            nll, count = 0.0, 0
+            for lab, out in zip(labels, preds):
+                probs = out.reshape(-1, out.shape[-1]).to(xp.float32)
+                ids = lab.to(xp.int64).reshape(-1)
+                chosen = xp.gather(probs, 1, ids[:, None])[:, 0]
+                logp = xp.log(xp.clamp_min(chosen, 1e-10))
+                if ignore is None:
+                    nll = nll - logp.sum()
+                    count += ids.numel()
+                else:
+                    keep = (ids != int(ignore)).to(xp.float32)
+                    nll = nll - (logp * keep).sum()
+                    count = count + keep.sum()
+            return nll, count
+
+        return stat
 
 
 class Loss(EvalMetric):
@@ -222,6 +377,54 @@ class Loss(EvalMetric):
             self.sum_metric += float(_as_np(out).sum())
             self.num_inst += out.size
 
+    def fused_stat(self):
+        def stat(xp, labels, preds):
+            total, seen = 0.0, 0
+            for out in preds:
+                total = total + out.to(xp.float32).sum()
+                seen += out.numel()
+            return total, seen
+
+        return stat
+
+
+class CustomMetric(EvalMetric):
+    """Host-only metric from a user ``feval(label, pred)`` callable; it
+    has no device statistic, so ``fit`` keeps the per-batch host path."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False):
+        if name is None:
+            name = feval.__name__
+            if "<" in name:
+                name = "custom(%s)" % name
+        super().__init__(name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for out, lab in zip(preds, labels):
+            got = self._feval(_as_np(lab), _as_np(out))
+            if isinstance(got, tuple):
+                part_sum, part_n = got
+                self.sum_metric += part_sum
+                self.num_inst += part_n
+            else:
+                self.sum_metric += got
+                self.num_inst += 1
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """Wrap a numpy eval function as a metric (the reference's
+    ``metric.np``)."""
+
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
 
 _REGISTRY = {
     "acc": Accuracy, "accuracy": Accuracy, "ce": CrossEntropy,
@@ -231,7 +434,8 @@ _REGISTRY = {
 
 
 def create(metric, **kwargs):
-    """A metric from a name, an ``EvalMetric`` or a list of either."""
+    """A metric from a name, an ``EvalMetric``, a callable ``feval``
+    (a ``CustomMetric``) or a list of any of these."""
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -239,6 +443,8 @@ def create(metric, **kwargs):
         for child in metric:
             composite.add(child)
         return composite
+    if callable(metric):
+        return CustomMetric(metric)
     try:
         return _REGISTRY[metric.lower()](**kwargs)
     except (KeyError, AttributeError):

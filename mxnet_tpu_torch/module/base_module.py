@@ -1,17 +1,19 @@
 """BaseModule (PyTorch counterpart of ``mxnet_tpu/module/base_module.py``)
 — the canonical train, score and predict loops.
 
-``fit`` is the JAX package's classic loop: bind, init_params,
-init_optimizer, then per batch forward_backward, update, update_metric
-and the batch-end callbacks; at each epoch's end it logs the training
-metric, syncs the parameters (get_params + set_params), calls the
-epoch-end callbacks and scores ``eval_data``. ``resume_from=`` restarts
-an interrupted run from a checkpoint entry (parameters, optimizer
-states, RNG state), and ``monitor=`` taps the op outputs of every
-``interval``-th batch. What else the JAX ``fit`` layers on top
-(telemetry, the training guardian, ``batch_group``, device prefetch, the
-device-side metric tally, step-granular resume) comes with later slices:
-those arguments are accepted at None and refused otherwise.
+``fit`` is the JAX package's loop: bind, init_params, init_optimizer,
+then per batch forward_backward, update, update_metric and the batch-end
+callbacks; at each epoch's end it logs the training metric, syncs the
+parameters (get_params + set_params), calls the epoch-end callbacks and
+scores ``eval_data``. On the fused route the training metric rides the
+device tally (``_install_device_metric``: no per-batch readback) and
+``batch_group=K`` trains K batches per grouped step. ``resume_from=``
+restarts an interrupted run from a checkpoint entry (parameters,
+optimizer states, RNG state), and ``monitor=`` taps the op outputs of
+every ``interval``-th batch. What else the JAX ``fit`` layers on top
+(telemetry, the training guardian, device prefetch, step-granular
+resume) comes with later slices: those arguments are accepted at None
+and refused otherwise.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from .. import ndarray as nd
 from ..base import MXNetError
 from ..initializer import Uniform
 
-__all__ = ["BaseModule", "BatchEndParam", "pad_batch_rows"]
+__all__ = ["BaseModule", "BatchEndParam", "pad_batch_rows",
+           "stack_group_inputs"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -51,6 +54,37 @@ def pad_batch_rows(arr, target_rows):
         return onp.concatenate([vals, fill])
     fill = vals.new_zeros((target_rows - n,) + tuple(vals.shape[1:]))
     return torch.cat([vals, fill])
+
+
+def stack_group_inputs(batches, data_names, label_names):
+    """K batches -> {input name: stacked (K, batch, ...) block}: every data
+    input, and a label only when every batch of the group has it. The
+    one pairing rule of the grouped train step and grouped predict."""
+    stacked = {}
+    for i, name in enumerate(data_names):
+        stacked[name] = _stack_batch_arrays([b.data[i] for b in batches])
+    if label_names and batches[0].label:
+        for i, name in enumerate(label_names):
+            if i < len(batches[0].label) and \
+                    all(b.label[i] is not None for b in batches):
+                stacked[name] = _stack_batch_arrays(
+                    [b.label[i] for b in batches])
+    return stacked
+
+
+def _stack_batch_arrays(arrs):
+    """K per-batch arrays -> one (K, batch, ...) block: host arrays stack
+    into one contiguous numpy block (one copy to the card later), tensors
+    on the card stack there (never read back)."""
+    vals = [a._read() if hasattr(a, "_read") else a for a in arrs]
+    if all(isinstance(v, onp.ndarray) for v in vals):
+        return onp.stack(vals)
+    if any(isinstance(v, torch.Tensor) and v.device.type != "cpu"
+           for v in vals):
+        dev = next(v.device for v in vals if isinstance(v, torch.Tensor)
+                   and v.device.type != "cpu")
+        return torch.stack([torch.as_tensor(v).to(dev) for v in vals])
+    return onp.stack([onp.asarray(v) for v in vals])
 
 
 def _as_list(obj):
@@ -130,13 +164,37 @@ class BaseModule(object):
             yield (self._unpadded_outputs(batch), index, batch)
 
     def predict(self, eval_data, num_batch=None, merge_batches=True,
-                reset=True, always_output_list=False):
+                reset=True, always_output_list=False, batch_group=None):
         """Forward over an iterator, collecting the outputs without padded
-        rows: merged along the batch axis, or one list per batch."""
+        rows: merged along the batch axis, or one list per batch.
+
+        ``batch_group=K`` (fused route) stages K batches with one copy per
+        input and runs their forwards in one call
+        (``MeshExecutorGroup.score_stacked``); the outputs equal the
+        per-batch loop's. On the classic route it warns and runs per
+        batch."""
+        if batch_group and batch_group > 1:
+            if getattr(self._exec_group, "fused", False):
+                if not (self.binded and self.params_initialized):
+                    raise RuntimeError("call bind and init_params first")
+                if reset:
+                    eval_data.reset()
+                return self._merge_outputs(
+                    self._predict_grouped(eval_data, num_batch,
+                                          batch_group),
+                    merge_batches, always_output_list)
+            self.logger.warning(
+                "predict(batch_group=%d) needs the fused route; scoring "
+                "per batch", batch_group)
         collected = []
         for _index, batch in self._eval_batches(eval_data, num_batch, reset):
             self.forward(batch, is_train=False)
             collected.append(self._unpadded_outputs(batch, copy=True))
+        return self._merge_outputs(collected, merge_batches,
+                                   always_output_list)
+
+    @staticmethod
+    def _merge_outputs(collected, merge_batches, always_output_list):
         if not collected or not merge_batches:
             return collected
         num_outputs = len(collected[0])
@@ -148,6 +206,55 @@ class BaseModule(object):
         if num_outputs == 1 and not always_output_list:
             return merged[0]
         return merged
+
+    def _predict_grouped(self, eval_data, num_batch, batch_group):
+        """K batches per grouped eval call; a batch whose shape or inputs
+        differ from the open group's (the ragged tail) flushes it first.
+        Labels the iterator provides are staged, as per batch."""
+        group = self._exec_group
+        data_names = [d[0] for d in group.data_shapes]
+        label_names = group._label_names
+        collected, chunk, pads = [], [], []
+        chunk_names = None
+
+        def flush():
+            if not chunk:
+                return
+            stacked = {name: _stack_batch_arrays([b[i] for b in chunk])
+                       for i, name in enumerate(chunk_names)}
+            outs = group.score_stacked(stacked)
+            for k, pad in enumerate(pads):
+                collected.append([
+                    nd.NDArray(o[k][:o.shape[1] - pad].clone(),
+                               ctx=group.contexts[0]) for o in outs])
+            del chunk[:]
+            del pads[:]
+
+        for nbatch, batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            arrs = list(batch.data)
+            names = list(data_names)
+            if label_names and batch.label:
+                for name, lb in zip(label_names, batch.label):
+                    if lb is not None:
+                        arrs.append(lb)
+                        names.append(name)
+            if chunk and (names != chunk_names or
+                          tuple(arrs[0].shape) != tuple(chunk[0][0].shape)):
+                flush()
+            if tuple(arrs[0].shape)[:1] != (group.batch_size,):
+                # a batch of another size takes the per-batch path
+                self.forward(batch, is_train=False)
+                collected.append(self._unpadded_outputs(batch, copy=True))
+                continue
+            chunk_names = names
+            chunk.append(arrs)
+            pads.append(batch.pad or 0)
+            if len(chunk) == batch_group:
+                flush()
+        flush()
+        return collected
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
@@ -166,13 +273,23 @@ class BaseModule(object):
         parameters, optimizer states and RNG state after init and
         continues at the epoch after it; a manager with no entry starts
         fresh. ``monitor`` (a ``Monitor``) is installed and ticked around
-        every batch. ``batch_group``, ``prefetch_to_device`` and
-        ``guardian`` come with later slices of the port and must be
-        None."""
+        every batch.
+
+        ``batch_group=K`` (fused route) trains K batches per grouped step
+        (``MeshExecutorGroup.step_update_grouped``): K iterator batches
+        stack into one host block per input, staged with one copy, and
+        run as K whole steps in one call; parameters, optimizer state, lr
+        schedule and metric equal per-batch training bit for bit.
+        ``batch_end_callback`` fires once per group with ``nbatch`` the
+        index of the group's last batch (``Speedometer`` counts the
+        stride), and the epoch tail forms a smaller last group. It needs
+        an optimizer with a pure apply, a metric with a device statistic
+        and no monitor; otherwise fit warns and trains per batch.
+        ``prefetch_to_device`` and ``guardian`` come with later slices of
+        the port and must be None."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
         for name, value, where in (
-                ("batch_group", batch_group, "the grouped-step slice"),
                 ("prefetch_to_device", prefetch_to_device,
                  "the device-feed slice (mxnet_tpu/data)"),
                 ("guardian", guardian,
@@ -196,20 +313,35 @@ class BaseModule(object):
             validation_metric = eval_metric
         validation_metric = metric_mod.create(validation_metric)
         eval_metric = metric_mod.create(eval_metric)
+        # the fused route tallies the training metric on the device
+        self._install_device_metric(eval_metric)
+        group_k = int(batch_group) if batch_group else 0
+        if group_k > 1 and (monitor is not None or
+                            not self._fit_grouped_ready(eval_metric)):
+            self.logger.warning(
+                "fit(batch_group=%d) needs the fused route with an "
+                "optimizer that has a pure apply and a metric with a "
+                "device statistic (and no monitor); training per batch",
+                group_k)
+            group_k = 0
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
-                if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
-                if monitor is not None:
-                    monitor.toc_print()
-                self._fire(batch_end_callback, epoch, nbatch, eval_metric,
-                           locals())
+            if group_k > 1:
+                self._fit_epoch_grouped(train_data, epoch, group_k,
+                                        eval_metric, batch_end_callback)
+            else:
+                for nbatch, data_batch in enumerate(train_data):
+                    if monitor is not None:
+                        monitor.tic()
+                    self.forward_backward(data_batch)
+                    self.update()
+                    self.update_metric(eval_metric, data_batch.label)
+                    if monitor is not None:
+                        monitor.toc_print()
+                    self._fire(batch_end_callback, epoch, nbatch,
+                               eval_metric, locals())
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -229,6 +361,55 @@ class BaseModule(object):
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+
+    def _fit_epoch_grouped(self, train_data, epoch, group_k, eval_metric,
+                           batch_end_callback):
+        """One epoch of K batches per grouped step. A batch whose data or
+        label shapes differ from the open group's flushes it first; the
+        epoch tail forms its own smaller group."""
+        group = []
+
+        def flush(last_nbatch, caller_locals):
+            if self._grouped_step(group):
+                # the group's statistics are already in the device
+                # tally; this consumes the step's flag
+                self.update_metric(eval_metric, group[-1].label)
+            else:
+                for b in group:
+                    self.forward_backward(b)
+                    self.update()
+                    self.update_metric(eval_metric, b.label)
+            self._fire(batch_end_callback, epoch, last_nbatch, eval_metric,
+                       caller_locals)
+            del group[:]
+
+        def signature(b):
+            sig = [tuple(d.shape) for d in b.data]
+            sig.extend(None if lb is None else tuple(lb.shape)
+                       for lb in (b.label or []))
+            return sig
+
+        open_sig, nbatch = None, -1
+        for nbatch, data_batch in enumerate(train_data):
+            sig = signature(data_batch)
+            if group and sig != open_sig:
+                flush(nbatch - 1, locals())
+            if not group:
+                open_sig = sig
+            group.append(data_batch)
+            if len(group) == group_k:
+                flush(nbatch, locals())
+        if group:
+            flush(nbatch, locals())
+
+    def _fit_grouped_ready(self, eval_metric):
+        """Whether ``fit(batch_group=K)`` can run grouped steps (the
+        fused Module says)."""
+        return False
+
+    def _install_device_metric(self, eval_metric):
+        """Put the training metric on the device tally (the fused Module
+        does; a no-op elsewhere)."""
 
     def _resume_from(self, resume_from, begin_epoch):
         """Restore training state from a checkpoint entry and return the

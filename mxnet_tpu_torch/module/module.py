@@ -1,14 +1,24 @@
 """Module — symbol + context + params + optimizer (PyTorch counterpart of
-``mxnet_tpu/module/module.py``) on one device, through the classic
-``DataParallelExecutorGroup`` route: bind (with ``shared_module=`` for
-inference), reshape, init_params, init_optimizer, forward, backward,
-update, update_metric, get_params, monitors, and checkpoints in the JAX
-package's formats: legacy prefix files and ``CheckpointManager`` entries
-(``save_checkpoint``, ``Module.load``, optimizer states). ``fit``,
-``score`` and ``predict`` come from ``BaseModule``. A batch whose shapes
-differ from the bound ones re-binds through ``reshape`` on the same
-parameters. The fused one-program step, precision modes and multi-device
-binding come with later slices of the port.
+``mxnet_tpu/module/module.py``) on one device: bind (with
+``shared_module=`` for inference), reshape, init_params, init_optimizer,
+forward, backward, update, update_metric, get_params, monitors, and
+checkpoints in the JAX package's formats: legacy prefix files and
+``CheckpointManager`` entries (``save_checkpoint``, ``Module.load``,
+optimizer states). ``fit``, ``score`` and ``predict`` come from
+``BaseModule``. A batch whose shapes differ from the bound ones re-binds
+through ``reshape`` on the same parameters.
+
+Two routes, as in the JAX package. By default a bind takes the fused
+route (``MeshExecutorGroup``): a training step is one function —
+forward, backward, optimizer, metric tally — run by ``update()``, with
+the precision modes (``precision=``, ``compute_dtype=``, ``remat=``),
+``fit(batch_group=K)`` and the device-side metric tally.
+``_allow_fused=False``, ``MXNET_MODULE_FUSED=0``, ``inputs_need_grad``,
+a ``grad_req`` other than ``"write"`` or a monitor take the classic
+per-executor route (``DataParallelExecutorGroup``); a precision mode
+other than f32 refuses to bind there. Multi-device binding, mesh axes,
+parameter sharding, pipeline microbatches and device augmentation come
+with later slices of the port.
 """
 from __future__ import annotations
 
@@ -21,8 +31,9 @@ from .. import optimizer as opt
 from ..base import MXNetError
 from ..initializer import Uniform, InitDesc
 from ..model import _update_params, load_checkpoint
-from .base_module import BaseModule, pad_batch_rows
+from .base_module import BaseModule, pad_batch_rows, stack_group_inputs
 from .executor_group import DataParallelExecutorGroup
+from .mesh_executor_group import MeshExecutorGroup
 
 __all__ = ["Module"]
 
@@ -33,12 +44,50 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None, precision=None):
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 compute_dtype=None, remat=None, mesh_axes=None,
+                 param_sharding=None, pipeline_microbatches=None,
+                 device_augment=None, precision=None, _allow_fused=True):
         super().__init__(logger=logger)
-        if precision is not None:
-            raise MXNetError("Module(precision=%r): precision modes come "
-                             "with the precision slice of the port "
-                             "(mxnet_tpu/precision)" % (precision,))
+        for name, value, where in (
+                ("mesh_axes", mesh_axes, "the dist slice"),
+                ("param_sharding", param_sharding, "the dist slice"),
+                ("pipeline_microbatches", pipeline_microbatches,
+                 "the dist slice"),
+                ("device_augment", device_augment,
+                 "the device-augment slice (mxnet_tpu/data)")):
+            if value:
+                raise MXNetError("Module(%s=...) comes with %s of the port"
+                                 % (name, where))
+        # the precision mode: a name or PrecisionPolicy (None consults
+        # MXNET_PRECISION_MODE); it folds into compute_dtype and remat,
+        # explicit keywords winning, and also sets the optimizer-state
+        # dtype, the loss scale and the recorded mode name
+        from .. import precision as precision_mod
+        from ..precision.policy import canon_dtype, canon_remat, \
+            refuse_quantized
+        self._precision = precision_mod.resolve(precision)
+        refuse_quantized(self._precision)
+        if self._precision is not None:
+            if compute_dtype is None:
+                compute_dtype = self._precision.compute_dtype
+            if remat is None:
+                remat = self._precision.remat
+        self._compute_dtype = canon_dtype(compute_dtype, "compute_dtype")
+        if remat is None and os.environ.get(
+                "MXNET_BACKWARD_DO_MIRROR", "0") == "1":
+            # the reference's activation-recompute switch
+            remat = "full"
+        if remat is not None and not callable(remat):
+            try:
+                remat = canon_remat(remat)
+            except MXNetError:
+                raise ValueError(
+                    "remat must be None, 'full', 'dots'/'dots_saveable', "
+                    "'bn_stats'/'offload_bn_stats' or a checkpoint-policy "
+                    "callable (got %r)" % (remat,))
+        self._remat = remat
+        self._allow_fused = _allow_fused
         if context is None:
             context = ctx_mod.current_context()
         if isinstance(context, ctx_mod.Context):
@@ -66,7 +115,27 @@ class Module(BaseModule):
         self._preload_opt_states = None
         self._exec_group = None
         self._eval_pad_extra = 0
+        self._shared_from_fused = False
         self.inputs_need_grad = False
+        if work_load_list is not None and len(work_load_list) != 1:
+            raise MXNetError("work_load_list must have one entry per "
+                             "context")
+
+    @property
+    def precision_mode(self):
+        """The recorded precision-mode name ('f32' without a policy): the
+        spelling checkpoint manifests carry and serving compares."""
+        from ..precision.policy import mode_name
+        return mode_name(self._precision)
+
+    @property
+    def _opt_state_dtype(self):
+        return None if self._precision is None \
+            else self._precision.opt_state_dtype
+
+    @property
+    def _fused(self):
+        return getattr(self._exec_group, "fused", False)
 
     # ------------------------------------------------------------------
     @property
@@ -153,15 +222,22 @@ class Module(BaseModule):
                 "checkpoint step %d in %s carries no symbol — it was not "
                 "saved by Module.save_checkpoint(manager=...)"
                 % (ckpt.step, manager.directory))
-        mode = str(ckpt.extra.get("precision_mode", "f32"))
-        if mode != "f32":
-            raise MXNetError(
-                "checkpoint step %d was saved under precision mode %r; "
-                "precision modes come with the precision slice of the "
-                "port" % (ckpt.step, mode))
+        saved_mode = str(ckpt.extra.get("precision_mode", "f32"))
+        if "precision" not in kwargs and saved_mode != "f32":
+            # adopt the recorded mode, so the module (and its optimizer
+            # state dtype) continues in the numerics family the entry was
+            # trained in; an explicit precision= wins
+            kwargs["precision"] = Module._policy_from_manifest(
+                saved_mode, ckpt.extra.get("precision"))
         arg_np, aux_np = split_params(ckpt.params)
         mod = Module(symbol=sym_mod.load_json(sym_json), **kwargs)
+        mod._ckpt_precision_mode = saved_mode
         mod._ckpt_params_digest = ckpt.extra.get("params_digest")
+        if mod.precision_mode != saved_mode:
+            logging.warning(
+                "checkpoint step %d was saved under precision mode %r but "
+                "the restored module runs %r; serving it will be refused",
+                ckpt.step, saved_mode, mod.precision_mode)
         cpu = ctx_mod.cpu()
         mod._arg_params = {k: nd.array(v, ctx=cpu, dtype=v.dtype)
                            for k, v in arg_np.items()}
@@ -176,6 +252,42 @@ class Module(BaseModule):
                     % (ckpt.step, manager.directory))
             mod._preload_opt_states = ckpt.optimizer_state
         return mod
+
+    @staticmethod
+    def _policy_from_manifest(mode, desc):
+        """The PrecisionPolicy a manifest recorded (mode name and
+        ``describe()`` fields). A registered mode whose fields still
+        match is returned as is; otherwise the recorded fields win. A
+        custom remat callable cannot ride a manifest."""
+        from .. import precision as precision_mod
+        desc = dict(desc or {})
+        pol = precision_mod.MODES.get(mode)
+        if pol is not None:
+            if not desc or pol.describe() == desc:
+                return pol
+            logging.warning(
+                "checkpoint precision mode %r no longer matches the "
+                "registered mode's fields; restoring the policy the "
+                "checkpoint recorded (%r)", mode, desc)
+        if desc.get("remat") == "custom":
+            raise MXNetError(
+                "checkpoint was saved under an ad-hoc precision policy "
+                "with a custom remat callable (%r); pass the policy with "
+                "precision= when loading" % mode)
+
+        def _field(key):
+            v = desc.get(key)
+            return None if v in (None, "float32", "none") else v
+
+        return precision_mod.PrecisionPolicy(
+            name=mode, compute_dtype=_field("compute_dtype"),
+            opt_state_dtype=_field("opt_state_dtype"),
+            remat=_field("remat"), act_cast=desc.get("act_cast"),
+            weight_quant=desc.get("weight_quant"),
+            narrow_math=desc.get("narrow_math"),
+            loss_scale=desc.get("loss_scale"),
+            loss_scale_window=desc.get("loss_scale_window"),
+            experimental=bool(desc.get("experimental", False)))
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
                         manager=None, async_save=True, extra=None):
@@ -221,8 +333,10 @@ class Module(BaseModule):
             opt_state = self._updater.get_states()
         sym_json = self._symbol.tojson()
         merged = {"epoch": int(step), "symbol": sym_json,
-                  "precision_mode": "f32",
+                  "precision_mode": self.precision_mode,
                   "params_digest": params_digest(sym_json, arrays)}
+        if self._precision is not None:
+            merged["precision"] = self._precision.describe()
         if extra:
             merged.update(extra)
         manager.save(step, arrays, optimizer_state=opt_state, extra=merged,
@@ -302,7 +416,9 @@ class Module(BaseModule):
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
-        """Bind the executor group for the given input shapes.
+        """Bind the executor group for the given input shapes: the fused
+        ``MeshExecutorGroup`` when the bind is eligible
+        (:meth:`_fused_eligible`), else the classic group.
 
         ``shared_module`` (a bound, initialized Module over the same
         parameters; inference binds only): this module computes from
@@ -327,14 +443,50 @@ class Module(BaseModule):
                 raise MXNetError("shared_module must be a bound Module "
                                  "with initialized parameters")
             shared_group = shared_module._exec_group
+        data_shapes, label_shapes = _shape_pairs(data_shapes, label_shapes)
+        shared_fused = getattr(shared_group, "fused", False)
+        fused = self._fused_eligible(shared_group, inputs_need_grad,
+                                     grad_req)
+        if not fused:
+            if self._precision is not None and \
+                    not self._precision.is_default():
+                # the modes live in the fused step; a silent classic
+                # fallback would train float32 under the mode's name
+                raise ValueError(
+                    "precision=%r requires the fused mesh path, but this "
+                    "bind is not fused-eligible (check MXNET_MODULE_FUSED, "
+                    "_allow_fused, inputs_need_grad, grad_req='write')"
+                    % self._precision.name)
+            if shared_fused:
+                raise ValueError(
+                    "shared_module uses the fused MeshExecutorGroup but "
+                    "this bind is not fused-eligible; bind the shared "
+                    "module with MXNET_MODULE_FUSED=0 to share classic "
+                    "executors")
+            if self._compute_dtype is not None or self._remat is not None:
+                self.logger.warning(
+                    "compute_dtype=%s / remat=%r apply on the fused route "
+                    "only; this bind takes the classic route and runs "
+                    "float32 without remat", self._compute_dtype,
+                    self._remat)
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.binded = True
-        data_shapes, label_shapes = _shape_pairs(data_shapes, label_shapes)
-        self._exec_group = DataParallelExecutorGroup(
-            self._symbol, self._context, data_shapes, label_shapes,
-            self._param_names, for_training, self._fixed_param_names,
-            grad_req, shared_group, inputs_need_grad)
+        self._shared_from_fused = shared_fused
+        if fused:
+            self._exec_group = MeshExecutorGroup(
+                self._symbol, self._context, data_shapes, label_shapes,
+                self._param_names, for_training, self._fixed_param_names,
+                grad_req, shared_group, compute_dtype=self._compute_dtype,
+                remat=self._remat if for_training else None,
+                precision=self._precision)
+            # a re-bind keeps the step of an optimizer already attached
+            self._exec_group._step_enabled = self.optimizer_initialized
+        else:
+            self._exec_group = DataParallelExecutorGroup(
+                self._symbol, self._context, data_shapes, label_shapes,
+                self._param_names, for_training, self._fixed_param_names,
+                grad_req, shared_group, inputs_need_grad)
         if shared_module is not None:
             self.params_initialized = True
             self._arg_params = shared_module._arg_params
@@ -343,26 +495,83 @@ class Module(BaseModule):
         elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
+    def _fused_eligible(self, shared_group, inputs_need_grad, grad_req):
+        """Whether a bind takes the fused route: allowed
+        (``_allow_fused``, ``MXNET_MODULE_FUSED`` not ``0``), a fused or
+        no shared group, no input gradients, ``grad_req="write"``."""
+        if not self._allow_fused or \
+                os.environ.get("MXNET_MODULE_FUSED", "1") == "0":
+            return False
+        if shared_group is not None and \
+                not getattr(shared_group, "fused", False):
+            return False
+        return not inputs_need_grad and grad_req == "write"
+
+    def _fallback_to_classic(self, reason):
+        """Swap the fused group for the classic one, keeping the
+        parameters (and the optimizer state, whose keys are the same on
+        one device)."""
+        if getattr(self._exec_group, "_shared_out", False) or \
+                self._shared_from_fused:
+            raise MXNetError(
+                "cannot leave the fused route (%s) while parameters are "
+                "shared with another module; bind all modules with "
+                "MXNET_MODULE_FUSED=0 instead" % reason)
+        if self._precision is not None and not self._precision.is_default():
+            raise MXNetError("cannot leave the fused route (%s): "
+                             "precision=%r has no classic-route "
+                             "equivalent" % (reason, self._precision.name))
+        grp = self._exec_group
+        grp._flush()
+        grp.disable_device_metric()
+        if self.params_initialized:
+            self.get_params()
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, grp.data_shapes, grp.label_shapes,
+            self._param_names, self.for_training, self._fixed_param_names,
+            "write", None, False)
+        if self.params_initialized:
+            self._exec_group.set_params(self._arg_params, self._aux_params)
+        self.logger.info("%s: training continues on the classic route",
+                         reason)
+
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Create the optimizer; ``rescale_grad`` defaults to 1/batch."""
+        """Create the optimizer; ``rescale_grad`` defaults to 1/batch, and
+        a precision mode's optimizer-state dtype becomes its
+        ``state_dtype``. On the fused route it turns on the one-function
+        step that ``update()`` runs."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params first")
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring")
             return
+        want = self._opt_state_dtype
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
             optimizer_params.setdefault("rescale_grad",
                                         1.0 / self._exec_group.batch_size)
+            if want is not None:
+                optimizer_params.setdefault("state_dtype", want)
             optimizer = opt.create(
                 optimizer, sym=self.symbol,
                 param_idx2name=dict(enumerate(self._param_names)),
                 **optimizer_params)
+        else:
+            have = getattr(optimizer, "state_dtype", None)
+            if want is not None and have is None:
+                optimizer.state_dtype = want
+            elif want is not None and have != want:
+                raise MXNetError(
+                    "optimizer instance carries state_dtype=%r but the "
+                    "module's precision mode %r wants %r; drop one of the "
+                    "two settings" % (have, self.precision_mode, want))
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._fused:
+            self._exec_group._step_enabled = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
@@ -375,6 +584,8 @@ class Module(BaseModule):
         self._optimizer = shared_module._optimizer
         self._updater = shared_module._updater
         self.optimizer_initialized = True
+        if self._fused:
+            self._exec_group._step_enabled = True
 
     def reshape(self, data_shapes, label_shapes=None):
         """Bind again at new input shapes on the same parameters: every
@@ -448,27 +659,112 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """Apply the optimizer to every parameter with a gradient."""
+        """Apply the optimizer to every parameter with a gradient: on the
+        fused route the deferred step runs as one function
+        (``MeshExecutorGroup.step_update``); otherwise, or when the
+        gradients were read first, the classic update."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
         self._params_dirty = True
+        if self._fused and self._exec_group.step_update(self._updater):
+            return
         _update_params(self._exec_group.param_arrays,
                        self._exec_group.grad_arrays, self._updater)
+
+    def grouped_train_engaged(self):
+        """Whether a grouped (``fit(batch_group=K)``) step has run on
+        this module."""
+        return self._grouped_steps > 0
+
+    _grouped_steps = 0
+
+    def _fit_grouped_ready(self, eval_metric):
+        """``fit(batch_group=K)`` runs the whole group on the device: it
+        needs the fused step (fused group, an optimizer with a pure
+        apply) and the metric on the device tally, since a group has no
+        per-batch outputs to update a host metric from."""
+        grp = self._exec_group
+        if not (self._fused and grp._step_enabled):
+            return False
+        if self._updater is None or \
+                self._updater.fused_apply_or_none() is None:
+            return False
+        return grp._metric_live is eval_metric
+
+    def _grouped_step(self, batches):
+        """Stack K iterator batches into one (K, batch, ...) block per
+        input and run them as one grouped step
+        (``MeshExecutorGroup.step_update_grouped``)."""
+        if not self._fused:
+            return False
+        grp = self._exec_group
+        self._eval_pad_extra = 0
+        stacked = stack_group_inputs(batches,
+                                     [d[0] for d in grp.data_shapes],
+                                     grp._label_names)
+        if not grp.step_update_grouped(self._updater, stacked):
+            return False
+        self._params_dirty = True
+        self._grouped_steps += 1
+        return True
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Evaluate; on the fused route with a metric that has a device
+        statistic, the tally rides the device (one forward per batch, one
+        readback). Per-batch callbacks need the running host value, so
+        they keep the host loop, as ``MXNET_DEVICE_METRIC=0`` does."""
+        from .. import metric as metric_mod
+        if batch_end_callback is None and self._fused and \
+                os.environ.get("MXNET_DEVICE_METRIC", "1") != "0":
+            if not (self.binded and self.params_initialized):
+                raise MXNetError("call bind and init_params first")
+            eval_metric = metric_mod.create(eval_metric)
+            if reset:
+                eval_data.reset()
+            result = self._exec_group.score_device(eval_data, eval_metric,
+                                                   num_batch)
+            if result is not None:
+                pairs, seen = result
+                self._fire(score_end_callback, epoch, seen, eval_metric,
+                           locals())
+                return pairs
+            reset = False   # already rewound; the device path declined
+        return super().score(eval_data, eval_metric, num_batch=num_batch,
+                             batch_end_callback=batch_end_callback,
+                             score_end_callback=score_end_callback,
+                             reset=reset, epoch=epoch)
+
+    def _install_device_metric(self, eval_metric):
+        """Put ``fit``'s training metric on the device tally (fused route;
+        ``MXNET_DEVICE_METRIC=0`` keeps the host metric)."""
+        if not self._fused:
+            return
+        if os.environ.get("MXNET_DEVICE_METRIC", "1") == "0":
+            self._exec_group.disable_device_metric()
+            return
+        self._exec_group.enable_device_metric(eval_metric)
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs(merge_multi_context)
 
     def get_input_grads(self, merge_multi_context=True):
         """The gradients of the data inputs (bind with
-        ``inputs_need_grad=True``)."""
+        ``inputs_need_grad=True``, which takes the classic route)."""
         if not (self.binded and self.params_initialized and
                 self.inputs_need_grad):
             raise MXNetError("bind with inputs_need_grad=True first")
         return self._exec_group.get_input_grads(merge_multi_context)
 
     def install_monitor(self, mon):
-        """Tap every op output of this module's executor into ``mon``."""
+        """Tap every op output of this module's executor into ``mon``. The
+        fused step has no per-op boundaries to tap, so a fused module
+        moves to the classic route first, keeping its parameters and
+        optimizer state (the JAX package does the same)."""
         self._need_bind()
+        if self._fused:
+            self._fallback_to_classic("install_monitor needs per-op taps")
         self._exec_group.install_monitor(mon)
 
     def update_metric(self, eval_metric, labels):

@@ -38,3 +38,24 @@ def _sgd_mom_update(attrs, ins, octx):
     momentum = float(attrs.get("momentum", 0.0))
     new_mom = momentum * mom - lr * (_prep(attrs, grad) + wd * w)
     return [w + new_mom, new_mom]
+
+
+@register("adam_update", arg_names=("weight", "grad", "mean", "var"),
+          out_names=("weight", "mean", "var"),
+          attr_types={"lr": float, "beta1": float, "beta2": float,
+                      "epsilon": float, "wd": float, "rescale_grad": float,
+                      "clip_gradient": float})
+def _adam_update(attrs, ins, octx):
+    """g = rescale·grad (+clip) + wd·w; m' = β1·m + (1−β1)·g;
+    v' = β2·v + (1−β2)·g²; w' = w − lr·m'/(√v' + ε)."""
+    w, grad, mean, var = ins
+    lr = float(attrs.get("lr", 0.01))
+    beta1 = float(attrs.get("beta1", 0.9))
+    beta2 = float(attrs.get("beta2", 0.999))
+    eps = float(attrs.get("epsilon", 1e-8))
+    wd = float(attrs.get("wd", 0.0))
+    g = _prep(attrs, grad) + wd * w
+    new_mean = beta1 * mean + (1 - beta1) * g
+    new_var = beta2 * var + (1 - beta2) * torch.square(g)
+    new_w = w - lr * new_mean / (torch.sqrt(new_var) + eps)
+    return [new_w, new_mean, new_var]

@@ -560,8 +560,9 @@ class DecodeEngine(object):
                  context=None):
         if precision not in (None, "f32"):
             raise MXNetError(
-                "decode precision mode %r comes with the precision slice "
-                "of the port (ROADMAP A6); the port decodes in float32"
+                "decode precision mode %r comes with a later slice of the "
+                "port (ROADMAP A6: bf16 and int8 decode); the port decodes "
+                "in float32"
                 % (precision,))
         self._model = model
         self._name = str(name)

@@ -29,10 +29,17 @@ the Predictor to pick up new weights. A launch copies the padded rows
 to the card and reads the outputs back; that readback is the launch's
 only synchronisation with the device.
 
+Precision: the buckets serve under the source module's mode with its
+training-only fields stripped (remat, optimizer-state dtype, loss scale),
+so a module trained in ``bf16`` serves in bfloat16 and one trained in
+``bf16_opt`` or ``combined`` serves float32 forwards; the mode name is
+kept. A module loaded from a checkpoint entry recorded under another mode
+than the one it runs is refused.
+
 Not in this slice of the port (each raises ``MXNetError`` instead of
 being ignored): the persistent executable cache (``warmup(cache_dir=)``,
-``MXNET_COMPILE_CACHE_DIR``), precision modes other than float32 and
-calibrated int8 serving (``calibration=``), and CheckpointManager
+``MXNET_COMPILE_CACHE_DIR``), the quantized modes and calibrated int8
+serving (``calibration=``; the quant slice), and CheckpointManager
 sources for :meth:`Predictor.load`.
 """
 from __future__ import annotations
@@ -110,6 +117,17 @@ class Predictor:
             raise MXNetError(
                 "Predictor needs initialized parameters: bind+init the "
                 "module, or load it from params files first")
+        # the precision gate: a checkpoint trained under one mode served
+        # by a module bound under another would return other numbers,
+        # not an error; live modules carry no recorded mode
+        saved_mode = getattr(module, "_ckpt_precision_mode", None)
+        if saved_mode is not None and saved_mode != module.precision_mode:
+            raise MXNetError(
+                "refusing to serve: checkpoint was trained under precision "
+                "mode %r but the module to bind runs %r; load with the "
+                "matching precision= (or drop the override so the "
+                "recorded mode is adopted)"
+                % (saved_mode, module.precision_mode))
         if data_shapes is None:
             if not module.binded:
                 raise MXNetError(
@@ -165,10 +183,24 @@ class Predictor:
             return [(name, (b,) + shape[1:])
                     for name, shape in self._data_descs]
 
+        # serve under the source policy's eval-visible fields only: the
+        # forward keeps the compute dtype, and the training-only levers
+        # (remat, optimizer-state dtype, loss scale) are stripped; the
+        # mode name stays
+        src_pol = module._precision
+        serve_pol = None
+        if src_pol is not None:
+            from ..precision import PrecisionPolicy
+            serve_pol = PrecisionPolicy(name=src_pol.name,
+                                        compute_dtype=src_pol.compute_dtype)
+
         def _make():
             return Module(symbol, data_names=module._data_names,
                           label_names=module._label_names,
-                          logger=self.logger, context=contexts)
+                          logger=self.logger, context=contexts,
+                          compute_dtype=module._compute_dtype,
+                          precision=serve_pol,
+                          _allow_fused=module._allow_fused)
 
         base = _make()
         base.bind(data_shapes=_shapes_at(buckets[-1]), for_training=False)
@@ -191,11 +223,16 @@ class Predictor:
         ``prefix`` of ``prefix-symbol.json`` + ``prefix-%04d.params``
         (either package's) and ``epoch`` selects the params file. Routes
         through :meth:`Module.load`. A CheckpointManager (or checkpoint
-        directory) source and a ``precision=`` other than ``"f32"``
-        raise: they come with later slices of the port."""
+        directory) source raises: it comes with a later slice of the
+        port. A legacy prefix records no precision mode, so a
+        ``precision=`` other than ``"f32"`` raises too: load the module
+        with ``Module.load(..., precision=)`` and pass it to
+        ``Predictor``."""
         if precision not in (None, "f32"):
-            raise MXNetError("precision mode %r %s; the port serves "
-                             "float32" % (precision, _LATER))
+            raise MXNetError(
+                "precision mode %r: a legacy prefix records no mode; load "
+                "it with Module.load(prefix, epoch, precision=...) and "
+                "serve that module" % (precision,))
         if not isinstance(source, str) or epoch is None or \
                 os.path.isdir(source):
             raise MXNetError(

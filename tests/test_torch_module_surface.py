@@ -172,8 +172,9 @@ def test_module_names_match_jax():
                for_training=False, shared_module=tm)
     other.borrow_optimizer(tm)
     assert other._updater is tm._updater
-    with pytest.raises(MXNetError, match="precision slice"):
-        tmx.mod.Module(_net(tmx, TNameManager), precision="bf16")
+    with pytest.raises(MXNetError, match="quant slice"):
+        tmx.mod.Module(_net(tmx, TNameManager), context=tmx.cpu(),
+                       precision="int8_weight")
     tmx.mod.Module(_net(tmx, TNameManager), context=tmx.cpu(),
                    precision=None)
 
@@ -349,9 +350,10 @@ def test_mnistiter_reads_idx_files(tmp_path, gz):
 
 
 def test_fit_taps_a_monitor_and_refuses_later_arguments(caplog):
-    """fit(monitor=) taps every ``interval``-th batch and logs it;
-    batch_group, prefetch_to_device and guardian are refused unless
-    None."""
+    """fit(monitor=) taps every ``interval``-th batch and logs it (the
+    fused module moves to the classic route for the taps);
+    prefetch_to_device and guardian are refused unless None
+    (batch_group is held in test_torch_grouped.py)."""
     rs = np.random.RandomState(6)
     x = rs.randn(16, *BOUND[1:]).astype(np.float32)
     y = rs.randint(0, 3, 16).astype(np.float32)
@@ -365,8 +367,7 @@ def test_fit_taps_a_monitor_and_refuses_later_arguments(caplog):
     # batches 1 and 4 of 4: fc_output and fc_weight/fc_bias each time
     assert mon.step == 4 and len(tapped) == 2 * 3
     assert any("fc_output" in m for m in tapped)
-    for kwarg in ({"batch_group": 2}, {"prefetch_to_device": 2},
-                  {"guardian": "dir"}):
+    for kwarg in ({"prefetch_to_device": 2}, {"guardian": "dir"}):
         with pytest.raises(MXNetError, match="slice"):
             tmx.mod.Module(_net(tmx, TNameManager), context=tmx.cpu()).fit(
                 tmx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
