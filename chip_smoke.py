@@ -139,10 +139,37 @@ result line) if any phase fails:
    gates. (c) ``python -m mxnet_tpu_torch.examples.decode_lm`` with its
    default flags in a subprocess: exit 0, its parity, continuation and
    throughput lines and the streams' sha256;
-11. the kernels line (each kernel's launches on every path, decode's
-   0 among them, and the BN kernels' bfloat16 launches and times), the
-   seconds of each phase, the card's nvidia-smi line, and the result
-   line.
+11. imagenet_twin: the input pipeline at ResNet-50's full width (224²,
+   1000 classes, batch 32, float32; its BatchNorm shapes are phase 3's,
+   where both kernels are held against their plain versions). A
+   512-image, 8-class RecordIO pack of raw ``.npy`` records (~77 MB, no
+   image library needed) written with the port's ``pack_img`` into the
+   git-ignored ``build/imagenet_twin``; the host's decode-and-assemble
+   rate alone; ``mxnet_tpu_torch.examples.train_imagenet``'s ``main`` in
+   process on the pack, 2 epochs of 16 steps, as the JAX script runs it
+   (shuffle, mirror, host assembly): it prints ``TRAIN_IMAGENET_DONE``,
+   fit img/s, exactly 51 + 51 BN launches a step (counters reset just
+   before). Then, from one parameter set under deterministic cuDNN, the
+   same 2 epochs through ``ImageRecordIter(device_augment="defer",
+   augment_pad=4)`` four ways: (a) streamed, (b) with
+   ``fit(prefetch_to_device=2)``, (c) wrapped in
+   ``CachedDataset(placement="device")`` with prefetch (the cache on the
+   device tier), (d) the host placement (``apply_host``, float32 over the
+   wire); the parameters of all four bit for bit, each way's fit img/s,
+   host-wait ms a step, ring high water and staged bytes a batch beside
+   phase 4's synthetic img/s. ``DeviceAugment.apply`` on the card equals
+   ``apply_host`` bit for bit on a padded, randomly cropped and mirrored
+   batch; ``ImageRecordIter(device_augment=True)`` agrees with the host
+   path within atol 1e-4; a batch staged by ``DeviceLoader`` and held
+   while the ring turns 15 times keeps its bytes; wire bytes a batch
+   (uint8 against float32) and the host→card copy ms of each, pageable
+   against pinned; the CIFAR twin with ``--device-augment --cache-dataset
+   --prefetch-device 2`` and with ``--device-augment --augment-placement
+   host`` (in process, 3 epochs): one ``params_digest``, accuracy ≥ 0.9;
+12. the kernels line (each kernel's launches on every path, decode's
+   0 among them, and the BN kernels' bfloat16 and imagenet-twin launches
+   and times), the seconds of each phase, the card's nvidia-smi line,
+   and the result line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -2293,6 +2320,313 @@ def decode_phase(mx, K, C, R, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the input pipeline, driven by the train_imagenet twin
+# ---------------------------------------------------------------------------
+IMNET_IMAGES, IMNET_CLASSES, IMNET_EPOCHS = 512, 8, 2
+IMNET_STEPS = IMNET_EPOCHS * IMNET_IMAGES // BATCH     # 2 epochs of 16
+IMNET_NETWORK = "resnet-50"
+IMNET_TWIN_ARGS = ["--gpus", "0"]
+IMNET_PAD = 4              # the deferred pad-and-crop of ways (a)-(d)
+IMNET_MEAN = (123.68, 116.28, 103.53)
+IMNET_STD = (58.395, 57.12, 57.375)
+
+
+def write_pack(path, n, image, classes):
+    """``n`` labelled images (the twin's colour blob + noise, from numpy
+    seed 0) as raw ``.npy`` records: no image library needed to read them.
+    Returns the bytes written."""
+    import numpy as np
+    from mxnet_tpu_torch import recordio
+    rng = np.random.RandomState(0)
+    _, h, w = image
+    rec = recordio.MXRecordIO(path, "w")
+    for i in range(n):
+        cls = i % classes
+        img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+        img[..., cls % 3] += np.uint8(60 + 37 * (cls // 3))
+        rec.write(recordio.pack_img(recordio.IRHeader(0, float(cls), i, 0),
+                                    img, img_fmt=".npy"))
+    rec.close()
+    return os.path.getsize(path)
+
+
+def defer_iter(mx, pack, **kw):
+    """The deferred-augment reader of ways (a)-(d): fixed order, pad and
+    random crop, mirror, the ImageNet mean and std."""
+    return mx.io.ImageRecordIter(
+        path_imgrec=pack, data_shape=IMAGE, batch_size=BATCH,
+        rand_crop=True, rand_mirror=True, device_augment="defer",
+        augment_pad=IMNET_PAD, seed=11,
+        **dict(zip(("mean_r", "mean_g", "mean_b"), IMNET_MEAN)),
+        **dict(zip(("std_r", "std_g", "std_b"), IMNET_STD)), **kw)
+
+
+def fed_fit(mx, train, args, aux, prefetch=None, module=None):
+    """ResNet-50 (1000 classes, float32) through ``fit`` for
+    ``IMNET_EPOCHS`` epochs from the given parameters, cuDNN
+    deterministic: (host parameters by name, fit img/s over each epoch's
+    batches after its first, the last PipelineStats snapshot)."""
+    import torch
+    from mxnet_tpu_torch import telemetry
+    mod = module or mx.mod.Module(
+        mx.models.get_symbol(IMNET_NETWORK, num_classes=1000,
+                             image_shape=IMAGE), context=mx.gpu(0))
+    stamps, snap = {}, {}
+
+    def stamp(param):
+        stamps.setdefault(param.epoch, []).append(time.perf_counter())
+        stats = telemetry.active_pipeline()
+        if stats is not None:
+            snap.update(stats.snapshot())
+
+    with deterministic_cudnn():
+        mod.fit(train, num_epoch=IMNET_EPOCHS, optimizer="sgd",
+                optimizer_params=SGD_PARAMS, arg_params=args,
+                aux_params=aux, batch_end_callback=stamp,
+                prefetch_to_device=prefetch)
+        torch.cuda.synchronize()
+    train.close()
+    span = sum(t[-1] - t[0] for t in stamps.values())
+    img_s = sum(len(t) - 1 for t in stamps.values()) * BATCH / span
+    params = host_params(mod)
+    steps = sum(len(t) for t in stamps.values())
+    del mod
+    torch.cuda.empty_cache()
+    return params, img_s, snap, steps
+
+
+def copy_times(batch_u8):
+    """Host→card copy ms of one wire batch as uint8 NHWC and as float32
+    NCHW, from pageable and from pinned memory (host clock around the
+    copy, card idle before, synchronised after; median of 5)."""
+    import numpy as np
+    import torch
+    out = {}
+    f32 = np.ascontiguousarray(
+        batch_u8.astype(np.float32).transpose(0, 3, 1, 2))
+    for name, arr in (("uint8", batch_u8), ("float32", f32)):
+        pageable = torch.from_numpy(np.ascontiguousarray(arr))
+        pinned = pageable.pin_memory()
+        out[name] = {
+            "bytes": int(arr.nbytes),
+            "pageable_ms": host_ms(lambda: pageable.to("cuda")),
+            "pinned_ms": host_ms(
+                lambda: pinned.to("cuda", non_blocking=True))}
+    return out
+
+
+def imagenet_twin_phase(mx, K, card, hand_img_per_s):
+    """The input pipeline on ``gpu(0)`` at ResNet-50's full width (224²,
+    1000 classes, batch 32, float32), from a 512-image ``.npy`` RecordIO
+    pack (8 classes) written with the port's ``pack_img``: the
+    train_imagenet twin as the JAX script runs it (the plain host path, BN
+    launches counted from 0); the same 2 epochs fed four ways through the
+    deferred augment, bit for bit: (a) streamed, (b) prefetched, (c)
+    cached on the card and prefetched, (d) the host placement; the
+    card's ``DeviceAugment.apply`` against ``apply_host``;
+    ``ImageRecordIter(device_augment=True)`` against the host path; a
+    staged batch held across ring turns; the CIFAR twin's u8 flags; and
+    the pipeline's numbers (img/s, host-wait, wire bytes, copy ms, the
+    host's decode rate). Returns the twin run's BN launches."""
+    import contextlib
+    import io as pyio
+    import shutil
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.data import (CachedDataset, DeviceAugment,
+                                      DeviceAugmentIter, DeviceLoader)
+    from mxnet_tpu_torch.examples import train_cifar10, train_imagenet
+    work = os.path.join(ROOT, "build", "imagenet_twin")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    failed = []
+
+    def check(name, ok, row):
+        row["ok"] = bool(ok)
+        emit(row)
+        if not ok:
+            failed.append(name)
+
+    pack = os.path.join(work, "train.rec")
+    t0 = time.perf_counter()
+    nbytes = write_pack(pack, IMNET_IMAGES, IMAGE, IMNET_CLASSES)
+    emit({"phase": "imagenet_pack", "images": IMNET_IMAGES,
+          "classes": IMNET_CLASSES, "image": list(IMAGE), "bytes": nbytes,
+          "seconds": time.perf_counter() - t0})
+
+    # the host's decode-and-assemble rate alone (the plain host path)
+    it = mx.io.ImageRecordIter(
+        path_imgrec=pack, data_shape=IMAGE, batch_size=BATCH, shuffle=True,
+        rand_mirror=True, **dict(zip(("mean_r", "mean_g", "mean_b"),
+                                     IMNET_MEAN)))
+    t0 = time.perf_counter()
+    rows = sum(b.data[0].shape[0] for b in it)
+    host_rate = rows / (time.perf_counter() - t0)
+    it.close()
+
+    # the twin, as the JAX script runs it
+    torch.cuda.synchronize()
+    K.bn_fwd.launches = K.bn_bwd.launches = 0
+    out = pyio.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train_imagenet.main(IMNET_TWIN_ARGS + [
+            "--data-train", pack, "--network", IMNET_NETWORK,
+            "--batch-size", str(BATCH), "--num-epochs", str(IMNET_EPOCHS)])
+    torch.cuda.synchronize()
+    launches = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches}
+    printed = out.getvalue()
+    print(printed, end="")
+    want = BN_PER_STEP * IMNET_STEPS
+    twin_params = host_params(res["module"])
+    finite = all(np.isfinite(v).all() for v in twin_params.values())
+    check("twin", "TRAIN_IMAGENET_DONE" in printed and finite
+          and res["steps"] == IMNET_STEPS
+          and launches == {"bn_fwd": want, "bn_bwd": want}, {
+              "phase": "imagenet_twin_fit", "network": IMNET_NETWORK,
+              "image": list(IMAGE), "batch": BATCH, "steps": res["steps"],
+              "launches": launches, "want": {"bn_fwd": want,
+                                             "bn_bwd": want},
+              "fit_img_per_s": res["fit_img_per_s"], "fit_s": res["fit_s"],
+              "train_accuracy": res["train_accuracy"], "finite": finite,
+              "done_printed": "TRAIN_IMAGENET_DONE" in printed,
+              "card": card})
+    del res, twin_params
+    torch.cuda.empty_cache()
+
+    # the four ways through the deferred augment, from one parameter set
+    mx.random.seed(0)
+    init = resnet50_module(mx, mx.gpu(0), BATCH)
+    args, aux = [{k: v.copy() for k, v in d.items()}
+                 for d in init.get_params()]
+    del init
+    runs = {}
+    runs["a_streamed"] = fed_fit(mx, defer_iter(mx, pack), args, aux)
+    runs["b_prefetched"] = fed_fit(mx, defer_iter(mx, pack), args, aux,
+                                   prefetch=2)
+    mod_c = mx.mod.Module(mx.models.get_symbol(
+        IMNET_NETWORK, num_classes=1000, image_shape=IMAGE),
+        context=mx.gpu(0))
+    cached = CachedDataset(defer_iter(mx, pack), module=mod_c,
+                           placement="device")
+    runs["c_cached"] = fed_fit(mx, cached, args, aux, prefetch=2,
+                               module=mod_c)
+    info = cached.cache_info()
+    src = defer_iter(mx, pack)
+    runs["d_host"] = fed_fit(mx, DeviceAugmentIter(
+        src, src.device_augment_spec["data"], placement="host"), args, aux)
+    ref = runs["a_streamed"][0]
+    equal = {k: all(np.array_equal(ref[n], r[0][n]) for n in ref)
+             for k, r in runs.items()}
+    ways = {k: {"fit_img_per_s": r[1], "steps": r[3],
+                "host_wait_ms_per_step": r[2].get("host_wait_ms_per_step"),
+                "ring_high_water": r[2].get("ring_high_water"),
+                "ring_depth": r[2].get("ring_depth"),
+                "staged_bytes_per_batch": r[2].get("staged_bytes_per_batch"),
+                "staged_dtype": r[2].get("staged_dtype"),
+                "augment_placement": r[2].get("augment_placement"),
+                "bit_equal_to_a": equal[k]} for k, r in runs.items()}
+    check("four_ways", all(equal.values())
+          and all(r[3] == IMNET_STEPS for r in runs.values())
+          and info["placement"] == "device" and info["rows"] ==
+          IMNET_IMAGES, {
+              "phase": "imagenet_fed_ways", "arrays": len(ref),
+              "ways": ways, "cache_info": info,
+              "synthetic_hand_img_per_s": hand_img_per_s,
+              "card": card})
+    del runs, cached, mod_c, ref
+    torch.cuda.empty_cache()
+
+    # the card's augment against the numpy reference, on a padded,
+    # randomly cropped and mirrored batch
+    spec = DeviceAugment(IMAGE, rand_crop=True, rand_mirror=True,
+                         pad=IMNET_PAD, mean=IMNET_MEAN, std=IMNET_STD,
+                         seed=5)
+    x = np.random.RandomState(2).randint(
+        0, 256, (BATCH,) + spec.wire_shape).astype(np.uint8)
+    p = spec.draw("data", 1, 3, BATCH)
+    crop, mirror = p["data.aug_crop"], p["data.aug_mirror"]
+    card_dev = mx.gpu(0).torch_device()
+    dev = spec.apply(torch.from_numpy(x).to(card_dev),
+                     torch.from_numpy(crop).to(card_dev),
+                     torch.from_numpy(mirror).to(card_dev)).cpu().numpy()
+    host = spec.apply_host(x, crop, mirror)
+    check("apply", np.array_equal(dev, host), {
+        "phase": "imagenet_augment_apply", "shape": list(dev.shape),
+        "mirrored_rows": int(mirror.sum()),
+        "max_abs_err": float(np.abs(dev - host).max()),
+        "bit_equal": bool(np.array_equal(dev, host))})
+
+    # ImageRecordIter(device_augment=True) against the plain host path
+    kw = dict(path_imgrec=pack, data_shape=IMAGE, batch_size=BATCH,
+              rand_mirror=True, seed=4,
+              **dict(zip(("mean_r", "mean_g", "mean_b"), IMNET_MEAN)),
+              **dict(zip(("std_r", "std_g", "std_b"), IMNET_STD)))
+    h_it = mx.io.ImageRecordIter(**kw)
+    d_it = mx.io.ImageRecordIter(device_augment=True, ctx=mx.gpu(0), **kw)
+    errs = []
+    for _ in range(2):
+        a, b = next(h_it), next(d_it)
+        errs.append(float(np.abs(a.data[0].asnumpy()
+                                 - b.data[0].asnumpy()).max()))
+    on_card = b.data[0].context == mx.gpu(0)
+    h_it.close()
+    d_it.close()
+    check("device_augment_iter", max(errs) <= 1e-4 and on_card, {
+        "phase": "imagenet_device_augment_iter", "max_abs_err": max(errs),
+        "atol": 1e-4, "on_card": on_card})
+
+    # a staged batch held while the ring turns over: its bytes stay
+    ref_it = defer_iter(mx, pack)
+    want_first = next(ref_it).data[0]
+    ref_it.close()
+    loader_src = defer_iter(mx, pack)
+    with DeviceLoader(loader_src, depth=2, ctx=mx.gpu(0)) as loader:
+        first = next(loader)
+        turned = sum(1 for _ in loader)
+        held = first.data[0]._read()
+        same = held.device == card_dev and np.array_equal(
+            held.cpu().numpy(), want_first)
+    loader_src.close()
+    check("held_batch", same and turned == IMNET_IMAGES // BATCH - 1, {
+        "phase": "imagenet_held_batch", "ring_turns_after": turned,
+        "bytes_unchanged": bool(same)})
+
+    # the wire and the copy
+    copies = copy_times(np.random.RandomState(3).randint(
+        0, 256, (BATCH, IMAGE[1], IMAGE[2], IMAGE[0])).astype(np.uint8))
+    emit({"phase": "imagenet_wire", "batch": BATCH,
+          "wire_bytes_uint8": BATCH * int(np.prod(IMAGE)),
+          "wire_bytes_float32": BATCH * int(np.prod(IMAGE)) * 4,
+          "copy": copies, "host_decode_assemble_img_per_s": host_rate,
+          "card": card})
+
+    # the CIFAR twin's u8 flags: one digest, accuracy >= 0.9
+    digests, accs = [], []
+    for i, flags in enumerate((
+            ["--device-augment", "--cache-dataset", "--prefetch-device",
+             "2"],
+            ["--device-augment", "--augment-placement", "host"])):
+        path = os.path.join(work, "cifar_u8_%d.txt" % i)
+        t0 = time.time()
+        r = train_cifar10.main(TWIN_ARGS + flags + [
+            "--params-digest-out", path])
+        digests.append(r["params_digest"])
+        accs.append(r["accuracy"])
+        emit({"phase": "imagenet_cifar_u8_run", "flags": flags,
+              "accuracy": r["accuracy"], "fit_img_per_s":
+              r.get("fit_img_per_s"), "seconds": time.time() - t0})
+        del r
+    check("cifar_u8", digests[0] == digests[1]
+          and min(accs) >= TWIN_MIN_ACCURACY, {
+              "phase": "imagenet_cifar_u8", "params_digests": digests,
+              "accuracy": accs, "min_accuracy": TWIN_MIN_ACCURACY})
+    if failed:
+        raise RuntimeError("imagenet_twin phase failed: %s"
+                           % ", ".join(failed))
+    return launches
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2375,6 +2709,8 @@ def main():
     twin_launches = timed("cifar_twin", cifar_twin_phase, mx, K, card,
                           copy_rate)
     decode_launches = timed("decode", decode_phase, mx, K, C, R, card)
+    imnet_launches = timed("imagenet_twin", imagenet_twin_phase, mx, K,
+                           card, hand_img_per_s)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -2383,6 +2719,7 @@ def main():
                     replaces=replaces[k], launches=launches[k],
                     launches_cifar_twin=twin_launches[k],
                     launches_decode=decode_launches[k],
+                    launches_imagenet_twin=imnet_launches[k],
                     launches_bf16=launches16[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     max_abs_err_bf16=worst16[k],

@@ -4,7 +4,8 @@ Same ``import … as mx`` surface as ``mxnet_tpu`` for the slices ported so
 far (``mx.nd``, ``mx.sym``, ``mx.mod``, ``mx.init``, ``mx.optimizer``,
 ``mx.lr_scheduler``, ``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.rtc``,
 ``mx.models``, ``mx.checkpoint``, ``mx.monitor``, ``mx.telemetry``,
-``mx.serving``, ``mx.rnn``, ``mx.precision``). It
+``mx.serving``, ``mx.rnn``, ``mx.precision``, ``mx.recordio``,
+``mx.image``, ``mx.data``). It
 imports torch and numpy, never JAX and
 nothing of ``mxnet_tpu``. Entry points run on ``gpu(0)`` unless the caller
 passes ``mx.cpu()``.
@@ -21,6 +22,9 @@ from . import initializer as init
 from . import optimizer
 from . import lr_scheduler
 from . import io
+from . import recordio
+from . import image
+from . import data
 from . import metric
 from . import callback
 from . import rtc
@@ -41,4 +45,5 @@ __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "current_context", "random", "nd", "sym", "init",
            "optimizer", "lr_scheduler", "io", "metric", "callback", "rtc",
            "model", "mod", "models", "convert", "checkpoint", "monitor",
-           "mon", "telemetry", "serving", "rnn", "precision"]
+           "mon", "telemetry", "serving", "rnn", "precision", "recordio",
+           "image", "data"]

@@ -8,8 +8,9 @@
 The card runs asynchronously: a callback that looks only at
 ``param.nbatch`` measures how fast the host enqueues work. Reading
 ``param.eval_metric`` reads the batch's outputs back, which waits for the
-card, so ``Speedometer`` with a metric attached measures the card. The JAX
-package's host-wait report is not ported.
+card, so ``Speedometer`` with a metric attached measures the card. When
+``fit`` trains through a ``data.DeviceLoader`` (``prefetch_to_device=``),
+each ``Speedometer`` line also carries the window's host-wait share.
 """
 from __future__ import annotations
 
@@ -78,7 +79,10 @@ def log_train_metric(period, auto_reset=False):
 class Speedometer(object):
     """Batch callback: log samples/sec (and the training metric, if one is
     attached, which it then resets) every ``frequent`` batches. The window
-    restarts at every epoch boundary (``nbatch`` not increasing)."""
+    restarts at every epoch boundary (``nbatch`` not increasing). When fit
+    trains through a device-feed loader (``telemetry.active_pipeline()``),
+    each line also gives the window's host-wait share: the part of its
+    wall time the loop spent blocked on the input path."""
 
     def __init__(self, batch_size, frequent=50):
         self.batch_size = batch_size
@@ -86,6 +90,13 @@ class Speedometer(object):
         self._tic = None
         self._last_count = 0
         self._seen = 0
+        self._wait_seen = None
+
+    @staticmethod
+    def _host_wait_ms():
+        from . import telemetry
+        stats = telemetry.active_pipeline()
+        return None if stats is None else stats.snapshot()["host_wait_ms"]
 
     def __call__(self, param):
         count = param.nbatch
@@ -97,22 +108,30 @@ class Speedometer(object):
         if self._tic is None:
             self._tic = time.time()
             self._seen = 0
+            self._wait_seen = self._host_wait_ms()
             return
         self._seen += delta
         if self._seen < self.frequent:
             return
         elapsed = time.time() - self._tic
         speed = self._seen * self.batch_size / elapsed
+        wait_txt = ""
+        wait_now = self._host_wait_ms()
+        if wait_now is not None and self._wait_seen is not None:
+            wait_txt = "\thost-wait=%.1f%%" % (
+                100.0 * (wait_now - self._wait_seen)
+                / max(elapsed * 1000.0, 1e-9))
         metric = param.eval_metric
         if metric is not None:
             pairs = metric.get_name_value()
             metric.reset()
             for name, value in pairs:
                 logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec"
-                             "\tTrain-%s=%f", param.epoch, count, speed, name,
-                             value)
+                             "\tTrain-%s=%f%s", param.epoch, count, speed,
+                             name, value, wait_txt)
         else:
-            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
-                         param.epoch, count, speed)
+            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s",
+                         param.epoch, count, speed, wait_txt)
         self._tic = time.time()
         self._seen = 0
+        self._wait_seen = self._host_wait_ms()

@@ -5,7 +5,8 @@ train_cifar10.py``.
         [--cpu] [--seed 7] [--checkpoint-dir D [--resume]
         [--exit-after-epoch 1]] [--serve-smoke] [--precision bf16]
         [--opt-state-dtype bfloat16] [--remat dots_saveable]
-        [--batch-group 4] ...
+        [--batch-group 4] [--prefetch-device 2] [--device-augment
+        [--augment-placement host] [--cache-dataset]] ...
 
 Uses a real CIFAR-10 python-pickle batch directory when ``--data-dir`` has
 one, else the JAX script's synthetic CIFAR-shaped data (the same seed, so
@@ -13,13 +14,25 @@ the same values). Images are center-cropped to 28x28, as in the JAX
 script. ``--params-digest-out`` writes the same sha256 over the final
 parameter values as the JAX script.
 
+The data flags are the JAX script's: ``--prefetch-device N`` trains
+through ``data.DeviceLoader`` (a ring of N batches staged on the card);
+``--device-augment`` feeds uint8 NHWC wire batches with a pad-2 random
+crop and mirror (``data.DeviceAugment``, draws keyed on (seed, epoch,
+batch)) run on the card at staging, or with ``--augment-placement host``
+the same draws through ``apply_host`` on the host; ``--cache-dataset``
+(implies the u8 pipeline) holds the decoded epoch on the card
+(``data.CachedDataset``). ``--prefetch-device`` and ``--cache-dataset``
+train to the same parameters as the run without them, and the two
+augment placements to the same parameters as each other, bit for bit.
+
 Differences from the JAX script: the twin trains on ``gpu(0)`` (or
 ``--gpus``/``--tpus``, one card) unless ``--cpu`` is given, where the JAX
 script defaults to the CPU; ``--seed`` also makes cuDNN pick deterministic
 algorithms, so that a preempted and resumed run retraces the
-uninterrupted one bit for bit; and the flags whose modules the port does
-not have yet raise ``MXNetError`` naming the slice that brings them.
-``main(argv)`` returns the run's results.
+uninterrupted one bit for bit; the flags whose modules the port does
+not have yet raise ``MXNetError`` naming the slice that brings them; and
+``--serve-smoke`` serves float32 rows, so it does not combine with the u8
+pipeline. ``main(argv)`` returns the run's results.
 """
 import argparse
 import hashlib
@@ -47,12 +60,8 @@ SERVE_REL_L2 = 1e-5
 
 # flag -> the slice of the port that brings its module
 LATER_SLICES = {
-    "prefetch_device": "the device-feed slice (mxnet_tpu/data)",
     "fault_plan": "the faults slice (mxnet_tpu/faults)",
     "guardian": "the guardian slice (mxnet_tpu/guardian)",
-    "device_augment": "the device-augment slice (mxnet_tpu/data)",
-    "augment_placement": "the device-augment slice (mxnet_tpu/data)",
-    "cache_dataset": "the device-augment slice (mxnet_tpu/data)",
     "telemetry_jsonl": "the training telemetry slice (mxnet_tpu/telemetry)",
     "telemetry_port": "the training telemetry slice (mxnet_tpu/telemetry)",
     "program_report": "the training telemetry slice (mxnet_tpu/telemetry)",
@@ -200,17 +209,30 @@ def parse_args(argv=None):
                              "clients and hold the rows to Module.predict "
                              "(within SERVE_REL_L2)")
     add_precision_args(parser)
+    parser.add_argument("--prefetch-device", type=int, default=None,
+                        help="train through data.DeviceLoader: a ring of "
+                             "N batches staged on the card while the step "
+                             "runs; the parameters equal the plain path's "
+                             "bit for bit")
+    parser.add_argument("--device-augment", action="store_true",
+                        help="feed uint8 NHWC wire batches (4x fewer bytes "
+                             "than float32 NCHW); the pad-2 random crop, "
+                             "mirror and normalize run on the card at "
+                             "staging (data.DeviceAugment)")
+    parser.add_argument("--augment-placement", default="device",
+                        choices=["device", "host"],
+                        help="where the augment runs: 'device' (the u8 "
+                             "wire path) or 'host' (apply_host on the same "
+                             "draws); both train to the same parameters")
+    parser.add_argument("--cache-dataset", action="store_true",
+                        help="hold the decoded u8 epoch on the card "
+                             "(data.CachedDataset): later epochs are a "
+                             "gather there; implies the u8 pipeline")
     # refused until their modules are ported (LATER_SLICES)
-    parser.add_argument("--prefetch-device", type=int, default=None)
     parser.add_argument("--telemetry-jsonl", default=None)
     parser.add_argument("--telemetry-port", type=int, default=None)
     parser.add_argument("--program-report", default=None)
     parser.add_argument("--health-report", default=None)
-    parser.add_argument("--device-augment", action="store_true",
-                        default=None)
-    parser.add_argument("--augment-placement", default=None,
-                        choices=["device", "host"])
-    parser.add_argument("--cache-dataset", action="store_true", default=None)
     parser.add_argument("--fault-plan", default=None)
     parser.add_argument("--guardian", action="store_true", default=None)
     args = parser.parse_args(argv)
@@ -222,7 +244,66 @@ def parse_args(argv=None):
     if args.exit_after_epoch is not None and args.checkpoint_dir is None:
         parser.error("--exit-after-epoch needs --checkpoint-dir (it "
                      "simulates preemption after the commit)")
+    args.u8_pipeline = args.device_augment or args.cache_dataset
+    if args.u8_pipeline and args.serve_smoke:
+        parser.error("--serve-smoke serves float32 rows; it does not "
+                     "combine with --device-augment/--cache-dataset")
     return args
+
+
+def to_u8(x):
+    """float32 NCHW in [0, ~1] -> the uint8 NHWC wire layout."""
+    return (np.clip(x, 0.0, 1.0) * 255.0).round() \
+        .astype(np.uint8).transpose(0, 2, 3, 1)
+
+
+def u8_iters(args, mod, Xtr, ytr, Xte, yte):
+    """The u8 pipeline's train and eval iterators (the JAX script's): a
+    pad-2 random crop and mirror, normalized back to the [0, 1] range the
+    plain path trains on (scale 1/255); draws keyed on (seed, epoch,
+    batch), so both placements see the same stream."""
+    from mxnet_tpu_torch.data import (CachedDataset, DeviceAugment,
+                                      DeviceAugmentIter)
+    spec = DeviceAugment(shape=(3, 28, 28), rand_crop=True,
+                         rand_mirror=True, pad=2, mean=0.0, std=1.0,
+                         scale=1.0 / 255.0, seed=args.seed or 0)
+    train_src = mx.io.NDArrayIter(to_u8(Xtr), ytr,
+                                  batch_size=args.batch_size, shuffle=True)
+    if args.cache_dataset:
+        train = CachedDataset(train_src, augment=spec, module=mod,
+                              augment_placement=args.augment_placement)
+    else:
+        train = DeviceAugmentIter(train_src, spec,
+                                  placement=args.augment_placement)
+    # the eval variant: both placements score the same center crop
+    val = DeviceAugmentIter(
+        mx.io.NDArrayIter(to_u8(Xte), yte, batch_size=args.batch_size),
+        spec, placement=args.augment_placement, train=False)
+    return train, val
+
+
+def check_u8_pipeline(args, mod, train):
+    """The u8 flags must have done what they say: the augment bound on
+    the card (device placement) and the cache built."""
+    trained = mod._optimizer is not None and mod._optimizer.num_update > 0
+    if not (args.u8_pipeline and trained):
+        return
+    if args.augment_placement == "device":
+        if not getattr(mod._exec_group, "_device_augment", None) or \
+                not any(np.dtype(getattr(d, "dtype", np.float32)) ==
+                        np.uint8 for d in train.provide_data):
+            raise mx.MXNetError("--device-augment requested but the bound "
+                                "group stages no uint8 wire input")
+    if args.cache_dataset and args.num_epochs > 1:
+        info = train.cache_info()
+        if info["built_epoch"] is None:
+            raise mx.MXNetError("--cache-dataset ran %d epochs but never "
+                                "built the cache: %r"
+                                % (args.num_epochs, info))
+        logging.info("dataset cache: %s on %s, %d rows, %.1f MB, built "
+                     "after epoch %d", info["placement"], info["device"],
+                     info["rows"], info["bytes"] / (1 << 20),
+                     info["built_epoch"])
 
 
 def main(argv=None):
@@ -255,9 +336,12 @@ def main(argv=None):
     if args.precision_policy is not None:
         logging.info("precision mode: %s (%r)", mod.precision_mode,
                      mod._precision.describe())
-    train = mx.io.NDArrayIter(Xtr, ytr, batch_size=args.batch_size,
-                              shuffle=True)
-    val = mx.io.NDArrayIter(Xte, yte, batch_size=args.batch_size)
+    if args.u8_pipeline:
+        train, val = u8_iters(args, mod, Xtr, ytr, Xte, yte)
+    else:
+        train = mx.io.NDArrayIter(Xtr, ytr, batch_size=args.batch_size,
+                                  shuffle=True)
+        val = mx.io.NDArrayIter(Xte, yte, batch_size=args.batch_size)
 
     callbacks = []
     if args.model_prefix:
@@ -292,10 +376,12 @@ def main(argv=None):
                                 _stamp],
             epoch_end_callback=callbacks or None,
             resume_from=manager if args.resume else None,
-            batch_group=args.batch_group)
+            batch_group=args.batch_group,
+            prefetch_to_device=args.prefetch_device)
     if manager is not None:
         manager.wait_until_finished()
     check_grouped(mod, args.batch_group)
+    check_u8_pipeline(args, mod, train)
     result = {"fit_s": time.perf_counter() - t0, "module": mod,
               "manager": manager}
     span = sum(t[-1] - t[0] for t in stamps.values() if len(t) > 1)

@@ -9,11 +9,13 @@ scores ``eval_data``. On the fused route the training metric rides the
 device tally (``_install_device_metric``: no per-batch readback) and
 ``batch_group=K`` trains K batches per grouped step. ``resume_from=``
 restarts an interrupted run from a checkpoint entry (parameters,
-optimizer states, RNG state), and ``monitor=`` taps the op outputs of
-every ``interval``-th batch. What else the JAX ``fit`` layers on top
-(telemetry, the training guardian, device prefetch, step-granular
-resume) comes with later slices: those arguments are accepted at None
-and refused otherwise.
+optimizer states, RNG state), ``monitor=`` taps the op outputs of every
+``interval``-th batch, and ``prefetch_to_device=N`` trains through a
+``data.DeviceLoader``. Each epoch pins the iterator's epoch coordinate
+(``set_epoch``), and ``fit`` adopts the iterator's
+``device_augment_spec``. What else the JAX ``fit`` layers on top
+(telemetry, the training guardian, step-granular resume) comes with
+later slices: ``guardian`` is accepted at None and refused otherwise.
 """
 from __future__ import annotations
 
@@ -285,18 +287,28 @@ class BaseModule(object):
         stride), and the epoch tail forms a smaller last group. It needs
         an optimizer with a pure apply, a metric with a device statistic
         and no monitor; otherwise fit warns and trains per batch.
-        ``prefetch_to_device`` and ``guardian`` come with later slices of
-        the port and must be None."""
+        ``prefetch_to_device=N`` (``True`` means depth 2) wraps
+        ``train_data`` in a ``data.DeviceLoader``: a background stager
+        keeps a ring of N batches already on the card (pinned copies on a
+        side stream), so host decode, the copy and the step overlap;
+        composed with ``batch_group=K`` it stages whole K-blocks. The
+        trained parameters equal an unprefetched run's bit for bit, the
+        epoch log reports the epoch's host-wait, and the caller's
+        iterator stays usable after ``fit``. A train iterator with a
+        ``device_augment_spec`` (``data.DeviceAugmentIter``,
+        ``CachedDataset``, ``ImageRecordIter(device_augment="defer")``)
+        has it adopted before the bind. ``guardian`` comes with a later
+        slice of the port and must be None."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
-        for name, value, where in (
-                ("prefetch_to_device", prefetch_to_device,
-                 "the device-feed slice (mxnet_tpu/data)"),
-                ("guardian", guardian,
-                 "the guardian slice (mxnet_tpu/guardian)")):
-            if value is not None:
-                raise MXNetError("fit(%s=%r) comes with %s of the port"
-                                 % (name, value, where))
+        if guardian is not None:
+            raise MXNetError("fit(guardian=%r) comes with the guardian "
+                             "slice (mxnet_tpu/guardian) of the port"
+                             % (guardian,))
+        aug_spec = getattr(train_data, "device_augment_spec", None)
+        if aug_spec and not self.binded and \
+                getattr(self, "_device_augment", None) == {}:
+            self._device_augment = dict(aug_spec)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -325,9 +337,45 @@ class BaseModule(object):
                 group_k)
             group_k = 0
 
+        loader = None
+        if prefetch_to_device:
+            # created after the bind: the loader stages onto the bound
+            # group's device and through its stage_stacked
+            from ..data import DeviceLoader
+            depth = 2 if prefetch_to_device is True \
+                else int(prefetch_to_device)
+            loader = DeviceLoader(
+                train_data, module=self, depth=depth,
+                batch_group=group_k if group_k > 1 else None)
+            train_data = loader
+        from .. import telemetry
+        pipe_stats = getattr(train_data, "pipeline_stats", None)
+        telemetry.set_active_pipeline(pipe_stats)
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, begin_epoch, num_epoch,
+                             group_k, monitor, batch_end_callback,
+                             epoch_end_callback, eval_end_callback,
+                             eval_batch_end_callback, pipe_stats)
+        finally:
+            telemetry.set_active_pipeline(None)
+            if loader is not None:
+                loader.close()
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, begin_epoch, num_epoch, group_k,
+                    monitor, batch_end_callback, epoch_end_callback,
+                    eval_end_callback, eval_batch_end_callback, pipe_stats):
+        """The epoch loop of ``fit``."""
+        wait_seen = pipe_stats.snapshot()["host_wait_ms"] \
+            if pipe_stats is not None else 0.0
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
+            if hasattr(train_data, "set_epoch"):
+                # pin the iterator's epoch coordinate to the true epoch: a
+                # resumed run replays the stream the uninterrupted one saw
+                train_data.set_epoch(epoch)
             if group_k > 1:
                 self._fit_epoch_grouped(train_data, epoch, group_k,
                                         eval_metric, batch_end_callback)
@@ -344,8 +392,18 @@ class BaseModule(object):
                                eval_metric, locals())
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
+            cost = time.time() - tic
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, cost)
+            if pipe_stats is not None:
+                # the epoch's slice of the cumulative host-wait clock
+                snap = pipe_stats.snapshot()
+                wait_ms = snap["host_wait_ms"] - wait_seen
+                wait_seen = snap["host_wait_ms"]
+                self.logger.info(
+                    "Epoch[%d] Host-wait=%.1fms (%.1f%% of epoch, ring "
+                    "high-water %d/%d)", epoch, wait_ms,
+                    100.0 * wait_ms / max(cost * 1000.0, 1e-9),
+                    snap["ring_high_water"], snap["ring_depth"])
 
             arg_params, aux_params = self.get_params()
             self.set_params(arg_params, aux_params)

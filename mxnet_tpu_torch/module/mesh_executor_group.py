@@ -44,11 +44,22 @@ across reshapes and serving buckets share them. Monitors need per-op taps
 and ``Module.install_monitor`` moves to the classic group for them, as in
 the JAX package.
 
+Device augmentation (``device_augment={name: data.DeviceAugment}``):
+the bound data input keeps its model view (float32 NCHW) while
+``data_shapes`` lists the wire entries (the uint8 NHWC block and its crop
+and mirror parameter inputs), which is what batches carry. At staging
+(``_stage``, ``stage_stacked``) the wire block and its parameters go to
+the device and ``_apply_device_augment`` turns them into the float32
+batch, as its own call outside ``_step_math``: the step computes on the
+same tensor a host-augmented feed would copy in. Tensors already on the
+device (a ``DeviceLoader`` batch) are copied on the device, never read
+back.
+
 Left for later slices of the port (each refused where it is asked for):
-the guardian's health word and SDC probe, device augmentation, mesh axes,
-parameter sharding and pipeline microbatches, the program and roofline
-introspection, device prefetch, CUDA-graph capture of the step.
-``MXNET_XLA_COMPILER_OPTIONS`` is XLA's own and has no counterpart.
+the guardian's health word and SDC probe, mesh axes, parameter sharding
+and pipeline microbatches, the program and roofline introspection,
+CUDA-graph capture of the step. ``MXNET_XLA_COMPILER_OPTIONS`` is XLA's
+own and has no counterpart.
 """
 from __future__ import annotations
 
@@ -57,6 +68,7 @@ import torch
 
 from .. import ndarray as nd
 from ..base import MXNetError
+from ..data.augment import crop_input_name, mirror_input_name, unwrap
 from ..executor import _build_eval_segmented
 from ..precision.policy import loss_scale_config, state_np_dtype
 from .executor_group import DataParallelExecutorGroup
@@ -153,8 +165,10 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
                  grad_req="write", shared_group=None, compute_dtype=None,
-                 remat=None, precision=None):
+                 remat=None, precision=None, device_augment=None):
         self._precision = precision
+        # {data input name: DeviceAugment}, needed by bind_exec below
+        self._device_augment = dict(device_augment or {})
         self.compute_dtype = compute_dtype
         self._cdt = state_np_dtype(compute_dtype, None)   # None: float32
         self.remat = remat
@@ -184,9 +198,53 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             if remat is not None and for_training else None
 
     # ------------------------------------------------------------ wiring
+    def _model_data_shapes(self, data_shapes):
+        """The symbol's view of ``data_shapes``: each augmented input's
+        wire entry becomes its model shape (B, C, H, W) and the augment
+        parameter inputs drop out."""
+        if not self._device_augment:
+            return list(data_shapes)
+        names = [n for n, _ in data_shapes]
+        missing = [n for n in self._device_augment if n not in names]
+        if missing:
+            raise MXNetError("device_augment names input(s) %r but the bind "
+                             "provides %r" % (missing, names))
+        params = set()
+        for name in self._device_augment:
+            params.update((crop_input_name(name), mirror_input_name(name)))
+        out = []
+        for name, shape in data_shapes:
+            if name in params:
+                continue
+            aug = self._device_augment.get(name)
+            out.append((name, aug.model_shape(shape[0]) if aug is not None
+                        else tuple(shape)))
+        return out
+
+    def model_view_shapes(self, data_batch):
+        """The model-view shapes of a batch's data inputs (what the bound
+        arrays must hold), for the re-bind check of ``Module.forward``."""
+        bound = set(n for n, _ in self._bind_data_shapes)
+        shapes = []
+        for (name, _), arr in zip(self.data_shapes, data_batch.data):
+            if name not in bound:
+                continue
+            aug = self._device_augment.get(name)
+            shape = tuple(arr.shape)
+            if aug is not None and shape[1:] == aug.wire_shape:
+                shape = aug.model_shape(shape[0])
+            shapes.append(shape)
+        return shapes
+
+    def bind_exec(self, data_shapes, label_shapes, shared_group=None):
+        self._wire_data_shapes = list(data_shapes)
+        super().bind_exec(self._model_data_shapes(data_shapes), label_shapes,
+                          shared_group)
+
     def _wire(self, ex, data_shapes, label_shapes):
         """The classic wiring, with the outputs and gradients made
-        deferrable."""
+        deferrable; ``data_shapes`` keeps the wire entries under device
+        augmentation."""
         for i, name in enumerate(ex.arg_names):
             g = ex.grad_arrays[i]
             if g is not None and not isinstance(g, _Deferred):
@@ -196,13 +254,17 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
                 ex.outputs[i] = _Deferred(o)
         ex.output_dict = dict(zip(self.symbol.list_outputs(), ex.outputs))
         super()._wire(ex, data_shapes, label_shapes)
+        self._bind_data_shapes = list(data_shapes)
+        if self._device_augment:
+            self.data_shapes = self._wire_data_shapes
         self._label_names = [n for n, _ in (label_shapes or [])]
         self._input_names = [n for n in self.arg_names
                              if n not in self.param_names]
 
     def reshape(self, data_shapes, label_shapes):
         self._flush()
-        super().reshape(data_shapes, label_shapes)
+        self._wire_data_shapes = list(data_shapes)
+        super().reshape(self._model_data_shapes(data_shapes), label_shapes)
 
     def set_params(self, arg_params, aux_params):
         self._flush()
@@ -362,15 +424,66 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             buf._write(g)
 
     # ----------------------------------------------------- forward/back
-    def _stage(self, data_batch):
-        """Copy the batch into the bound input tensors (one host→card
-        copy per input), as the classic group does."""
-        for src, dst in zip(data_batch.data, self.data_arrays):
-            dst[0][:] = src
+    def _stage(self, data_batch, is_train=False):
+        """Copy the batch into the bound input tensors, as the classic
+        group does: one host→card copy per input, or a copy on the card
+        for a tensor already there (after the stream wait a
+        ``DeviceLoader`` batch carries). Under device augmentation the
+        wire block and its parameters go to the device first and the
+        augment's float32 output is what is copied in."""
+        if self._device_augment:
+            inputs = {name: self._device_value(arr) for (name, _), arr
+                      in zip(self.data_shapes, data_batch.data)}
+            inputs = self._apply_device_augment(inputs, is_train)
+            ex = self.execs[0]
+            for name, _ in self._bind_data_shapes:
+                if name in inputs:
+                    ex.arg_dict[name][:] = inputs[name]
+        else:
+            for src, dst in zip(data_batch.data, self.data_arrays):
+                dst[0][:] = src
         if self.label_arrays is not None and data_batch.label:
             for src, dst in zip(data_batch.label, self.label_arrays):
                 if src is not None:
                     dst[0][:] = src
+
+    def _device_value(self, arr, as_float=False):
+        """A batch entry as a tensor on the group's device (float32 with
+        ``as_float``): host values take one (pinned, asynchronous) copy,
+        tensors already there pass through."""
+        v = unwrap(arr)
+        dev = self.contexts[0].torch_device()
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=torch.float32) if as_float \
+                else v.to(device=dev)
+        return self._to_device(onp.asarray(v, onp.float32) if as_float
+                               else onp.asarray(v))
+
+    def _apply_device_augment(self, inputs, is_train, grouped=False):
+        """Replace each augmented input's wire block (and its parameter
+        inputs, which are popped) with the augment's float32 model batch.
+        An input already in the model view passes through. Grouped
+        (K, B, ...) blocks run as K·B rows and are reshaped back."""
+        lead = 2 if grouped else 1
+        for name, aug in self._device_augment.items():
+            v = inputs.get(name)
+            if v is None:
+                continue
+            crop = inputs.pop(crop_input_name(name), None)
+            mirror = inputs.pop(mirror_input_name(name), None)
+            if tuple(v.shape[lead:]) != aug.wire_shape:
+                continue    # already the model view
+            if not grouped:
+                inputs[name] = aug.apply(v, crop, mirror, train=is_train)
+                continue
+            k, b = v.shape[0], v.shape[1]
+            flat = aug.apply(
+                v.reshape((k * b,) + tuple(v.shape[2:])),
+                None if crop is None else crop.reshape(k * b, 2),
+                None if mirror is None else mirror.reshape(k * b),
+                train=is_train)
+            inputs[name] = flat.reshape((k, b) + tuple(flat.shape[1:]))
+        return inputs
 
     def _flush(self):
         """Run whatever a new batch would supersede: a deferred
@@ -384,7 +497,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         if is_train is None:
             is_train = self.for_training
         self._flush()
-        self._stage(data_batch)
+        self._stage(data_batch, is_train)
         self._last_aux = None
         self._pending_fwd = self._pending_bwd = False
         if not is_train:
@@ -549,22 +662,23 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         self._commit(updater, keys, res)
         return True
 
-    def stage_stacked(self, stacked):
+    def stage_stacked(self, stacked, is_train=True):
         """Place a dict of name -> (K, batch, ...) blocks (numpy, NDArray
-        or tensor) on the device, ONE copy per block, and zero-fill the
-        bound inputs the block does not provide (labels at predict
-        time)."""
+        or tensor) on the device, ONE copy per block (none for a block
+        already there), run the device augment over the block, and
+        zero-fill the bound inputs the block does not provide (labels at
+        predict time). A dict this returned passes through unchanged."""
         dev = self.contexts[0].torch_device()
+        keep = set()
+        for name in self._device_augment:
+            keep.update((name, crop_input_name(name),
+                         mirror_input_name(name)))
         inputs, K = {}, 0
         for name, arr in stacked.items():
-            if isinstance(arr, nd.NDArray):
-                arr = arr._read()
-            if isinstance(arr, torch.Tensor):
-                t = arr.to(device=dev, dtype=torch.float32)
-            else:
-                t = self._to_device(onp.asarray(arr, onp.float32))
+            t = self._device_value(arr, as_float=name not in keep)
             K = t.shape[0]
             inputs[name] = t
+        inputs = self._apply_device_augment(inputs, is_train, grouped=True)
         ex = self.execs[0]
         for name in self._input_names:
             if name not in inputs:
@@ -606,7 +720,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         """Eval forwards of K batches staged with one copy per input:
         a tuple of stacked (K, ...) float32 outputs."""
         self._flush()
-        inputs = self.stage_stacked(stacked_data)
+        inputs = self.stage_stacked(stacked_data, is_train=False)
         K = next(iter(inputs.values())).shape[0]
         params, aux = self._params_now(), self._aux_now()
         outs = [self._forward_only(params, aux,

@@ -16,8 +16,11 @@ the precision modes (``precision=``, ``compute_dtype=``, ``remat=``),
 ``_allow_fused=False``, ``MXNET_MODULE_FUSED=0``, ``inputs_need_grad``,
 a ``grad_req`` other than ``"write"`` or a monitor take the classic
 per-executor route (``DataParallelExecutorGroup``); a precision mode
-other than f32 refuses to bind there. Multi-device binding, mesh axes,
-parameter sharding, pipeline microbatches and device augmentation come
+other than f32, or ``device_augment``, refuses to bind there.
+``device_augment={name: data.DeviceAugment}`` (usually adopted by ``fit``
+from the train iterator's ``device_augment_spec``) stages uint8 wire
+batches and runs the augment on the device at staging. Multi-device
+binding, mesh axes, parameter sharding and pipeline microbatches come
 with later slices of the port.
 """
 from __future__ import annotations
@@ -53,9 +56,7 @@ class Module(BaseModule):
                 ("mesh_axes", mesh_axes, "the dist slice"),
                 ("param_sharding", param_sharding, "the dist slice"),
                 ("pipeline_microbatches", pipeline_microbatches,
-                 "the dist slice"),
-                ("device_augment", device_augment,
-                 "the device-augment slice (mxnet_tpu/data)")):
+                 "the dist slice")):
             if value:
                 raise MXNetError("Module(%s=...) comes with %s of the port"
                                  % (name, where))
@@ -87,6 +88,9 @@ class Module(BaseModule):
                     "'bn_stats'/'offload_bn_stats' or a checkpoint-policy "
                     "callable (got %r)" % (remat,))
         self._remat = remat
+        # {data input name: data.DeviceAugment}; fit() adopts the train
+        # iterator's device_augment_spec when this is empty
+        self._device_augment = dict(device_augment or {})
         self._allow_fused = _allow_fused
         if context is None:
             context = ctx_mod.current_context()
@@ -457,6 +461,14 @@ class Module(BaseModule):
                     "bind is not fused-eligible (check MXNET_MODULE_FUSED, "
                     "_allow_fused, inputs_need_grad, grad_req='write')"
                     % self._precision.name)
+            if self._device_augment:
+                # the u8 wire layout and its staging augment exist on the
+                # fused route only; a silent classic fallback would hand
+                # the symbol uint8 NHWC blocks
+                raise ValueError(
+                    "device_augment requires the fused route, but this "
+                    "bind is not fused-eligible (check MXNET_MODULE_FUSED, "
+                    "_allow_fused, inputs_need_grad, grad_req='write')")
             if shared_fused:
                 raise ValueError(
                     "shared_module uses the fused MeshExecutorGroup but "
@@ -479,7 +491,8 @@ class Module(BaseModule):
                 self._param_names, for_training, self._fixed_param_names,
                 grad_req, shared_group, compute_dtype=self._compute_dtype,
                 remat=self._remat if for_training else None,
-                precision=self._precision)
+                precision=self._precision,
+                device_augment=self._device_augment)
             # a re-bind keeps the step of an optimizer already attached
             self._exec_group._step_enabled = self.optimizer_initialized
         else:
@@ -521,6 +534,10 @@ class Module(BaseModule):
             raise MXNetError("cannot leave the fused route (%s): "
                              "precision=%r has no classic-route "
                              "equivalent" % (reason, self._precision.name))
+        if self._device_augment:
+            raise MXNetError("cannot leave the fused route (%s): "
+                             "device_augment has no classic-route "
+                             "equivalent" % reason)
         grp = self._exec_group
         grp._flush()
         grp.disable_device_metric()
@@ -613,11 +630,21 @@ class Module(BaseModule):
         ones. Labels take the batch's shapes, or, when it has none, the
         bound ones with the new batch size."""
         grp = self._exec_group
-        new = [tuple(d.shape) for d in batch.data]
-        if new == [tuple(s) for _, s in grp.data_shapes]:
-            return
-        data_shapes = [(name, shape) for (name, _), shape
-                       in zip(grp.data_shapes, new)]
+        if getattr(grp, "_device_augment", None):
+            # wire batches: compare what the bound arrays hold, and re-bind
+            # the wire entries at the batch's size
+            new = grp.model_view_shapes(batch)
+            if new == [tuple(s) for _, s in grp._bind_data_shapes]:
+                return
+            rows = new[0][0]
+            data_shapes = [(name, (rows,) + tuple(shape[1:]))
+                           for name, shape in grp.data_shapes]
+        else:
+            new = [tuple(d.shape) for d in batch.data]
+            if new == [tuple(s) for _, s in grp.data_shapes]:
+                return
+            data_shapes = [(name, shape) for (name, _), shape
+                           in zip(grp.data_shapes, new)]
         label_shapes = grp.label_shapes
         if label_shapes and batch.label:
             label_shapes = [(name, tuple(lb.shape)) for (name, _), lb
@@ -699,14 +726,32 @@ class Module(BaseModule):
             return False
         grp = self._exec_group
         self._eval_pad_extra = 0
-        stacked = stack_group_inputs(batches,
-                                     [d[0] for d in grp.data_shapes],
-                                     grp._label_names)
+        stacked = self._staged_group_block(batches)
+        if stacked is None:
+            stacked = stack_group_inputs(batches,
+                                         [d[0] for d in grp.data_shapes],
+                                         grp._label_names)
         if not grp.step_update_grouped(self._updater, stacked):
             return False
         self._params_dirty = True
         self._grouped_steps += 1
         return True
+
+    @staticmethod
+    def _staged_group_block(batches):
+        """When the batches are, in order, the views of ONE block a
+        ``DeviceLoader`` staged for exactly this group, that block's
+        staged input dict (the grouped step consumes it as it is); else
+        None (the generic stacking path)."""
+        block = getattr(batches[0], "_staged_block", None)
+        if block is None or \
+                getattr(batches[0], "_staged_size", -1) != len(batches):
+            return None
+        for j, b in enumerate(batches):
+            if getattr(b, "_staged_block", None) is not block or \
+                    getattr(b, "_staged_index", -1) != j:
+                return None
+        return block
 
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, score_end_callback=None, reset=True,

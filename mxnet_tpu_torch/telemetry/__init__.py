@@ -44,11 +44,13 @@ __all__ = [
     "render_prometheus", "SLOTracker", "registry", "enable", "disable",
     "enabled", "flush_metrics", "trace_events",
     "clear_trace", "record_events", "NOOP_SPAN", "DEFAULT_MS_BUCKETS",
+    "set_active_pipeline", "active_pipeline",
 ]
 
 _REGISTRY = MetricsRegistry()
 _lock = threading.Lock()
-_state = {"enabled": False, "sink": None, "server": None}
+_state = {"enabled": False, "sink": None, "server": None,
+          "active_pipeline": None}
 
 
 def registry():
@@ -104,6 +106,18 @@ def flush_metrics(reason=""):
         if reason:
             payload["reason"] = str(reason)
         sink.write("metrics", payload)
+
+
+def set_active_pipeline(stats):
+    """Publish the ``PipelineStats`` of the device-feed loader the current
+    ``fit`` trains through (None clears it): ``Speedometer`` and the fit
+    epoch log read host-wait from here."""
+    _state["active_pipeline"] = stats
+
+
+def active_pipeline():
+    """The published ``PipelineStats``, or None when fit is host-fed."""
+    return _state["active_pipeline"]
 
 
 def _autostart():

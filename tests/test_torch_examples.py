@@ -1,13 +1,16 @@
 """The port's example twins (``mxnet_tpu_torch.examples.train_mnist``,
-``.train_cifar10`` and ``.decode_lm``) on the CPU (``--cpu``), run in
-subprocesses with timeouts as a user runs them: MNIST mlp and lenet;
-CIFAR resnet-8 preempted after its first committed epoch (exit 66) and
-resumed, landing on the uninterrupted run's parameter digest bit for bit;
-one resnet-20 epoch with the serving smoke; the char-LM trained and
-served through the decode engine with the arguments
-``tests/test_examples.py`` gives the JAX script; and every flag whose
-module the port does not have yet refused with ``MXNetError`` naming its
-slice.
+``.train_cifar10``, ``.train_imagenet`` and ``.decode_lm``) on the CPU
+(``--cpu``), run in subprocesses with timeouts as a user runs them: MNIST
+mlp and lenet; CIFAR resnet-8 preempted after its first committed epoch
+(exit 66) and resumed, landing on the uninterrupted run's parameter
+digest bit for bit; one resnet-20 epoch with the serving smoke; the
+CIFAR data flags (``--device-augment`` on the card's placement and the
+host's, ``--cache-dataset`` with ``--prefetch-device``) landing on one
+digest; the ImageNet twin on a synthesized PIL-JPEG pack at resnet-8
+depth; the char-LM trained and served through the decode engine with the
+arguments ``tests/test_examples.py`` gives the JAX script; and every flag
+or network whose module the port does not have yet refused with
+``MXNetError`` naming its slice.
 """
 import os
 import subprocess
@@ -17,7 +20,7 @@ import pytest
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.checkpoint import CheckpointManager
-from mxnet_tpu_torch.examples import decode_lm, train_cifar10
+from mxnet_tpu_torch.examples import decode_lm, train_cifar10, train_imagenet
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300
@@ -88,14 +91,93 @@ def test_train_cifar10_twin_resnet20_serves(tmp_path):
 
 @pytest.mark.parametrize("flag", sorted(train_cifar10.LATER_SLICES))
 def test_train_cifar10_twin_refuses_later_flags(flag):
-    value = {"batch_group": "2", "prefetch_device": "2",
-             "telemetry_port": "0", "augment_placement": "host"}.get(
-                 flag, "x")
+    value = {"telemetry_port": "0"}.get(flag, "x")
     argv = ["--cpu", "--" + flag.replace("_", "-")]
-    if flag not in ("device_augment", "cache_dataset", "guardian"):
+    if flag != "guardian":
         argv.append(value)
     with pytest.raises(MXNetError, match="slice"):
         train_cifar10.main(argv)
+
+
+# the u8 pipeline three ways, started at once: the host placement of the
+# augment, the card's placement streamed, and the card's placement cached
+# on the device and prefetched
+U8_RUNS = {"host": ["--device-augment", "--augment-placement", "host"],
+           "device": ["--device-augment"],
+           "cached": ["--cache-dataset", "--prefetch-device", "2"]}
+
+
+@pytest.fixture(scope="module")
+def u8_digests(tmp_path_factory):
+    d = tmp_path_factory.mktemp("u8")
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=ROOT)
+    procs = {}
+    for name, flags in U8_RUNS.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.examples.train_cifar10"]
+            + RESNET8 + flags + ["--params-digest-out",
+                                 str(d / (name + ".txt")),
+                                 "--acc-out", str(d / (name + ".acc"))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=str(d), env=env)
+    out = {}
+    for name, p in procs.items():
+        stdout, stderr = p.communicate(timeout=TIMEOUT)
+        assert p.returncode == 0, name + stderr[-4000:]
+        out[name] = ((d / (name + ".txt")).read_text(),
+                     float((d / (name + ".acc")).read_text()), stderr)
+    return out
+
+
+def test_train_cifar10_twin_augment_placements_equal(u8_digests):
+    """--device-augment on the card's placement and on the host's (the
+    same draws through apply_host) land on one parameter digest."""
+    assert len(u8_digests["host"][0].strip()) == 64
+    assert u8_digests["device"][0] == u8_digests["host"][0]
+    assert u8_digests["device"][1] >= 0.9
+
+
+def test_train_cifar10_twin_cache_dataset_equals_streaming(u8_digests):
+    """--cache-dataset --prefetch-device 2 (the decoded epoch held on the
+    device, batches staged ahead) lands on the streaming run's digest, and
+    the cache was built and the ring used."""
+    digest, acc, stderr = u8_digests["cached"]
+    assert digest == u8_digests["device"][0]
+    assert "dataset cache: device on cpu" in stderr
+    assert "Host-wait=" in stderr
+    assert acc >= 0.9
+
+
+def test_train_cifar10_twin_refuses_serve_smoke_with_u8():
+    with pytest.raises(SystemExit):
+        train_cifar10.main(["--cpu", "--device-augment", "--serve-smoke"])
+
+
+def test_train_imagenet_twin(tmp_path):
+    """The ImageNet twin on its synthesized PIL-JPEG pack at resnet-8
+    depth: a few steps through ImageRecordIter and fit."""
+    res = _ok(_run("train_imagenet", [
+        "--cpu", "--network", "resnet-8", "--image-shape", "3,28,28",
+        "--batch-size", "8", "--synthetic-images", "32", "--num-epochs",
+        "2", "--model-prefix", str(tmp_path / "m")],
+        tmp_path))
+    assert res.stdout.strip().endswith("TRAIN_IMAGENET_DONE")
+    assert "synthesized 32-image rec" in res.stderr
+    assert "final train accuracy" in res.stderr
+    assert (tmp_path / "m-0002.params").exists()
+
+
+@pytest.mark.parametrize("network", ["alexnet", "vgg", "googlenet",
+                                     "inception-bn", "inception-v3",
+                                     "resnext"])
+def test_train_imagenet_twin_refuses_zoo_networks(network):
+    with pytest.raises(MXNetError, match="model-zoo slice"):
+        train_imagenet.main(["--cpu", "--network", network])
+
+
+def test_train_imagenet_twin_refuses_dist_kvstore():
+    with pytest.raises(MXNetError, match="dist slice"):
+        train_imagenet.main(["--cpu", "--kv-store", "dist_sync"])
 
 
 def test_decode_lm_twin(tmp_path):

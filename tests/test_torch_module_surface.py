@@ -351,9 +351,9 @@ def test_mnistiter_reads_idx_files(tmp_path, gz):
 
 def test_fit_taps_a_monitor_and_refuses_later_arguments(caplog):
     """fit(monitor=) taps every ``interval``-th batch and logs it (the
-    fused module moves to the classic route for the taps);
-    prefetch_to_device and guardian are refused unless None
-    (batch_group is held in test_torch_grouped.py)."""
+    fused module moves to the classic route for the taps); guardian is
+    refused unless None (batch_group is held in test_torch_grouped.py,
+    prefetch_to_device in test_torch_data_pipeline.py)."""
     rs = np.random.RandomState(6)
     x = rs.randn(16, *BOUND[1:]).astype(np.float32)
     y = rs.randint(0, 3, 16).astype(np.float32)
@@ -367,7 +367,7 @@ def test_fit_taps_a_monitor_and_refuses_later_arguments(caplog):
     # batches 1 and 4 of 4: fc_output and fc_weight/fc_bias each time
     assert mon.step == 4 and len(tapped) == 2 * 3
     assert any("fc_output" in m for m in tapped)
-    for kwarg in ({"prefetch_to_device": 2}, {"guardian": "dir"}):
+    for kwarg in ({"guardian": "dir"},):
         with pytest.raises(MXNetError, match="slice"):
             tmx.mod.Module(_net(tmx, TNameManager), context=tmx.cpu()).fit(
                 tmx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
