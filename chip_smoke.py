@@ -166,10 +166,36 @@ result line) if any phase fails:
    against pinned; the CIFAR twin with ``--device-augment --cache-dataset
    --prefetch-device 2`` and with ``--device-augment --augment-placement
    host`` (in process, 3 epochs): one ``params_digest``, accuracy ≥ 0.9;
-12. the kernels line (each kernel's launches on every path, decode's
-   0 among them, and the BN kernels' bfloat16 and imagenet-twin launches
-   and times), the seconds of each phase, the card's nvidia-smi line,
-   and the result line.
+12. zoo: the model zoo at its published widths (batch 32, 1000
+   classes; 299² for inception-v3 and inception-resnet-v2, 224²
+   otherwise). (a) ``bn_fwd``/``bn_bwd`` against their plain versions
+   at every BatchNorm shape of inception-bn, inception-v3,
+   inception-resnet-v2 and resnext-50, in float32 and bfloat16, at the
+   networks' own flags, with ``TOL``: each shape's plan and the calls of
+   a step by plan (kind, unit bytes); (b) phase 3's timings over
+   inception-v3's 94 BatchNorms, float32 and bfloat16 (device, call,
+   bound, plain, library, per step); (c) 3 fused SGD steps (lr 0.01,
+   momentum 0.9, wd 1e-4; Xavier from seed 0; one synthetic batch) of
+   alexnet, vgg, googlenet, inception-bn, inception-v3 (and again in
+   ``bf16``), inception-resnet-v2, resnext-50 and resnet-50: ms a step
+   (median of steps 2–3), img/s, peak
+   memory, finite outputs and parameters, and exactly 0/0/0/69/94/114/
+   54/51 launches of each BN kernel a step, bfloat16 in ``bf16``; (d)
+   the train_imagenet twin on inception-v3 from a 256-image 299²
+   ``.npy`` pack, one epoch of 8 steps: ``TRAIN_IMAGENET_DONE``, 94 × 8
+   launches of each kernel, fit img/s; (e) the benchmark_score twin over
+   the eight networks in float32 and bfloat16: img/s, no BN launch; (f)
+   alexnet's Dropout under deterministic cuDNN: 3 steps twice from one
+   seed bit for bit, fused = classic, remat=full = none (bit for bit,
+   else relative L2 1e-6 with the reason), ``fit(batch_group=2)`` twice
+   bit for bit, the kept fraction of a 32×4096 mask on the card within
+   4σ of 1 − p and equal to the CPU's mask from the same key, ``predict``
+   twice equal drawing no key; (g) the fine_tune twin on the card, both
+   of its asserts;
+13. the kernels line (each kernel's launches on every path, decode's
+   0 among them, and the BN kernels' bfloat16, imagenet-twin and zoo
+   launches and times, inception-v3's per-step times), the seconds of
+   each phase, the card's nvidia-smi line, and the result line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -548,10 +574,12 @@ def resnet50_module(mx, ctx, batch, arg_params=None, aux_params=None,
     return mod
 
 
-def synthetic_batch(mx, ctx, batch, seed):
+def synthetic_batch(mx, ctx, batch, seed, image=None):
+    """One batch of gaussian images (``IMAGE`` unless ``image``) and
+    labels in [0, 1000), from numpy seed ``seed``, on ``ctx``."""
     import numpy as np
     rs = np.random.RandomState(seed)
-    x = rs.randn(batch, *IMAGE).astype(np.float32)
+    x = rs.randn(batch, *(image or IMAGE)).astype(np.float32)
     y = rs.randint(0, 1000, (batch,)).astype(np.float32)
     return mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
                            [mx.nd.array(y, ctx=ctx)])
@@ -2627,6 +2655,427 @@ def imagenet_twin_phase(mx, K, card, hand_img_per_s):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model zoo
+# ---------------------------------------------------------------------------
+# the zoo at its published widths: network -> (input, BatchNorms a step
+# after the BN+ReLU fusion); batch BATCH, 1000 classes
+ZOO_NETS = {"alexnet": ((3, 224, 224), 0), "vgg": ((3, 224, 224), 0),
+            "googlenet": ((3, 224, 224), 0),
+            "inception-bn": ((3, 224, 224), 69),
+            "inception-v3": ((3, 299, 299), 94),
+            "inception-resnet-v2": ((3, 299, 299), 114),
+            "resnext-50": ((3, 224, 224), 54),
+            "resnet-50": ((3, 224, 224), BN_PER_STEP)}
+ZOO_BN_NETS = ("inception-bn", "inception-v3", "inception-resnet-v2",
+               "resnext-50")
+ZOO_MAIN = "inception-v3"
+ZOO_STEPS = 3
+# lr 0.01: the reference's rate for the zoo's nets without BatchNorm
+# (alexnet, vgg), which lr 0.1 drives to NaN within 3 steps of one batch
+ZOO_SGD_PARAMS = dict(SGD_PARAMS, learning_rate=0.01)
+ZOO_TWIN_IMAGES, ZOO_TWIN_CLASSES = 256, 8      # 1 epoch of 8 steps
+ZOO_TWIN_ARGS = ["--gpus", "0"]
+ZOO_SCORE_BATCHES = 8
+ZOO_DROPOUT_NET, ZOO_DROPOUT_BATCHES = "alexnet", 4
+ZOO_FINE_TUNE_ARGS = ["--gpus", "0"]
+
+
+def card_generator(seed):
+    import torch
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def plan_label(K, op, shape, dtype, need_dx=True):
+    """A plan as "<kind> <unit bytes>B" ("cluster 4" counts its blocks)."""
+    return "%s %dB" % (plan_name(K, op, shape, dtype, need_dx),
+                       K.plan(op, shape, dtype, need_dx).unit_bytes)
+
+
+def zoo_kernels(mx, K, card):
+    """``bn_fwd``/``bn_bwd`` against their plain versions at every
+    BatchNorm shape of inception-bn, inception-v3, inception-resnet-v2
+    and resnext-50 (batch ``BATCH``, published input), in float32 and
+    bfloat16, at the networks' own fix_gamma, ReLU and need_dx flags,
+    with phase 3's ``TOL``; each shape's plan, and the calls of a step by
+    plan. Returns the worst errors of each kernel by dtype."""
+    import torch
+    gen = card_generator(12)
+    worst = {d: {"bn_fwd": 0.0, "bn_bwd": 0.0} for d in ("f32", "bf16")}
+    failures, cases = [], 0
+    for net in ZOO_BN_NETS:
+        counts = model_bn_shapes(mx, net, ZOO_NETS[net][0], 1000, BATCH)
+        for dtype, dname in ((torch.float32, "f32"),
+                             (torch.bfloat16, "bf16")):
+            by_plan = {}
+            for (shape, fix_gamma, relu, need_dx), n in sorted(
+                    counts.items()):
+                inputs = bn_inputs(shape, dtype, gen)
+                fields, ok, _, _ = compare_case(K, inputs, dtype, relu,
+                                                fix_gamma, False, need_dx)
+                plan = {op: plan_label(K, op, shape, dtype, need_dx)
+                        for op in ("fwd", "bwd")}
+                for op, label in plan.items():
+                    key = "%s %s" % (op, label)
+                    by_plan[key] = by_plan.get(key, 0) + n
+                row = {"phase": "zoo_kernels", "network": net,
+                       "shape": list(shape), "dtype": dname,
+                       "fix_gamma": fix_gamma, "relu": relu,
+                       "need_dx": need_dx, "per_step": n, "plan": plan,
+                       **fields, "ok": ok}
+                emit(row)
+                cases += 1
+                worst[dname]["bn_fwd"] = max(worst[dname]["bn_fwd"],
+                                             fields["y_max_abs_err"])
+                worst[dname]["bn_bwd"] = max(worst[dname]["bn_bwd"],
+                                             fields["dx_max_abs_err"])
+                if not ok:
+                    failures.append(row)
+                del inputs
+            emit({"phase": "zoo_kernel_plans", "network": net,
+                  "dtype": dname, "batchnorms": sum(counts.values()),
+                  "shapes": len(counts), "calls_by_plan": by_plan})
+    emit({"phase": "zoo_kernels_summary", "cases": cases,
+          "failures": len(failures), "worst": worst, "card": card})
+    if failures:
+        raise RuntimeError("zoo kernel check failed at %d case(s): %s" % (
+            len(failures), json.dumps([[f["network"], f["shape"],
+                                        f["dtype"]] for f in failures])))
+    return worst
+
+
+def zoo_kernel_times(mx, K, card, copy_rate):
+    """``time_kernels`` over inception-v3's BatchNorms (L2-cold, as phase
+    3) in float32 and bfloat16: per-step device, call, bound and library
+    times. Returns them by dtype."""
+    import torch
+    counts = model_bn_shapes(mx, ZOO_MAIN, ZOO_NETS[ZOO_MAIN][0], 1000,
+                             BATCH)
+    out = {}
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        tot, at_copy, worst = time_kernels(K, counts, copy_rate,
+                                           model=ZOO_MAIN, dtype=dtype)
+        emit({"phase": "zoo_kernel_times_per_step", "model": ZOO_MAIN,
+              "batch": BATCH, "dtype": dname, "card": card, **tot,
+              "bound_ms_at_measured_copy": at_copy, "worst_abs_err": worst,
+              "measured_copy_gb_per_s": copy_rate / 1e9})
+        out[dname] = tot
+    return out
+
+
+def zoo_train_run(mx, K, net, dtype=None):
+    """``ZOO_STEPS`` fused SGD steps of ``net`` (Xavier from seed 0, one
+    synthetic batch): the row and whether its gates hold."""
+    import gc
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    image, n_bn = ZOO_NETS[net]
+    ctx = mx.gpu(0)
+    mx.random.seed(0)
+    mod = mx.mod.Module(mx.models.get_symbol(net, num_classes=1000,
+                                             image_shape=image),
+                        context=ctx, compute_dtype=dtype)
+    mod.bind(data_shapes=[("data", (BATCH,) + image)],
+             label_shapes=[("softmax_label", (BATCH,))])
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=ZOO_SGD_PARAMS)
+    batch = synthetic_batch(mx, ctx, BATCH, 0, image)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in (K.bn_fwd, K.bn_bwd):
+        k.launches = k.launches_bf16 = 0
+    step_ms = []
+    for _ in range(ZOO_STEPS):
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: getattr(K, k).launches for k in ("bn_fwd", "bn_bwd")}
+    bf16 = {k: getattr(K, k).launches_bf16 for k in ("bn_fwd", "bn_bwd")}
+    out = mod.get_outputs()[0].asnumpy()
+    eg = mod._exec_group
+    finite = bool(np.isfinite(out).all()) and all(
+        bool(torch.isfinite(eg.execs[0].arg_dict[n]._read()).all())
+        for n in eg.param_names)
+    ms = statistics.median(step_ms[1:])
+    want = n_bn * ZOO_STEPS
+    want_bf16 = want if dtype == "bfloat16" else 0
+    ok = (finite and out.shape == (BATCH, 1000)
+          and launches == {"bn_fwd": want, "bn_bwd": want}
+          and bf16 == {"bn_fwd": want_bf16, "bn_bwd": want_bf16})
+    row = {"phase": "zoo_train", "network": net, "image": list(image),
+           "batch": BATCH, "dtype": dtype or "float32",
+           "route": type(eg).__name__, "steps": ZOO_STEPS,
+           "step_ms": step_ms, "ms_per_step": ms,
+           "img_per_s": BATCH / (ms / 1e3), "peak_memory_bytes": peak,
+           "bn_per_step": n_bn, "launches": launches,
+           "launches_bf16": bf16, "finite": finite, "ok": ok}
+    del mod, batch, eg
+    return row, ok
+
+
+def zoo_imagenet_twin(mx, K, card):
+    """The train_imagenet twin on inception-v3 (299², 1000 classes,
+    batch ``BATCH``) from a ``ZOO_TWIN_IMAGES``-image ``.npy`` pack, one
+    epoch; BN launches counted from 0."""
+    import contextlib
+    import io as pyio
+    import shutil
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import train_imagenet
+    work = os.path.join(ROOT, "build", "zoo_twin")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    image = ZOO_NETS[ZOO_MAIN][0]
+    pack = os.path.join(work, "train.rec")
+    nbytes = write_pack(pack, ZOO_TWIN_IMAGES, image, ZOO_TWIN_CLASSES)
+    torch.cuda.synchronize()
+    K.bn_fwd.launches = K.bn_bwd.launches = 0
+    out = pyio.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train_imagenet.main(ZOO_TWIN_ARGS + [
+            "--data-train", pack, "--network", ZOO_MAIN, "--image-shape",
+            ",".join(map(str, image)), "--batch-size", str(BATCH),
+            "--num-epochs", "1"])
+    torch.cuda.synchronize()
+    launches = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches}
+    printed = out.getvalue()
+    print(printed, end="")
+    steps = ZOO_TWIN_IMAGES // BATCH
+    want = ZOO_NETS[ZOO_MAIN][1] * steps
+    params = host_params(res["module"])
+    finite = all(np.isfinite(v).all() for v in params.values())
+    row = {"phase": "zoo_imagenet_twin", "network": ZOO_MAIN,
+           "image": list(image), "batch": BATCH, "pack_bytes": nbytes,
+           "steps": res["steps"], "launches": launches,
+           "want": {"bn_fwd": want, "bn_bwd": want},
+           "fit_img_per_s": res.get("fit_img_per_s"), "fit_s": res["fit_s"],
+           "finite": finite,
+           "done_printed": "TRAIN_IMAGENET_DONE" in printed, "card": card}
+    row["ok"] = (row["done_printed"] and finite and res["steps"] == steps
+                 and launches == row["want"])
+    del res, params
+    shutil.rmtree(work, ignore_errors=True)
+    return row, launches
+
+
+def zoo_score(mx, K, card):
+    """The benchmark_score twin over every zoo network at batch
+    ``BATCH``, in float32 and bfloat16: images/s; no BN kernel launches
+    (eval BatchNorm is plain torch ops)."""
+    import contextlib
+    import io as pyio
+    import torch
+    from mxnet_tpu_torch.examples import benchmark_score
+    rates, launches = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.synchronize()
+        K.bn_fwd.launches = K.bn_bwd.launches = 0
+        with contextlib.redirect_stdout(pyio.StringIO()):
+            got = benchmark_score.main([
+                "--gpus", "0", "--networks", ",".join(ZOO_NETS),
+                "--batch-size", str(BATCH), "--num-batches",
+                str(ZOO_SCORE_BATCHES), "--dtype", dtype])
+        torch.cuda.synchronize()
+        launches[dtype] = {"bn_fwd": K.bn_fwd.launches,
+                           "bn_bwd": K.bn_bwd.launches}
+        rates[dtype] = {net: r for net, (r, _) in got.items()}
+        torch.cuda.empty_cache()
+    row = {"phase": "zoo_score", "batch": BATCH,
+           "num_batches": ZOO_SCORE_BATCHES, "img_per_s": rates,
+           "launches": launches, "card": card}
+    row["ok"] = (all(v == {"bn_fwd": 0, "bn_bwd": 0}
+                     for v in launches.values())
+                 and all(len(r) == len(ZOO_NETS) and min(r.values()) > 0
+                         for r in rates.values()))
+    return row
+
+
+def zoo_dropout(mx, card):
+    """alexnet (two Dropouts, p 0.5) at batch ``BATCH`` under
+    deterministic cuDNN, from one parameter set: 3 steps twice from one
+    ``mx.random.seed`` bit for bit; the fused route against the classic
+    one and remat=full against none (bit for bit, else relative L2
+    ``ROUTE_REL_L2`` with the reason); ``fit(batch_group=2)`` twice bit
+    for bit; Dropout's kept fraction on a 32×4096 activation on the card
+    within 4σ of 1 − p, and its mask equal to the CPU's from the same
+    key; ``predict`` twice equal, drawing no key."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import random as mxr
+    from mxnet_tpu_torch import registry as treg
+    net = ZOO_DROPOUT_NET
+    image = ZOO_NETS[net][0]
+    ctx = mx.gpu(0)
+    sym = mx.models.get_symbol(net, num_classes=1000, image_shape=image)
+    mx.random.seed(0)
+    init = mx.mod.Module(sym, context=ctx)
+    init.bind(data_shapes=[("data", (BATCH,) + image)],
+              label_shapes=[("softmax_label", (BATCH,))])
+    init.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2))
+    a, x = init.get_params()
+    args = {k: v.copy() for k, v in a.items()}
+    aux = {k: v.copy() for k, v in x.items()}
+    del init
+    batches = [synthetic_batch(mx, ctx, BATCH, s, image) for s in range(3)]
+    failed = []
+
+    def check(name, ok, row):
+        row["ok"] = bool(ok)
+        emit(row)
+        if not ok:
+            failed.append(name)
+
+    def steps(**kw):
+        mx.random.seed(5)
+        mod = mx.mod.Module(sym, context=ctx, **kw)
+        mod.bind(data_shapes=[("data", (BATCH,) + image)],
+                 label_shapes=[("softmax_label", (BATCH,))])
+        mod.init_params(arg_params=args, aux_params=aux)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=ZOO_SGD_PARAMS)
+        drawn = mxr.get_state()["keys_drawn"]
+        for b in batches:
+            mod.forward_backward(b)
+            mod.update()
+        keys = mxr.get_state()["keys_drawn"] - drawn
+        return host_params(mod), type(mod._exec_group).__name__, keys, mod
+
+    def diff(p, q):
+        bad = [k for k in p if not np.array_equal(p[k], q[k])]
+        rel = max([float(np.linalg.norm(p[k] - q[k]) /
+                         max(np.linalg.norm(q[k]), 1e-30)) for k in bad]
+                  or [0.0])
+        return bad, rel
+
+    with deterministic_cudnn():
+        fused, route, keys, mod = steps()
+        again, _, _, _ = steps()
+        bad, _ = diff(fused, again)
+        check("repeat", not bad and keys == len(batches), {
+            "phase": "zoo_dropout_repeat", "network": net, "route": route,
+            "steps": len(batches), "keys_drawn": keys,
+            "params_differing": bad, "card": card})
+        classic, croute, _, _ = steps(_allow_fused=False)
+        bad, rel = diff(fused, classic)
+        check("routes", not bad or rel <= ROUTE_REL_L2, {
+            "phase": "zoo_dropout_routes", "routes": [route, croute],
+            "bitwise_equal": not bad, "params_differing": bad,
+            "max_rel_l2": rel, "limit": ROUTE_REL_L2,
+            "reason": None if not bad else "cuDNN/cuBLAS pick other "
+            "algorithms in the classic route's separate calls",
+            "card": card})
+        remat, _, _, _ = steps(remat="full")
+        bad, rel = diff(fused, remat)
+        check("remat", not bad or rel <= ROUTE_REL_L2, {
+            "phase": "zoo_dropout_remat", "remat": "full",
+            "bitwise_equal": not bad, "params_differing": bad,
+            "max_rel_l2": rel, "limit": ROUTE_REL_L2,
+            "reason": None if not bad else "a segment's replay runs its "
+            "convolutions again, and cuDNN may pick another algorithm",
+            "card": card})
+
+        rs = np.random.RandomState(7)
+        n = BATCH * ZOO_DROPOUT_BATCHES
+        X = rs.randn(n, *image).astype(np.float32)
+        y = rs.randint(0, 1000, n).astype(np.float32)
+        grouped = []
+        for _ in range(2):
+            mx.random.seed(5)
+            gmod = mx.mod.Module(sym, context=ctx)
+            gmod.fit(mx.io.NDArrayIter(X, y, batch_size=BATCH),
+                     num_epoch=1, optimizer="sgd",
+                     optimizer_params=ZOO_SGD_PARAMS, arg_params=args,
+                     aux_params=aux, batch_group=2)
+            grouped.append((host_params(gmod), gmod.grouped_train_engaged()))
+            del gmod
+        bad, _ = diff(grouped[0][0], grouped[1][0])
+        check("grouped", not bad and grouped[0][1], {
+            "phase": "zoo_dropout_grouped", "batch_group": 2,
+            "batches": ZOO_DROPOUT_BATCHES, "engaged": grouped[0][1],
+            "params_differing": bad, "card": card})
+
+        # the mask on the card, from one key: its kept fraction, and the
+        # CPU's mask from the same key
+        p = 0.5
+        op = treg.get_op("Dropout")
+        key = mxr.fold_in(mxr.next_key(), 0)
+        act = torch.rand(BATCH, 4096, device="cuda") + 0.5
+        card_out = op.fcompute({"p": p}, [act], treg.OpContext(
+            is_train=True, key=key))[0]
+        cpu_out = op.fcompute({"p": p}, [act.cpu()], treg.OpContext(
+            is_train=True, key=key))[0]
+        kept = float((card_out != 0).float().mean())
+        sigma = (p * (1 - p) / act.numel()) ** 0.5
+        same = torch.equal(card_out.cpu() != 0, cpu_out != 0)
+        check("mask", abs(kept - (1 - p)) <= 4 * sigma and same, {
+            "phase": "zoo_dropout_mask", "shape": list(act.shape), "p": p,
+            "kept_fraction": kept, "sigma": sigma,
+            "card_mask_equals_cpu_mask": same, "card": card})
+
+        it = mx.io.NDArrayIter(X, y, batch_size=BATCH)
+        drawn = mxr.get_state()["keys_drawn"]
+        p1 = mod.predict(it).asnumpy()
+        p2 = mod.predict(it).asnumpy()
+        drew = mxr.get_state()["keys_drawn"] - drawn
+        finite = bool(np.isfinite(p1).all())
+        check("eval", finite and np.array_equal(p1, p2) and drew == 0, {
+            "phase": "zoo_dropout_eval", "rows": int(p1.shape[0]),
+            "finite": finite, "equal": bool(np.array_equal(p1, p2)),
+            "keys_drawn": drew, "card": card})
+    del mod
+    return failed
+
+
+def zoo_phase(mx, K, card, copy_rate):
+    """Phase 12 (module docstring). Returns the BN kernels' launches by
+    network (the training runs and the twin), inception-v3's per-step
+    kernel times by dtype and the worst errors by dtype."""
+    import gc
+    import torch
+    failed = []
+    worst = zoo_kernels(mx, K, card)
+    v3_times = zoo_kernel_times(mx, K, card, copy_rate)
+    launches = {"bn_fwd": {}, "bn_bwd": {}}
+    for net in ZOO_NETS:
+        for dtype in ((None, "bfloat16") if net == ZOO_MAIN else (None,)):
+            row, ok = zoo_train_run(mx, K, net, dtype)
+            row["card"] = card
+            emit(row)
+            if not ok:
+                failed.append("train %s %s" % (net, row["dtype"]))
+            name = net if dtype is None else "%s-bf16" % net
+            for k in launches:
+                launches[k][name] = row["launches"][k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    row, twin = zoo_imagenet_twin(mx, K, card)
+    emit(row)
+    if not row["ok"]:
+        failed.append("imagenet_twin")
+    for k in launches:
+        launches[k]["imagenet_twin"] = twin[k]
+    row = zoo_score(mx, K, card)
+    emit(row)
+    if not row["ok"]:
+        failed.append("score")
+    failed += ["dropout " + f for f in zoo_dropout(mx, card)]
+    from mxnet_tpu_torch.examples import fine_tune
+    t0 = time.time()
+    acc = fine_tune.main(ZOO_FINE_TUNE_ARGS)
+    emit({"phase": "zoo_fine_tune", "accuracy": acc,
+          "seconds": time.time() - t0, "ok": True, "card": card})
+    if failed:
+        raise RuntimeError("zoo phase failed: %s" % ", ".join(failed))
+    return launches, v3_times, worst
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2711,6 +3160,8 @@ def main():
     decode_launches = timed("decode", decode_phase, mx, K, C, R, card)
     imnet_launches = timed("imagenet_twin", imagenet_twin_phase, mx, K,
                            card, hand_img_per_s)
+    zoo_launches, zoo_v3, zoo_worst = timed("zoo", zoo_phase, mx, K, card,
+                                            copy_rate)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -2720,6 +3171,7 @@ def main():
                     launches_cifar_twin=twin_launches[k],
                     launches_decode=decode_launches[k],
                     launches_imagenet_twin=imnet_launches[k],
+                    launches_zoo=zoo_launches[k],
                     launches_bf16=launches16[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     max_abs_err_bf16=worst16[k],
@@ -2727,7 +3179,13 @@ def main():
                        ("ms", "plain_ms", "bound_ms", "library_ms")},
                     **{key + "_bf16": totals16[k][key] for key in
                        ("ms", "device_ms", "plain_ms", "bound_ms",
-                        "library_ms")})
+                        "library_ms")},
+                    max_abs_err_zoo={d: zoo_worst[d][k] for d in zoo_worst},
+                    inception_v3_step={
+                        d: {key: zoo_v3[d][k][key] for key in
+                            ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "library_ms", "library_device_ms")}
+                        for d in zoo_v3})
                for k in ("bn_fwd", "bn_bwd")] + [
         dict(rtc_entry, launches_decode=decode_launches["rtc"]),
         dict(copy_entry, launches_decode=decode_launches["copy"])]

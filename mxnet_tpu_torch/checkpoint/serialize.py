@@ -187,8 +187,8 @@ def assemble(shape, dtype, shards):
 def dump_rng(path, state):
     """Write ``state`` as ``rng.npz``: numpy's legacy state under the JAX
     package's keys, ``jax_key`` as the key ``PRNGKey(seed)`` gives (so
-    the JAX package restores a port entry), and the seed plus each torch
-    generator's state."""
+    the JAX package restores a port entry), and the seed, the number of
+    executor keys drawn since it and each torch generator's state."""
     kind, keys, pos, has_gauss, cached = state["numpy"]
     seed = int(state["seed"])
     devices = sorted(state["torch"])
@@ -201,15 +201,17 @@ def dump_rng(path, state):
               np_kind=onp.array(kind), np_keys=onp.asarray(keys),
               np_pos=onp.array(pos), np_has_gauss=onp.array(has_gauss),
               np_cached=onp.array(cached), torch_seed=onp.array(seed),
+              keys_drawn=onp.array(int(state.get("keys_drawn", 0))),
               torch_devices=onp.array(devices, dtype=str), **torch_states)
     return write_bytes(path, buf.getvalue())
 
 
 def load_rng(path):
     """Read ``rng.npz`` as a ``random.get_state()`` dict. An entry of the
-    JAX package has no torch generators; its seed is read from the low
-    word of ``jax_key``."""
+    JAX package has no torch generators and draws no port keys; its seed
+    is read from the low word of ``jax_key``."""
     with onp.load(path, allow_pickle=False) as z:
+        drawn = int(z["keys_drawn"]) if "keys_drawn" in z.files else 0
         if "torch_seed" in z.files:
             seed = int(z["torch_seed"])
             devices = [str(d) for d in z["torch_devices"]]
@@ -217,7 +219,7 @@ def load_rng(path):
                     for i, d in enumerate(devices)}
         else:
             seed, gens = int(onp.asarray(z["jax_key"])[-1]), {}
-        return {"seed": seed, "torch": gens,
+        return {"seed": seed, "keys_drawn": drawn, "torch": gens,
                 "numpy": (str(z["np_kind"]), onp.asarray(z["np_keys"]),
                           int(z["np_pos"]), int(z["np_has_gauss"]),
                           float(z["np_cached"]))}

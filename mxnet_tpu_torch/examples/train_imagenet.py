@@ -8,7 +8,10 @@
 Reads ``--data-train``/``--data-val`` packs through
 ``mx.io.ImageRecordIter`` (shuffle, random mirror, the ImageNet mean);
 without ``--data-train`` it synthesizes the JAX script's labelled-JPEG
-pack (through PIL) in a temporary directory. Trains with SGD momentum
+pack (through PIL) at ``--image-shape`` in a temporary directory.
+``--network`` takes any name of the zoo (``models.get_symbol``),
+``-bf16`` variants included; the inception networks take
+``--image-shape 3,299,299``. Trains with SGD momentum
 and Xavier-gaussian initialisation through ``fit``, ``do_checkpoint``
 with ``--model-prefix`` and ``Speedometer``; ``--dtype bfloat16`` computes
 in bfloat16 with float32 master weights (``compute_dtype=``). Prints
@@ -16,9 +19,9 @@ in bfloat16 with float32 master weights (``compute_dtype=``). Prints
 
 Differences from the JAX script: the twin trains on ``gpu(0)`` (or the
 one card of ``--gpus``/``--tpus``) unless ``--cpu`` is given; a
-``--network`` that the port's zoo does not have yet (alexnet, vgg,
-googlenet, inception-*, resnext) and a ``--kv-store`` other than
-``local`` raise ``MXNetError`` naming the slice that brings them.
+``--kv-store`` other than ``local`` raises ``MXNetError`` naming the
+slice that brings it, and a ``--network`` the zoo does not have raises
+``MXNetError`` at the argument check.
 ``main(argv)`` returns the run's results.
 """
 import argparse
@@ -37,9 +40,9 @@ from mxnet_tpu_torch.examples.common import device_context
 IMAGENET_MEAN = (123.68, 116.28, 103.53)
 
 
-def synth_rec(path, n, img, classes, rng):
-    """The JAX script's labelled JPEG pack: each class is a distinct
-    colour blob plus noise."""
+def synth_rec(path, n, hw, classes, rng):
+    """The JAX script's labelled JPEG pack at ``hw`` = (height, width):
+    each class is a distinct colour blob plus noise."""
     try:
         from PIL import Image
     except ImportError:
@@ -50,9 +53,9 @@ def synth_rec(path, n, img, classes, rng):
     rec = recordio.MXRecordIO(path, "w")
     for i in range(n):
         cls = i % classes
-        base = np.zeros((img, img, 3), np.uint8)
+        base = np.zeros(tuple(hw) + (3,), np.uint8)
         base[..., cls % 3] = 60 + 37 * (cls // 3)
-        noise = rng.randint(0, 60, (img, img, 3)).astype(np.uint8)
+        noise = rng.randint(0, 60, tuple(hw) + (3,)).astype(np.uint8)
         buf = pyio.BytesIO()
         Image.fromarray(base + noise).save(buf, format="JPEG")
         rec.write(recordio.pack(
@@ -61,15 +64,18 @@ def synth_rec(path, n, img, classes, rng):
 
 
 def check_network(name):
-    """The zoo names this slice of the port builds; the rest come with the
-    model-zoo slice."""
-    if (name.startswith("resnet") and not name.startswith("resnext")) or \
-            name in ("lenet", "mlp"):
+    """Refuse a name the zoo's ``models.get_symbol`` does not take: the
+    registry's names, resnet-N and resnext-N, each with ``-bf16`` where
+    the zoo has that variant (resnet-N and alexnet)."""
+    base = name[:-len("-bf16")] if name.endswith("-bf16") else name
+    known = base.startswith(("resnet", "resnext")) or base in models._MODELS
+    has_bf16 = base == "alexnet" or (base.startswith("resnet")
+                                     and not base.startswith("resnext"))
+    if known and (base == name or has_bf16):
         return
-    raise mx.MXNetError(
-        "--network %s comes with the model-zoo slice of the port "
-        "(alexnet, vgg, googlenet, inception-*, resnext; ROADMAP A6); this "
-        "slice has resnet-N, lenet and mlp" % name)
+    raise mx.MXNetError("--network %s is not a name of the zoo (%s, "
+                        "resnet-N, resnext-N; -bf16 for resnet-N and "
+                        "alexnet)" % (name, ", ".join(sorted(models._MODELS))))
 
 
 def parse_args(argv=None):
@@ -117,7 +123,7 @@ def main(argv=None):
         tmp = tempfile.mkdtemp(prefix="imagenet_synth_")
         args.data_train = os.path.join(tmp, "train.rec")
         args.num_classes = min(args.num_classes, 8)
-        synth_rec(args.data_train, args.synthetic_images, shape[1],
+        synth_rec(args.data_train, args.synthetic_images, shape[1:],
                   args.num_classes, np.random.RandomState(0))
         logging.info("no --data-train: synthesized %d-image rec at %s",
                      args.synthetic_images, args.data_train)

@@ -24,6 +24,14 @@ autograd:
 route's ``remat`` policies (about √N segments under
 ``torch.utils.checkpoint``). Pipelined evaluation is not in this slice
 of the port.
+
+Randomness: an evaluator takes one key for the whole forward (``key=``,
+from ``random.next_key``, drawn by the caller once per training forward
+or step) and gives the i-th op node that ``needs_rng``, in topological
+order, ``random.fold_in(key, i)``. The segmented evaluator hands each
+segment its nodes' keys as arguments, and the ops draw from the key alone
+(``random.uniform``), so the backward's replay of a segment draws the
+masks of its first run: remat never changes a mask.
 """
 from __future__ import annotations
 
@@ -34,14 +42,17 @@ import torch
 from .base import MXNetError
 from .registry import OpContext
 from . import ndarray as nd
+from . import random as _random
 
 __all__ = ["Executor", "fuse_bn_relu"]
 
 
-def _run_node(n, env, octx, aux_ids, aux_sink, tap=None):
+def _run_node(n, env, octx, aux_ids, aux_sink, tap=None, key=None):
     """Evaluate op node ``n`` from ``env`` (slot -> tensor) into ``env``;
     hand each aux update to ``aux_sink(id, tensor)`` and each output to
-    ``tap``."""
+    ``tap``. ``key`` is the node's key (``needs_rng`` ops only)."""
+    if n.op.needs_rng:
+        octx = OpContext(is_train=octx.is_train, device=octx.device, key=key)
     res = n.op.fcompute(n.attrs, [env[(id(s), oi)] for (s, oi) in n.inputs],
                         octx)
     n_out = n.op.num_outputs(n.attrs)
@@ -137,17 +148,33 @@ def fuse_bn_relu(symbol):
     return Symbol([(resolve(h), oi) for (h, oi) in symbol._heads])
 
 
+def _rng_ordinals(op_nodes):
+    """{id(node): i} over the op nodes that draw, in topological order."""
+    return {id(n): i for i, n in
+            enumerate(n for n in op_nodes if n.op.needs_rng)}
+
+
+def _node_keys(key, ordinals):
+    """{id(node): its key} for one forward's ``key`` (none without one)."""
+    if key is None:
+        return {}
+    return {nid: _random.fold_in(key, i) for nid, i in ordinals.items()}
+
+
 def _build_eval(symbol):
     """The symbol's DAG as a function
-    (arg_vals, aux_vals, is_train) -> (outs, new_aux) over tensors."""
+    (arg_vals, aux_vals, is_train, tap=None, key=None) -> (outs, new_aux)
+    over tensors. The function's ``needs_rng`` says whether any node
+    draws (the caller then passes a key for a training forward)."""
     order = symbol._topo()
     arg_nodes = [n for n in order if n.op is None and not n.is_aux]
     aux_nodes = [n for n in order if n.op is None and n.is_aux]
     op_nodes = [n for n in order if n.op is not None]
     heads = symbol._heads
     aux_ids = {id(n) for n in aux_nodes}
+    ordinals = _rng_ordinals(op_nodes)
 
-    def eval_fn(arg_vals, aux_vals, is_train, tap=None):
+    def eval_fn(arg_vals, aux_vals, is_train, tap=None, key=None):
         env = {}
         for n, v in zip(arg_nodes, arg_vals):
             env[(id(n), 0)] = v
@@ -157,11 +184,14 @@ def _build_eval(symbol):
         # ops without inputs (_zeros) create on the arguments' device
         octx = OpContext(is_train=is_train,
                          device=arg_vals[0].device if arg_vals else None)
+        keys = _node_keys(key, ordinals)
         for n in op_nodes:
-            _run_node(n, env, octx, aux_ids, aux_out.__setitem__, tap)
+            _run_node(n, env, octx, aux_ids, aux_out.__setitem__, tap,
+                      keys.get(id(n)))
         outs = tuple(env[(id(n), oi)] for (n, oi) in heads)
         return outs, tuple(aux_out[id(n)] for n in aux_nodes)
 
+    eval_fn.needs_rng = bool(ordinals)
     return eval_fn
 
 
@@ -183,8 +213,10 @@ def _build_eval_segmented(symbol, remat="full", n_segments=None):
     The aux updates (BatchNorm moving stats) are taken from the first
     forward only: ops compute them out of place and the segment returns
     them, so a segment the backward replays never applies the EMA
-    again. No monitor taps. The returned function carries ``segments``,
-    the op-node names of each segment."""
+    again. Each segment takes its nodes' keys as arguments, so a replay
+    draws the first run's masks (the keys of the plain evaluator). No
+    monitor taps. The returned function carries ``segments``, the
+    op-node names of each segment, and ``needs_rng``."""
     import functools
 
     from torch.utils.checkpoint import (checkpoint,
@@ -240,13 +272,16 @@ def _build_eval_segmented(symbol, remat="full", n_segments=None):
         plan.append((seg, tuple(in_slots), tuple(out_slots),
                      tuple(aux_updates)))
 
+    ordinals = _rng_ordinals(op_nodes)
+    seg_rng = [tuple(id(n) for n in seg if id(n) in ordinals)
+               for seg in segments]
     policy = remat_checkpoint_policy(remat)
     kwargs = {"use_reentrant": False}
     if policy is not None:
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, policy)
 
-    def eval_fn(arg_vals, aux_vals, is_train, tap=None):
+    def eval_fn(arg_vals, aux_vals, is_train, tap=None, key=None):
         if tap is not None:
             raise MXNetError("segmented remat has no monitor taps")
         env = {}
@@ -257,18 +292,23 @@ def _build_eval_segmented(symbol, remat="full", n_segments=None):
         aux_out = {id(n): v for n, v in zip(aux_nodes, aux_vals)}
         octx = OpContext(is_train=is_train,
                          device=arg_vals[0].device if arg_vals else None)
-        for seg, in_slots, out_slots, aux_updates in plan:
+        keys = _node_keys(key, ordinals)
+        for (seg, in_slots, out_slots, aux_updates), rng_ids in zip(
+                plan, seg_rng):
 
-            def seg_fn(*in_vals, _seg=seg, _in=in_slots, _out=out_slots,
-                       _upd=aux_updates):
+            def seg_fn(seg_keys, *in_vals, _seg=seg, _in=in_slots,
+                       _out=out_slots, _upd=aux_updates):
                 local = dict(zip(_in, in_vals))
                 upd = {}
                 for n in _seg:
-                    _run_node(n, local, octx, aux_ids, upd.__setitem__)
+                    _run_node(n, local, octx, aux_ids, upd.__setitem__,
+                              key=seg_keys.get(id(n)))
                 return (tuple(local[s] for s in _out)
                         + tuple(upd[a] for a in _upd))
 
-            res = checkpoint(seg_fn, *[env[s] for s in in_slots], **kwargs)
+            seg_keys = {i: keys[i] for i in rng_ids if i in keys}
+            res = checkpoint(seg_fn, seg_keys, *[env[s] for s in in_slots],
+                             **kwargs)
             for slot, v in zip(out_slots, res):
                 env[slot] = v
             for aid, v in zip(aux_updates, res[len(out_slots):]):
@@ -277,6 +317,7 @@ def _build_eval_segmented(symbol, remat="full", n_segments=None):
         return outs, tuple(aux_out[id(n)] for n in aux_nodes)
 
     eval_fn.segments = [[n.name for n in seg] for seg in segments]
+    eval_fn.needs_rng = bool(ordinals)
     return eval_fn
 
 
@@ -345,6 +386,9 @@ class Executor:
             self.arg_dict[k][:] = v
         vals = [a._read() for a in self.arg_arrays]
         aux_vals = [a._read() for a in self.aux_arrays]
+        # one key per training forward; eval draws none
+        key = _random.next_key() if is_train and self._eval_fn.needs_rng \
+            else None
         self._graph = None
         tap = None
         if self._monitor_active():
@@ -358,12 +402,13 @@ class Executor:
                 vals[i] = vals[i].detach().requires_grad_(True)
                 leaves.append(vals[i])
             with torch.enable_grad():
-                outs, new_aux = self._eval_fn(vals, aux_vals, True, tap)
+                outs, new_aux = self._eval_fn(vals, aux_vals, True, tap,
+                                              key)
             self._graph = (outs, leaves)
         else:
             with torch.no_grad():
                 outs, new_aux = self._eval_fn(vals, aux_vals, bool(is_train),
-                                              tap)
+                                              tap, key)
             if is_train:   # nothing to differentiate: backward is a no-op
                 self._graph = ((), [])
         for o, v in zip(self.outputs, outs):

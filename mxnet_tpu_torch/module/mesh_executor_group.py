@@ -29,6 +29,13 @@ to the host. Here the step is one Python function over tensors,
   scaled head gradients, unscaled float32 gradients, and an update that
   is skipped, on the device, when a gradient is not finite.
 * ``remat`` trains through ``executor._build_eval_segmented``.
+* Keys (nets with Dropout or ``rrelu``): ``forward(is_train=True)``
+  draws one ``random.next_key()``, which the deferred step, a
+  materialised forward and the forward + backward all use, so the
+  classic route (one key per ``Executor.forward``) draws the same masks;
+  a grouped step draws one key and splits it into K; eval, ``predict``,
+  ``score`` and ``score_stacked`` draw none. A net without such ops
+  draws nothing.
 * :meth:`step_update_grouped` runs K whole steps in one call over a
   (K, batch, ...) block staged with one copy per input, each step with
   its own lr row; K sequential steps give the same bits.
@@ -67,6 +74,7 @@ import numpy as onp
 import torch
 
 from .. import ndarray as nd
+from .. import random as _random
 from ..base import MXNetError
 from ..data.augment import crop_input_name, mirror_input_name, unwrap
 from ..executor import _build_eval_segmented
@@ -180,6 +188,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         self._train_staged = False   # a train batch is staged
         self._last_aux = None        # aux before a materialised forward
         self._outputs_from = None    # "fwd" | "bwd" | None
+        self._key = None             # the staged train forward's key
         self._metric_stat = None
         self._metric_live = None
         self._metric_acc = None
@@ -275,6 +284,10 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         return self.execs[0]._eval_fn
 
     @property
+    def _needs_rng(self):
+        return self._eval_fn.needs_rng
+
+    @property
     def _param_dict(self):
         ex = self.execs[0]
         return {n: ex.arg_dict[n] for n in self.param_names}
@@ -335,23 +348,25 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             vals.append(v)
         return vals
 
-    def _forward_only(self, params, aux, inputs, is_train):
+    def _forward_only(self, params, aux, inputs, is_train, key=None):
         """A forward without gradients: (float32 outputs, new aux)."""
         with torch.no_grad():
             outs, new_aux = self._eval_fn(
-                self._arg_vals(params, inputs), aux, is_train)
+                self._arg_vals(params, inputs), aux, is_train, key=key)
         return tuple(o.float() for o in outs), new_aux
 
-    def _fwd_bwd(self, params, aux, inputs, heads=None, scale=None):
+    def _fwd_bwd(self, params, aux, inputs, heads=None, scale=None,
+                 key=None):
         """Forward and backward: (float32 outputs, new aux, gradients by
         name in the parameters' dtype). Head gradients default to ones
         (loss heads ignore them); ``scale`` multiplies them and divides
-        the gradients (the dynamic loss scale)."""
+        the gradients (the dynamic loss scale); ``key`` is the forward's
+        key."""
         leaves = {}
         vals = self._arg_vals(params, inputs, leaves)
         fn = self._remat_eval_fn or self._eval_fn
         with torch.enable_grad():
-            outs, new_aux = fn(vals, aux, True)
+            outs, new_aux = fn(vals, aux, True, key=key)
         if heads is None:
             hs = [torch.ones_like(o) for o in outs]
         else:
@@ -374,17 +389,18 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         return tuple(o.detach().float() for o in outs), new_aux, grads
 
     def _step_math(self, fa, params, aux, states, inputs, lrs, wds,
-                   macc=None, ls=None):
+                   macc=None, ls=None, key=None):
         """ONE training step as one function of tensors: forward,
         backward, the optimizer's apply on every parameter with a
         gradient, the metric tally and the loss-scale transition.
         Nothing in it reads a value back to the host."""
         if ls is None:
-            outs, new_aux, grads = self._fwd_bwd(params, aux, inputs)
+            outs, new_aux, grads = self._fwd_bwd(params, aux, inputs,
+                                                 key=key)
             finite = None
         else:
             outs, new_aux, grads = self._fwd_bwd(params, aux, inputs,
-                                                 scale=ls[0])
+                                                 scale=ls[0], key=key)
             finite = _grads_finite(grads)
         new_params = dict(params)
         new_states = []
@@ -500,6 +516,8 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         self._stage(data_batch, is_train)
         self._last_aux = None
         self._pending_fwd = self._pending_bwd = False
+        self._key = _random.next_key() if is_train and self._needs_rng \
+            else None
         if not is_train:
             self._train_staged = False
             outs, _ = self._forward_only(self._params_now(), self._aux_now(),
@@ -523,7 +541,8 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         aux = self._aux_now()
         self._last_aux = [a.clone() for a in aux]
         outs, new_aux = self._forward_only(self._params_now(), aux,
-                                           self._inputs_now(), True)
+                                           self._inputs_now(), True,
+                                           self._key)
         self._write_outs(outs)
         self._write_aux(new_aux)
         self._outputs_from = "fwd"
@@ -557,7 +576,8 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         aux = self._last_aux if self._last_aux is not None \
             else self._aux_now()
         outs, new_aux, grads = self._fwd_bwd(
-            self._params_now(), aux, self._inputs_now(), heads)
+            self._params_now(), aux, self._inputs_now(), heads,
+            key=self._key)
         self._last_aux = None
         self._write_outs(outs)
         self._write_aux(new_aux)
@@ -658,7 +678,8 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             else self._aux_now()
         macc, ls = self._step_extras()
         res = self._step_math(fa, self._params_now(), aux, states,
-                              self._inputs_now(), lw[0], lw[1], macc, ls)
+                              self._inputs_now(), lw[0], lw[1], macc, ls,
+                              self._key)
         self._commit(updater, keys, res)
         return True
 
@@ -706,11 +727,15 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         lw = self._to_device(rows)
         params, aux = self._params_now(), self._aux_now()
         macc, ls = self._step_extras()
+        # K independent keys from one draw, as the JAX package's grouped
+        # step splits its key
+        step_keys = _random.split(_random.next_key(), K) \
+            if self._needs_rng else [None] * K
         res = None
         for k in range(K):
             res = self._step_math(fa, params, aux, states,
                                   {n: v[k] for n, v in inputs.items()},
-                                  lw[k], lw[K], macc, ls)
+                                  lw[k], lw[K], macc, ls, step_keys[k])
             _, aux, _, params, states, macc, ls = res
         self._commit(updater, keys, res)
         self._train_staged = False

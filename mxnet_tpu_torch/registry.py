@@ -16,6 +16,9 @@ with
 * arity: ``variable_args`` names the attr holding the input count
   (Concat's ``num_args``); ``num_outputs`` may depend on attrs
   (SliceChannel's ``num_outputs``).
+* randomness: ``needs_rng`` ops (Dropout, LeakyReLU for ``rrelu``)
+  receive their node's key in ``octx.key`` (``random.next_key`` split per
+  node by the executor) and draw with ``random.uniform``.
 """
 from __future__ import annotations
 
@@ -32,14 +35,17 @@ _OP_REGISTRY = {}
 
 
 class OpContext:
-    """Per-invocation context handed to fcompute: the train flag, and the
-    device that ops without inputs (``_zeros``) create their output on."""
+    """Per-invocation context handed to fcompute: the train flag, the
+    device that ops without inputs (``_zeros``) create their output on,
+    and, for a ``needs_rng`` op, its node's key (an int, or None where
+    nothing may be drawn)."""
 
-    __slots__ = ("is_train", "device")
+    __slots__ = ("is_train", "device", "key")
 
-    def __init__(self, is_train=False, device=None):
+    def __init__(self, is_train=False, device=None, key=None):
         self.is_train = is_train
         self.device = device if device is not None else torch.device("cpu")
+        self.key = key
 
 
 class OpDef:
@@ -48,7 +54,7 @@ class OpDef:
     def __init__(self, name, fcompute, arg_names=("data",),
                  out_names=("output",), aux_names=(), attr_types=None,
                  infer_shape=None, alias=(), variable_args=None,
-                 num_outputs=None):
+                 num_outputs=None, needs_rng=False):
         self.name = name
         self.fcompute = fcompute
         # arg_names may be a callable(attrs) -> names for ops whose input
@@ -61,6 +67,7 @@ class OpDef:
         self.alias = tuple(alias)
         self.variable_args = variable_args
         self._num_outputs = num_outputs   # None, int or callable(attrs)
+        self.needs_rng = needs_rng
 
     def list_arguments(self, attrs=None):
         if self.variable_args is not None:

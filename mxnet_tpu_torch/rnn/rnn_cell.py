@@ -7,9 +7,10 @@ symbol. Parameter names match the JAX package's (``<prefix>i2h_weight``,
 ``<prefix>h2h_bias``, ...), so parameters cross between the packages by
 name. Gate order is cuDNN's: LSTM [i, f, g, o], GRU [r, z, n].
 
-The fused cell (``FusedRNNCell``, which needs the ``RNN`` operator), the
-bidirectional, dropout, zoneout and residual cells and ``rnn/io.py`` come
-with a later slice of the port.
+``DropoutCell`` applies ``Dropout`` to a step's input. The fused cell
+(``FusedRNNCell``, which needs the ``RNN`` operator), the bidirectional,
+zoneout and residual cells and ``rnn/io.py`` come with a later slice of
+the port.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from .. import symbol
 from ..initializer import LSTMBias
 
 __all__ = ["RNNParams", "BaseRNNCell", "RNNCell", "LSTMCell", "GRUCell",
-           "SequentialRNNCell"]
+           "SequentialRNNCell", "DropoutCell"]
 
 
 class RNNParams(object):
@@ -367,3 +368,20 @@ class SequentialRNNCell(BaseRNNCell):
                 merge_outputs=None if i < num_cells - 1 else merge_outputs)
             next_states.extend(states)
         return inputs, next_states
+
+
+class DropoutCell(BaseRNNCell):
+    """Apply dropout on the input (no state)."""
+
+    def __init__(self, dropout, prefix="dropout_", params=None):
+        super().__init__(prefix, params)
+        self.dropout = dropout
+
+    @property
+    def state_info(self):
+        return []
+
+    def __call__(self, inputs, states):
+        if self.dropout > 0:
+            inputs = symbol.Dropout(data=inputs, p=self.dropout)
+        return inputs, states

@@ -122,7 +122,13 @@ class Symbol:
         return Symbol(list(node.inputs))
 
     def __getitem__(self, index):
-        """One output, by position."""
+        """One output, by position or by name (``name`` or
+        ``name_output``, as ``get_internals()`` lists them)."""
+        if isinstance(index, str):
+            for i, nm in enumerate(self.list_outputs()):
+                if nm == index or nm == index + "_output":
+                    return Symbol([self._heads[i]])
+            raise ValueError("cannot find output %s" % index)
         return Symbol([self._heads[index]])
 
     def __iter__(self):

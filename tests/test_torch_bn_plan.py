@@ -4,8 +4,11 @@ without dx, on the CPU.
 The kernels themselves run only on the card (``chip_smoke.py`` phase 3).
 Here: ``plan`` picks block, cluster or split for every BatchNorm of a
 ResNet-50 step at batch 32 and of a resnet-20 step at batch 128 (the
-CIFAR twin) as the slab table of ``kernels/batchnorm.py`` says, stays within one H100 block's shared memory and the portable
-cluster sizes, and flags planes that cannot move in 16-byte units; the
+CIFAR twin) as the slab table of ``kernels/batchnorm.py`` says, and for
+the zoo's inception-bn, inception-v3, inception-resnet-v2 and resnext-50
+at batch 32 the plans a step takes, by kind and unit; stays within one
+H100 block's shared memory and the portable cluster sizes (every zoo
+shape), and flags planes that cannot move in 16-byte units; the
 per-channel buffer the wrapper hands the kernels keeps the split scratch
 16-byte aligned. The backward without dx gives dβ and dγ of the full call
 (and of the JAX VJP with respect to γ and β only, the work the JAX step
@@ -81,6 +84,99 @@ RESNET50 = _resnet50_shapes()
 RESNET20 = _resnet20_shapes()
 
 
+# The zoo's BatchNorms at batch 32 and published input, after the
+# BN+ReLU fusion: (image, BatchNorms a step, fused with ReLU, plans by
+# (kind, unit bytes) and the calls of a step that take each).
+ZOO = {
+    "inception-bn": ((3, 224, 224), 69, 69, {
+        F32: {"fwd": {"block.16": 50, "block.4": 16, "cluster.16": 3},
+              "bwd": {"block.16": 50, "block.4": 16, "cluster.16": 2,
+                      "split.16": 1}},
+        BF16: {"fwd": {"block.16": 19, "block.4": 33, "block.2": 16,
+                       "cluster.16": 1},
+               "bwd": {"block.16": 17, "block.4": 33, "block.2": 16,
+                       "cluster.16": 3}}}),
+    "inception-v3": ((3, 299, 299), 94, 94, {
+        F32: {"fwd": {"block.4": 69, "block.16": 20, "cluster.4": 2,
+                      "split.4": 3},
+              "bwd": {"block.4": 46, "cluster.4": 25, "block.16": 20,
+                      "split.4": 3}},
+        BF16: {"fwd": {"block.2": 69, "block.16": 20, "cluster.2": 5},
+               "bwd": {"block.2": 69, "block.16": 20, "cluster.2": 2,
+                       "split.2": 3}}}),
+    "inception-resnet-v2": ((3, 299, 299), 114, 114, {
+        F32: {"fwd": {"block.4": 85, "block.16": 24, "cluster.4": 2,
+                      "split.4": 3},
+              "bwd": {"cluster.4": 41, "block.4": 46, "block.16": 24,
+                      "split.4": 3}},
+        BF16: {"fwd": {"block.2": 85, "block.16": 24, "cluster.2": 5},
+               "bwd": {"block.2": 85, "block.16": 24, "cluster.2": 2,
+                       "split.2": 3}}}),
+    "resnext-50": ((3, 224, 224), 54, 33, {
+        F32: {"fwd": {"block.16": 32, "cluster.16": 12, "block.4": 9,
+                      "split.16": 1},
+              "bwd": {"block.16": 32, "cluster.16": 11, "block.4": 9,
+                      "split.16": 2}},
+        BF16: {"fwd": {"block.16": 24, "block.4": 19, "block.2": 9,
+                       "cluster.16": 1, "split.16": 1},
+               "bwd": {"block.16": 13, "block.4": 19, "block.2": 9,
+                       "cluster.16": 12, "split.16": 1}}}),
+}
+
+
+def _zoo_shapes(network):
+    image = ZOO[network][0]
+    return chip_smoke.model_bn_shapes(tmx, network, image, 1000, 32)
+
+
+ZOO_SHAPES = {net: _zoo_shapes(net) for net in ZOO}
+
+
+@pytest.mark.parametrize("network", sorted(ZOO))
+def test_zoo_plans_by_kind_and_unit(network):
+    """Each network's BatchNorm calls a step, by plan: odd planes (149²,
+    147², 73², 71², 35², 17², 7²) move as 4-byte (float32) or 2-byte
+    (bfloat16) units."""
+    _, n_bn, n_relu, want = ZOO[network]
+    counts = ZOO_SHAPES[network]
+    assert sum(counts.values()) == n_bn
+    assert sum(n for k, n in counts.items() if k[2]) == n_relu
+    for dtype in (F32, BF16):
+        for op in ("fwd", "bwd"):
+            got = {}
+            for (shape, _, _, need_dx), n in counts.items():
+                p = K.plan(op, shape, dtype, need_dx)
+                key = "%s.%d" % (p.kind, p.unit_bytes)
+                got[key] = got.get(key, 0) + n
+            assert got == want[dtype][op], (dtype, op)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("network", sorted(ZOO))
+def test_zoo_plans_stay_within_one_block_and_the_clusters(network, dtype):
+    """At every zoo shape (channel counts such as 48, 80, 96, 160, 192,
+    224, 288, 320, 384, 448 and 1536 among them) the plan fits one
+    block's shared memory, uses a portable cluster, and covers the
+    channel's units exactly once."""
+    es = 4 if dtype == F32 else 2
+    for shape, _, _, need_dx in ZOO_SHAPES[network]:
+        for op in ("fwd", "bwd"):
+            p = K.plan(op, shape, dtype, need_dx)
+            units = shape[0] * shape[2] * shape[3] * es // p.unit_bytes
+            assert units * p.unit_bytes == shape[0] * shape[2] * \
+                shape[3] * es
+            assert p.smem <= K.SMEM_BYTES - 1024
+            assert p.cluster in (1, 2, 4, 8)
+            assert 128 <= p.threads <= 1024 and p.threads % 32 == 0
+            if p.kind == "split":
+                assert p.smem == 0 and p.chunks * p.share >= units
+                assert (p.chunks - 1) * p.share < units
+            else:
+                kept = 1 if op == "fwd" else (2 if need_dx else 0)
+                assert p.chunks == 1 and p.cluster * p.share >= units
+                assert p.smem == p.share * p.unit_bytes * kept
+
+
 def test_only_the_data_batchnorm_skips_dx():
     no_dx = [k for k in RESNET50 if not k[3]]
     assert [k[0] for k in no_dx] == [(32, 3, 224, 224)]
@@ -152,6 +248,10 @@ def test_plan_refuses_what_the_kernels_do_not_take():
     ("fwd", False, (32, 64, 56, 56)),
     ("bwd", True, (32, 256, 14, 14)),
     ("fwd", True, (5, 3, 17, 13)),
+    # inception-v3's and inception-resnet-v2's split plans on odd planes
+    ("bwd", True, (32, 32, 149, 149)),
+    ("fwd", False, (32, 64, 147, 147)),
+    ("fwd", True, (32, 64, 147, 147)),
 ])
 def test_call_packs_the_plan_and_aligns_the_scratch(op, flag, shape):
     x = torch.empty(shape, device="meta")

@@ -7,10 +7,13 @@ digest bit for bit; one resnet-20 epoch with the serving smoke; the
 CIFAR data flags (``--device-augment`` on the card's placement and the
 host's, ``--cache-dataset`` with ``--prefetch-device``) landing on one
 digest; the ImageNet twin on a synthesized PIL-JPEG pack at resnet-8
-depth; the char-LM trained and served through the decode engine with the
-arguments ``tests/test_examples.py`` gives the JAX script; and every flag
-or network whose module the port does not have yet refused with
-``MXNetError`` naming its slice.
+depth, and on inception-bn; every zoo network taken by its argument
+check and built at its image shape; the scoring twin
+(``benchmark_score``) and the fine-tuning twin (``fine_tune``, its two
+asserts); the char-LM trained and served through the decode engine with
+the arguments ``tests/test_examples.py`` gives the JAX script; and every
+flag whose module the port does not have yet refused with ``MXNetError``
+naming its slice.
 """
 import os
 import subprocess
@@ -18,6 +21,7 @@ import sys
 
 import pytest
 
+from mxnet_tpu_torch import models
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.checkpoint import CheckpointManager
 from mxnet_tpu_torch.examples import decode_lm, train_cifar10, train_imagenet
@@ -170,9 +174,60 @@ def test_train_imagenet_twin(tmp_path):
 @pytest.mark.parametrize("network", ["alexnet", "vgg", "googlenet",
                                      "inception-bn", "inception-v3",
                                      "resnext"])
-def test_train_imagenet_twin_refuses_zoo_networks(network):
-    with pytest.raises(MXNetError, match="model-zoo slice"):
-        train_imagenet.main(["--cpu", "--network", network])
+def test_train_imagenet_twin_takes_zoo_networks(network):
+    """The twin's argument check takes every zoo name, and the network it
+    names builds and infers at the twin's image shape (299² for
+    inception-v3)."""
+    argv = ["--cpu", "--network", network]
+    if network == "inception-v3":
+        argv += ["--image-shape", "3,299,299"]
+    args = train_imagenet.parse_args(argv)
+    shape = tuple(int(x) for x in args.image_shape.split(","))
+    net = models.get_symbol(args.network, num_classes=args.num_classes,
+                            image_shape=args.image_shape)
+    _, out_shapes, _ = net.infer_shape(data=(2,) + shape)
+    assert out_shapes == [(2, args.num_classes)]
+
+
+def test_train_imagenet_twin_refuses_unknown_networks():
+    for name in ("vgg-bf16", "res"):
+        with pytest.raises(MXNetError, match="not a name of the zoo"):
+            train_imagenet.main(["--cpu", "--network", name])
+
+
+def test_train_imagenet_twin_trains_a_zoo_network(tmp_path):
+    """inception-bn (BatchNorm + ReLU throughout) a few steps through the
+    twin on its synthesized pack at 32²."""
+    res = _ok(_run("train_imagenet", [
+        "--cpu", "--network", "inception-bn", "--image-shape", "3,32,32",
+        "--batch-size", "4", "--synthetic-images", "8", "--num-epochs",
+        "1"], tmp_path))
+    assert res.stdout.strip().endswith("TRAIN_IMAGENET_DONE")
+
+
+def test_benchmark_score_twin(tmp_path):
+    """The scoring twin's log line per network, per batch and per group
+    (``score_stacked`` with --batch-group), at tiny sizes."""
+    res = _ok(_run("benchmark_score", [
+        "--cpu", "--networks", "alexnet,inception-bn", "--batch-size", "2",
+        "--num-batches", "4"], tmp_path))
+    for net in ("alexnet", "inception-bn"):
+        assert "network: %s, batch 2, group 1: " % net in res.stderr
+    res = _ok(_run("benchmark_score", [
+        "--cpu", "--networks", "alexnet", "--batch-size", "2",
+        "--num-batches", "4", "--batch-group", "2"], tmp_path))
+    line = [ln for ln in res.stderr.splitlines()
+            if "network: alexnet, batch 2, group 2: " in ln]
+    assert line and float(line[0].split(": ")[-1].split()[0]) > 0
+
+
+def test_fine_tune_twin(tmp_path):
+    """The JAX script's two asserts (trunk carried over, task-B accuracy
+    above 0.85) hold, and the accuracy line is printed."""
+    res = _ok(_run("fine_tune", ["--cpu"], tmp_path))
+    acc = float(res.stdout.split("fine-tuned accuracy on task B: ")[1]
+                .split()[0])
+    assert acc > 0.85
 
 
 def test_train_imagenet_twin_refuses_dist_kvstore():
