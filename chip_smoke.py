@@ -192,10 +192,34 @@ result line) if any phase fails:
    4σ of 1 − p and equal to the CPU's mask from the same key, ``predict``
    twice equal drawing no key; (g) the fine_tune twin on the card, both
    of its asserts;
-13. the kernels line (each kernel's launches on every path, decode's
-   0 among them, and the BN kernels' bfloat16, imagenet-twin and zoo
-   launches and times, inception-v3's per-step times), the seconds of
-   each phase, the card's nvidia-smi line, and the result line.
+13. rnn: the recurrent path, float32, TF32 off; no hand-written kernel
+   lies on it, and every kernel counter (BN, copy, rtc), set to 0 just
+   before the twins, reads 0 after them. (a) The ``RNN`` operator
+   (cuDNN through ``torch._VF``) against ``rnn_plain`` (a loop over
+   time) on the card for lstm, gru, rnn_tanh and rnn_relu, uni- and
+   bidirectional, 2 layers, at the PTB widths (T 35, N 32, I = H = 200)
+   and char_lstm's (T 32, N 32, I 64, H 256): the outputs and every
+   gradient within ``RNN_TOL`` of the plain value's max-abs; at
+   ``RNN_TIME_CASES`` the forward + backward's call ms (one CUDA-event
+   pair), device ms (kernel busy time under ``torch.profiler``) and
+   enqueue µs, for the op and the loop, beside the matrix products'
+   float32 FLOP bound. (b) ``mxnet_tpu_torch.examples.char_lstm`` at
+   full width (its defaults: 264 steps through ``fit`` on the fused
+   route): ms a step, tokens/s and perplexity by epoch (it must fall),
+   one RNN launch a step, and 10 steps under the profiler (device busy,
+   idle share). (c) ``mxnet_tpu_torch.examples.bucketing_lstm`` at
+   MXNet 0.9.5 lstm_bucketing.py's widths (2 × 200 LSTM, embedding 200,
+   batch 32, buckets 10–60, a 10,000-word vocabulary over 6,400 Zipf
+   sentences, 2 epochs), twice from one seed under deterministic cuDNN,
+   the first with per-bucket times: ms a step by bucket, positions/s,
+   the six buckets bound on one parameter and gradient storage
+   (``data_ptr``), perplexity falling, and the two runs' parameter
+   digests bit for bit;
+14. the kernels line (each kernel's launches on every path, decode's
+   and rnn's 0 among them, and the BN kernels' bfloat16, imagenet-twin
+   and zoo launches and times, inception-v3's per-step times), the
+   seconds of each phase, the card's nvidia-smi line, and the result
+   line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -958,6 +982,20 @@ def kernel_kind(name):
     return "other"
 
 
+def merged_us(spans):
+    """Microseconds covered by the sorted (start, end) spans, overlaps
+    counted once: the device's busy time."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return busy + cur_e - cur_s
+
+
 def step_profile(mx, name, args, aux, batch):
     """Where one step's time goes in mode ``name``: 5 steps timed on
     the host clock (median of the last 3: the wall to a synchronise, and
@@ -1003,15 +1041,7 @@ def step_profile(mx, name, args, aux, batch):
         row["device"] = "not measured"
         return row
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, cur_s, cur_e = 0.0, None, None
-    for a, b in spans:
-        if cur_e is None or a > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
+    busy = merged_us(spans)
     window = max(spans[-1][1] - spans[0][0], 1e-9)
     kinds, names = {}, {}
     for e in kern:
@@ -3076,6 +3106,373 @@ def zoo_phase(mx, K, card, copy_rate):
     return launches, v3_times, worst
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the recurrent path (the RNN operator onto cuDNN, the char-LSTM
+# and bucketing twins)
+# ---------------------------------------------------------------------------
+# (name, T, N, I, H, layers): the PTB widths of MXNet 0.9.5's
+# lstm_bucketing.py at sequence 35, and char_lstm.py's defaults
+RNN_SHAPES = [("ptb", 35, 32, 200, 200, 2), ("char", 32, 32, 64, 256, 2)]
+RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
+# the op against rnn_plain on the card, as the error's share of the plain
+# value's max-abs: cuDNN sums the gates' products and, in the backward,
+# the steps' and rows' terms in another order than the loop
+RNN_TOL = 1e-4
+# rnn_relu: a pre-activation within this share of its step's max-abs of
+# the ReLU's kink may take the other side in the other computation (a
+# mask flip, whose gradient differs by the whole term); such a batch row
+# is left out of the gradient comparison (its head gradient set to 0 on
+# both sides: rows are independent), and at most half the rows may be
+RNN_KINK = 1e-6
+RNN_TIME_CASES = [("ptb", m, False) for m in RNN_MODES] + \
+    [("ptb", "lstm", True), ("char", "lstm", False)]
+RNN_TIME_REPS = 10
+RNN_PLAIN_REPS = 3       # the loop takes ~5,000 launches a call
+RNN_DEVICE = "cuda"
+# the JAX script's lr 0.1 diverges at its own default width in both
+# packages (the JAX script's perplexity is NaN from epoch 0 on the CPU;
+# the twin's rises to ~1e6), so the phase trains at lr 0.01
+CHAR_TWIN_ARGS = ["--gpus", "0", "--lr", "0.01"]
+BUCKET_TWIN_ARGS = ["--gpus", "0", "--num-layers", "2", "--num-hidden",
+                    "200", "--num-embed", "200", "--batch-size", "32",
+                    "--buckets", "10,20,30,40,50,60", "--vocab-size",
+                    "10000", "--zipf", "1.0", "--sentences", "6400",
+                    "--num-epochs", "2", "--seed", "7"]
+RNN_PROFILE_STEPS = 10
+
+
+def rnn_attrs(mode, bi, layers, H):
+    return {"state_size": H, "num_layers": layers, "bidirectional": bi,
+            "mode": mode, "state_outputs": True}
+
+
+def rnn_case_inputs(mode, bi, shape, gen):
+    """Data, flat parameters, states of one case on the card, requiring
+    gradients, from the card's generator."""
+    import torch
+    from mxnet_tpu_torch.ops import rnn_op
+    _, T, N, I, H, L = shape
+    d = 2 if bi else 1
+    size = rnn_op.rnn_param_size(L, I, H, bi, mode)
+
+    def rnd(*sh, scale=1.0):
+        return (torch.randn(*sh, generator=gen, device=RNN_DEVICE)
+                * scale).requires_grad_()
+
+    ins = [rnd(T, N, I), rnd(size, scale=(1.0 / H) ** 0.5),
+           rnd(L * d, N, H, scale=0.5)]
+    if mode == "lstm":
+        ins.append(rnd(L * d, N, H, scale=0.5))
+    return ins
+
+
+def rnn_flops(mode, bi, shape):
+    """The matrix products' floating-point operations of one forward:
+    2·T·N·G·H·(in + H) per layer and direction."""
+    from mxnet_tpu_torch.ops import rnn_op
+    _, T, N, I, H, L = shape
+    d = 2 if bi else 1
+    g = rnn_op._gates(mode)
+    return sum(2 * T * N * g * H * ((I if layer == 0 else H * d) + H) * d
+               for layer in range(L))
+
+
+def rnn_fwd_bwd(fn, attrs, ins, cots):
+    """A callable running ``fn``'s forward and its backward into every
+    input."""
+    import torch
+    from mxnet_tpu_torch import registry as treg
+
+    def run():
+        outs = fn(attrs, ins, treg.OpContext(is_train=True))
+        return torch.autograd.grad(outs, ins, cots)
+    return run
+
+
+def relu_kink_rows(attrs, ins):
+    """The batch rows of an rnn_relu forward that pass within
+    ``RNN_KINK`` of the ReLU's kink at some layer, direction and step."""
+    import torch
+    from mxnet_tpu_torch.ops import rnn_op
+    H, L = attrs["state_size"], attrs["num_layers"]
+    d = 2 if attrs["bidirectional"] else 1
+    data, params, state0 = (t.detach() for t in ins[:3])
+    views = rnn_op.split_params(params, L, data.shape[2], H, d, 1)
+    rows = torch.zeros(data.shape[1], dtype=torch.bool, device=data.device)
+    x = data
+    for layer in range(L):
+        outs = []
+        for di in range(d):
+            w, r, bw, br = views[layer * d + di]
+            h, ys = state0[layer * d + di], [None] * x.shape[0]
+            xw = x @ w.t() + bw
+            steps = range(x.shape[0])
+            for t in (reversed(steps) if di else steps):
+                pre = xw[t] + h @ r.t() + br
+                rows |= (pre.abs() < RNN_KINK * pre.abs().max()).any(1)
+                h = ys[t] = pre.clamp_min(0)
+            outs.append(torch.stack(ys))
+        x = torch.cat(outs, -1)
+    return rows
+
+
+def rnn_check(shape, mode, bi, gen):
+    """The op against rnn_plain on the card at one shape: the worst
+    error (as a share of the plain value's max-abs) over the outputs and
+    every gradient, and the rows left out of the gradients (rnn_relu's
+    kink rows)."""
+    import torch
+    from mxnet_tpu_torch import registry as treg
+    from mxnet_tpu_torch.ops import rnn_op
+    attrs = rnn_attrs(mode, bi, shape[5], shape[4])
+    ins = rnn_case_inputs(mode, bi, shape, gen)
+    op = treg.get_op("RNN")
+    octx = treg.OpContext(is_train=True)
+    outs = op.fcompute(attrs, ins, octx)
+    cots = [torch.randn(o.shape, generator=gen, device=RNN_DEVICE)
+            for o in outs]
+    kink = relu_kink_rows(attrs, ins) if mode == "rnn_relu" else \
+        torch.zeros(shape[2], dtype=torch.bool, device=RNN_DEVICE)
+    for c in cots:       # dim 1 is the batch in the output and the states
+        c[:, kink] = 0.0
+    grads = torch.autograd.grad(outs, ins, cots)
+    pouts = rnn_op.rnn_plain(attrs, ins, octx)
+    pgrads = torch.autograd.grad(pouts, ins, cots)
+    names = ["output", "state_out", "cell_out"][:len(outs)] + \
+        ["d_data", "d_params", "d_state", "d_cell"][:len(ins)]
+    errs = {}
+    for nm, a, b in zip(names, list(outs) + list(grads),
+                        list(pouts) + list(pgrads)):
+        scale = float(b.detach().abs().max()) or 1.0
+        errs[nm] = float((a - b).detach().abs().max()) / scale
+    return errs, int(kink.sum()), attrs, ins, cots
+
+
+def profile_busy(fn, reps):
+    """``fn`` run ``reps`` times under ``torch.profiler``: kernels a
+    call, the kernels' summed and merged (busy) device ms a call, the
+    host wall ms a call and the device's idle share of that wall. None
+    where the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy = merged_us(spans)
+    return {"kernels_per_call": len(kern) / reps,
+            "kernel_ms": sum(b - a for a, b in spans) / 1e3 / reps,
+            "busy_ms": busy / 1e3 / reps,
+            "wall_ms": wall_us / 1e3 / reps,
+            "idle_share": 1.0 - busy / max(wall_us, 1e-9)}
+
+
+def rnn_op_phase(card):
+    """(a) the RNN op against rnn_plain on the card, every mode, uni- and
+    bidirectional, at both shapes: outputs and gradients within
+    ``RNN_TOL``; (b) the op's and the loop's forward + backward times
+    (call: one CUDA-event pair; device: the kernels' busy time under
+    torch.profiler; enqueue: host clock, card idle) at ``RNN_TIME_CASES``,
+    beside the matrix products' FLOP bound at the f32 peak. Returns the
+    failed cases."""
+    import torch
+    from mxnet_tpu_torch import registry as treg
+    from mxnet_tpu_torch.ops import rnn_op
+    from mxnet_tpu_torch.tools.bn_probe import cuda_time, enqueue_us
+    gen = card_generator(11)
+    failed, timed = [], {}
+    t0 = time.time()
+    shapes = {s[0]: s for s in RNN_SHAPES}
+    for shape in RNN_SHAPES:
+        for mode in RNN_MODES:
+            for bi in (False, True):
+                errs, kink, attrs, ins, cots = rnn_check(shape, mode, bi,
+                                                         gen)
+                worst = max(errs.values())
+                ok = worst <= RNN_TOL and 2 * kink <= shape[2]
+                emit({"phase": "rnn_op_check", "shape": shape[0],
+                      "T_N_I_H_layers": list(shape[1:]), "mode": mode,
+                      "bidirectional": bi, "rel_err": errs, "worst": worst,
+                      "limit": RNN_TOL, "kink_rows_left_out": kink,
+                      "kink_limit": RNN_KINK, "ok": ok, "card": card})
+                if not ok:
+                    failed.append("rnn op %s %s bi=%s" % (shape[0], mode,
+                                                          bi))
+                if (shape[0], mode, bi) in RNN_TIME_CASES:
+                    timed[(shape[0], mode, bi)] = (attrs, ins, cots)
+    emit({"phase": "rnn_op_check_seconds", "seconds": time.time() - t0})
+    op = treg.get_op("RNN")
+    for key in RNN_TIME_CASES:
+        t0 = time.time()
+        attrs, ins, cots = timed[key]
+        row = {"phase": "rnn_op_times", "shape": key[0],
+               "T_N_I_H_layers": list(shapes[key[0]][1:]), "mode": key[1],
+               "bidirectional": key[2], "card": card}
+        flops = 3 * rnn_flops(key[1], key[2], shapes[key[0]])
+        row["bound_ms_flops"] = 1e3 * flops / F32_FLOPS_PER_S
+        for name, fn, reps in (("op", op.fcompute, RNN_TIME_REPS),
+                               ("plain", rnn_op.rnn_plain, RNN_PLAIN_REPS)):
+            run = rnn_fwd_bwd(fn, attrs, ins, cots)
+            prof = profile_busy(run, reps)
+            row[name] = {
+                "call_ms": cuda_time(run, reps=reps, warm=1),
+                "device_ms": prof["busy_ms"] if prof else "not measured",
+                "kernels": prof["kernels_per_call"] if prof else None,
+                "enqueue_us": enqueue_us(run, reps=reps)}
+        with torch.no_grad():
+            fwd = lambda: op.fcompute(attrs, ins, treg.OpContext())  # noqa
+            row["op"]["forward_call_ms"] = cuda_time(fwd,
+                                                     reps=RNN_TIME_REPS)
+        row["seconds"] = time.time() - t0
+        emit(row)
+    return failed
+
+
+def rnn_twin_rows(res, work_name):
+    """Per epoch: ms a step, the work (tokens or positions) a second and
+    the training perplexity."""
+    return [{"epoch": r["epoch"], "batches": r["batches"],
+             "ms_per_step": r["ms_per_step"], work_name: r["work_per_s"],
+             "perplexity": r["metric"]} for r in res["epochs"]]
+
+
+def char_lstm_twin(mx, card):
+    """The char_lstm twin at full width in process: RNN launches a step,
+    ms a step, tokens/s and perplexity by epoch (it must fall), then one
+    step profiled. Returns (failed, RNN launches)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import char_lstm
+    from mxnet_tpu_torch.ops import rnn_op
+    rnn_op.launches = 0
+    t0 = time.time()
+    res = char_lstm.main(CHAR_TWIN_ARGS)
+    seconds = time.time() - t0
+    launches = rnn_op.launches
+    mod = res["module"]
+    ppl = res["perplexity"]
+    finite = all(np.isfinite(v).all() for v in host_params(mod).values())
+    ok = finite and ppl[-1] < ppl[0] and launches == res["steps"]
+    X, Y, _ = char_lstm.load_data(None, res["seq_len"])
+    b = res["batch_size"]
+    batch = mx.io.DataBatch([mx.nd.array(X[:b], ctx=mx.cpu())],
+                            [mx.nd.array(Y[:b], ctx=mx.cpu())])
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+    prof = profile_busy(step, RNN_PROFILE_STEPS)
+    emit({"phase": "rnn_char_lstm", "args": CHAR_TWIN_ARGS,
+          "route": type(mod._exec_group).__name__, "steps": res["steps"],
+          "rnn_launches": launches,
+          "rnn_launches_per_step": launches / max(res["steps"], 1),
+          "epochs": rnn_twin_rows(res, "tokens_per_s"),
+          "perplexity_falls": ppl[-1] < ppl[0], "finite": finite,
+          "step_profile": prof, "seconds": seconds, "ok": ok,
+          "card": card})
+    del mod, res
+    torch.cuda.empty_cache()
+    return ([] if ok else ["char_lstm twin"]), launches
+
+
+def bucketing_twin(mx, card):
+    """The bucketing_lstm twin at PTB width twice from one seed under
+    deterministic cuDNN, the first with per-bucket times (the queue
+    drained after every batch), the second without: ms a step by bucket,
+    tokens/s, the buckets bound, every bucket on the master's parameter
+    and gradient storage, perplexity falling, the two runs' parameter
+    digests. Returns the failed checks."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import bucketing_lstm
+    from mxnet_tpu_torch.examples.train_cifar10 import params_digest
+    from mxnet_tpu_torch.ops import rnn_op
+    failed, digests, runs = [], [], []
+    for timed in (True, False):
+        rnn_op.launches = 0
+        t0 = time.time()
+        with deterministic_cudnn():
+            res = bucketing_lstm.main(
+                BUCKET_TWIN_ARGS + (["--per-bucket-times"] if timed else []))
+        seconds = time.time() - t0
+        mod = res["module"]
+        master = mod.buckets[max(mod.buckets)]._exec_group.execs[0]
+        shared = all(
+            m._exec_group.execs[0].arg_dict[n]._read().data_ptr() ==
+            master.arg_dict[n]._read().data_ptr() and
+            m._exec_group.execs[0].grad_dict[n]._read().data_ptr() ==
+            master.grad_dict[n]._read().data_ptr()
+            for m in mod.buckets.values()
+            for n in ("lstm_parameters", "embed_weight", "pred_weight"))
+        digests.append(params_digest(mod))
+        finite = all(np.isfinite(v).all()
+                     for v in host_params(mod).values())
+        ppl = res["perplexity"]
+        # positions a step: batch × bucket length, padding included
+        per_bucket = None if res["bucket_times"] is None else {
+            str(k): dict(v, positions_per_s=res["batch_size"] * k * 1e3
+                         / v["ms_per_step"])
+            for k, v in res["bucket_times"].items()}
+        row = {"phase": "rnn_bucketing_lstm", "args": BUCKET_TWIN_ARGS,
+               "per_bucket_times": timed, "steps": res["steps"],
+               "rnn_launches": rnn_op.launches,
+               "buckets_bound": res["buckets_bound"],
+               "shared_storage": shared, "finite": finite,
+               "perplexity": ppl, "perplexity_falls": ppl[-1] < ppl[0],
+               "epochs": rnn_twin_rows(res, "positions_per_s"),
+               "by_bucket": per_bucket, "params_digest": digests[-1],
+               "seconds": seconds, "card": card}
+        row["ok"] = bool(finite and shared and ppl[-1] < ppl[0] and
+                         res["buckets_bound"] == [10, 20, 30, 40, 50, 60]
+                         and rnn_op.launches == res["steps"])
+        emit(row)
+        if not row["ok"]:
+            failed.append("bucketing twin (per_bucket_times=%s)" % timed)
+        runs.append(res)
+        del mod
+    same = digests[0] == digests[1]
+    emit({"phase": "rnn_bucketing_repeat", "deterministic_cudnn": True,
+          "digests": digests, "bitwise_equal": same, "ok": same,
+          "card": card})
+    if not same:
+        failed.append("bucketing twin does not repeat bit for bit")
+    del runs
+    torch.cuda.empty_cache()
+    return failed
+
+
+def rnn_phase(mx, K, C, R, card):
+    """Phase 13 (module docstring). Every kernel counter, set to 0 just
+    before, reads 0 after the twins (no hand-written kernel lies on the
+    recurrent path). Returns those counts and the RNN launches."""
+    failed = rnn_op_phase(card)
+    for counter in (K.bn_fwd, K.bn_bwd, C.copy, R.rtc_kernel):
+        counter.launches = 0
+    more, rnn_launches = char_lstm_twin(mx, card)
+    failed += more
+    failed += bucketing_twin(mx, card)
+    launches = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches,
+                "copy": C.copy.launches, "rtc": R.rtc_kernel.launches}
+    emit({"phase": "rnn_kernels", "launches": launches,
+          "rnn_launches_char_lstm": rnn_launches,
+          "ok": not any(launches.values())})
+    if any(launches.values()):
+        failed.append("kernel launches on the rnn path %s" % launches)
+    if failed:
+        raise RuntimeError("rnn phase failed: %s" % "; ".join(failed))
+    return launches
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3162,6 +3559,7 @@ def main():
                            card, hand_img_per_s)
     zoo_launches, zoo_v3, zoo_worst = timed("zoo", zoo_phase, mx, K, card,
                                             copy_rate)
+    rnn_launches = timed("rnn", rnn_phase, mx, K, C, R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -3172,6 +3570,7 @@ def main():
                     launches_decode=decode_launches[k],
                     launches_imagenet_twin=imnet_launches[k],
                     launches_zoo=zoo_launches[k],
+                    launches_rnn=rnn_launches[k],
                     launches_bf16=launches16[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     max_abs_err_bf16=worst16[k],
@@ -3187,8 +3586,10 @@ def main():
                              "library_ms", "library_device_ms")}
                         for d in zoo_v3})
                for k in ("bn_fwd", "bn_bwd")] + [
-        dict(rtc_entry, launches_decode=decode_launches["rtc"]),
-        dict(copy_entry, launches_decode=decode_launches["copy"])]
+        dict(rtc_entry, launches_decode=decode_launches["rtc"],
+             launches_rnn=rnn_launches["rtc"]),
+        dict(copy_entry, launches_decode=decode_launches["copy"],
+             launches_rnn=rnn_launches["copy"])]
     emit({"phase": "done", "seconds": time.time() - t_start,
           "phase_seconds": seconds})
     print(card)

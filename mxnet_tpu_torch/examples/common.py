@@ -1,5 +1,8 @@
-"""What the example twins share: the device they train on, and the
-precision and grouped-step flags."""
+"""What the example twins share: the device they train on, the
+precision and grouped-step flags, and a per-epoch clock."""
+import logging
+import time
+
 import torch
 
 import mxnet_tpu_torch as mx
@@ -63,3 +66,53 @@ def check_grouped(mod, batch_group):
         raise mx.MXNetError("--batch-group %d requested but the grouped "
                             "step never ran (fit trained per batch)"
                             % batch_group)
+
+
+class EpochClock(object):
+    """Per-epoch step time and training metric of a ``fit``: pass
+    ``batch_end`` as a batch-end callback and ``epoch_end`` as an
+    epoch-end callback. The clock starts at the end of an epoch's first
+    batch and stops at the epoch's end, each after ``sync()`` (the card's
+    queue drained), so ``ms_per_step`` covers batches 2..n. With
+    ``work(batch)`` (tokens of a batch, say) each row also has
+    ``work_per_s`` over the same batches."""
+
+    def __init__(self, sync=None, work=None):
+        self._sync = sync or (lambda: None)
+        self._work = work
+        self._t0 = None
+        self._batches = 0
+        self._done = 0
+        self._metric = None
+        self.rows = []
+
+    def batch_end(self, param):
+        if param.nbatch == 0:
+            self._sync()
+            self._t0 = time.perf_counter()
+            self._metric = param.eval_metric
+            self._done = 0
+        elif self._work is not None:
+            self._done += self._work(param.locals["data_batch"])
+        self._batches = param.nbatch + 1
+
+    def epoch_end(self, epoch, symbol, arg_params, aux_params):
+        self._sync()
+        seconds = time.perf_counter() - self._t0
+        steps = max(self._batches - 1, 1)
+        row = {"epoch": epoch, "batches": self._batches,
+               "ms_per_step": 1000.0 * seconds / steps,
+               "metric": self._metric.get()[1]}
+        if self._work is not None:
+            row["work_per_s"] = self._done / max(seconds, 1e-9)
+        self.rows.append(row)
+        logging.info("Epoch[%d] %d steps, %.3f ms a step over steps 2-%d, "
+                     "train %s=%f", epoch, self._batches, row["ms_per_step"],
+                     self._batches, self._metric.get()[0], row["metric"])
+
+
+def card_sync(ctx):
+    """A function that waits for ``ctx``'s queue (a no-op on the CPU)."""
+    if ctx.device_type == "cpu":
+        return lambda: None
+    return lambda: torch.cuda.synchronize(ctx.torch_device())

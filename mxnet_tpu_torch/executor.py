@@ -30,7 +30,7 @@ from ``random.next_key``, drawn by the caller once per training forward
 or step) and gives the i-th op node that ``needs_rng``, in topological
 order, ``random.fold_in(key, i)``. The segmented evaluator hands each
 segment its nodes' keys as arguments, and the ops draw from the key alone
-(``random.uniform``), so the backward's replay of a segment draws the
+(``random.key_uniform``), so the backward's replay of a segment draws the
 masks of its first run: remat never changes a mask.
 """
 from __future__ import annotations

@@ -18,7 +18,7 @@ from .base import string_types
 from . import random as _random
 
 __all__ = ["Initializer", "Uniform", "Normal", "Xavier", "One", "Zero",
-           "LSTMBias", "InitDesc", "register", "create"]
+           "LSTMBias", "FusedRNN", "InitDesc", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -35,6 +35,8 @@ def create(spec):
     if not isinstance(spec, str):
         return spec
     name, kwargs = json.loads(spec)
+    if name.lower() == "fusedrnn" and isinstance(kwargs.get("init"), str):
+        kwargs["init"] = create(kwargs["init"])
     return _INIT_REGISTRY[name.lower()](**kwargs)
 
 
@@ -76,6 +78,9 @@ class Initializer(object):
         (lambda n: n.endswith("weight"), "_init_weight"),
         (lambda n: n.endswith(("moving_mean", "running_mean")), "_init_zero"),
         (lambda n: n.endswith(("moving_var", "running_var")), "_init_one"),
+        # the begin_state variables of the RNN cells
+        (lambda n: "begin_state" in n or "init_state" in n
+         or ("init_" in n and ("_c" in n or "_h" in n)), "_init_zero"),
     )
 
     def __call__(self, name, arr):
@@ -197,3 +202,53 @@ class LSTMBias(Initializer):
 
     # a variable's own __init__ dispatches through _init_weight
     _init_weight = _init_bias
+
+
+@register
+class FusedRNN(Initializer):
+    """The flat parameter vector of an ``RNN`` node: each (W, R) matrix
+    from ``init`` in the vector's order, then the biases at 0, an LSTM's
+    two forget-gate blocks (bW and bR) at ``forget_bias``/2 each."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        super().__init__(init=init.dumps() if hasattr(init, "dumps")
+                         else None, num_hidden=num_hidden,
+                         num_layers=num_layers, mode=mode,
+                         bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        from . import ndarray as nd
+        from .context import cpu
+        from .ops.rnn_op import _gates, rnn_param_size
+        h = self._num_hidden
+        d = 2 if self._bidirectional else 1
+        g = _gates(self._mode)
+        flat = torch.zeros(arr.size, dtype=torch.float32)
+        # the input width is whatever makes the sizes add up
+        input_size = next(
+            (c for c in range(1, 100000)
+             if rnn_param_size(self._num_layers, c, h, self._bidirectional,
+                               self._mode) == arr.size), h)
+        off = 0
+        for layer in range(self._num_layers):
+            in_sz = input_size if layer == 0 else h * d
+            for _ in range(d):
+                for rows, cols in ((g * h, in_sz), (g * h, h)):
+                    block = nd.zeros((rows, cols), ctx=cpu())
+                    if self._init is not None:
+                        self._init("weight", block)
+                    flat[off:off + rows * cols] = block._read().reshape(-1)
+                    off += rows * cols
+        for _ in range(self._num_layers * d * 2):
+            if self._mode == "lstm":
+                flat[off + h:off + 2 * h] = self._forget_bias / 2.0
+            off += g * h
+        arr[:] = flat.reshape(arr.shape)

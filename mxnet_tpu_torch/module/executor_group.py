@@ -6,11 +6,13 @@ Binds one Executor over the symbol with BatchNorm→ReLU pairs fused
 kernels with the mask recomputed in the backward. The arg/aux lists and
 the output names do not change under the fusion. A group bound with a
 ``shared_group`` takes that group's parameter and aux arrays as its own
-(the same tensors), so groups bound at several batch sizes hold one copy
-of the parameters. ``reshape`` binds again at new input shapes through
-``Executor.reshape``: parameters, aux states and their gradients stay
-the same tensors. Splitting a batch over several devices comes with a
-later slice of the port.
+(the same tensors), and its gradient tensors where the shapes agree, so
+groups bound at several batch sizes or sequence lengths (the buckets of
+a ``BucketingModule``) hold one copy of the parameters. ``reshape``
+binds again at new input shapes through ``Executor.reshape``:
+parameters, aux states and their gradients stay the same tensors.
+Splitting a batch over several devices comes with a later slice of the
+port.
 """
 from __future__ import annotations
 
@@ -69,11 +71,13 @@ class DataParallelExecutorGroup(object):
         if label_shapes is not None:
             input_shapes.update(dict(label_shapes))
         arg_shapes, _, aux_shapes = self.symbol.infer_shape(**input_shapes)
-        shared_args, shared_aux = {}, {}
+        shared_args, shared_aux, shared_grads = {}, {}, {}
         if shared_group is not None:
             shared_ex = shared_group.execs[0]
             shared_args = {n: shared_ex.arg_dict[n] for n in self.param_names}
             shared_aux = shared_ex.aux_dict
+            shared_grads = {n: g for n, g in shared_ex.grad_dict.items()
+                            if n in self.param_names}
 
         def alloc(name, shape, shared):
             arr = shared.get(name)
@@ -88,7 +92,9 @@ class DataParallelExecutorGroup(object):
         for name, shape in zip(self.arg_names, arg_shapes):
             args.append(alloc(name, shape, shared_args))
             if self.grad_req[name] != "null":
-                grads[name] = nd.zeros(shape, ctx=ctx)
+                g = shared_grads.get(name)
+                grads[name] = g if g is not None and \
+                    g.shape == tuple(shape) else nd.zeros(shape, ctx=ctx)
         aux = [alloc(name, shape, shared_aux)
                for name, shape in zip(self.aux_names, aux_shapes)]
         self._wire(self.symbol.bind(ctx, args, args_grad=grads,

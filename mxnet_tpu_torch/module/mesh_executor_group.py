@@ -179,6 +179,11 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         self._device_augment = dict(device_augment or {})
         self.compute_dtype = compute_dtype
         self._cdt = state_np_dtype(compute_dtype, None)   # None: float32
+        if self._cdt is not None and any(
+                n.op is not None and n.op.name == "RNN"
+                for n in symbol._topo()):
+            from ..ops.rnn_op import BF16_REFUSAL
+            raise MXNetError(BF16_REFUSAL)
         self.remat = remat
         self._ls_cfg = loss_scale_config(precision)
         self._ls_state = None

@@ -1,6 +1,6 @@
 """Module — symbol + context + params + optimizer (PyTorch counterpart of
 ``mxnet_tpu/module/module.py``) on one device: bind (with
-``shared_module=`` for inference), reshape, init_params, init_optimizer,
+``shared_module=``), reshape, init_params, init_optimizer,
 forward, backward, update, update_metric, get_params, monitors, and
 checkpoints in the JAX package's formats: legacy prefix files and
 ``CheckpointManager`` entries (``save_checkpoint``, ``Module.load``,
@@ -425,9 +425,13 @@ class Module(BaseModule):
         (:meth:`_fused_eligible`), else the classic group.
 
         ``shared_module`` (a bound, initialized Module over the same
-        parameters; inference binds only): this module computes from
-        the shared module's parameter and aux tensors themselves, the
-        same storage, so one ``set_params`` on either reaches both."""
+        parameters): this module computes from the shared module's
+        parameter and aux tensors themselves, the same storage, so one
+        ``set_params`` on either reaches both. A training bind shares on
+        the classic route only (``BucketingModule``'s buckets), where the
+        gradient tensors are shared too where their shapes agree, and it
+        borrows the shared module's optimizer once it has one; the fused
+        route binds shared modules for inference."""
         if force_rebind:
             self.binded = False
             self._exec_group = None
@@ -437,10 +441,6 @@ class Module(BaseModule):
             return
         shared_group = None
         if shared_module is not None:
-            if for_training:
-                raise MXNetError("shared_module binds for inference only "
-                                 "(for_training=False) in this slice of "
-                                 "the port")
             if not (isinstance(shared_module, Module) and
                     shared_module.binded and
                     shared_module.params_initialized):
@@ -451,6 +451,11 @@ class Module(BaseModule):
         shared_fused = getattr(shared_group, "fused", False)
         fused = self._fused_eligible(shared_group, inputs_need_grad,
                                      grad_req)
+        if fused and shared_module is not None and for_training:
+            raise MXNetError("shared_module binds for training on the "
+                             "classic route only (_allow_fused=False); the "
+                             "fused route shares for inference "
+                             "(for_training=False)")
         if not fused:
             if self._precision is not None and \
                     not self._precision.is_default():
@@ -505,6 +510,8 @@ class Module(BaseModule):
             self._arg_params = shared_module._arg_params
             self._aux_params = shared_module._aux_params
             self._params_dirty = False
+            if for_training and shared_module.optimizer_initialized:
+                self.borrow_optimizer(shared_module)
         elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 

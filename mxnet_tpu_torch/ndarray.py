@@ -21,10 +21,11 @@ import torch
 
 from .base import MXNetError, numeric_types, torch_dtype, numpy_dtype
 from .context import Context, current_context
+from . import random as _random
 from . import registry as _registry
 
-__all__ = ["NDArray", "array", "zeros", "ones", "concatenate", "load",
-           "save", "waitall"]
+__all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
+           "concatenate", "onehot_encode", "load", "save", "waitall"]
 
 _py_slice = slice
 
@@ -256,19 +257,26 @@ class NDArray:
 # ---------------------------------------------------------------------------
 # imperative invoke: run a registered op on NDArrays
 # ---------------------------------------------------------------------------
-def invoke(op, inputs, raw_attrs, out=None):
+def invoke(op, inputs, raw_attrs, out=None, ctx=None):
     """Run ``op`` eagerly on NDArrays; results go to ``out`` when given.
     Ops with aux state write their aux updates back into the trailing aux
-    inputs."""
+    inputs. An op without inputs (``_zeros``, the samplers) runs on
+    ``ctx``, else on ``out``'s context, else on the default context; a
+    ``needs_rng`` op draws one key from ``random.next_key``."""
     attrs = _registry.parse_attrs(op, raw_attrs)
+    if op.variable_args is not None and op.variable_args not in attrs:
+        attrs[op.variable_args] = len(inputs)
     n_aux = len(op.aux_names)
-    ctx = inputs[0].context if inputs else current_context()
+    out_first = next((o for o in out if o is not None), None) \
+        if isinstance(out, (list, tuple)) else out
+    ctx = ctx or (inputs[0].context if inputs
+                  else out_first.context if out_first is not None
+                  else current_context())
+    octx = _registry.OpContext(
+        is_train=False, device=None if inputs else ctx.torch_device(),
+        key=_random.next_key() if op.needs_rng else None)
     with torch.no_grad():
-        results = op.fcompute(attrs, [x._t for x in inputs],
-                              _registry.OpContext(
-                                  is_train=False,
-                                  device=None if inputs
-                                  else ctx.torch_device()))
+        results = op.fcompute(attrs, [x._t for x in inputs], octx)
     n_out = op.num_outputs(attrs)
     outs, aux_updates = list(results[:n_out]), list(results[n_out:])
     if n_aux and aux_updates:
@@ -291,10 +299,22 @@ def _make_op_func(op):
     def fn(*args, **kwargs):
         out = kwargs.pop("out", None)
         kwargs.pop("name", None)
+        ctx = kwargs.pop("ctx", None)
         inputs = [a for a in args if isinstance(a, NDArray)]
         attrs = {k: v for k, v in kwargs.items()
                  if v is not None and not isinstance(v, NDArray)}
-        return invoke(op, inputs, attrs, out=out)
+        named_in = {k: v for k, v in kwargs.items()
+                    if isinstance(v, NDArray)}
+        if named_in:
+            # named inputs in the op's argument order (``lhs=``, ``data=``)
+            for nm in op.list_arguments(attrs) + list(op.aux_names):
+                if nm in named_in:
+                    inputs.append(named_in.pop(nm))
+            inputs.extend(named_in.values())
+        scalars = [a for a in args if not isinstance(a, NDArray)]
+        if scalars and "scalar" in op.attr_types and "scalar" not in attrs:
+            attrs["scalar"] = scalars[0]
+        return invoke(op, inputs, attrs, out=out, ctx=ctx)
 
     fn.__name__ = op.name
     fn.__doc__ = (op.fcompute.__doc__ or "") + "\n\n(op: %s)" % op.name
@@ -326,6 +346,40 @@ def zeros(shape, ctx=None, dtype=onp.float32):
 
 def ones(shape, ctx=None, dtype=onp.float32):
     return _new(torch.ones, shape, ctx, dtype)
+
+
+def empty(shape, ctx=None, dtype=onp.float32):
+    """An array of ``shape`` whose contents are not defined
+    (mx.nd.empty); as in the JAX package, it holds zeros."""
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def full(shape, val, ctx=None, dtype=onp.float32):
+    """An array of ``shape`` filled with ``val``."""
+    arr = zeros(shape, ctx=ctx, dtype=dtype)
+    arr[:] = val
+    return arr
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
+           dtype=onp.float32):
+    """Evenly spaced values in [start, stop), each repeated ``repeat``
+    times (numpy's ``arange`` in ``dtype``, as the JAX package)."""
+    if stop is None:
+        start, stop = 0, start
+    vals = onp.arange(start, stop, step, dtype=dtype)
+    if repeat != 1:
+        vals = onp.repeat(vals, repeat)
+    return array(vals, ctx=ctx, dtype=dtype)
+
+
+def onehot_encode(indices, out):
+    """One-hot rows of ``indices`` written into ``out`` (N, depth)."""
+    return invoke(_registry.get_op("_onehot_encode"), [indices, out], {},
+                  out=out)
+
+
+_onehot_encode = onehot_encode
 
 
 def array(source_array, ctx=None, dtype=onp.float32):

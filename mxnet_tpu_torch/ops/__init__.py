@@ -1,3 +1,3 @@
 """Operator implementations; importing this package registers them."""
 from . import (nn, conv, matrix, elemwise, optimizer_ops,  # noqa: F401
-               broadcast, init_ops)
+               broadcast, init_ops, sample, rnn_op)

@@ -7,7 +7,7 @@ the loss layers' (SoftmaxOutput, the regression outputs, SVMOutput,
 MakeLoss) ignore the head gradient, and the BatchNorm train core's
 forward and backward are the hand-written kernels of
 ``kernels/batchnorm.py``. Dropout and LeakyReLU's ``rrelu`` draw their
-masks and slopes from the node's key (``random.uniform``).
+masks and slopes from the node's key (``random.key_uniform``).
 """
 from __future__ import annotations
 
@@ -87,7 +87,7 @@ def _node_uniform(octx, x, what):
     if octx.key is None:
         raise MXNetError("%s in training needs a key: run it through an "
                          "executor, which draws one per forward" % what)
-    return _random.uniform(octx.key, x.shape, x.device)
+    return _random.key_uniform(octx.key, x.shape, x.device)
 
 
 @register("LeakyReLU", arg_names=_leaky_args,

@@ -1,9 +1,10 @@
 """Optimizers (PyTorch counterpart of ``mxnet_tpu/optimizer.py``).
 
 Same registry + Updater contract as the JAX package, for SGD with
-momentum, weight decay and gradient rescaling, and Adam. ``update`` (one
-parameter) calls the update ops of ``ops/optimizer_ops.py`` with ``out=``
-set to the weight and its state, so each update lands in place. A step
+momentum, weight decay and gradient rescaling, Adam and RMSProp.
+``update`` (one parameter) calls the update ops of
+``ops/optimizer_ops.py`` with ``out=`` set to the weight and its state,
+so each update lands in place. A step
 (``Updater.update_multi`` on the classic route, the fused route's step
 in ``module/mesh_executor_group.py``) calls the optimizer's pure
 per-parameter ``_fused_apply`` through ``Updater.fused_apply_or_none``;
@@ -36,10 +37,10 @@ import torch
 
 from .base import MXNetError
 from .ndarray import (NDArray, array, zeros, sgd_update, sgd_mom_update,
-                      adam_update)
+                      adam_update, rmsprop_update, rmspropalex_update)
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
-           "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "RMSProp", "Updater", "get_updater",
+           "create", "register"]
 
 
 class Optimizer(object):
@@ -249,6 +250,65 @@ class Adam(Optimizer):
             kwargs["clip_gradient"] = self.clip_gradient
         adam_update(weight, grad, mean, var, out=[weight, mean, var],
                     **kwargs)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp through ``rmsprop_update`` (Tieleman, ``centered=False``:
+    state (n,)) or ``rmspropalex_update`` (Graves, ``centered=True``:
+    state (n, g, delta))."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        dtype = self._state_zeros_dtype(weight)
+        n = 3 if self.centered else 1
+        return tuple(zeros(weight.shape, weight.context, dtype=dtype)
+                     for _ in range(n))
+
+    def _fused_apply(self, xp, p, g, s, lr, wd):
+        """The ops' operations in their order, so it matches the classic
+        update bit for bit."""
+        g = g * self.rescale_grad
+        if self.clip_gradient:
+            g = xp.clamp(g, -self.clip_gradient, self.clip_gradient)
+        g = g + wd * p
+        g1 = self.gamma1
+        new_n = (1 - g1) * xp.square(g) + g1 * s[0]
+        if not self.centered:
+            new_p, new_s = p - lr * g / xp.sqrt(new_n + self.epsilon), \
+                (new_n,)
+        else:
+            new_g = (1 - g1) * g + g1 * s[1]
+            new_d = self.gamma2 * s[2] - lr * g / xp.sqrt(
+                new_n - xp.square(new_g) + self.epsilon)
+            new_p, new_s = p + new_d, (new_n, new_g, new_d)
+        if self.clip_weights:
+            new_p = xp.clamp(new_p, -self.clip_weights, self.clip_weights)
+        return new_p, new_s
+
+    def _apply(self, weight, grad, state, lr, wd):
+        kwargs = {"rescale_grad": self.rescale_grad, "lr": lr, "wd": wd,
+                  "gamma1": self.gamma1, "epsilon": self.epsilon}
+        if self.clip_gradient:
+            kwargs["clip_gradient"] = self.clip_gradient
+        if self.clip_weights:
+            kwargs["clip_weights"] = self.clip_weights
+        if not self.centered:
+            (n,) = state
+            rmsprop_update(weight, grad, n, out=[weight, n], **kwargs)
+        else:
+            n, g, delta = state
+            rmspropalex_update(weight, grad, n, g, delta,
+                               out=[weight, n, g, delta],
+                               gamma2=self.gamma2, **kwargs)
 
 
 def _map_leaves(state, fn):

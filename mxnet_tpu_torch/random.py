@@ -13,9 +13,15 @@ package's ``next_key``: one key for each training forward or step, a
 64-bit integer that is a pure function of (seed, number of keys drawn
 since the seed). Ops that draw (Dropout, ``rrelu``) turn the key, split
 per node, into counter-based uniforms on the tensor's device
-(``uniform``): a pure function of (key, element index), equal on the CPU
-and the card, that needs no generator state, so a remat segment's
+(``key_uniform``): a pure function of (key, element index), equal on the
+CPU and the card, that needs no generator state, so a remat segment's
 recompute draws the same masks as its first run.
+
+``uniform``, ``normal`` and ``randint`` are the public samplers with the
+JAX package's signatures (``mx.random.uniform(0, 1, shape=(2, 3))``):
+they run the sampling operators of ``ops/sample.py`` on ``ctx`` (the
+default context, ``gpu(0)``, unless given), each call drawing one key
+from ``next_key``.
 
 ``get_state``/``set_state`` snapshot and restore all of it — what a
 checkpoint stores so that a resumed run draws what the uninterrupted run
@@ -29,8 +35,9 @@ import threading
 import numpy as onp
 import torch
 
-__all__ = ["seed", "generator", "next_key", "split", "fold_in", "uniform",
-           "get_state", "set_state"]
+__all__ = ["seed", "generator", "next_key", "split", "fold_in",
+           "key_uniform", "key_normal", "key_generator", "uniform", "normal",
+           "randint", "get_state", "set_state"]
 
 _DEFAULT_SEED = 0
 _state = threading.local()
@@ -111,7 +118,7 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def uniform(key, shape, device):
+def key_uniform(key, shape, device):
     """float32 uniforms in [0, 1) of ``shape`` on ``device``, 24 random
     bits each: a pure function of (key, element index), bit for bit the
     same on every device. Element i is
@@ -128,6 +135,50 @@ def uniform(key, shape, device):
     x = (torch.arange(n, dtype=torch.int64, device=device) + k0) & _M32
     x = _mix32(_mix32(x) ^ k1)
     return ((x >> 8).to(torch.float32) * (1.0 / (1 << 24))).reshape(shape)
+
+
+def key_normal(key, shape, device):
+    """float32 standard normals of ``shape`` on ``device`` by Box-Muller
+    over two counter streams of ``key`` (sub-keys 0 and 1): like
+    :func:`key_uniform`, a pure function of the key and the index."""
+    u1 = key_uniform(fold_in(key, 0), shape, device)
+    u2 = key_uniform(fold_in(key, 1), shape, device)
+    # 1 - u1 lies in (0, 1], so the log is finite
+    r = torch.sqrt(-2.0 * torch.log1p(-u1))
+    return r * torch.cos((2.0 * torch.pi) * u2)
+
+
+def key_generator(key, device):
+    """A ``torch.Generator`` on ``device`` seeded from ``key``: for the
+    draws that have no counter form (gamma, Poisson, integers). It
+    repeats bit for bit on one device; two devices draw differently."""
+    g = torch.Generator(device=device)
+    g.manual_seed(_splitmix64(int(key) & _M64) & 0x7FFFFFFFFFFFFFFF)
+    return g
+
+
+# ---------------------------------------------------------------------------
+# the public samplers (mx.random.uniform/normal/randint)
+# ---------------------------------------------------------------------------
+def uniform(low=0, high=1, shape=None, ctx=None, out=None, dtype=None):
+    """Samples from U[low, high) (mx.random.uniform)."""
+    from . import ndarray as nd
+    return nd.uniform(low=low, high=high, shape=shape, ctx=ctx, out=out,
+                      dtype=dtype)
+
+
+def normal(loc=0, scale=1, shape=None, ctx=None, out=None, dtype=None):
+    """Samples from N(loc, scale²) (mx.random.normal)."""
+    from . import ndarray as nd
+    return nd.normal(loc=loc, scale=scale, shape=shape, ctx=ctx, out=out,
+                     dtype=dtype)
+
+
+def randint(low, high, shape=None, ctx=None, dtype="int32"):
+    """Integers in [low, high) (mx.random.randint)."""
+    from . import ndarray as nd
+    return nd.random_randint(low=low, high=high, shape=shape, ctx=ctx,
+                             dtype=dtype)
 
 
 def get_state():

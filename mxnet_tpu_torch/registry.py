@@ -16,9 +16,11 @@ with
 * arity: ``variable_args`` names the attr holding the input count
   (Concat's ``num_args``); ``num_outputs`` may depend on attrs
   (SliceChannel's ``num_outputs``).
-* randomness: ``needs_rng`` ops (Dropout, LeakyReLU for ``rrelu``)
-  receive their node's key in ``octx.key`` (``random.next_key`` split per
-  node by the executor) and draw with ``random.uniform``.
+* randomness: ``needs_rng`` ops (Dropout, LeakyReLU for ``rrelu``, the
+  RNN op's dropout, the samplers of ``ops/sample.py``) receive their
+  node's key in ``octx.key`` (``random.next_key`` split per node by the
+  executor; one ``next_key`` per imperative call) and draw from it alone
+  (``random.key_uniform``, ``key_normal``, ``key_generator``).
 """
 from __future__ import annotations
 

@@ -1,7 +1,13 @@
-"""RNN cells (PyTorch counterpart of ``mxnet_tpu/rnn``): the unfused
-cells that build an unrolled symbol graph step by step."""
+"""RNN toolkit (PyTorch counterpart of ``mxnet_tpu/rnn``): the cells,
+fused and unfused, that build unrolled symbol graphs, and the bucketed
+sentence iterator."""
 from .rnn_cell import (RNNParams, BaseRNNCell, RNNCell, LSTMCell,  # noqa
-                       GRUCell, SequentialRNNCell, DropoutCell)
+                       GRUCell, FusedRNNCell, SequentialRNNCell,
+                       BidirectionalCell, DropoutCell, ModifierCell,
+                       ZoneoutCell, ResidualCell)
+from .io import BucketSentenceIter, encode_sentences  # noqa
 
 __all__ = ["RNNParams", "BaseRNNCell", "RNNCell", "LSTMCell", "GRUCell",
-           "SequentialRNNCell", "DropoutCell"]
+           "FusedRNNCell", "SequentialRNNCell", "BidirectionalCell",
+           "DropoutCell", "ModifierCell", "ZoneoutCell", "ResidualCell",
+           "BucketSentenceIter", "encode_sentences"]

@@ -1,4 +1,4 @@
-"""Unfused RNN cells (PyTorch counterpart of ``mxnet_tpu/rnn/rnn_cell.py``).
+"""RNN cells (PyTorch counterpart of ``mxnet_tpu/rnn/rnn_cell.py``).
 
 ``cell(inputs, states)`` adds one step to a symbol graph;
 ``cell.unroll(...)`` adds ``length`` steps, so the unrolled graph runs
@@ -7,10 +7,14 @@ symbol. Parameter names match the JAX package's (``<prefix>i2h_weight``,
 ``<prefix>h2h_bias``, ...), so parameters cross between the packages by
 name. Gate order is cuDNN's: LSTM [i, f, g, o], GRU [r, z, n].
 
-``DropoutCell`` applies ``Dropout`` to a step's input. The fused cell
-(``FusedRNNCell``, which needs the ``RNN`` operator), the bidirectional,
-zoneout and residual cells and ``rnn/io.py`` come with a later slice of
-the port.
+``FusedRNNCell`` unrolls into one ``RNN`` node over a flat parameter
+vector (``ops/rnn_op.py``: cuDNN on the card); ``unfuse()`` gives the
+equivalent stack of unfused cells, and ``unpack_weights``/
+``pack_weights`` convert between the flat vector and their per-gate
+arrays (``<prefix>l0_i2h_i_weight``, ...; ``r`` for the backward
+direction), the reference's names. ``BidirectionalCell`` runs two cells
+over the sequence in both directions; ``DropoutCell``, ``ZoneoutCell``
+and ``ResidualCell`` modify a step.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from .. import symbol
 from ..initializer import LSTMBias
 
 __all__ = ["RNNParams", "BaseRNNCell", "RNNCell", "LSTMCell", "GRUCell",
-           "SequentialRNNCell", "DropoutCell"]
+           "FusedRNNCell", "SequentialRNNCell", "BidirectionalCell",
+           "DropoutCell", "ModifierCell", "ZoneoutCell", "ResidualCell"]
 
 
 class RNNParams(object):
@@ -344,6 +349,7 @@ class SequentialRNNCell(BaseRNNCell):
         next_states = []
         p = 0
         for cell in self._cells:
+            assert not isinstance(cell, BidirectionalCell)
             n = len(cell.state_info)
             state = states[p:p + n]
             p += n
@@ -385,3 +391,334 @@ class DropoutCell(BaseRNNCell):
         if self.dropout > 0:
             inputs = symbol.Dropout(data=inputs, p=self.dropout)
         return inputs, states
+
+
+class FusedRNNCell(BaseRNNCell):
+    """A multi-layer RNN as one ``RNN`` node: its flat parameter vector
+    ``<prefix>parameters`` starts from ``initializer.FusedRNN`` (Xavier
+    per matrix, the LSTM forget-gate biases at ``forget_bias``)."""
+
+    def __init__(self, num_hidden, num_layers=1, mode="lstm",
+                 bidirectional=False, dropout=0.0, get_next_state=False,
+                 forget_bias=1.0, prefix=None, params=None):
+        if prefix is None:
+            prefix = "%s_" % mode
+        super().__init__(prefix=prefix, params=params)
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._dropout = dropout
+        self._get_next_state = get_next_state
+        self._directions = ["l", "r"] if bidirectional else ["l"]
+        from ..initializer import FusedRNN, Xavier
+        initializer = FusedRNN(Xavier(factor_type="in", magnitude=2.34),
+                               num_hidden, num_layers, mode, bidirectional,
+                               forget_bias)
+        self._parameter = self.params.get("parameters", init=initializer)
+
+    @property
+    def state_info(self):
+        b = self._num_layers * len(self._directions)
+        n = 2 if self._mode == "lstm" else 1
+        return [{"shape": (b, 0, self._num_hidden), "__layout__": "LNC"}] * n
+
+    @property
+    def _gate_names(self):
+        return {"rnn_relu": ("",), "rnn_tanh": ("",),
+                "lstm": ("_i", "_f", "_c", "_o"),
+                "gru": ("_r", "_z", "_o")}[self._mode]
+
+    @property
+    def _num_gates(self):
+        return len(self._gate_names)
+
+    def _slice_weights(self, arr, li, lh):
+        """Views of the flat ``arr`` by per-gate name: every (layer,
+        direction)'s i2h then h2h gate matrices, then their biases."""
+        args, p = {}, 0
+        b = len(self._directions)
+        for layer in range(self._num_layers):
+            for direction in self._directions:
+                for group in ("i2h", "h2h"):
+                    cols = (li if layer == 0 else b * lh) \
+                        if group == "i2h" else lh
+                    for gate in self._gate_names:
+                        name = "%s%s%d_%s%s_weight" % (
+                            self._prefix, direction, layer, group, gate)
+                        args[name] = arr[p:p + lh * cols].reshape(
+                            (lh, cols))
+                        p += lh * cols
+        for layer in range(self._num_layers):
+            for direction in self._directions:
+                for group in ("i2h", "h2h"):
+                    for gate in self._gate_names:
+                        name = "%s%s%d_%s%s_bias" % (
+                            self._prefix, direction, layer, group, gate)
+                        args[name] = arr[p:p + lh]
+                        p += lh
+        assert p == arr.size, "Invalid parameters size for FusedRNNCell"
+        return args
+
+    def unpack_weights(self, args):
+        """The flat vector split into per-gate arrays (copies)."""
+        args = args.copy()
+        arr = args.pop(self._parameter.name)
+        b = len(self._directions)
+        m = self._num_gates
+        h = self._num_hidden
+        num_input = arr.size // b // h // m - \
+            (self._num_layers - 1) * (h + b * h + 2) - h - 2
+        for name, view in self._slice_weights(arr, num_input, h).items():
+            args[name] = view.copy()
+        return args
+
+    def pack_weights(self, args):
+        """Per-gate arrays joined back into the flat vector."""
+        from .. import ndarray as nd
+        args = args.copy()
+        b = len(self._directions)
+        m = self._num_gates
+        h = self._num_hidden
+        w0 = args["%sl0_i2h%s_weight" % (self._prefix, self._gate_names[0])]
+        num_input = w0.shape[1]
+        total = (num_input + h + 2) * h * m * b + \
+            (self._num_layers - 1) * m * h * (h + b * h + 2) * b
+        arr = nd.zeros((total,), ctx=w0.context, dtype=w0.dtype)
+        for name, view in self._slice_weights(arr, num_input, h).items():
+            view[:] = args.pop(name)
+        args[self._parameter.name] = arr
+        return args
+
+    def __call__(self, inputs, states):
+        raise NotImplementedError("FusedRNNCell cannot be stepped. Please "
+                                  "use unroll")
+
+    def unroll(self, length, inputs=None, begin_state=None, input_prefix="",
+               layout="NTC", merge_outputs=None):
+        """One ``RNN`` node over the whole sequence (swapped to time-major
+        for NTC); with ``get_next_state`` the last states come back."""
+        self.reset()
+        axis = layout.find("T")
+        if inputs is None:
+            inputs = [symbol.Variable("%st%d_data" % (input_prefix, i))
+                      for i in range(length)]
+        if isinstance(inputs, symbol.Symbol):
+            assert len(inputs.list_outputs()) == 1
+            if axis == 1:
+                inputs = symbol.SwapAxis(inputs, dim1=0, dim2=1)
+        else:
+            assert len(inputs) == length
+            inputs = symbol.Concat(*[symbol.expand_dims(i, axis=0)
+                                     for i in inputs], dim=0)
+        if begin_state is None:
+            begin_state = self.begin_state()
+        kwargs = dict(state_size=self._num_hidden,
+                      num_layers=self._num_layers,
+                      bidirectional=self._bidirectional, p=self._dropout,
+                      state_outputs=self._get_next_state, mode=self._mode,
+                      name="%srnn" % self._prefix)
+        if self._mode == "lstm":
+            kwargs["state_cell"] = begin_state[1]
+        rnn = symbol.RNN(data=inputs, parameters=self._parameter,
+                         state=begin_state[0], **kwargs)
+        if not self._get_next_state:
+            outputs, states = rnn, []
+        elif self._mode == "lstm":
+            outputs, states = rnn[0], [rnn[1], rnn[2]]
+        else:
+            outputs, states = rnn[0], [rnn[1]]
+        if axis == 1:
+            outputs = symbol.SwapAxis(outputs, dim1=0, dim2=1)
+        if merge_outputs is False:
+            outputs = list(symbol.SliceChannel(
+                outputs, axis=axis, num_outputs=length, squeeze_axis=1))
+        return outputs, states
+
+    def unfuse(self):
+        """The equivalent stack of unfused cells (``<prefix>l0_``,
+        ``<prefix>r0_``, ...), with ``DropoutCell``s between layers."""
+        stack = SequentialRNNCell()
+        get_cell = {
+            "rnn_relu": lambda pre: RNNCell(self._num_hidden,
+                                            activation="relu", prefix=pre),
+            "rnn_tanh": lambda pre: RNNCell(self._num_hidden,
+                                            activation="tanh", prefix=pre),
+            "lstm": lambda pre: LSTMCell(self._num_hidden, prefix=pre),
+            "gru": lambda pre: GRUCell(self._num_hidden, prefix=pre),
+        }[self._mode]
+        for i in range(self._num_layers):
+            if self._bidirectional:
+                stack.add(BidirectionalCell(
+                    get_cell("%sl%d_" % (self._prefix, i)),
+                    get_cell("%sr%d_" % (self._prefix, i)),
+                    output_prefix="%sbi_l%d_" % (self._prefix, i)))
+            else:
+                stack.add(get_cell("%sl%d_" % (self._prefix, i)))
+            if self._dropout > 0 and i != self._num_layers - 1:
+                stack.add(DropoutCell(self._dropout,
+                                      prefix="%s_dropout%d_"
+                                      % (self._prefix, i)))
+        return stack
+
+
+def _cells_unpack_weights(cells, args):
+    for cell in cells:
+        args = cell.unpack_weights(args)
+    return args
+
+
+def _cells_pack_weights(cells, args):
+    for cell in cells:
+        args = cell.pack_weights(args)
+    return args
+
+
+class BidirectionalCell(BaseRNNCell):
+    """Two cells over the sequence, ``l_cell`` forward and ``r_cell``
+    backward; each step's output is the two joined on axis 1."""
+
+    def __init__(self, l_cell, r_cell, params=None, output_prefix="bi_"):
+        super().__init__("", params=params)
+        self._output_prefix = output_prefix
+        self._override_cell_params = params is not None
+        if self._override_cell_params:
+            assert l_cell._own_params and r_cell._own_params
+            l_cell.params._params.update(self.params._params)
+            r_cell.params._params.update(self.params._params)
+        self.params._params.update(l_cell.params._params)
+        self.params._params.update(r_cell.params._params)
+        self._cells = [l_cell, r_cell]
+
+    def unpack_weights(self, args):
+        return _cells_unpack_weights(self._cells, args)
+
+    def pack_weights(self, args):
+        return _cells_pack_weights(self._cells, args)
+
+    def __call__(self, inputs, states):
+        raise NotImplementedError("Bidirectional cannot be stepped. "
+                                  "Please use unroll")
+
+    @property
+    def state_info(self):
+        return sum([c.state_info for c in self._cells], [])
+
+    def begin_state(self, **kwargs):
+        assert not self._modified
+        return sum([c.begin_state(**kwargs) for c in self._cells], [])
+
+    def unroll(self, length, inputs=None, begin_state=None, input_prefix="",
+               layout="NTC", merge_outputs=None):
+        self.reset()
+        axis = layout.find("T")
+        if inputs is None:
+            inputs = [symbol.Variable("%st%d_data" % (input_prefix, i))
+                      for i in range(length)]
+        elif isinstance(inputs, symbol.Symbol):
+            inputs = list(symbol.SliceChannel(inputs, axis=axis,
+                                              num_outputs=length,
+                                              squeeze_axis=1))
+        else:
+            assert len(inputs) == length
+        if begin_state is None:
+            begin_state = self.begin_state()
+        l_cell, r_cell = self._cells
+        n_l = len(l_cell.state_info)
+        l_outputs, l_states = l_cell.unroll(
+            length, inputs=inputs, begin_state=begin_state[:n_l],
+            layout=layout, merge_outputs=False)
+        r_outputs, r_states = r_cell.unroll(
+            length, inputs=list(reversed(inputs)),
+            begin_state=begin_state[n_l:], layout=layout,
+            merge_outputs=False)
+        outputs = [symbol.Concat(l_o, r_o, dim=1,
+                                 name="%st%d" % (self._output_prefix, i))
+                   for i, (l_o, r_o) in
+                   enumerate(zip(l_outputs, reversed(r_outputs)))]
+        if merge_outputs:
+            outputs = symbol.Concat(*[symbol.expand_dims(o, axis=axis)
+                                      for o in outputs], dim=axis)
+        return outputs, [l_states, r_states]
+
+
+class ModifierCell(BaseRNNCell):
+    """Base of the cells that wrap another cell and modify its step."""
+
+    def __init__(self, base_cell):
+        super().__init__()
+        base_cell._modified = True
+        self.base_cell = base_cell
+
+    @property
+    def params(self):
+        self._own_params = False
+        return self.base_cell.params
+
+    @property
+    def state_info(self):
+        return self.base_cell.state_info
+
+    def begin_state(self, func=None, **kwargs):
+        assert not self._modified
+        self.base_cell._modified = False
+        begin = self.base_cell.begin_state(func, **kwargs)
+        self.base_cell._modified = True
+        return begin
+
+    def unpack_weights(self, args):
+        return self.base_cell.unpack_weights(args)
+
+    def pack_weights(self, args):
+        return self.base_cell.pack_weights(args)
+
+    def __call__(self, inputs, states):
+        raise NotImplementedError()
+
+
+class ZoneoutCell(ModifierCell):
+    """Zoneout: in training each output and state element keeps its
+    previous value with probability ``zoneout_outputs``/``_states``
+    (masks from ``Dropout`` of ones, so eval keeps the new values)."""
+
+    def __init__(self, base_cell, zoneout_outputs=0.0, zoneout_states=0.0):
+        assert not isinstance(base_cell, FusedRNNCell), \
+            "FusedRNNCell doesn't support zoneout. Please unfuse first."
+        assert not isinstance(base_cell, BidirectionalCell), \
+            "BidirectionalCell doesn't support zoneout since it doesn't " \
+            "support step. Please add ZoneoutCell to the cells underneath " \
+            "instead."
+        super().__init__(base_cell)
+        self.zoneout_outputs = zoneout_outputs
+        self.zoneout_states = zoneout_states
+        self.prev_output = None
+
+    def reset(self):
+        super().reset()
+        self.prev_output = None
+
+    def __call__(self, inputs, states):
+        next_output, next_states = self.base_cell(inputs, states)
+
+        def mask(p, like):
+            return symbol.Dropout(symbol.ones_like(like), p=p)
+
+        prev_output = self.prev_output if self.prev_output is not None \
+            else symbol.zeros(shape=(0, 0))
+        output = next_output if self.zoneout_outputs == 0.0 else \
+            symbol.where(mask(self.zoneout_outputs, next_output),
+                         next_output, prev_output)
+        if self.zoneout_states != 0.0:
+            next_states = [symbol.where(mask(self.zoneout_states, new_s),
+                                        new_s, old_s)
+                           for new_s, old_s in zip(next_states, states)]
+        self.prev_output = output
+        return output, next_states
+
+
+class ResidualCell(ModifierCell):
+    """The base cell's output plus its input."""
+
+    def __call__(self, inputs, states):
+        output, states = self.base_cell(inputs, states)
+        return symbol._plus(output, inputs), states

@@ -131,19 +131,19 @@ def test_keys_follow_the_seed_and_the_state():
 
 
 def test_uniform_is_a_pure_function_of_key_and_index():
-    a = mxr.uniform(11, (64, 33), torch.device("cpu"))
-    b = mxr.uniform(11, (64, 33), torch.device("cpu"))
-    c = mxr.uniform(12, (64, 33), torch.device("cpu"))
+    a = mxr.key_uniform(11, (64, 33), torch.device("cpu"))
+    b = mxr.key_uniform(11, (64, 33), torch.device("cpu"))
+    c = mxr.key_uniform(12, (64, 33), torch.device("cpu"))
     assert a.dtype == torch.float32 and a.shape == (64, 33)
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert float(a.min()) >= 0.0 and float(a.max()) < 1.0
     # element i depends on the key and i only, not on the shape
-    flat = mxr.uniform(11, (64 * 33,), torch.device("cpu"))
+    flat = mxr.key_uniform(11, (64 * 33,), torch.device("cpu"))
     assert torch.equal(flat.reshape(64, 33), a)
     n = a.numel()
     assert abs(float(a.mean()) - 0.5) < 4 * (1 / 12.0 / n) ** 0.5
     # distinct counters within one key: no repeated 24-bit draw pattern
-    assert torch.unique(mxr.uniform(3, (4096,), torch.device("cpu"))
+    assert torch.unique(mxr.key_uniform(3, (4096,), torch.device("cpu"))
                         ).numel() > 4000
 
 

@@ -8,8 +8,8 @@ published input); one eval forward at batch 2, at the smallest input the
 network infers at, from the same numpy-seeded parameters, lies within
 relative L2 1e-5 of the JAX package's (the softmax outputs and the logits
 under them). Also the ``-bf16`` names and their ``ValueError``, and
-``lstm.get_unfused_symbol`` (with its DropoutCells) against the JAX
-graph. One training step of three of the networks against the JAX
+``lstm.get_unfused_symbol`` (with its DropoutCells) and the fused
+``lstm.get_symbol`` against the JAX graphs. One training step of three of the networks against the JAX
 package's fused route: ``test_torch_zoo_step.py``.
 """
 import json
@@ -23,7 +23,6 @@ import mxnet_tpu.models  # noqa: F401  (not imported by the package)
 from mxnet_tpu.name import NameManager as JNameManager
 
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.name import NameManager as TNameManager
 
 torch.set_num_threads(2)
@@ -164,7 +163,12 @@ def test_lstm_unfused_symbol_equals_the_jax_graph():
     assert _nodes(t) == _nodes(j)
     assert sum(n["op"] == "Dropout" for n in _nodes(t)) == 2 * 5
     assert t.list_arguments() == j.list_arguments()
-    with pytest.raises(MXNetError, match="rnn slice"):
-        tmx.models.lstm.get_symbol(**kw)
+    # the fused builder (one RNN node) equals the JAX one too
+    with JNameManager():
+        j = jmx.models.lstm.get_symbol(**kw)
+    with TNameManager():
+        t = tmx.models.lstm.get_symbol(**kw)
+    assert _nodes(t) == _nodes(j)
+    assert sum(n["op"] == "RNN" for n in _nodes(t)) == 1
     cell = tmx.rnn.DropoutCell(0.5)
     assert cell.state_info == []
