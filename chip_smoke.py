@@ -215,8 +215,34 @@ result line) if any phase fails:
    the six buckets bound on one parameter and gradient storage
    (``data_ptr``), perplexity falling, and the two runs' parameter
    digests bit for bit;
-14. the kernels line (each kernel's launches on every path, decode's
-   and rnn's 0 among them, and the BN kernels' bfloat16, imagenet-twin
+14. api: the rest of the training API, float32, TF32 off. (a) The eight
+   training-API twins (``mnist_mlp``, ``custom_softmax``, ``sto_depth``,
+   ``fgsm``, ``gan_mnist``, ``sgld``, ``autoencoder``, ``multitask``) at
+   their JAX scripts' defaults, in process, each passing its own
+   asserts, with its ms a step and seconds. (b) resnet-20 at the CIFAR
+   twin's shapes (batch 128, 3×28×28, 10 classes) as a
+   ``SequentialModule`` of its features (cut at the Flatten; the fused
+   route) and its head (``fc1`` + ``SoftmaxOutput``; the classic route),
+   3 SGD steps against one classic ``Module`` of the whole net from the
+   same parameters under deterministic cuDNN: the parameters within
+   relative L2 1e-6 (the line says whether bit for bit), exactly 20 + 20
+   BN launches a step, every stage's parameter ``data_ptr``s kept, and
+   both ms a step. (c) The ``custom_softmax`` net: its gradients within
+   1e-5 (of their max-abs) of the builtin ``SoftmaxOutput`` net's, 3 steps
+   fused = classic and remat="full" = plain, bit for bit, and both nets'
+   ms a step (the difference is the op's host round trip). (d)
+   ``mx.autograd``: an imperative 2-layer MLP's gradients from
+   ``mark_variables`` + ``backward`` within 1e-5 of ``Module.backward``'s,
+   and ``nd.Dropout`` dropping under ``train_section`` and the identity
+   under ``test_section``. (e) ``mx.kv``: the push of four card arrays
+   pulled as their sum in list order, twice bit for bit; ``fit`` with
+   ``mx.kv.create("local")`` (the update on the store) against
+   ``kvstore="local"`` (the fused step), 3 resnet-20 steps within relative
+   L2 1e-6, each at 20 + 20 BN launches a step. Every kernel counter reads
+   0 over (a), (c), (d) and the store's push and pull;
+15. the kernels line (each kernel's launches on every path, decode's
+   and rnn's 0 among them, ``launches_api`` the BN kernels' 60 + 60 over
+   (b)'s three steps, and the BN kernels' bfloat16, imagenet-twin
    and zoo launches and times, inception-v3's per-step times), the
    seconds of each phase, the card's nvidia-smi line, and the result
    line.
@@ -3473,6 +3499,417 @@ def rnn_phase(mx, K, C, R, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the rest of the training API (SequentialModule, Custom ops,
+# autograd, kvstore) and its example twins
+# ---------------------------------------------------------------------------
+API_TWINS = ("mnist_mlp", "custom_softmax", "sto_depth", "fgsm",
+             "gan_mnist", "sgld", "autoencoder", "multitask")
+API_TWIN_ARGS = ["--gpus", "0"]
+API_DEVICE = "cuda"
+API_STEPS = 3
+API_BATCH, API_IMAGE, API_CLASSES = 128, (3, 28, 28), 10  # the CIFAR twin's
+API_NETWORK = "resnet-20"
+API_BN_PER_STEP = 20
+API_REL_L2 = 1e-6
+API_CUSTOM_TOL = 1e-5      # custom vs builtin gradients, of their max-abs
+API_AUTOGRAD_TOL = 1e-5
+API_TIME_STEPS = 20
+API_KV_SHAPE = (1024, 1024)
+
+
+def api_ctx(mx):
+    return mx.cpu() if API_DEVICE == "cpu" else mx.gpu(0)
+
+
+def api_sync():
+    import torch
+    if API_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def api_counts(K, C, R):
+    return {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches,
+            "copy": C.copy.launches, "rtc": R.rtc_kernel.launches}
+
+
+def api_zero(K, C, R):
+    for counter in (K.bn_fwd, K.bn_bwd, C.copy, R.rtc_kernel):
+        counter.launches = 0
+
+
+def api_twins(card):
+    """(a) Each twin at its script's defaults, in process; it raises when
+    one of its own asserts fails."""
+    import importlib
+    rows = []
+    for name in API_TWINS:
+        twin = importlib.import_module("mxnet_tpu_torch.examples." + name)
+        t0 = time.time()
+        res = twin.main(API_TWIN_ARGS)
+        row = {"phase": "api_twin", "twin": name, "args": API_TWIN_ARGS,
+               "seconds": time.time() - t0,
+               "ms_per_step": res["ms_per_step"], "steps": res["steps"],
+               "card": card}
+        for key in ("accuracy", "accuracy_builtin", "ms_per_step_builtin",
+                    "adversarial_accuracy", "rebind", "mean_err",
+                    "var_ratio", "mse", "best_d_fake", "best_dist",
+                    "resumed_accuracy", "sequential_accuracy"):
+            if key in res:
+                row[key] = res[key]
+        emit(row)
+        rows.append(row)
+        del res
+    return rows
+
+
+def api_batches(mx, n, seed=0):
+    """``n`` host batches at the CIFAR twin's shapes (numpy, seeded)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [mx.io.DataBatch(
+        [mx.nd.array(rs.randn(API_BATCH, *API_IMAGE).astype(np.float32),
+                     ctx=mx.cpu())],
+        [mx.nd.array(rs.randint(0, API_CLASSES, API_BATCH)
+                     .astype(np.float32), ctx=mx.cpu())]) for _ in range(n)]
+
+
+def api_resnet(mx):
+    return mx.models.get_symbol(API_NETWORK, num_classes=API_CLASSES,
+                                image_shape=API_IMAGE)
+
+
+def api_start_params(mx):
+    """Xavier parameters of resnet-20 from ``mx.random``'s seed 0, on the
+    host."""
+    mx.random.seed(0)
+    mod = mx.mod.Module(api_resnet(mx), context=api_ctx(mx),
+                        _allow_fused=False)
+    mod.bind(data_shapes=[("data", (API_BATCH,) + API_IMAGE)],
+             label_shapes=[("softmax_label", (API_BATCH,))],
+             for_training=False)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    args, aux = mod.get_params()
+    return ({k: v.copy() for k, v in args.items()},
+            {k: v.copy() for k, v in aux.items()})
+
+
+def api_sgd():
+    return dict(SGD_PARAMS, rescale_grad=1.0 / API_BATCH)
+
+
+def api_params_ptr(mod):
+    ex = mod._exec_group.execs[0]
+    return [ex.arg_dict[n]._read().data_ptr() for n in mod._param_names]
+
+
+def api_timed_steps(mod, batches, steps):
+    """ms a step over ``steps`` steps (after the first), host clock
+    around work that ends in a synchronise."""
+    ms = []
+    for i in range(steps):
+        api_sync()
+        t0 = time.perf_counter()
+        mod.forward_backward(batches[i % len(batches)])
+        mod.update()
+        api_sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ms[1:])
+
+
+def api_sequential(mx, K, C, R, card, start):
+    """(b) resnet-20 as a SequentialModule of its features (cut at the
+    Flatten) and its head, against one classic Module of the whole net:
+    3 SGD steps from the same parameters, cuDNN deterministic. Returns
+    (failed, the kernels' launches over the chain's 3 steps)."""
+    import numpy as np
+    ctx = api_ctx(mx)
+    batches = api_batches(mx, API_STEPS)
+    shapes = ([("data", (API_BATCH,) + API_IMAGE)],
+              [("softmax_label", (API_BATCH,))])
+    args, aux = start
+    internals = api_resnet(mx).get_internals()
+    feat = internals[next(n for n in internals.list_outputs()
+                          if n.startswith("flatten"))]
+    head = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Variable("data"), num_hidden=API_CLASSES, name="fc1"),
+        name="softmax")
+    with deterministic_cudnn():
+        seq = mx.mod.SequentialModule()
+        seq.add(mx.mod.Module(feat, label_names=(), context=ctx))
+        seq.add(mx.mod.Module(head, context=ctx), take_labels=True,
+                auto_wiring=True)
+        seq.bind(data_shapes=shapes[0], label_shapes=shapes[1])
+        seq.init_params(arg_params=args, aux_params=aux)
+        seq.init_optimizer(optimizer="sgd", optimizer_params=api_sgd())
+        ptrs = [api_params_ptr(m) for m in seq._modules]
+        routes = [type(m._exec_group).__name__ for m in seq._modules]
+        api_sync()
+        api_zero(K, C, R)
+        for b in batches:
+            seq.forward_backward(b)
+            seq.update()
+        api_sync()
+        launches = api_counts(K, C, R)
+        same_ptrs = [api_params_ptr(m) for m in seq._modules] == ptrs
+        got = host_params(seq._modules[0])
+        got.update(host_params(seq._modules[1]))
+        whole = mx.mod.Module(api_resnet(mx), context=ctx,
+                              _allow_fused=False)
+        whole.bind(data_shapes=shapes[0], label_shapes=shapes[1])
+        whole.init_params(arg_params=args, aux_params=aux)
+        whole.init_optimizer(optimizer="sgd", optimizer_params=api_sgd())
+        for b in batches:
+            whole.forward_backward(b)
+            whole.update()
+        want = host_params(whole)
+        seq_ms = api_timed_steps(seq, batches, API_TIME_STEPS)
+        whole_ms = api_timed_steps(whole, batches, API_TIME_STEPS)
+    differ = [k for k in want if not np.array_equal(got[k], want[k])]
+    worst = max([rel_l2(got[k], want[k]) for k in differ] or [0.0])
+    per_step = API_BN_PER_STEP * API_STEPS
+    row = {"phase": "api_sequential", "network": API_NETWORK,
+           "batch": API_BATCH, "image": list(API_IMAGE),
+           "steps": API_STEPS, "routes": routes,
+           "params": len(want), "bitwise_equal": not differ,
+           "n_params_differing": len(differ), "worst_rel_l2": worst,
+           "limit_rel_l2": API_REL_L2, "launches": launches,
+           "bn_launches_per_step": {k: launches[k] / API_STEPS
+                                    for k in ("bn_fwd", "bn_bwd")},
+           "params_data_ptr_kept": same_ptrs,
+           "ms_per_step": seq_ms, "ms_per_step_one_module": whole_ms,
+           "finite": all(np.isfinite(v).all() for v in got.values()),
+           "card": card}
+    row["ok"] = (row["finite"] and worst <= API_REL_L2 and same_ptrs and
+                 sorted(got) == sorted(want) and
+                 launches == {"bn_fwd": per_step, "bn_bwd": per_step,
+                              "copy": 0, "rtc": 0})
+    emit(row)
+    del seq, whole
+    return ([] if row["ok"] else ["sequential"]), launches
+
+
+def api_custom(mx, card):
+    """(c) The custom_softmax net on the card: its gradients against the
+    builtin SoftmaxOutput net's, the fused route against the classic one
+    and remat="full" against none (3 steps each, bit for bit), and the
+    step ms of both nets."""
+    import numpy as np
+    from mxnet_tpu_torch.examples import custom_softmax
+    ctx = api_ctx(mx)
+    X, y = custom_softmax.make_data()
+    b = 128
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(X[i * b:(i + 1) * b], ctx=mx.cpu())],
+        [mx.nd.array(y[i * b:(i + 1) * b].astype(np.float32),
+                     ctx=mx.cpu())]) for i in range(API_STEPS)]
+    shapes = ([("data", (b, X.shape[1]))], [("softmax_label", (b,))])
+
+    def module(custom, **kw):
+        mx.random.seed(0)
+        mod = mx.mod.Module(custom_softmax.make_net(custom), context=ctx,
+                            **kw)
+        mod.bind(data_shapes=shapes[0], label_shapes=shapes[1])
+        mod.init_params(mx.init.Xavier())
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.5})
+        return mod
+
+    grads = {}
+    for custom in (True, False):
+        mod = module(custom, _allow_fused=False)
+        mod.forward_backward(batches[0])
+        ex = mod._exec_group.execs[0]
+        grads[custom] = {n: ex.grad_dict[n].asnumpy()
+                         for n in mod._param_names}
+    scale = max(float(np.abs(g).max()) for g in grads[False].values())
+    grad_err = max(float(np.abs(grads[True][n] - grads[False][n]).max())
+                   for n in grads[False])
+    runs = {}
+    for name, kw in (("fused", {}), ("classic", {"_allow_fused": False}),
+                     ("remat", {"remat": "full"})):
+        mod = module(True, **kw)
+        for bt in batches:
+            mod.forward_backward(bt)
+            mod.update()
+        runs[name] = (type(mod._exec_group).__name__, host_params(mod))
+    same = {name: all(np.array_equal(runs[name][1][k], runs["fused"][1][k])
+                      for k in runs["fused"][1])
+            for name in ("classic", "remat")}
+    ms = {}
+    for custom in (True, False):
+        ms["custom" if custom else "builtin"] = api_timed_steps(
+            module(custom), batches, API_TIME_STEPS)
+    row = {"phase": "api_custom_op", "batch": b,
+           "grad_max_abs_err": grad_err, "grad_max_abs": scale,
+           "grad_rel_err": grad_err / max(scale, 1e-30),
+           "limit": API_CUSTOM_TOL,
+           "routes": {k: v[0] for k, v in runs.items()},
+           "fused_eq_classic_bitwise": same["classic"],
+           "remat_eq_plain_bitwise": same["remat"],
+           "ms_per_step_custom": ms["custom"],
+           "ms_per_step_builtin": ms["builtin"],
+           "host_round_trip_ms": ms["custom"] - ms["builtin"],
+           "card": card}
+    row["ok"] = (row["grad_rel_err"] <= API_CUSTOM_TOL and
+                 same["classic"] and same["remat"] and
+                 runs["fused"][0] == "MeshExecutorGroup")
+    emit(row)
+    return [] if row["ok"] else ["custom op"]
+
+
+def api_autograd(mx, card):
+    """(d) An imperative 2-layer MLP's gradients from mark_variables +
+    backward against Module.backward's on the same parameters, and
+    Dropout under train_section and test_section."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd as ag
+    ctx = api_ctx(mx)
+    rs = np.random.RandomState(3)
+    n, d, h, k = 64, 32, 48, 10
+    x = rs.randn(n, d).astype(np.float32)
+    lab = rs.randint(0, k, n).astype(np.float32)
+    vals = {"fc1_weight": rs.randn(h, d) * 0.2, "fc1_bias": rs.randn(h),
+            "fc2_weight": rs.randn(k, h) * 0.2, "fc2_bias": rs.randn(k)}
+    vals = {nm: v.astype(np.float32) for nm, v in vals.items()}
+    params = {nm: mx.nd.array(v, ctx=ctx) for nm, v in vals.items()}
+    grads = {nm: mx.nd.zeros(v.shape, ctx=ctx) for nm, v in vals.items()}
+    names = sorted(vals)
+    ag.mark_variables([params[nm] for nm in names],
+                      [grads[nm] for nm in names])
+    xd, ld = mx.nd.array(x, ctx=ctx), mx.nd.array(lab, ctx=ctx)
+    with ag.train_section():
+        a = mx.nd.Activation(mx.nd.FullyConnected(
+            xd, params["fc1_weight"], params["fc1_bias"], num_hidden=h),
+            act_type="relu")
+        o = mx.nd.FullyConnected(a, params["fc2_weight"],
+                                 params["fc2_bias"], num_hidden=k)
+        out = mx.nd.SoftmaxOutput(o, ld)
+    ag.compute_gradient([out])
+    mine = {nm: g.asnumpy() for nm, g in grads.items()}
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Activation(
+        mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=h,
+                              name="fc1"), act_type="relu"),
+        num_hidden=k, name="fc2"), name="softmax")
+    mod = mx.mod.Module(net, context=ctx, _allow_fused=False)
+    mod.bind(data_shapes=[("data", (n, d))],
+             label_shapes=[("softmax_label", (n,))])
+    mod.init_params(arg_params={nm: mx.nd.array(v, ctx=mx.cpu())
+                                for nm, v in vals.items()})
+    mod.forward_backward(mx.io.DataBatch([xd], [ld]))
+    ex = mod._exec_group.execs[0]
+    err = max(float(np.abs(mine[nm] - ex.grad_dict[nm].asnumpy()).max())
+              for nm in names)
+    ones = mx.nd.ones((256, 256), ctx=ctx)
+    with ag.train_section():
+        dropped = float((mx.nd.Dropout(ones, p=0.5).asnumpy() == 0).mean())
+    with ag.test_section():
+        kept = bool(np.array_equal(mx.nd.Dropout(ones, p=0.5).asnumpy(),
+                                   ones.asnumpy()))
+    row = {"phase": "api_autograd", "grad_max_abs_err": err,
+           "limit": API_AUTOGRAD_TOL, "dropout_train_zero_share": dropped,
+           "dropout_test_identity": kept, "card": card}
+    row["ok"] = err <= API_AUTOGRAD_TOL and 0.4 < dropped < 0.6 and kept
+    emit(row)
+    return [] if row["ok"] else ["autograd"]
+
+
+def api_kvstore_sum(mx, card):
+    """(e) push of four card arrays and pull: their sum in list order,
+    twice, bit for bit."""
+    import numpy as np
+    import torch
+    ctx = api_ctx(mx)
+    gen = torch.Generator(device=API_DEVICE).manual_seed(5)
+    vals = [torch.randn(API_KV_SHAPE, generator=gen, device=API_DEVICE)
+            for _ in range(4)]
+    want = (((vals[0] + vals[1]) + vals[2]) + vals[3]).cpu().numpy()
+    runs = []
+    for _ in range(2):
+        kv = mx.kv.create("local")
+        kv.init(0, mx.nd.zeros(API_KV_SHAPE, ctx=ctx))
+        kv.push(0, [mx.nd.NDArray(v.clone(), ctx=ctx) for v in vals])
+        out = mx.nd.zeros(API_KV_SHAPE, ctx=ctx)
+        kv.pull(0, out=out)
+        runs.append(out.asnumpy())
+    row = {"phase": "api_kvstore_sum", "shape": list(API_KV_SHAPE),
+           "arrays": 4, "equals_ordered_sum": bool(np.array_equal(
+               runs[0], want)),
+           "repeats_bitwise": runs[0].tobytes() == runs[1].tobytes(),
+           "card": card}
+    row["ok"] = row["equals_ordered_sum"] and row["repeats_bitwise"]
+    emit(row)
+    return [] if row["ok"] else ["kvstore sum"]
+
+
+def api_kvstore_fit(mx, K, card, start):
+    """(e) fit with a KVStore instance (the update on the store: push,
+    pull) against fit(kvstore="local") (no store: the fused step), 3
+    resnet-20 steps from the same parameters; the BN kernels launch
+    20 + 20 a step in both."""
+    import numpy as np
+    ctx = api_ctx(mx)
+    batches = api_batches(mx, API_STEPS, seed=1)
+    X = np.concatenate([b.data[0].asnumpy() for b in batches])
+    y = np.concatenate([b.label[0].asnumpy() for b in batches])
+    args, aux = start
+    res = {}
+    with deterministic_cudnn():
+        for name, kv in (("local", "local"),
+                         ("kvstore", mx.kv.create("local"))):
+            it = mx.io.NDArrayIter(X, y, batch_size=API_BATCH)
+            mod = mx.mod.Module(api_resnet(mx), context=ctx)
+            K.bn_fwd.launches = K.bn_bwd.launches = 0
+            mod.fit(it, num_epoch=1, kvstore=kv, optimizer="sgd",
+                    optimizer_params=api_sgd(), arg_params=args,
+                    aux_params=aux)
+            api_sync()
+            res[name] = (host_params(mod), mod._update_on_kvstore,
+                         {"bn_fwd": K.bn_fwd.launches,
+                          "bn_bwd": K.bn_bwd.launches})
+            del mod
+    (lp, lkv, ll), (kp, kkv, kl) = res["local"], res["kvstore"]
+    worst = max(rel_l2(kp[k], lp[k]) for k in lp)
+    want = {"bn_fwd": API_BN_PER_STEP * API_STEPS,
+            "bn_bwd": API_BN_PER_STEP * API_STEPS}
+    row = {"phase": "api_kvstore_fit", "network": API_NETWORK,
+           "steps": API_STEPS, "update_on_kvstore": [lkv, kkv],
+           "bitwise_equal": all(np.array_equal(kp[k], lp[k]) for k in lp),
+           "worst_rel_l2": worst, "limit_rel_l2": API_REL_L2,
+           "bn_launches": {"local": ll, "kvstore": kl}, "card": card}
+    row["ok"] = (worst <= API_REL_L2 and not lkv and kkv and
+                 ll == want and kl == want)
+    emit(row)
+    return [] if row["ok"] else ["kvstore fit"]
+
+
+def api_phase(mx, K, C, R, card):
+    """Phase 14 (module docstring). Returns the kernels' launches over the
+    SequentialModule's steps (b), the phase's main path; every counter
+    reads 0 over (a), (c), (d) and the store's push and pull (e)."""
+    api_zero(K, C, R)
+    twins = api_twins(card)
+    off_path = api_counts(K, C, R)
+    start = api_start_params(mx)
+    failed, launches = api_sequential(mx, K, C, R, card, start)
+    api_zero(K, C, R)
+    failed += api_custom(mx, card)
+    failed += api_autograd(mx, card)
+    failed += api_kvstore_sum(mx, card)
+    off_path = {k: v + off_path[k] for k, v in api_counts(K, C, R).items()}
+    failed += api_kvstore_fit(mx, K, card, start)
+    emit({"phase": "api_kernels", "launches_sequential": launches,
+          "launches_twins_custom_autograd_kvstore": off_path,
+          "twins_seconds": sum(r["seconds"] for r in twins),
+          "ok": not any(off_path.values())})
+    if any(off_path.values()):
+        failed.append("kernel launches off the BN path %s" % off_path)
+    if failed:
+        raise RuntimeError("api phase failed: %s" % "; ".join(failed))
+    return launches
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3560,6 +3997,7 @@ def main():
     zoo_launches, zoo_v3, zoo_worst = timed("zoo", zoo_phase, mx, K, card,
                                             copy_rate)
     rnn_launches = timed("rnn", rnn_phase, mx, K, C, R, card)
+    api_launches = timed("api", api_phase, mx, K, C, R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -3571,6 +4009,7 @@ def main():
                     launches_imagenet_twin=imnet_launches[k],
                     launches_zoo=zoo_launches[k],
                     launches_rnn=rnn_launches[k],
+                    launches_api=api_launches[k],
                     launches_bf16=launches16[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     max_abs_err_bf16=worst16[k],
@@ -3587,9 +4026,11 @@ def main():
                         for d in zoo_v3})
                for k in ("bn_fwd", "bn_bwd")] + [
         dict(rtc_entry, launches_decode=decode_launches["rtc"],
-             launches_rnn=rnn_launches["rtc"]),
+             launches_rnn=rnn_launches["rtc"],
+             launches_api=api_launches["rtc"]),
         dict(copy_entry, launches_decode=decode_launches["copy"],
-             launches_rnn=rnn_launches["copy"])]
+             launches_rnn=rnn_launches["copy"],
+             launches_api=api_launches["copy"])]
     emit({"phase": "done", "seconds": time.time() - t_start,
           "phase_seconds": seconds})
     print(card)

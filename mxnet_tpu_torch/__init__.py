@@ -5,7 +5,9 @@ far (``mx.nd``, ``mx.sym``, ``mx.mod``, ``mx.init``, ``mx.optimizer``,
 ``mx.lr_scheduler``, ``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.rtc``,
 ``mx.models``, ``mx.checkpoint``, ``mx.monitor``, ``mx.telemetry``,
 ``mx.serving``, ``mx.rnn``, ``mx.precision``, ``mx.recordio``,
-``mx.image``, ``mx.data``). It
+``mx.image``, ``mx.data``, ``mx.autograd``, ``mx.operator``, ``mx.kv``/
+``mx.kvstore``, ``mx.model.FeedForward``, ``mx.viz`` and
+``mx.test_utils``). It
 imports torch and numpy, never JAX and
 nothing of ``mxnet_tpu``. Entry points run on ``gpu(0)`` unless the caller
 passes ``mx.cpu()``.
@@ -15,11 +17,13 @@ from .context import Context, cpu, gpu, tpu, current_context
 from . import random
 from . import ndarray
 from . import ndarray as nd
+from . import autograd
 from . import symbol
 from . import symbol as sym
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from . import optimizer as opt
 from . import lr_scheduler
 from . import io
 from . import recordio
@@ -28,6 +32,8 @@ from . import data
 from . import metric
 from . import callback
 from . import rtc
+from . import kvstore
+from . import kvstore as kv
 from . import model
 from . import module
 from . import module as mod
@@ -40,10 +46,16 @@ from . import telemetry
 from . import serving
 from . import rnn
 from . import precision
+from . import operator
+from . import visualization
+from . import visualization as viz
+from . import test_utils
+from .model import FeedForward
 
 __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "current_context", "random", "nd", "sym", "init",
            "optimizer", "lr_scheduler", "io", "metric", "callback", "rtc",
            "model", "mod", "models", "convert", "checkpoint", "monitor",
            "mon", "telemetry", "serving", "rnn", "precision", "recordio",
-           "image", "data"]
+           "image", "data", "autograd", "operator", "kv", "kvstore", "opt",
+           "viz", "visualization", "test_utils", "FeedForward"]

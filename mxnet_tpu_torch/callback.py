@@ -15,10 +15,11 @@ each ``Speedometer`` line also carries the window's host-wait share.
 from __future__ import annotations
 
 import logging
+import math
 import time
 
 __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
-           "Speedometer"]
+           "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
 
 
 def module_checkpoint(mod, prefix=None, period=1,
@@ -135,3 +136,28 @@ class Speedometer(object):
         self._tic = time.time()
         self._seen = 0
         self._wait_seen = self._host_wait_ms()
+
+
+class ProgressBar(object):
+    """Batch callback: a text progress bar over ``total`` batches."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        done = int(round(self.bar_len * param.nbatch / float(self.total)))
+        pct = math.ceil(100.0 * param.nbatch / float(self.total))
+        logging.info("[%s] %s%%\r",
+                     "=" * done + "-" * (self.bar_len - done), pct)
+
+
+class LogValidationMetricsCallback(object):
+    """Eval-end callback: log every validation metric of the epoch."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f",
+                         param.epoch, name, value)

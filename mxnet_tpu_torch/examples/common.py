@@ -116,3 +116,27 @@ def card_sync(ctx):
     if ctx.device_type == "cpu":
         return lambda: None
     return lambda: torch.cuda.synchronize(ctx.torch_device())
+
+
+class StepTimer(object):
+    """Wall time of a training loop, the card's queue drained at both
+    ends: ``with StepTimer(ctx) as t: ...``, then set ``t.steps`` and
+    read ``t.ms_per_step``."""
+
+    def __init__(self, ctx):
+        self._sync = card_sync(ctx)
+        self.steps = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self._sync()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._sync()
+        self.seconds += time.perf_counter() - self._t0
+
+    @property
+    def ms_per_step(self):
+        return 1000.0 * self.seconds / max(self.steps, 1)

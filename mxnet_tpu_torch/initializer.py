@@ -11,13 +11,16 @@ from __future__ import annotations
 
 import json
 import math
+import re
 
+import numpy as onp
 import torch
 
 from .base import string_types
 from . import random as _random
 
 __all__ = ["Initializer", "Uniform", "Normal", "Xavier", "One", "Zero",
+           "Constant", "Orthogonal", "MSRAPrelu", "Bilinear", "Load", "Mixed",
            "LSTMBias", "FusedRNN", "InitDesc", "register", "create"]
 
 _INIT_REGISTRY = {}
@@ -72,6 +75,7 @@ class Initializer(object):
 
     # first match wins, in the order of the JAX package's rules
     _NAME_RULES = (
+        (lambda n: n.startswith("upsampling"), "_init_bilinear"),
         (lambda n: n.endswith("bias"), "_init_bias"),
         (lambda n: n.endswith("gamma"), "_init_gamma"),
         (lambda n: n.endswith("beta"), "_init_beta"),
@@ -95,6 +99,16 @@ class Initializer(object):
                 getattr(self, handler)(name, arr)
                 return
         self._init_default(name, arr)
+
+    def _init_bilinear(self, _, arr):
+        """The separable tent filter of bilinear upsampling."""
+        h, w = arr.shape[2], arr.shape[3]
+        f = onp.ceil(w / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        tent_x = 1 - onp.abs(onp.arange(w) / f - c)
+        tent_y = 1 - onp.abs(onp.arange(h) / f - c)
+        arr[:] = onp.broadcast_to(tent_y[:, None] * tent_x[None, :],
+                                  arr.shape).astype("float32")
 
     def _init_bias(self, _, arr):
         arr[:] = 0.0
@@ -132,6 +146,61 @@ class One(Initializer):
         arr[:] = 1.0
 
     _init_default = _init_weight
+
+
+@register
+class Constant(Initializer):
+    """Every value ``value``."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr[:] = self.value
+
+    _init_default = _init_weight
+
+
+@register
+class Load(object):
+    """Values from a dict of arrays by name, else from ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = dict(param)
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(arr.shape):
+                raise ValueError("Parameter %s shape mismatch" % name)
+            arr[:] = src.asnumpy() if hasattr(src, "asnumpy") else src
+        else:
+            if self.default_init is None:
+                raise ValueError("Cannot init %s: not found and no default"
+                                 % name)
+            self.default_init(name, arr)
+
+
+@register
+class Mixed(object):
+    """The initializer of the first pattern (a regex) that matches the
+    parameter's name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must have same length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError("Parameter name %s did not match any pattern."
+                         % name)
 
 
 @register
@@ -183,6 +252,52 @@ class Xavier(Initializer):
             arr[:] = _normal(shape, scale)
         else:
             raise ValueError("Unknown random type")
+
+
+def orthogonal_from(tmp, shape, scale):
+    """``scale`` times the orthonormal factor of the SVD of the
+    (nout, nin) matrix ``tmp`` that has its shape, reshaped to ``shape``
+    (``Orthogonal``'s deterministic step)."""
+    u, _, v = onp.linalg.svd(tmp, full_matrices=False)
+    res = u if u.shape == tmp.shape else v
+    return (scale * res).reshape(shape)
+
+
+@register
+class Orthogonal(Initializer):
+    """An orthogonal matrix from the SVD of a uniform or normal draw."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        if self.rand_type == "uniform":
+            tmp = _uniform((nout, nin), -1.0, 1.0)
+        else:
+            tmp = _normal((nout, nin), 1.0)
+        arr[:] = orthogonal_from(tmp.numpy(), arr.shape, self.scale)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """Gaussian Xavier with magnitude 2 / (1 + slope²) (He et al.)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear-upsampling filter for every weight."""
+
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)
 
 
 @register

@@ -6,8 +6,13 @@ and ``create`` contract as the JAX package, for the metrics ``fit`` and
 ``Perplexity``, ``Loss``, ``CompositeEvalMetric`` and ``CustomMetric``.
 ``update`` runs in numpy on the host, as the JAX package's host path does
 (``_as_np``): each batch's outputs are read back from the card once.
+``F1`` (binary, averaged per batch), ``MAE``, ``MSE`` and ``RMSE`` are
+MXNet 0.9.5's; the regression scores update on the host only. ``Torch``
+and ``Caffe`` come with their plugins (ROADMAP A10) and refuse until
+then.
 
-The device-side tally: every metric but ``CustomMetric`` also has a
+The device-side tally: every metric but ``CustomMetric`` and the
+regression scores also has a
 ``fused_stat`` — a function ``stat(torch, labels, preds)`` that returns
 this batch's ``(sum, count)`` (a tensor on the outputs' device or a Python
 number; a composite returns one pair per leaf metric) and equals what
@@ -23,8 +28,9 @@ import math
 import numpy
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "Perplexity", "Loss", "CustomMetric", "np",
-           "check_label_shapes", "create"]
+           "CrossEntropy", "Perplexity", "Loss", "F1", "MAE", "MSE", "RMSE",
+           "Torch", "Caffe", "CustomMetric", "np", "check_label_shapes",
+           "create"]
 
 
 def _as_np(x):
@@ -388,6 +394,110 @@ class Loss(EvalMetric):
         return stat
 
 
+class F1(EvalMetric):
+    """Binary-classification F1, averaged per batch."""
+
+    def __init__(self):
+        super().__init__("f1")
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for lab, out in zip(labels, preds):
+            scores = _as_np(out)
+            want = _as_np(lab).astype("int64").ravel()
+            check_label_shapes(want, scores)
+            if numpy.unique(want).size > 2:
+                raise ValueError(
+                    "F1 currently only supports binary classification.")
+            got = scores.argmax(axis=1)
+            tp = int(((got == 1) & (want == 1)).sum())
+            fp = int(((got == 1) & (want == 0)).sum())
+            fn = int(((got == 0) & (want == 1)).sum())
+            precision = tp / (tp + fp) if tp + fp else 0.0
+            recall = tp / (tp + fn) if tp + fn else 0.0
+            both = precision + recall
+            self.sum_metric += 2.0 * precision * recall / both if both else 0.0
+            self.num_inst += 1
+
+    def fused_stat(self):
+        def stat(xp, labels, preds):
+            total, seen = 0.0, 0
+            for lab, out in zip(labels, preds):
+                got = out.argmax(dim=1)
+                want = lab.to(xp.int64).reshape(-1)
+                tp = ((got == 1) & (want == 1)).sum().double()
+                fp = ((got == 1) & (want == 0)).sum().double()
+                fn = ((got == 0) & (want == 1)).sum().double()
+                precision = xp.where(tp + fp > 0, tp / (tp + fp).clamp(min=1),
+                                     xp.zeros_like(tp))
+                recall = xp.where(tp + fn > 0, tp / (tp + fn).clamp(min=1),
+                                  xp.zeros_like(tp))
+                both = precision + recall
+                f1 = xp.where(both > 0, 2.0 * precision * recall /
+                              both.clamp(min=1e-300), xp.zeros_like(both))
+                total = total + f1.float()
+                seen += 1
+            return total, seen
+
+        return stat
+
+
+class _BatchScore(EvalMetric):
+    """Regression scores: one score per (label, pred) pair, averaged."""
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for lab, out in zip(labels, preds):
+            want, got = _as_np(lab), _as_np(out)
+            want = want.reshape(want.shape[0], -1)
+            got = got.reshape(got.shape[0], -1)
+            self.sum_metric += float(self._score(want, got))
+            self.num_inst += 1
+
+
+class MAE(_BatchScore):
+    def __init__(self):
+        super().__init__("mae")
+
+    @staticmethod
+    def _score(want, got):
+        return numpy.abs(want - got).mean()
+
+
+class MSE(_BatchScore):
+    def __init__(self):
+        super().__init__("mse")
+
+    @staticmethod
+    def _score(want, got):
+        return ((want - got) ** 2).mean()
+
+
+class RMSE(_BatchScore):
+    def __init__(self):
+        super().__init__("rmse")
+
+    @staticmethod
+    def _score(want, got):
+        return numpy.sqrt(((want - got) ** 2).mean())
+
+
+class Torch(Loss):
+    """The loss of a Torch criterion: comes with the Torch plugin."""
+
+    def __init__(self, name="torch"):
+        from .base import MXNetError
+        raise MXNetError("metric.%s comes with the Torch and Caffe plugins "
+                         "(ROADMAP A10) of the port" % type(self).__name__)
+
+
+class Caffe(Torch):
+    """The loss of a Caffe net: comes with the Caffe plugin."""
+
+    def __init__(self):
+        super().__init__("caffe")
+
+
 class CustomMetric(EvalMetric):
     """Host-only metric from a user ``feval(label, pred)`` callable; it
     has no device statistic, so ``fit`` keeps the per-batch host path."""
@@ -428,6 +538,7 @@ def np(numpy_feval, name=None, allow_extra_outputs=False):
 
 _REGISTRY = {
     "acc": Accuracy, "accuracy": Accuracy, "ce": CrossEntropy,
+    "f1": F1, "mae": MAE, "mse": MSE, "rmse": RMSE,
     "top_k_accuracy": TopKAccuracy, "perplexity": Perplexity,
     "loss": Loss,
 }

@@ -192,6 +192,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         self._pending_bwd = False    # a deferred fwd+bwd awaiting update()
         self._train_staged = False   # a train batch is staged
         self._last_aux = None        # aux before a materialised forward
+        self._held = None            # (outputs, leaves) of that forward
         self._outputs_from = None    # "fwd" | "bwd" | None
         self._key = None             # the staged train forward's key
         self._metric_stat = None
@@ -277,11 +278,13 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
 
     def reshape(self, data_shapes, label_shapes):
         self._flush()
+        self._held = None
         self._wire_data_shapes = list(data_shapes)
         super().reshape(self._model_data_shapes(data_shapes), label_shapes)
 
     def set_params(self, arg_params, aux_params):
         self._flush()
+        self._held = None
         super().set_params(arg_params, aux_params)
 
     @property
@@ -367,11 +370,23 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         (loss heads ignore them); ``scale`` multiplies them and divides
         the gradients (the dynamic loss scale); ``key`` is the forward's
         key."""
+        outs, new_aux, leaves = self._fwd_graph(params, aux, inputs, key)
+        grads = self._grads_of(outs, leaves, params, heads, scale)
+        return tuple(o.detach().float() for o in outs), new_aux, grads
+
+    def _fwd_graph(self, params, aux, inputs, key=None):
+        """A training forward that keeps its autograd graph: (outputs,
+        new aux, the parameters' leaves by name)."""
         leaves = {}
         vals = self._arg_vals(params, inputs, leaves)
         fn = self._remat_eval_fn or self._eval_fn
         with torch.enable_grad():
             outs, new_aux = fn(vals, aux, True, key=key)
+        return outs, new_aux, leaves
+
+    def _grads_of(self, outs, leaves, params, heads=None, scale=None):
+        """The gradients by name of ``_fwd_graph``'s outputs under the
+        head gradients (``_fwd_bwd``)."""
         if heads is None:
             hs = [torch.ones_like(o) for o in outs]
         else:
@@ -391,7 +406,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         if scale is not None:
             inv = 1.0 / scale
             grads = {n: g * inv for n, g in grads.items()}
-        return tuple(o.detach().float() for o in outs), new_aux, grads
+        return grads
 
     def _step_math(self, fa, params, aux, states, inputs, lrs, wds,
                    macc=None, ls=None, key=None):
@@ -520,6 +535,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         self._flush()
         self._stage(data_batch, is_train)
         self._last_aux = None
+        self._held = None
         self._pending_fwd = self._pending_bwd = False
         self._key = _random.next_key() if is_train and self._needs_rng \
             else None
@@ -538,16 +554,24 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
     def _materialize_forward(self):
         """Outputs read before the backward: run the train forward now,
         keeping the aux it started from so the step re-runs from it (the
-        EMA is applied once)."""
+        EMA is applied once), and its autograd graph, from which a
+        ``backward`` takes the gradients without a second forward (a
+        module that feeds another, ``backward(out_grads=)``)."""
         if not self._pending_fwd:
             return
         self._pending_fwd = False
         self._clear_force()
         aux = self._aux_now()
         self._last_aux = [a.clone() for a in aux]
-        outs, new_aux = self._forward_only(self._params_now(), aux,
-                                           self._inputs_now(), True,
-                                           self._key)
+        if self._grad_names:
+            graph, new_aux, leaves = self._fwd_graph(
+                self._params_now(), aux, self._inputs_now(), self._key)
+            self._held = (graph, leaves)
+            outs = tuple(o.detach().float() for o in graph)
+        else:
+            outs, new_aux = self._forward_only(self._params_now(), aux,
+                                               self._inputs_now(), True,
+                                               self._key)
         self._write_outs(outs)
         self._write_aux(new_aux)
         self._outputs_from = "fwd"
@@ -578,6 +602,14 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             dev = self.contexts[0].torch_device()
             heads = [g._read() if isinstance(g, nd.NDArray) else
                      torch.as_tensor(g, device=dev) for g in out_grads]
+        if self._held is not None:
+            # the materialised forward's graph: outputs and aux are written
+            graph, leaves = self._held
+            self._held = self._last_aux = None
+            self._write_grads(self._grads_of(graph, leaves,
+                                             self._params_now(), heads))
+            self._outputs_from = "bwd"
+            return
         aux = self._last_aux if self._last_aux is not None \
             else self._aux_now()
         outs, new_aux, grads = self._fwd_bwd(
@@ -676,6 +708,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         if fa is None:
             return False
         self._pending_bwd = False
+        self._held = None       # the step runs forward and backward itself
         self._clear_force()
         keys, states, rows = self._optimizer_rows(updater, 1)
         lw = self._to_device(rows)

@@ -33,7 +33,8 @@ from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..initializer import Uniform, InitDesc
-from ..model import _update_params, load_checkpoint
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint)
 from .base_module import BaseModule, pad_batch_rows, stack_group_inputs
 from .executor_group import DataParallelExecutorGroup
 from .mesh_executor_group import MeshExecutorGroup
@@ -116,6 +117,8 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._preload_opt_states = None
         self._exec_group = None
         self._eval_pad_extra = 0
@@ -334,7 +337,7 @@ class Module(BaseModule):
         if save_optimizer_states:
             if not self.optimizer_initialized:
                 raise MXNetError("call init_optimizer first")
-            opt_state = self._updater.get_states()
+            opt_state = self._states_updater().get_states()
         sym_json = self._symbol.tojson()
         merged = {"epoch": int(step), "symbol": sym_json,
                   "precision_mode": self.precision_mode,
@@ -350,13 +353,19 @@ class Module(BaseModule):
                          " (async)" if async_save else "")
         return step
 
+    def _states_updater(self):
+        """The updater that holds the optimizer states: the kvstore's
+        when the update runs on it, else the module's."""
+        return self._kvstore._updater if self._update_on_kvstore \
+            else self._updater
+
     def save_optimizer_states(self, fname):
         """Write the optimizer states (``Updater.get_states``) to
         ``fname``."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
         from ..checkpoint.serialize import atomic_write_bytes
-        atomic_write_bytes(fname, self._updater.get_states())
+        atomic_write_bytes(fname, self._states_updater().get_states())
 
     def load_optimizer_states(self, fname):
         """Restore optimizer states from a ``.states`` file or from the
@@ -364,10 +373,10 @@ class Module(BaseModule):
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
         if isinstance(fname, (bytes, bytearray)):
-            self._updater.set_states(bytes(fname))
+            self._states_updater().set_states(bytes(fname))
             return
         with open(fname, "rb") as fin:
-            self._updater.set_states(fin.read())
+            self._states_updater().set_states(fin.read())
 
     def get_params(self):
         """(arg_params, aux_params) as CPU NDArrays, synced from the
@@ -433,6 +442,10 @@ class Module(BaseModule):
         borrows the shared module's optimizer once it has one; the fused
         route binds shared modules for inference."""
         if force_rebind:
+            if self.binded and self.params_initialized:
+                # the bound arrays hold the trained values: the new group
+                # starts from them, whichever route it takes
+                self.get_params()
             self.binded = False
             self._exec_group = None
             self._eval_pad_extra = 0
@@ -562,15 +575,23 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Create the optimizer; ``rescale_grad`` defaults to 1/batch, and
-        a precision mode's optimizer-state dtype becomes its
-        ``state_dtype``. On the fused route it turns on the one-function
-        step that ``update()`` runs."""
+        """Create the kvstore and the optimizer; ``rescale_grad`` defaults
+        to 1/batch, and a precision mode's optimizer-state dtype becomes
+        its ``state_dtype``.
+
+        ``kvstore``: ``None`` or a local kind's name means no store on one
+        device (``model._create_kvstore``); a ``KVStore`` instance gets
+        the optimizer and every ``update()`` pushes the gradients to it
+        and pulls the weights back (update on the kvstore). Without a
+        store, on the fused route, it turns on the one-function step
+        that ``update()`` runs."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params first")
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring")
             return
+        kvstore, update_on_kvstore = _create_kvstore(kvstore, 1,
+                                                     self._arg_params)
         want = self._opt_state_dtype
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
@@ -592,10 +613,20 @@ class Module(BaseModule):
                     "module's precision mode %r wants %r; drop one of the "
                     "two settings" % (have, self.precision_mode, want))
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            _initialize_kvstore(kvstore, self._exec_group.param_arrays,
+                                self._arg_params, self._param_names,
+                                update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._fused:
-            self._exec_group._step_enabled = True
+            self._exec_group._step_enabled = kvstore is None
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
@@ -607,9 +638,11 @@ class Module(BaseModule):
             raise MXNetError("shared_module has no optimizer")
         self._optimizer = shared_module._optimizer
         self._updater = shared_module._updater
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self.optimizer_initialized = True
         if self._fused:
-            self._exec_group._step_enabled = True
+            self._exec_group._step_enabled = self._kvstore is None
 
     def reshape(self, data_shapes, label_shapes=None):
         """Bind again at new input shapes on the same parameters: every
@@ -694,16 +727,23 @@ class Module(BaseModule):
 
     def update(self):
         """Apply the optimizer to every parameter with a gradient: on the
-        fused route the deferred step runs as one function
-        (``MeshExecutorGroup.step_update``); otherwise, or when the
-        gradients were read first, the classic update."""
+        kvstore (push the gradients, pull the weights) when it updates
+        there; else on the fused route the deferred step runs as one
+        function (``MeshExecutorGroup.step_update``); otherwise, or when
+        the gradients were read first, the classic update."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
         self._params_dirty = True
-        if self._fused and self._exec_group.step_update(self._updater):
+        grp = self._exec_group
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(grp.param_arrays, grp.grad_arrays,
+                                      self._kvstore)
             return
-        _update_params(self._exec_group.param_arrays,
-                       self._exec_group.grad_arrays, self._updater)
+        if self._fused and self._kvstore is None and \
+                grp.step_update(self._updater):
+            return
+        _update_params(grp.param_arrays, grp.grad_arrays, self._updater,
+                       kvstore=self._kvstore)
 
     def grouped_train_engaged(self):
         """Whether a grouped (``fit(batch_group=K)``) step has run on

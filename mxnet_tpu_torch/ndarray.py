@@ -21,6 +21,7 @@ import torch
 
 from .base import MXNetError, numeric_types, torch_dtype, numpy_dtype
 from .context import Context, current_context
+from . import autograd as _autograd
 from . import random as _random
 from . import registry as _registry
 
@@ -180,50 +181,70 @@ class NDArray:
             raise TypeError("type %s not supported" % str(type(value)))
 
     # ---------------------------------------------------------- operators
-    def _binary(self, other, fn):
+    # Arithmetic runs on the tensors directly; while autograd records,
+    # it goes through the registered ops (``nd_op`` for two arrays,
+    # ``scalar_op`` with a number), as the JAX package's always does, so
+    # that it lands on the tape.
+    def _binary(self, other, fn, nd_op=None, scalar_op=None):
+        if _autograd.is_recording():
+            return _recorded(self, other, nd_op, scalar_op)
         rhs = other._t if isinstance(other, NDArray) else other
         return NDArray(fn(self._t, rhs), ctx=self._ctx)
 
-    def _inplace(self, other, fn):
+    def _inplace(self, other, fn, nd_op=None, scalar_op=None):
+        if _autograd.is_recording():
+            return _recorded(self, other, nd_op, scalar_op, out=self)
         rhs = other._t if isinstance(other, NDArray) else other
         self._write(fn(self._t, rhs))
         return self
 
     def __add__(self, other):
-        return self._binary(other, torch.add)
+        return self._binary(other, torch.add, "broadcast_add",
+                            "_plus_scalar")
 
     __radd__ = __add__
 
     def __iadd__(self, other):
-        return self._inplace(other, torch.add)
+        return self._inplace(other, torch.add, "broadcast_add",
+                             "_plus_scalar")
 
     def __sub__(self, other):
-        return self._binary(other, torch.sub)
+        return self._binary(other, torch.sub, "broadcast_sub",
+                            "_minus_scalar")
 
     def __rsub__(self, other):
-        return self._binary(other, lambda a, b: b - a)
+        return self._binary(other, lambda a, b: b - a, None,
+                            "_rminus_scalar")
 
     def __isub__(self, other):
-        return self._inplace(other, torch.sub)
+        return self._inplace(other, torch.sub, "broadcast_sub",
+                             "_minus_scalar")
 
     def __mul__(self, other):
-        return self._binary(other, torch.mul)
+        return self._binary(other, torch.mul, "broadcast_mul",
+                            "_mul_scalar")
 
     __rmul__ = __mul__
 
     def __imul__(self, other):
-        return self._inplace(other, torch.mul)
+        return self._inplace(other, torch.mul, "broadcast_mul",
+                             "_mul_scalar")
 
     def __truediv__(self, other):
-        return self._binary(other, torch.div)
+        return self._binary(other, torch.div, "broadcast_div",
+                            "_div_scalar")
 
     def __rtruediv__(self, other):
-        return self._binary(other, lambda a, b: b / a)
+        return self._binary(other, lambda a, b: b / a, None,
+                            "_rdiv_scalar")
 
     def __itruediv__(self, other):
-        return self._inplace(other, torch.div)
+        return self._inplace(other, torch.div, "broadcast_div",
+                             "_div_scalar")
 
     def __neg__(self):
+        if _autograd.is_recording():
+            return _recorded(self, -1.0, None, "_mul_scalar")
         return NDArray(-self._t, ctx=self._ctx)
 
     # ------------------------------------------------- reductions, layout
@@ -254,6 +275,18 @@ class NDArray:
         return self if self.ndim <= 1 else transpose(self)
 
 
+def _recorded(lhs, rhs, nd_op, scalar_op, out=None):
+    """``lhs <op> rhs`` through the registered op, so autograd records it."""
+    if isinstance(rhs, NDArray):
+        if nd_op is None:
+            raise MXNetError("operation not supported between NDArrays")
+        return invoke(_registry.get_op(nd_op), [lhs, rhs], {}, out=out)
+    if isinstance(rhs, numeric_types):
+        return invoke(_registry.get_op(scalar_op), [lhs],
+                      {"scalar": float(rhs)}, out=out)
+    raise TypeError("type %s not supported" % str(type(rhs)))
+
+
 # ---------------------------------------------------------------------------
 # imperative invoke: run a registered op on NDArrays
 # ---------------------------------------------------------------------------
@@ -262,7 +295,9 @@ def invoke(op, inputs, raw_attrs, out=None, ctx=None):
     Ops with aux state write their aux updates back into the trailing aux
     inputs. An op without inputs (``_zeros``, the samplers) runs on
     ``ctx``, else on ``out``'s context, else on the default context; a
-    ``needs_rng`` op draws one key from ``random.next_key``."""
+    ``needs_rng`` op draws one key from ``random.next_key``. Under
+    ``autograd.train_section`` the op runs in training mode and is
+    recorded on the autograd tape."""
     attrs = _registry.parse_attrs(op, raw_attrs)
     if op.variable_args is not None and op.variable_args not in attrs:
         attrs[op.variable_args] = len(inputs)
@@ -273,7 +308,8 @@ def invoke(op, inputs, raw_attrs, out=None, ctx=None):
                   else out_first.context if out_first is not None
                   else current_context())
     octx = _registry.OpContext(
-        is_train=False, device=None if inputs else ctx.torch_device(),
+        is_train=_autograd.is_training(),
+        device=None if inputs else ctx.torch_device(),
         key=_random.next_key() if op.needs_rng else None)
     with torch.no_grad():
         results = op.fcompute(attrs, [x._t for x in inputs], octx)
@@ -292,6 +328,8 @@ def invoke(op, inputs, raw_attrs, out=None, ctx=None):
             wrapped.append(out_list[i])
         else:
             wrapped.append(NDArray(o, ctx=ctx))
+    if _autograd.is_recording():
+        _autograd.record_op(op, attrs, list(inputs), wrapped, octx)
     return wrapped[0] if len(wrapped) == 1 else wrapped
 
 

@@ -1,7 +1,14 @@
 """Optimizers (PyTorch counterpart of ``mxnet_tpu/optimizer.py``).
 
 Same registry + Updater contract as the JAX package, for SGD with
-momentum, weight decay and gradient rescaling, Adam and RMSProp.
+momentum, weight decay and gradient rescaling, Adam and RMSProp, and
+MXNet 0.9.5's ``DCASGD``, ``NAG``, ``SGLD``, ``ccSGD``, ``AdaGrad``,
+``AdaDelta``, ``Ftrl`` and ``Test``. As in the JAX package, only SGD (and
+its alias ``ccSGD``), Adam and RMSProp have a pure ``_fused_apply``; the
+others update one parameter at a time with NDArray arithmetic, on the
+classic update route (``NAG`` overrides ``SGD.update``, so it takes that
+route too). ``SGLD`` draws its noise from the port's key path
+(``random.next_key``, one key an update).
 ``update`` (one parameter) calls the update ops of
 ``ops/optimizer_ops.py`` with ``out=`` set to the weight and its state,
 so each update lands in place. A step
@@ -36,11 +43,14 @@ import numpy
 import torch
 
 from .base import MXNetError
+from . import random as _random
 from .ndarray import (NDArray, array, zeros, sgd_update, sgd_mom_update,
-                      adam_update, rmsprop_update, rmspropalex_update)
+                      adam_update, rmsprop_update, rmspropalex_update,
+                      clip, square, sqrt)
 
-__all__ = ["Optimizer", "SGD", "Adam", "RMSProp", "Updater", "get_updater",
-           "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "RMSProp", "DCASGD", "NAG", "SGLD",
+           "ccSGD", "AdaGrad", "AdaDelta", "Ftrl", "Test", "Updater",
+           "get_updater", "create", "register"]
 
 
 class Optimizer(object):
@@ -311,6 +321,182 @@ class RMSProp(Optimizer):
                                gamma2=self.gamma2, **kwargs)
 
 
+def _clipped(opt, grad):
+    """``grad * rescale_grad``, clipped to ``clip_gradient`` when set."""
+    grad = grad * opt.rescale_grad
+    if opt.clip_gradient is not None:
+        grad = clip(grad, a_min=-opt.clip_gradient, a_max=opt.clip_gradient)
+    return grad
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD: the state is the momentum (or
+    None) and the weight of the previous update."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, weight.copy())
+        return (zeros(weight.shape, weight.context, dtype=weight.dtype),
+                weight.copy())
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        grad = _clipped(self, grad)
+        mom, previous_weight = state
+        comp = grad + wd * weight + \
+            self.lamda * grad * grad * (weight - previous_weight)
+        if mom is not None:
+            mom *= self.momentum
+            mom += -lr * comp
+            delta = mom
+        else:
+            delta = -lr * comp
+        weight.copyto(previous_weight)
+        weight += delta
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD."""
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        grad = _clipped(self, grad)
+        if state is not None:
+            mom = state
+            mom *= self.momentum
+            grad += wd * weight
+            mom += grad
+            grad += self.momentum * mom
+            weight += -lr * grad
+        else:
+            weight += -lr * (grad + wd * weight)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: a half step of SGD plus
+    Gaussian noise of variance lr, drawn from ``random.next_key``."""
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        grad = _clipped(self, grad)
+        noise = _random.key_normal(_random.next_key(), weight.shape,
+                                   weight._read().device)
+        weight += -lr / 2 * (grad + wd * weight) + NDArray(
+            noise.to(weight._read().dtype) * math.sqrt(lr),
+            ctx=weight.context)
+
+
+@register
+class ccSGD(SGD):
+    """Kept for compatibility: an alias of SGD (its fused step too)."""
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: the state is the running sum of squared gradients."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        grad = _clipped(self, grad)
+        history = state
+        history += square(grad)
+        weight += -lr * (grad / sqrt(history + self.float_stable_eps)
+                         + wd * weight)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta: running averages of squared gradients and updates."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),
+                zeros(weight.shape, weight.context))
+
+    def update(self, index, weight, grad, state):
+        wd = self._get_wd(index)
+        self._update_count(index)
+        grad = _clipped(self, grad)
+        acc_g, acc_delta = state
+        acc_g *= self.rho
+        acc_g += (1.0 - self.rho) * grad * grad
+        current_delta = sqrt(acc_delta + self.epsilon) / \
+            sqrt(acc_g + self.epsilon) * grad
+        acc_delta *= self.rho
+        acc_delta += (1.0 - self.rho) * current_delta * current_delta
+        weight -= current_delta + wd * weight
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal; the closed-form weight is computed on the host, as
+    in the JAX package."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(**kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+        self.lr = learning_rate
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),
+                zeros(weight.shape, weight.context))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        lr = self._get_lr(index)
+        grad = _clipped(self, grad)
+        dn, n = state
+        dn += grad - (sqrt(n + grad * grad) - sqrt(n)) * weight / lr
+        n += grad * grad
+        dn_np = dn.asnumpy()
+        n_np = n.asnumpy()
+        w = -(dn_np - numpy.sign(dn_np) * self.lamda1) / \
+            ((self.beta + numpy.sqrt(n_np)) / lr + wd)
+        w *= (numpy.abs(dn_np) > self.lamda1)
+        weight[:] = w
+
+
+@register
+class Test(Optimizer):
+    """Test optimizer: ``w += -lr * rescale_grad * grad``."""
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        weight += grad * self.rescale_grad * (-self.lr)
+
+
 def _map_leaves(state, fn):
     """``state`` (None, a leaf, or a tuple/list tree) with ``fn`` applied
     to every leaf."""
@@ -427,22 +613,22 @@ class Updater(object):
         """Update every (index, grad, weight) of one step: count them all,
         then apply each with the lr it reads now (the JAX package's
         ``Updater.update_multi`` order; Adam's bias-corrected lr at the
-        new count), through the optimizer's ``_fused_apply`` where it has
-        one (the same operations as its update op, so bit for bit the
-        same result), else its per-parameter update op."""
+        new count), through the optimizer's ``_fused_apply`` (the same
+        operations as its update op, so bit for bit the same result).
+        An optimizer without a pure apply runs its own ``update`` one
+        parameter at a time, as the JAX package's does."""
         opt = self.optimizer
         fa = self.fused_apply_or_none()
         if fa is None:
-            self._refuse_narrowed()
+            for index, grad, weight in triples:
+                self(index, grad, weight)
+            return
         get_lr = getattr(opt, "_fused_lr", opt._get_lr)
         for index, _, weight in triples:
             self._state(index, weight)
             opt._update_count(index)
         for index, grad, weight in triples:
             lr, wd = get_lr(index), opt._get_wd(index)
-            if fa is None:
-                opt._apply(weight, grad, self.states[index], lr, wd)
-                continue
             p, st = fa(torch, weight._read(), grad._read(),
                        self.read_state_tree(index, weight), lr, wd)
             weight._write(p)

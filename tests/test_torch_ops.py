@@ -3,10 +3,11 @@
 ``sample.py`` and the RMSProp update ops) against the JAX package's, on
 the CPU.
 
-The port registers every name of the JAX registry but exactly the 33
-deferred ones (conv, contrib, detection, sequence-loss, parallel, Torch,
-WarpCTC and Custom operators), each with the JAX op's arguments, outputs
-and ``needs_rng`` flag. Each operator's forward and input gradient
+The port registers every name of the JAX registry but exactly the 32
+deferred ones (conv, contrib, detection, sequence-loss, parallel, Torch
+and WarpCTC operators), each with the JAX op's arguments, outputs and
+``needs_rng`` flag (``Custom``'s for a property class registered in both
+packages). Each operator's forward and input gradient
 equals the JAX op's on float32 inputs made by numpy from a seed, under a
 random head gradient: rtol 1e-5, atol 1e-6; rtol 1e-4 for ``gamma``,
 ``gammaln``, ``erf``, the ``arc*`` functions and the power ops; exact for
@@ -49,25 +50,44 @@ DEFERRED = {
     "_contrib_Proposal",
     # ops/sequence_loss.py (the warpctc and deepspeech twins)
     "CTCLoss", "Correlation", "_contrib_CTCLoss", "ctc_loss",
-    # ops/parallel_ops.py (A8), torch.py and plugin/warpctc (A10),
-    # operator.py (A2)
+    # ops/parallel_ops.py (A8), torch.py and plugin/warpctc (A10)
     "MoE", "RingAttention", "TorchCriterion", "TorchModule", "WarpCTC",
-    "Custom",
 }
 
 
 def test_registry_is_the_jax_one_minus_the_deferred_names():
     jax_names, port_names = set(jreg.list_ops()), set(treg.list_ops())
-    assert len(DEFERRED) == 33
+    assert len(DEFERRED) == 32
     assert port_names <= jax_names, sorted(port_names - jax_names)
     assert jax_names - port_names == DEFERRED, \
         sorted((jax_names - port_names) ^ DEFERRED)
-    assert len(port_names) == len(jax_names) - 33 == 234
+    assert len(port_names) == len(jax_names) - 32 == 235
 
 
 ATTR_PROBES = ({}, {"use_sequence_length": True}, {"mode": "gru"},
                {"num_args": 3}, {"ret_typ": "both"},
                {"state_outputs": True}, {"num_outputs": 2})
+
+
+def _register_probe_prop():
+    """``Custom``'s arity comes from a registered property class: one that
+    takes any attribute, with two arguments and two outputs."""
+    from mxnet_tpu import operator as jop_mod
+    from mxnet_tpu_torch import operator as top_mod
+    for mod in (jop_mod, top_mod):
+        @mod.register("signature_probe")
+        class _Probe(mod.CustomOpProp):
+            def __init__(self, **kwargs):
+                super().__init__()
+
+            def list_arguments(self):
+                return ["data", "label"]
+
+            def list_outputs(self):
+                return ["output", "aux_output"]
+
+
+_register_probe_prop()
 
 
 @pytest.mark.parametrize("name", sorted(set(jreg.list_ops()) - DEFERRED))
@@ -77,6 +97,8 @@ def test_every_name_has_the_jax_signature(name):
     assert top.needs_rng == jop.needs_rng
     assert list(top.aux_names) == list(jop.aux_names)
     for attrs in ATTR_PROBES:
+        if name == "Custom":
+            attrs = dict(attrs, op_type="signature_probe")
         assert top.list_arguments(attrs) == jop.list_arguments(attrs), attrs
         assert top.num_outputs(attrs) == jop.num_outputs(attrs), attrs
 
