@@ -240,12 +240,45 @@ result line) if any phase fails:
    ``kvstore="local"`` (the fused step), 3 resnet-20 steps within relative
    L2 1e-6, each at 20 + 20 BN launches a step. Every kernel counter reads
    0 over (a), (c), (d) and the store's push and pull;
-15. the kernels line (each kernel's launches on every path, decode's
+15. quant: the quantized precision modes (``precision/quant.py``). The
+   library GEMMs carry their own counters (``quant.GEMM_CALLS``: one per
+   ``torch._int_mm`` / ``torch._scaled_mm`` call). (a) ``narrow_dot``
+   int8 at ResNet-50's fc1 (2048 → 1000) and ``narrow_conv`` int8 at its
+   7×7/2 stem, a 3×3, a 1×1 and a strided 1×1 projection, and
+   resnext-50's 32-group 3×3, each at batch 1, 3 and 32 (1 and 3 pad to
+   ``_int_mm``'s rules): the int32 accumulator bit for bit against the
+   plain float64 product or convolution on the CPU, and the rescaled
+   output bit for bit against the CPU's ``narrow_*``; fp8 ``narrow_dot``
+   within ``QUANT_FP8_DOT_TOL``; ``to_e4m3`` and ``fake_cast`` bit for
+   bit, NaN positions included, on inputs crossing ±464. The library
+   GEMMs at fc1's and the im2col shapes at batch 32: ``_int_mm``,
+   ``_scaled_mm``, ``F.linear`` float32 and bfloat16, CUDA-event ms
+   beside each one's bound at the card's peak for its type. (b)
+   ResNet-50 at full width (224², 1000 classes, Xavier weights, BN
+   statistics from 48 training-mode forwards of a synthetic batch) behind
+   ``Predictor(max_batch_size=32)`` in f32, bf16, ``int8_serve``
+   (calibrated on 8 synthetic batches of 32, ``calibration=``) and
+   ``fp8_native``: the library calls of one eval forward equal to the
+   sites (54 ``_int_mm``, 1 ``_scaled_mm``), every site's narrow product
+   within ``tolerance_check`` of its float32 product (0.05 for int8,
+   ``QUANT_FP8_SITE_TOL`` for fp8), the rows' distance from f32 beside
+   bf16's and beside the f32 net's response to 2^-8 input noise (not
+   gated: the random net amplifies any rounding ~20×), per-bucket event
+   ms and rows/s. (c) both decode models of phase 10 under
+   ``int8_weight`` and ``bf16``: weight and step-argument bytes against
+   f32, first-token and token agreement with the f32 greedy streams (the
+   first token at least 0.8), two runs bit for bit, prefill parity,
+   tokens/s. (d) resnet-20 at the CIFAR twin's shapes under ``int8_act``
+   and ``fp8`` (``MXNET_PRECISION_EXPERIMENTAL=1``), 3 SGD steps twice
+   under deterministic cuDNN: bit for bit, the live loss scale with no
+   skipped step, exactly 20 + 20 bfloat16 BN launches a step; no kernel
+   of ours launches in (a)-(c);
+16. the kernels line (each kernel's launches on every path, decode's
    and rnn's 0 among them, ``launches_api`` the BN kernels' 60 + 60 over
-   (b)'s three steps, and the BN kernels' bfloat16, imagenet-twin
-   and zoo launches and times, inception-v3's per-step times), the
-   seconds of each phase, the card's nvidia-smi line, and the result
-   line.
+   phase 14 (b)'s three steps, ``launches_quant`` their 240 + 240 over
+   phase 15 (d), and the BN kernels' bfloat16, imagenet-twin and zoo
+   launches and times, inception-v3's per-step times), the seconds of
+   each phase, the card's nvidia-smi line, and the result line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -3910,6 +3943,593 @@ def api_phase(mx, K, C, R, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the quantized precision modes
+# ---------------------------------------------------------------------------
+QUANT_BATCHES = (1, 3, 32)          # 1 and 3 pad their rows up to 17
+# (name, per-image input shape, weight shape, stride, pad, dilate, groups):
+# ResNet-50's stem, a 3x3, a 1x1 and a strided 1x1 projection, and
+# resnext-50's grouped 3x3 (32 groups)
+QUANT_CONVS = [
+    ("conv7x7_s2", (3, 224, 224), (64, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1),
+    ("conv3x3", (64, 56, 56), (64, 64, 3, 3), (1, 1), (1, 1), (1, 1), 1),
+    ("conv1x1", (256, 56, 56), (64, 256, 1, 1), (1, 1), (0, 0), (1, 1), 1),
+    ("conv1x1_s2", (512, 28, 28), (1024, 512, 1, 1), (2, 2), (0, 0),
+     (1, 1), 1),
+    ("conv3x3_g32", (128, 56, 56), (128, 4, 3, 3), (1, 1), (1, 1), (1, 1),
+     32),
+]
+QUANT_FC = (2048, 1000)             # ResNet-50's fc1
+# fp8 dot on the card against the CPU's float32 sum of the same e4m3
+# products, of the plain output's max-abs: the products are exact, and
+# cuBLAS accumulates fp8 MMAs at reduced precision before promoting its
+# partial sums to float32 (stated before the first run)
+QUANT_FP8_DOT_TOL = 1e-3
+# the library GEMMs' shapes (M, K, N) at batch 32: fc1 and the im2col
+# products of the convolutions above
+QUANT_GEMM_SHAPES = [("fc1", 32, 2048, 1000),
+                     ("conv7x7_s2", 32 * 112 * 112, 147, 64),
+                     ("conv3x3", 32 * 56 * 56, 576, 64),
+                     ("conv1x1", 32 * 56 * 56, 256, 64),
+                     ("conv1x1_s2", 32 * 14 * 14, 512, 1024)]
+QUANT_PEAK = {"int8": 1979e12, "fp8": 1979e12, "bf16": 989e12,
+              "f32": F32_FLOPS_PER_S}
+QUANT_SERVE_MAX_BATCH = 32
+QUANT_BN_WARM = 48
+QUANT_CALIB_BATCHES = 8
+QUANT_SERVE_MODES = ("f32", "bf16", "int8_serve", "fp8_native")
+# an fp8 site's error, of its float32 output's max-abs: one e4m3 step,
+# 2^-3 (each operand rounds by up to half a step, 2^-4 of its value, so
+# a product by up to 2^-3 of its own); stated before the first run on
+# the card (the CPU rehearsal at batch 4: 0.056 at the worst site)
+QUANT_FP8_SITE_TOL = 2.0 ** -3
+QUANT_DECODE_MODES = ("int8_weight", "bf16")
+QUANT_DECODE_AGREE = 0.8
+QUANT_TRAIN_MODES = ("int8_act", "fp8")
+QUANT_STEPS = 3
+
+
+def quant_plain_conv(qx, qw, stride, pad, dilate, groups):
+    """The plain int8 convolution on the CPU: float64 over int8 values,
+    exact (every partial sum an integer far below 2^53), as int32."""
+    import torch
+    import torch.nn.functional as F
+    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[qx.dim() - 2]
+    return conv(qx.cpu().double(), qw.cpu().double(), None, stride=stride,
+                padding=pad, dilation=dilate, groups=groups).to(torch.int32)
+
+
+def quant_gemm_checks(card):
+    """(a) The int8 dot and convolution on the card against their plain
+    versions on the CPU, bit for bit in the int32 accumulator and in the
+    rescaled output; the fp8 dot within ``QUANT_FP8_DOT_TOL``; ``to_e4m3``
+    and ``fake_cast`` bit for bit. Returns the failed checks."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.precision import PrecisionPolicy, fake_cast, \
+        quant, to_e4m3
+    dev = API_DEVICE
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    failed, rows = [], []
+    int8 = PrecisionPolicy(narrow_math="int8")
+    fp8 = PrecisionPolicy(narrow_math="fp8")
+
+    # the int8 operands as narrow_* makes them without a table: a dynamic
+    # per-tensor scale for the input, a per-output-channel one for w
+    def q_input(t):
+        return quant._quantize(t, quant._x_scale(t, None))
+
+    def q_weight(w):
+        sw = quant._channel_scale(w)
+        return quant._quantize(w, sw.reshape((-1,) + (1,) * (w.dim() - 1)))
+
+    for b in QUANT_BATCHES:
+        x = torch.randn(b, QUANT_FC[0], generator=gen).relu()
+        w = torch.randn(QUANT_FC[1], QUANT_FC[0], generator=gen) * 0.02
+        with quant.trace_gemm_scope(int8):
+            got = quant.narrow_dot(x.to(dev), w.to(dev)).cpu()
+            want = quant.narrow_dot(x, w)
+        qx, qw = q_input(x.to(dev)), q_weight(w.to(dev))
+        acc = quant.int8_mm(qx, qw).cpu()
+        plain = (qx.cpu().double() @ qw.cpu().double().t()).to(torch.int32)
+        with quant.trace_gemm_scope(fp8):
+            g8 = quant.narrow_dot(x.to(dev), w.to(dev)).cpu()
+            w8 = quant.narrow_dot(x, w)
+        err8 = float((g8 - w8).abs().max() / w8.abs().max())
+        row = {"gemm": "fc1", "batch": b, "shape": [b] + list(QUANT_FC),
+               "int32_bitwise": bool(torch.equal(acc, plain)),
+               "int8_out_bitwise": bool(torch.equal(got, want)),
+               "int8_max_abs_err": float((got - want).abs().max()),
+               "fp8_rel_err": err8, "fp8_limit": QUANT_FP8_DOT_TOL}
+        row["ok"] = (row["int32_bitwise"] and row["int8_out_bitwise"]
+                     and err8 <= QUANT_FP8_DOT_TOL)
+        rows.append(row)
+    for name, shape, wshape, stride, pad, dilate, groups in QUANT_CONVS:
+        for b in QUANT_BATCHES:
+            x = torch.randn((b,) + shape, generator=gen).relu()
+            w = torch.randn(wshape, generator=gen) * 0.05
+            args = dict(stride=stride, padding=pad, dilation=dilate,
+                        groups=groups)
+            with quant.trace_gemm_scope(int8):
+                got = quant.narrow_conv(x.to(dev), w.to(dev), args).cpu()
+                want = quant.narrow_conv(x, w, args)
+            qx, qw = q_input(x.to(dev)), q_weight(w.to(dev))
+            acc = quant.int8_conv(qx, qw, stride, pad, dilate, groups).cpu()
+            plain = quant_plain_conv(qx, qw, stride, pad, dilate, groups)
+            row = {"gemm": name, "batch": b, "x": [b] + list(shape),
+                   "w": list(wshape), "groups": groups,
+                   "int32_bitwise": bool(torch.equal(acc, plain)),
+                   "int8_out_bitwise": bool(torch.equal(got, want)),
+                   "int8_max_abs_err": float((got - want).abs().max())}
+            row["ok"] = row["int32_bitwise"] and row["int8_out_bitwise"]
+            rows.append(row)
+            del x, w, qx, qw, acc, plain, got, want
+    bad = [r for r in rows if not r["ok"]]
+    emit({"phase": "quant_gemms", "cases": len(rows), "rows": rows,
+          "ok": not bad, "card": card})
+    if bad:
+        failed.append("int8/fp8 GEMMs vs plain at %s"
+                      % [(r["gemm"], r["batch"]) for r in bad])
+    # the casts, on inputs crossing +-464 (NaN above, as ml_dtypes does)
+    x = (torch.randn(256, 1024, generator=gen) * 300.0)
+    x.view(-1)[:10] = torch.tensor([448, 449, 464, 464.5, 500, 1e4, -1e4,
+                                    float("inf"), float("nan"), -465.0])
+    cast_ok = {}
+    for what, fn in (("to_e4m3", lambda v: to_e4m3(v).float()),
+                     ("fake_cast_int8", lambda v: fake_cast(v, "int8")),
+                     ("fake_cast_fp8", lambda v: fake_cast(v, "fp8")),
+                     ("fake_cast_fp8_bf16",
+                      lambda v: fake_cast(v.bfloat16(), "fp8").float())):
+        a, c = fn(x.to(dev)).cpu().numpy(), fn(x).numpy()
+        na, nc = np.isnan(a), np.isnan(c)
+        cast_ok[what] = bool((na == nc).all() and np.array_equal(
+            a[~na].view(np.uint32), c[~nc].view(np.uint32)))
+    emit({"phase": "quant_casts", "bitwise": cast_ok,
+          "nan_count": int(np.isnan(to_e4m3(x).float().numpy()).sum()),
+          "ok": all(cast_ok.values()), "card": card})
+    if not all(cast_ok.values()):
+        failed.append("casts %s" % cast_ok)
+    return failed
+
+
+def quant_gemm_times(card):
+    """The library GEMMs the slice calls, at fc1's and the im2col shapes
+    at batch 32: ``torch._int_mm`` (int8), ``torch._scaled_mm`` (e4m3,
+    float32 out), ``F.linear`` in float32 (TF32 off) and bfloat16, each
+    by CUDA events (median of 20), beside the least time at the card's
+    peak rate for its type and the bytes' time at ``HBM_BYTES_PER_S``."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.tools import bn_probe
+    dev = API_DEVICE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for name, M, K, N in QUANT_GEMM_SHAPES:
+        Kp, Np, Mp = -(-K // 16) * 16, -(-N // 16) * 16, max(M, 17)
+        a = torch.randint(-127, 128, (Mp, Kp), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (Np, Kp), generator=gen, device=dev,
+                          dtype=torch.int8)
+        af = torch.randn(M, K, generator=gen, device=dev)
+        bf = torch.randn(N, K, generator=gen, device=dev)
+        a8 = af.to(torch.float8_e4m3fn)
+        b8 = bf.to(torch.float8_e4m3fn)
+        a8p = torch.zeros(-(-M // 16) * 16, Kp, device=dev).to(
+            torch.float8_e4m3fn)
+        a8p[:M, :K] = a8
+        b8p = torch.zeros(Np, Kp, device=dev).to(torch.float8_e4m3fn)
+        b8p[:N, :K] = b8
+        one = torch.ones((), device=dev)
+        ah, bh = af.bfloat16(), bf.bfloat16()
+        calls = {
+            "int8": (lambda: torch._int_mm(a, b.t()), 1, 4),
+            "fp8": (lambda: torch._scaled_mm(
+                a8p, b8p.t(), scale_a=one, scale_b=one,
+                out_dtype=torch.float32, use_fast_accum=False), 1, 4),
+            "bf16": (lambda: F.linear(ah, bh), 2, 2),
+            "f32": (lambda: F.linear(af, bf), 4, 4)}
+        row = {"gemm": name, "M": M, "K": K, "N": N}
+        for kind, (fn, in_b, out_b) in calls.items():
+            ms = bn_probe.cuda_time(fn, reps=20, warm=3)
+            ops_ms = 1e3 * 2.0 * M * N * K / QUANT_PEAK[kind]
+            bytes_ms = 1e3 * ((M * K + N * K) * in_b + M * N * out_b) \
+                / HBM_BYTES_PER_S
+            row[kind] = {"ms": ms, "bound_ms": max(ops_ms, bytes_ms),
+                         "bound_by": "operations" if ops_ms >= bytes_ms
+                         else "bytes",
+                         "tops": 2.0 * M * N * K / (ms * 1e9)}
+        rows.append(row)
+        del a, b, af, bf, a8, b8, a8p, b8p, ah, bh
+    emit({"phase": "quant_gemm_times", "rows": rows,
+          "peak_tops": {k: v / 1e12 for k, v in QUANT_PEAK.items()},
+          "card": card})
+    return rows
+
+
+def quant_resnet_params(mx):
+    """ResNet-50 (224², 1000 classes) as a served net would hold it:
+    Xavier weights from ``mx.random``'s seed 0, and BatchNorm moving
+    statistics taken from data by ``QUANT_BN_WARM`` training-mode
+    forwards of one synthetic batch (momentum 0.9: within 1% of that
+    batch's statistics), so that the eval forward normalises as a trained
+    net's does. With the initial statistics (mean 0, variance 1) the
+    residual sums grow block by block, the softmax saturates to one-hot
+    rows, and unscaled e4m3 casts overflow to NaN. Host copies."""
+    import numpy as np
+    mx.random.seed(0)
+    mod = quant_serve_module(mx, None)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    x = np.random.RandomState(14).randn(QUANT_SERVE_MAX_BATCH, *IMAGE)
+    batch = mx.io.DataBatch([mx.nd.array(x.astype(np.float32),
+                                         ctx=api_ctx(mx))], None)
+    for _ in range(QUANT_BN_WARM):
+        mod.forward(batch, is_train=True)
+        mod.get_outputs()[0].asnumpy()
+    # a forward marks nothing dirty (only update() does, as in MXNet)
+    mod._params_dirty = True
+    args, aux = mod.get_params()
+    return ({k: v.copy() for k, v in args.items()},
+            {k: v.copy() for k, v in aux.items()})
+
+
+def quant_serve_module(mx, precision, params=None):
+    sym = mx.models.get_symbol("resnet-50", num_classes=1000,
+                               image_shape=IMAGE)
+    mod = mx.mod.Module(sym, context=api_ctx(mx), precision=precision)
+    mod.bind(data_shapes=[("data", (QUANT_SERVE_MAX_BATCH,) + IMAGE)],
+             label_shapes=[("softmax_label", (QUANT_SERVE_MAX_BATCH,))],
+             for_training=False)
+    if params is not None:
+        mod.init_params(arg_params=params[0], aux_params=params[1])
+    return mod
+
+
+def quant_sites(mod):
+    """The model's GEMM sites: (FullyConnected nodes, Convolution nodes,
+    Convolution products: one per group)."""
+    fc = conv = products = 0
+    for n in mod._exec_group.symbol._topo():
+        if n.op is None:
+            continue
+        if n.op.name == "FullyConnected":
+            fc += 1
+        elif n.op.name in ("Convolution", "Convolution_v1"):
+            conv += 1
+            products += int(n.attrs.get("num_group", 1))
+    return fc, conv, products
+
+
+def quant_bucket_times(mx, pred, b, x):
+    """One bucket: the bound module's eval forward (the request already
+    on the card) by CUDA events, median of 10 after 3 warm, and
+    ``Predictor.predict`` on ``b`` rows by the host clock (median of 5)."""
+    from mxnet_tpu_torch.tools import bn_probe
+    m = pred._modules[b]
+    batch = mx.io.DataBatch([mx.nd.array(x[:b], ctx=api_ctx(mx))], None)
+    event_ms = bn_probe.cuda_time(lambda: m.forward(batch, is_train=False),
+                                  reps=10, warm=3)
+    calls = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        pred.predict(x[:b])
+        calls.append(1e3 * (time.perf_counter() - t0))
+    call_ms = statistics.median(calls[1:])
+    return {"bucket": b, "forward_event_ms": event_ms, "call_ms": call_ms,
+            "rows_per_s": b / (call_ms / 1e3)}
+
+
+def quant_site_errors(mx, top, x):
+    """Each GEMM site's own error in one served eval forward of ``top``:
+    at every FullyConnected and Convolution site, the narrow product
+    against the float32 product of the same inputs, as max |narrow -
+    wide| over max |wide| (``tolerance_check``'s measure). The forward
+    continues on the narrow outputs, as served."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.precision import quant
+    errs = []
+    dot, conv = quant.narrow_dot, quant.narrow_conv
+    convs = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+    def err(y, ref):
+        return float((y.float() - ref).abs().max() / ref.abs().max())
+
+    def wrap_dot(x2, w):
+        y = dot(x2, w)
+        if y is not None:
+            errs.append(err(y, F.linear(x2.float(), w.float())))
+        return y
+
+    def wrap_conv(xc, w, args):
+        y = conv(xc, w, args)
+        if y is not None:
+            errs.append(err(y, convs[xc.dim() - 2](xc.float(), w.float(),
+                                                   None, **args)))
+        return y
+
+    quant.narrow_dot, quant.narrow_conv = wrap_dot, wrap_conv
+    try:
+        top.forward(mx.io.DataBatch([mx.nd.array(x, ctx=api_ctx(mx))],
+                                    None), is_train=False)
+        top.get_outputs()[0].asnumpy()
+    finally:
+        quant.narrow_dot, quant.narrow_conv = dot, conv
+    return errs
+
+
+def quant_sensitivity(pred, x, ref):
+    """The f32 net's own response to noise: the rows' max relative
+    distance (``tolerance_check``'s measure) when every input element is
+    scaled by (1 + 2^-8 n), n standard normal: bfloat16's rounding of
+    the input alone."""
+    import numpy as np
+    from mxnet_tpu_torch.precision import quant
+    noise = np.random.RandomState(16).randn(*x.shape).astype(np.float32)
+    got = np.asarray(pred.predict(x * (1.0 + 2.0 ** -8 * noise)))
+    return quant.tolerance_check(ref, got, tol=float("inf"))["max_rel_err"]
+
+
+def quant_serving(mx, card, params):
+    """(b) ResNet-50 served at full width under f32, bf16, int8_serve
+    (calibrated on ``QUANT_CALIB_BATCHES`` synthetic batches, through
+    ``Predictor(calibration=)``) and fp8_native: the library GEMM calls
+    of one eval forward equal to the model's sites; every site's error
+    within its tolerance (``quant_site_errors``); the rows' distance from
+    f32 beside bf16's and the f32 net's own sensitivity; per-bucket
+    times. Returns the failed checks."""
+    import numpy as np
+    from mxnet_tpu_torch.precision import quant
+    from mxnet_tpu_torch.serving import Predictor
+    failed = []
+    rs = np.random.RandomState(15)
+    x = rs.randn(QUANT_SERVE_MAX_BATCH, *IMAGE).astype(np.float32)
+    calib = rs.randn(QUANT_CALIB_BATCHES * QUANT_SERVE_MAX_BATCH,
+                     *IMAGE).astype(np.float32)
+    t0 = time.time()
+    table = quant.calibrate(quant_serve_module(mx, None, params),
+                            mx.io.NDArrayIter(calib, None,
+                                              batch_size=QUANT_SERVE_MAX_BATCH),
+                            num_batches=QUANT_CALIB_BATCHES)
+    calib_s = time.time() - t0
+    out = {}
+    site_tol = {"int8_serve": quant.quant_tolerance(),
+                "fp8_native": QUANT_FP8_SITE_TOL}
+    for mode in QUANT_SERVE_MODES:
+        mod = quant_serve_module(mx, None if mode == "f32" else mode, params)
+        pred = Predictor(mod, max_batch_size=QUANT_SERVE_MAX_BATCH,
+                         calibration=table if mode == "int8_serve" else None)
+        pred.warmup()
+        out[mode] = np.asarray(pred.predict(x))
+        top = pred._modules[QUANT_SERVE_MAX_BATCH]
+        fc, conv, products = quant_sites(top)
+        api_sync()
+        before = dict(quant.GEMM_CALLS)
+        top.forward(mx.io.DataBatch([mx.nd.array(x, ctx=api_ctx(mx))],
+                                    None), is_train=False)
+        api_sync()
+        calls = {k: quant.GEMM_CALLS[k] - before[k] for k in before}
+        want = {"f32": {"int_mm": 0, "scaled_mm": 0},
+                "bf16": {"int_mm": 0, "scaled_mm": 0},
+                "int8_serve": {"int_mm": fc + products, "scaled_mm": 0},
+                "fp8_native": {"int_mm": 0, "scaled_mm": fc}}[mode]
+        if API_DEVICE == "cpu":
+            want = {"int_mm": 0, "scaled_mm": 0}
+        row = {"mode": mode, "sites": {"fc": fc, "conv": conv,
+                                       "conv_products": products},
+               "gemm_calls_per_forward": calls, "want_calls": want,
+               "finite": bool(np.isfinite(out[mode]).all()),
+               "buckets": [quant_bucket_times(mx, pred, b, x)
+                           for b in pred.buckets]}
+        ok = row["finite"] and calls == want
+        if mode == "f32":
+            row["f32_rows_under_2^-8_input_noise_max_rel_err"] = \
+                quant_sensitivity(pred, x, out["f32"])
+        else:
+            rep = quant.tolerance_check(out["f32"], out[mode],
+                                        tol=float("inf"))
+            row["max_rel_err_vs_f32"] = rep["max_rel_err"]
+            row["argmax_agree_vs_f32"] = float(np.mean(
+                out[mode].argmax(1) == out["f32"].argmax(1)))
+        if mode in site_tol:
+            errs = quant_site_errors(mx, top, x)
+            row["site_errors"] = {"n": len(errs), "max": max(errs),
+                                  "median": statistics.median(errs),
+                                  "worst_site_index": errs.index(max(errs)),
+                                  "tolerance": site_tol[mode]}
+            ok = ok and len(errs) == fc + conv and \
+                max(errs) <= site_tol[mode]
+        if mode == "int8_serve":
+            row["calibration"] = {"sites": len(table.ranges),
+                                  "digest": table.digest(),
+                                  "seconds": calib_s,
+                                  "described": top._precision.describe()[
+                                      "calibration_digest"]}
+            ok = ok and row["calibration"]["described"] == table.digest()
+        row["ok"] = ok
+        emit({"phase": "quant_serve", "model": "resnet-50",
+              "image": list(IMAGE), "classes": 1000, **row, "card": card})
+        if not ok:
+            failed.append("%s serving" % mode)
+        del pred, mod, top
+    return failed
+
+
+def quant_decode_engine(cfg, model, params, ctx, precision):
+    from mxnet_tpu_torch.serving.decode import DecodeEngine
+    return DecodeEngine(model, params, slots=cfg["slots"],
+                        max_prefill_len=cfg["max_prefill_len"],
+                        precision=precision, start=False, context=ctx)
+
+
+def quant_decode_streams(cfg, model, params, prompts, ctx, precision):
+    """Greedy streams of ``prompts`` under one mode, all queued before the
+    scheduler starts (phase 10's load): (streams, tokens/s, engine
+    bytes)."""
+    eng = quant_decode_engine(cfg, model, params, ctx, precision)
+    eng.warmup()
+    reqs = [eng.submit(p, max_new_tokens=cfg["new_tokens"], seed=i)
+            for i, p in enumerate(prompts)]
+    eng.start()
+    streams = [r.result(timeout=600) for r in reqs]
+    eng.shutdown(drain=True)
+    st = eng.stats()["decode"]
+    nbytes = (eng.weight_bytes(), eng.step_argument_bytes())
+    parity = all(eng.prefill_parity(p) for p in prompts[:4])
+    eng.release()
+    return streams, st, nbytes, parity
+
+
+def quant_decode(mx, card):
+    """(c) Both phase-10 decode models at their widths under int8_weight
+    and bf16: step argument and weight bytes against f32, first-token
+    and whole-stream agreement with the f32 greedy streams, two runs bit
+    for bit, tokens/s. Returns the failed checks."""
+    failed = []
+    ctx = api_ctx(mx)
+    for name, cfg in (("lstm_char_lm", DECODE_LSTM),
+                      ("transformer_lm", DECODE_TRANSFORMER)):
+        model = decode_model(cfg)
+        params = model.init_params(seed=cfg["seed"])
+        prompts = decode_prompts(cfg)
+        ref, st32, b32, _ = quant_decode_streams(cfg, model, params,
+                                                 prompts, ctx, "f32")
+        for mode in QUANT_DECODE_MODES:
+            s1, st, nb, parity = quant_decode_streams(cfg, model, params,
+                                                      prompts, ctx, mode)
+            s2, _, _, _ = quant_decode_streams(cfg, model, params, prompts,
+                                               ctx, mode)
+            first = sum(a[0] == r[0] for a, r in zip(s1, ref)) / len(ref)
+            tokens = sum(sum(x == y for x, y in zip(a, r))
+                         for a, r in zip(s1, ref)) / float(
+                             sum(len(r) for r in ref))
+            row = {"model": name, "mode": mode,
+                   "weight_quant": st["weight_quant"],
+                   "weight_bytes": nb[0], "weight_bytes_f32": b32[0],
+                   "step_argument_bytes": nb[1],
+                   "step_argument_bytes_f32": b32[1],
+                   "step_bytes_ratio": b32[1] / float(nb[1]),
+                   "weight_bytes_ratio": b32[0] / float(nb[0]),
+                   "first_token_agree": first, "token_agree": tokens,
+                   "agree_floor": QUANT_DECODE_AGREE,
+                   "repeat_bitwise": s1 == s2, "prefill_parity": parity,
+                   "tokens_per_s": st["tokens_per_sec"],
+                   "tokens_per_s_f32": st32["tokens_per_sec"]}
+            row["ok"] = (nb[1] < b32[1] and first >= QUANT_DECODE_AGREE
+                         and s1 == s2 and parity)
+            emit({"phase": "quant_decode", **row, "card": card})
+            if not row["ok"]:
+                failed.append("%s decode under %s" % (name, mode))
+    return failed
+
+
+def quant_train(mx, K, card):
+    """(d) resnet-20 at the CIFAR twin's shapes under int8_act and fp8:
+    ``QUANT_STEPS`` SGD steps twice from the same parameters under
+    deterministic cuDNN, bit for bit; the live loss scale; 20 + 20
+    bfloat16 BN launches a step. Returns (failed, BN launches)."""
+    import numpy as np
+    ctx = api_ctx(mx)
+    batches = api_batches(mx, QUANT_STEPS, seed=15)
+    start = api_start_params(mx)
+    shapes = ([("data", (API_BATCH,) + API_IMAGE)],
+              [("softmax_label", (API_BATCH,))])
+    failed, total = [], {"bn_fwd": 0, "bn_bwd": 0}
+    for mode in QUANT_TRAIN_MODES:
+        runs = []
+        for _ in range(2):
+            with deterministic_cudnn():
+                mod = mx.mod.Module(api_resnet(mx), context=ctx,
+                                    precision=mode)
+                mod.bind(data_shapes=shapes[0], label_shapes=shapes[1])
+                mod.init_params(arg_params=start[0], aux_params=start[1])
+                mod.init_optimizer(optimizer="sgd",
+                                   optimizer_params=api_sgd())
+                api_sync()
+                names = ("bn_fwd", "bn_bwd")
+                n0 = {k: getattr(K, k).launches for k in names}
+                h0 = {k: getattr(K, k).launches_bf16 for k in names}
+                ms = []
+                for bt in batches:
+                    t0 = time.perf_counter()
+                    mod.forward_backward(bt)
+                    mod.update()
+                    api_sync()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                launches = {k: getattr(K, k).launches - n0[k] for k in names}
+                bf16 = {k: getattr(K, k).launches_bf16 - h0[k]
+                        for k in names}
+                for k in total:
+                    total[k] += launches[k]
+                grp = mod._exec_group
+                runs.append((host_params(mod), launches, bf16,
+                             grp.loss_scale(), grp.scale_skips(), ms,
+                             mod.get_outputs()[0].asnumpy()))
+                del mod, grp
+        (p1, l1, h1, ls, skips, ms, out), (p2, l2, _, _, _, _, _) = runs
+        want = {"bn_fwd": API_BN_PER_STEP * QUANT_STEPS,
+                "bn_bwd": API_BN_PER_STEP * QUANT_STEPS}
+        row = {"mode": mode, "network": API_NETWORK, "batch": API_BATCH,
+               "image": list(API_IMAGE), "steps": QUANT_STEPS,
+               "bitwise_repeat": all(np.array_equal(p1[k], p2[k])
+                                     for k in p1),
+               "loss_scale": ls, "scale_skips": skips,
+               "bn_launches": l1, "bn_launches_bf16": h1,
+               "bn_launches_second_run": l2, "want_launches": want,
+               "ms_per_step": statistics.median(ms[1:]), "step_ms": ms,
+               "finite": bool(np.isfinite(out).all()) and all(
+                   np.isfinite(v).all() for v in p1.values()),
+               "params_changed": not np.array_equal(
+                   p1["fc1_weight"], start[0]["fc1_weight"].asnumpy())}
+        row["ok"] = (row["bitwise_repeat"] and ls is not None and ls > 0
+                     and skips == 0 and l1 == l2 == h1 == want
+                     and row["finite"] and row["params_changed"])
+        emit({"phase": "quant_train", **row, "card": card})
+        if not row["ok"]:
+            failed.append("%s training" % mode)
+    return failed, total
+
+
+def quant_phase(mx, K, C, R, card):
+    """Phase 15 (module docstring). Returns the kernels' launches over the
+    whole phase; the BN kernels' all come from (d)."""
+    prev = os.environ.get("MXNET_PRECISION_EXPERIMENTAL")
+    os.environ["MXNET_PRECISION_EXPERIMENTAL"] = "1"    # fp8 modes
+    try:
+        return quant_phase_runs(mx, K, C, R, card)
+    finally:
+        if prev is None:
+            del os.environ["MXNET_PRECISION_EXPERIMENTAL"]
+        else:
+            os.environ["MXNET_PRECISION_EXPERIMENTAL"] = prev
+
+
+def quant_phase_runs(mx, K, C, R, card):
+    # the BN statistics' warm-up forwards launch bn_fwd: before the count
+    params = quant_resnet_params(mx)
+    api_zero(K, C, R)
+    failed = quant_gemm_checks(card)
+    gemm_rows = quant_gemm_times(card) if API_DEVICE != "cpu" else []
+    failed += quant_serving(mx, card, params)
+    del params
+    failed += quant_decode(mx, card)
+    off_path = api_counts(K, C, R)
+    f, train_bn = quant_train(mx, K, card)
+    failed += f
+    launches = api_counts(K, C, R)
+    want = {"bn_fwd": train_bn["bn_fwd"], "bn_bwd": train_bn["bn_bwd"],
+            "copy": 0, "rtc": 0}
+    emit({"phase": "quant_kernels", "launches": launches,
+          "launches_gemms_serving_decode": off_path,
+          "gemm_rows": len(gemm_rows),
+          "ok": not any(off_path.values()) and launches == want})
+    if any(off_path.values()) or launches != want:
+        failed.append("kernel launches %s (off the training path %s)"
+                      % (launches, off_path))
+    if failed:
+        raise RuntimeError("quant phase failed: %s" % "; ".join(failed))
+    return launches
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3998,6 +4618,7 @@ def main():
                                             copy_rate)
     rnn_launches = timed("rnn", rnn_phase, mx, K, C, R, card)
     api_launches = timed("api", api_phase, mx, K, C, R, card)
+    quant_launches = timed("quant", quant_phase, mx, K, C, R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -4010,6 +4631,7 @@ def main():
                     launches_zoo=zoo_launches[k],
                     launches_rnn=rnn_launches[k],
                     launches_api=api_launches[k],
+                    launches_quant=quant_launches[k],
                     launches_bf16=launches16[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     max_abs_err_bf16=worst16[k],
@@ -4027,10 +4649,12 @@ def main():
                for k in ("bn_fwd", "bn_bwd")] + [
         dict(rtc_entry, launches_decode=decode_launches["rtc"],
              launches_rnn=rnn_launches["rtc"],
-             launches_api=api_launches["rtc"]),
+             launches_api=api_launches["rtc"],
+             launches_quant=quant_launches["rtc"]),
         dict(copy_entry, launches_decode=decode_launches["copy"],
              launches_rnn=rnn_launches["copy"],
-             launches_api=api_launches["copy"])]
+             launches_api=api_launches["copy"],
+             launches_quant=quant_launches["copy"])]
     emit({"phase": "done", "seconds": time.time() - t_start,
           "phase_seconds": seconds})
     print(card)

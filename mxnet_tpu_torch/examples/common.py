@@ -30,7 +30,8 @@ def add_precision_args(parser):
     ``--batch-group``, as the JAX scripts take them."""
     parser.add_argument("--precision", default=None,
                         help="precision mode (mx.precision.MODES: f32, "
-                             "bf16, bf16_opt, combined)")
+                             "bf16, bf16_opt, combined; int8_act and fp8 "
+                             "with MXNET_PRECISION_EXPERIMENTAL=1)")
     parser.add_argument("--opt-state-dtype", default=None,
                         help="optimizer-state storage dtype (float32 or "
                              "bfloat16); with --remat an ad-hoc policy "

@@ -27,7 +27,11 @@ to the host. Here the step is one Python function over tensors,
   master as float32. Outputs come back as float32. A policy with a loss
   scale keeps a (scale, good steps, skipped) triple on the device:
   scaled head gradients, unscaled float32 gradients, and an update that
-  is skipped, on the device, when a gradient is not finite.
+  is skipped, on the device, when a gradient is not finite. An
+  ``act_cast`` policy (``int8_act``, ``fp8``, ``int8_serve``,
+  ``fp8_native``) round-trips every input but the labels through its
+  narrow format after that cast, and an eval forward runs inside the
+  policy's GEMM scope (``precision.quant``).
 * ``remat`` trains through ``executor._build_eval_segmented``.
 * Keys (nets with Dropout or ``rrelu``): ``forward(is_train=True)``
   draws one ``random.next_key()``, which the deferred step, a
@@ -70,6 +74,8 @@ own and has no counterpart.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as onp
 import torch
 
@@ -78,7 +84,8 @@ from .. import random as _random
 from ..base import MXNetError
 from ..data.augment import crop_input_name, mirror_input_name, unwrap
 from ..executor import _build_eval_segmented
-from ..precision.policy import loss_scale_config, state_np_dtype
+from ..precision.policy import fake_cast, loss_scale_config, state_np_dtype
+from ..precision.quant import trace_gemm_scope
 from .executor_group import DataParallelExecutorGroup
 
 __all__ = ["MeshExecutorGroup"]
@@ -339,8 +346,12 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
     def _arg_vals(self, params, inputs, leaves=None):
         """The symbol's argument values: parameters (as autograd leaves
         where ``leaves`` collects them) and inputs, each but the labels
-        cast to the compute dtype inside the graph."""
+        cast to the compute dtype inside the graph. Under a policy's
+        ``act_cast`` every floating non-label input then takes its
+        low-bit round trip (``precision.fake_cast``), in training and in
+        eval alike."""
         cdt, labels = self._cdt, set(self._label_names)
+        act_cast = getattr(self._precision, "act_cast", None)
         vals = []
         for n in self.arg_names:
             if n in params:
@@ -353,12 +364,21 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             if cdt is not None and n not in labels and \
                     v.is_floating_point() and v.dtype != cdt:
                 v = v.to(cdt)
+            if act_cast is not None and n not in params and \
+                    n not in labels and v.is_floating_point():
+                v = fake_cast(v, act_cast)
             vals.append(v)
         return vals
 
     def _forward_only(self, params, aux, inputs, is_train, key=None):
-        """A forward without gradients: (float32 outputs, new aux)."""
-        with torch.no_grad():
+        """A forward without gradients: (float32 outputs, new aux). An
+        eval forward runs inside the policy's GEMM scope
+        (``precision.quant.trace_gemm_scope``: a calibration pass, native
+        int8/fp8 products, or a no-op), whose site counters restart
+        here."""
+        scope = contextlib.nullcontext() if is_train else \
+            trace_gemm_scope(self._precision)
+        with torch.no_grad(), scope:
             outs, new_aux = self._eval_fn(
                 self._arg_vals(params, inputs), aux, is_train, key=key)
         return tuple(o.float() for o in outs), new_aux

@@ -66,10 +66,8 @@ class Module(BaseModule):
         # explicit keywords winning, and also sets the optimizer-state
         # dtype, the loss scale and the recorded mode name
         from .. import precision as precision_mod
-        from ..precision.policy import canon_dtype, canon_remat, \
-            refuse_quantized
+        from ..precision.policy import canon_dtype, canon_remat
         self._precision = precision_mod.resolve(precision)
-        refuse_quantized(self._precision)
         if self._precision is not None:
             if compute_dtype is None:
                 compute_dtype = self._precision.compute_dtype
@@ -452,6 +450,15 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
+        if for_training and self._precision is not None and \
+                self._precision.serving_only():
+            # quantized weight storage and native narrow GEMMs have no
+            # gradient story: they exist for inference only
+            raise ValueError(
+                "precision=%r is a serving-only mode (weight_quant/"
+                "narrow_math); bind with for_training=False or train "
+                "under a training mode and quantize post-training"
+                % self._precision.name)
         shared_group = None
         if shared_module is not None:
             if not (isinstance(shared_module, Module) and

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``mxnet_tpu/ops/conv.py``. The JAX package leaves
 these to XLA (``lax.conv_general_dilated``, ``lax.reduce_window``), so the
 port leaves them to PyTorch's convolution and pooling (cuDNN on the card).
-Layout is NCHW, as in the reference.
+Layout is NCHW, as in the reference. A narrow-math eval forward
+(``precision.quant``) takes the convolution through its int8 / fp8 seam.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import math
 
 import torch.nn.functional as F
 
+from ..precision import quant as _quant
 from ..registry import register
 
 
@@ -58,13 +60,22 @@ _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
                       "cudnn_off": bool, "layout": str},
           infer_shape=_conv_infer, alias=("Convolution_v1",))
 def _convolution(attrs, ins, octx):
+    """Under an active GEMM scope (``precision.quant``) the convolution
+    goes through ``narrow_conv`` and the bias is added after it, in the
+    output's dtype."""
     x, w = ins[0], ins[1].to(ins[0].dtype)
     nd = x.dim() - 2
-    b = None if attrs.get("no_bias", False) else ins[2].to(x.dtype)
-    return [_CONV[nd](x, w, b, stride=_tup(attrs.get("stride", 1), nd),
-                      padding=_tup(attrs.get("pad", 0), nd),
-                      dilation=_tup(attrs.get("dilate", 1), nd),
-                      groups=int(attrs.get("num_group", 1)))]
+    conv_args = dict(stride=_tup(attrs.get("stride", 1), nd),
+                     padding=_tup(attrs.get("pad", 0), nd),
+                     dilation=_tup(attrs.get("dilate", 1), nd),
+                     groups=int(attrs.get("num_group", 1)))
+    y = _quant.narrow_conv(x, w, conv_args)
+    if y is None:
+        b = None if attrs.get("no_bias", False) else ins[2].to(x.dtype)
+        return [_CONV[nd](x, w, b, **conv_args)]
+    if not attrs.get("no_bias", False):
+        y = y + ins[2].to(y.dtype).reshape((1, -1) + (1,) * nd)
+    return [y]
 
 
 def _pool_out_dim(i, k, p, s, convention):

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from ..registry import register
 from ..kernels.batchnorm import bn_fwd, bn_bwd
+from ..precision import quant as _quant
 from .. import random as _random
 
 
@@ -52,11 +53,20 @@ def _fc_infer(attrs, in_shapes, aux):
           attr_types={"num_hidden": int, "no_bias": bool},
           infer_shape=_fc_infer)
 def _fully_connected(attrs, ins, octx):
-    """Y = X·Wᵀ + b, with X flattened to 2-D."""
+    """Y = X·Wᵀ + b, with X flattened to 2-D. Under an active GEMM scope
+    (``precision.quant``: an eval forward of a narrow-math mode, or a
+    calibration pass) the product goes through ``narrow_dot`` and the
+    bias is added after it, in the output's dtype."""
     x, w = ins[0], ins[1]
     w = w.to(x.dtype)
-    b = None if attrs.get("no_bias", False) else ins[2].to(x.dtype)
-    return [F.linear(x.reshape(x.shape[0], -1), w, b)]
+    x2 = x.reshape(x.shape[0], -1)
+    y = _quant.narrow_dot(x2, w)
+    if y is None:
+        b = None if attrs.get("no_bias", False) else ins[2].to(x.dtype)
+        return [F.linear(x2, w, b)]
+    if not attrs.get("no_bias", False):
+        y = y + ins[2].to(y.dtype)[None, :]
+    return [y]
 
 
 # ---------------------------------------------------------------------------

@@ -21,10 +21,13 @@ and the Module / Updater / executor stack applies it at its seams:
   selective-checkpoint policy callable.
 * ``loss_scale=`` / ``loss_scale_window=`` — a dynamic loss scale that
   lives on the device (:func:`loss_scale_config`).
-* ``act_cast``, ``weight_quant``, ``narrow_math`` — the quantized levers.
-  The fields, names and manifests are kept so that ``resolve`` and
-  checkpoints agree with the JAX package, but binding such a policy
-  raises: they come with the quant slice of the port.
+* ``act_cast="int8"|"fp8"`` — the experimental low-bit input seam: every
+  non-label input takes a value-level round trip through the narrow
+  format (:func:`fake_cast`) in training and in eval.
+* ``weight_quant="int8"`` / ``narrow_math="int8"|"fp8"`` — the
+  serving-only levers of :mod:`mxnet_tpu_torch.precision.quant`:
+  weight-only int8 storage (the decode engine) and native int8 / fp8
+  GEMMs behind the FullyConnected and Convolution seams (eval forwards).
 
 Every mode keeps the repo's contracts: exact within-mode reproducibility
 (same mode and seed give bit-identical parameters), and the ``f32`` mode
@@ -41,9 +44,12 @@ from ..base import MXNetError
 __all__ = ["PrecisionPolicy", "MODES", "resolve", "register_mode",
            "mode_name", "canon_dtype", "canon_remat", "state_np_dtype",
            "wrap_fused_apply", "remat_checkpoint_policy",
-           "loss_scale_config", "refuse_quantized"]
+           "loss_scale_config", "fake_cast", "to_e4m3"]
 
-QUANT_SLICE = "the quant slice of the port (mxnet_tpu/precision/quant.py)"
+# |x| above this casts to NaN in e4m3 (the JAX package's ml_dtypes cast:
+# 448 is the largest finite value and 464, halfway to the next binade,
+# still rounds to it); torch's own cast saturates instead
+E4M3_NAN_ABOVE = 464.0
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +221,8 @@ MODES = {
     # bfloat16 optimizer state + dots_saveable remat
     "combined": PrecisionPolicy("combined", opt_state_dtype="bfloat16",
                                 remat="dots_saveable"),
-    # the quantized modes, registered so names and manifests agree with
-    # the JAX package; binding one raises (the quant slice)
+    # the quantized modes (precision/quant.py): the first two train with
+    # a low-bit input seam, the last three serve only
     "int8_act": PrecisionPolicy("int8_act", compute_dtype="bfloat16",
                                 act_cast="int8", experimental=True),
     "fp8": PrecisionPolicy("fp8", compute_dtype="bfloat16",
@@ -269,19 +275,6 @@ def mode_name(policy):
     return "f32" if policy is None else policy.name
 
 
-def refuse_quantized(policy):
-    """Raise when ``policy`` carries a quantized lever (act_cast,
-    weight_quant, narrow_math): those come with the quant slice."""
-    if policy is None:
-        return
-    levers = [f for f in ("act_cast", "weight_quant", "narrow_math")
-              if getattr(policy, f) is not None]
-    if levers:
-        raise MXNetError(
-            "precision mode %r uses %s, which comes with %s"
-            % (policy.name, "/".join(levers), QUANT_SLICE))
-
-
 # ---------------------------------------------------------------------------
 # the applying pieces
 # ---------------------------------------------------------------------------
@@ -315,6 +308,51 @@ def _dot_ops():
     aten = torch.ops.aten
     return {aten.convolution.default, aten.mm.default, aten.addmm.default,
             aten.bmm.default}
+
+
+def to_e4m3(x):
+    """``x`` cast to ``torch.float8_e4m3fn`` with the JAX package's
+    overflow rule: a value above ``E4M3_NAN_ABOVE`` in magnitude, or not
+    finite, becomes NaN (torch's cast would saturate it to ±448). Every
+    fp8 cast of the port goes through here."""
+    ok = x.abs() <= E4M3_NAN_ABOVE
+    return torch.where(ok, x, torch.full_like(x, float("nan"))).to(
+        torch.float8_e4m3fn)
+
+
+def fake_cast(v, kind):
+    """The experimental low-bit input cast: a value-level round trip
+    through the narrow format (fake quantization), so the numerics see
+    the precision loss while the surrounding compute stays in ``v``'s
+    dtype. ``int8``: symmetric per-tensor scale onto the [-127, 127]
+    grid, in float32 and in the JAX package's order (amax, scale, divide,
+    round half to even, clip, multiply); ``fp8``: an e4m3 round trip
+    (:func:`to_e4m3`)."""
+    if kind == "fp8":
+        return to_e4m3(v).to(v.dtype)
+    if kind == "int8":
+        vf = v.float()
+        amax = vf.abs().amax()
+        # device tensors, not Python numbers: the card divides by a host
+        # scalar as a multiply by its reciprocal
+        scale = torch.where(amax > 0, amax / _const(127.0, v.device),
+                            _const(1.0, v.device))
+        q = torch.clamp(torch.round(vf / scale), -127.0, 127.0)
+        return (q * scale).to(v.dtype)
+    raise MXNetError("unknown act_cast %r" % (kind,))
+
+
+_CONSTS = {}
+
+
+def _const(value, device):
+    """A cached float32 0-d tensor on ``device``."""
+    key = (float(value), device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(float(value), dtype=torch.float32,
+                                        device=device)
+    return t
 
 
 def remat_checkpoint_policy(remat):

@@ -39,11 +39,20 @@ A "compile" here is a program's first run (the Predictor's rule):
 one step on scratch state, and ``stats()["compiles"]`` stays frozen
 afterwards under any occupancy churn.
 
+Precision (``precision=``, every mode the JAX engine takes): the
+parameters are staged once in the mode's compute dtype (``bf16``:
+bfloat16 weights, float32 recurrent state, each product in its operands'
+promoted dtype, as ``jnp`` promotes); under ``int8_weight`` the device
+holds per-channel int8 weights and float32 scales
+(``precision.quant.QuantLeaf``) and each step, prefill and parity
+reference widens them (``dequant_params``), so the bytes a step receives
+(:meth:`DecodeEngine.step_argument_bytes`) count the int8 storage.
+
 Not in this slice, each refused with ``MXNetError`` naming its ROADMAP
 item: the persistent executable cache (``warmup(cache_dir=)``,
-``MXNET_COMPILE_CACHE_DIR``; A5), precision modes other than f32 (A6),
-and the fault seams ``serving.decode_worker`` / ``.decode_step`` /
-``.decode_abandon`` (``faults/``, A6), which the port does not call.
+``MXNET_COMPILE_CACHE_DIR``; A5). The fault seams
+``serving.decode_worker`` / ``.decode_step`` / ``.decode_abandon`` come
+with ``faults/`` (A9); the port does not call them.
 
 Quick start::
 
@@ -79,6 +88,8 @@ import torch.nn.functional as F
 from .. import telemetry
 from ..base import MXNetError, torch_dtype
 from ..context import Context, gpu
+from ..precision import quant as _quant
+from ..precision.policy import resolve as _resolve_precision, state_np_dtype
 from ..telemetry.slo import SLOTracker
 from .errors import (QueueFull, RequestAbandoned, RequestTimeout,
                      ServerClosed, TenantShed, WorkerCrashed)
@@ -129,6 +140,20 @@ def _init_uniform(shapes, seed, scale):
     rng = onp.random.RandomState(int(seed))
     return {k: (rng.rand(*s) * 2 - 1).astype(onp.float32) * scale
             for k, s in sorted(shapes.items())}
+
+
+def _linear(x, w, b):
+    """``x @ w.T + b`` in the operands' promoted dtype: a bfloat16 weight
+    against float32 activations computes in float32, as ``jnp`` promotes
+    (in float32 every cast is a no-op)."""
+    dt = torch.promote_types(torch.promote_types(x.dtype, w.dtype), b.dtype)
+    return F.linear(x.to(dt), w.to(dt), b.to(dt))
+
+
+def _matmul(a, b):
+    """``a @ b`` in the operands' promoted dtype (``jnp``'s rule)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def _adopt(model, arrs, what):
@@ -268,10 +293,10 @@ class LSTMCharLM(DecodeModel):
         hs, cs = [], []
         for l in range(self.num_layers):
             p = "lstm_l%d_" % l
-            gates = F.linear(x, params[p + "i2h_weight"],
-                             params[p + "i2h_bias"]) \
-                + F.linear(h_all[:, l], params[p + "h2h_weight"],
-                           params[p + "h2h_bias"])
+            gates = _linear(x, params[p + "i2h_weight"],
+                            params[p + "i2h_bias"]) \
+                + _linear(h_all[:, l], params[p + "h2h_weight"],
+                          params[p + "h2h_bias"])
             i, f, g, o = gates.chunk(4, dim=-1)
             c = torch.sigmoid(f) * c_all[:, l] \
                 + torch.sigmoid(i) * torch.tanh(g)
@@ -279,7 +304,7 @@ class LSTMCharLM(DecodeModel):
             hs.append(h)
             cs.append(c)
             x = h
-        logits = F.linear(x, params["pred_weight"], params["pred_bias"])
+        logits = _linear(x, params["pred_weight"], params["pred_bias"])
         return ({"h": torch.stack(hs, dim=1), "c": torch.stack(cs, dim=1)},
                 logits)
 
@@ -368,8 +393,8 @@ class TransformerLM(DecodeModel):
         DH = D // H
 
         def proj(name, inp):
-            return F.linear(inp, params["blk%d_%s_weight" % (i, name)],
-                            params["blk%d_%s_bias" % (i, name)])
+            return _linear(inp, params["blk%d_%s_weight" % (i, name)],
+                           params["blk%d_%s_bias" % (i, name)])
 
         def heads(p):                      # (B, T, D) -> (B, H, T, DH)
             return p.reshape(B, T, H, DH).permute(0, 2, 1, 3)
@@ -377,7 +402,7 @@ class TransformerLM(DecodeModel):
         q, k, v = (heads(proj(n, x)) for n in ("att_q", "att_k", "att_v"))
         scores = (q @ k.transpose(-1, -2)) * float(onp.float32(DH ** -0.5))
         att = exact_softmax(scores + self._mask_on(x.device))
-        ctx = (att @ v).permute(0, 2, 1, 3).reshape(B, T, D)
+        ctx = _matmul(att, v).permute(0, 2, 1, 3).reshape(B, T, D)
         x = x + proj("att_o", ctx)
         h = torch.relu(proj("mlp_fc1", x))
         return x + proj("mlp_fc2", h)
@@ -396,7 +421,7 @@ class TransformerLM(DecodeModel):
             x = self._block(params, x, i)
         B, _, D = x.shape
         h = x.gather(1, pos.view(B, 1, 1).expand(B, 1, D)).squeeze(1)
-        logits = F.linear(h, params["head_weight"], params["head_bias"])
+        logits = _linear(h, params["head_weight"], params["head_bias"])
         return {"ctx": ctx, "len": torch.clamp(ln + 1, max=T)}, logits
 
 
@@ -526,7 +551,8 @@ class DecodeEngine(object):
     model : DecodeModel
     params : dict
         Host parameters (numpy / NDArray / tensor values), copied to the
-        device once as float32; ``None`` takes a ``from_params`` model's.
+        device once in the mode's compute dtype (int8 + float32 scales
+        under ``int8_weight``); ``None`` takes a ``from_params`` model's.
     slots : int
         Concurrent sequences (``MXNET_SERVE_DECODE_SLOTS`` default).
     max_prefill_len : int
@@ -538,8 +564,10 @@ class DecodeEngine(object):
         occupancy.
     eos_id : int or None
         Token id that retires a sequence early.
-    precision : None or "f32"
-        Other modes (bf16, int8 weights) refuse: ROADMAP A6.
+    precision : None, a mode name or a PrecisionPolicy
+        ``None`` consults ``MXNET_PRECISION_MODE`` (default ``f32``);
+        ``bf16`` decodes with bfloat16 weights, ``int8_weight`` from
+        per-channel int8 weights.
     ttft_slo_ms / token_slo_ms : float
         p95 objectives of the two SLO trackers (0 disables one).
     shed_on_breach : bool
@@ -558,12 +586,6 @@ class DecodeEngine(object):
                  max_queue=256, ttft_slo_ms=None, token_slo_ms=None,
                  shed_on_breach=False, name="decode", start=True,
                  context=None):
-        if precision not in (None, "f32"):
-            raise MXNetError(
-                "decode precision mode %r comes with a later slice of the "
-                "port (ROADMAP A6: bf16 and int8 decode); the port decodes "
-                "in float32"
-                % (precision,))
         self._model = model
         self._name = str(name)
         self._slots = int(slots if slots is not None else
@@ -573,6 +595,10 @@ class DecodeEngine(object):
         self._max_steps = _env_int("MXNET_SERVE_DECODE_MAX_STEPS", 256)
         self._temperature = float(temperature)
         self._eos_id = None if eos_id is None else int(eos_id)
+        # resolve(None) is the implicit f32 baseline (None); the engine
+        # always runs under a named policy
+        self._policy = _resolve_precision(precision) \
+            or _resolve_precision("f32")
         self._max_queue = int(max_queue)
         self._shed_on_breach = bool(shed_on_breach)
         self._max_restarts = _env_int("MXNET_SERVE_MAX_WORKER_RESTARTS", 100)
@@ -587,11 +613,24 @@ class DecodeEngine(object):
             params = model._adopted
         host = {k: _host(v) for k, v in params.items()}
         self._digest = model.params_digest(host)
-        self._params = {
-            k: torch.from_numpy(onp.ascontiguousarray(
-                v.astype(onp.float32) if onp.issubdtype(v.dtype, onp.floating)
-                else v)).to(self._device)
-            for k, v in host.items()}
+        self._cdt = state_np_dtype(self._policy.compute_dtype, torch.float32)
+        self._weight_quant = self._policy.weight_quant
+
+        def stage(v, cast=True):
+            floating = onp.issubdtype(v.dtype, onp.floating)
+            t = torch.from_numpy(onp.ascontiguousarray(
+                v.astype(onp.float32) if floating else v)).to(self._device)
+            return t.to(self._cdt) if floating and cast else t
+
+        if self._weight_quant == "int8":
+            # weight-only int8: per-channel int8 + float32 scales on the
+            # device, widened at each use (_dense_params)
+            self._params = {
+                k: _quant.QuantLeaf(q=stage(v.q), s=stage(v.s, cast=False))
+                if _quant.is_quantized(v) else stage(v)
+                for k, v in _quant.quantize_params(host).items()}
+        else:
+            self._params = {k: stage(v) for k, v in host.items()}
         if self._temperature > 0.0:
             # a device tensor, not a Python number: the card divides by a
             # host scalar as a multiply by its reciprocal
@@ -727,7 +766,7 @@ class DecodeEngine(object):
         Every row runs, whatever the occupancy; inactive rows keep their
         state and token through an exact ``where``. Enqueues only: no
         host synchronisation."""
-        rows, logits = self._model.step(self._params, tokens, state)
+        rows, logits = self._model.step(self._dense_params(), tokens, state)
         nxt = self._select(logits, steps, seeds)
         state = {k: torch.where(
             active.view((self._slots,) + (1,) * (n.dim() - 1)), n, state[k])
@@ -759,7 +798,8 @@ class DecodeEngine(object):
         rows0 = {k: torch.where(res.view((pb,) + (1,) * (s.dim() - 1)),
                                 s.index_select(0, d_clip), 0)
                  for k, s in state.items()}
-        rows, logits = self._model.prefill(self._params, d_tok, d_len, rows0)
+        rows, logits = self._model.prefill(self._dense_params(), d_tok, d_len,
+                                           rows0)
         if real.size:
             state = {k: s.index_copy(0, d_dst,
                                      rows[k].index_select(0, d_real)
@@ -792,11 +832,21 @@ class DecodeEngine(object):
                 return b
         return self._buckets[-1]
 
+    def _dense_params(self):
+        """The dense parameter view a step or prefill computes from: the
+        int8 leaves widened per channel into the compute dtype under
+        ``int8_weight`` (bit for bit the same each call, so streams and
+        the prefill-parity reference agree), the staged tensors
+        otherwise."""
+        if self._weight_quant != "int8":
+            return self._params
+        return _quant.dequant_params(self._params, self._cdt)
+
     def weight_bytes(self):
         """Bytes of the device-resident parameters: what every decode
-        step reads again."""
-        return int(sum(t.numel() * t.element_size()
-                       for t in self._params.values()))
+        step reads again (int8 payloads and float32 scales under
+        ``int8_weight``)."""
+        return _quant.tree_bytes(self._params)
 
     def step_argument_bytes(self):
         """Bytes of the tensors the decode step receives: the parameters,
@@ -870,7 +920,7 @@ class DecodeEngine(object):
             toks[0, :] = prompt
             d_tok, d_len = self._upload(
                 [toks, onp.array([L] + [0] * (PREFILL_ROWS - 1))])
-            _, ref = self._model.prefill(self._params, d_tok, d_len,
+            _, ref = self._model.prefill(self._dense_params(), d_tok, d_len,
                                          self._state_zeros(PREFILL_ROWS))
             return bool(torch.equal(ref[0].cpu(), logits[0].cpu()))
 
@@ -1223,8 +1273,8 @@ class DecodeEngine(object):
                 "p50": ServingStats._pct(ttfts, 50),
                 "p99": ServingStats._pct(ttfts, 99),
             },
-            "precision_mode": "f32",
-            "weight_quant": None,
+            "precision_mode": self._policy.name,
+            "weight_quant": self._weight_quant,
             "weight_bytes": self.weight_bytes(),
         }
         return s

@@ -32,15 +32,18 @@ only synchronisation with the device.
 Precision: the buckets serve under the source module's mode with its
 training-only fields stripped (remat, optimizer-state dtype, loss scale),
 so a module trained in ``bf16`` serves in bfloat16 and one trained in
-``bf16_opt`` or ``combined`` serves float32 forwards; the mode name is
-kept. A module loaded from a checkpoint entry recorded under another mode
-than the one it runs is refused.
+``bf16_opt`` or ``combined`` serves float32 forwards; the input cast
+(``act_cast``) and the narrow-math GEMMs (``narrow_math``) stay, and the
+mode name is kept. ``int8_serve`` takes its static activation scales from
+a :class:`~mxnet_tpu_torch.precision.quant.CalibrationTable`
+(``calibration=``), whose digest the buckets' policy describes
+(``calibration_digest``). A module loaded from a checkpoint entry
+recorded under another mode than the one it runs is refused.
 
 Not in this slice of the port (each raises ``MXNetError`` instead of
 being ignored): the persistent executable cache (``warmup(cache_dir=)``,
-``MXNET_COMPILE_CACHE_DIR``), the quantized modes and calibrated int8
-serving (``calibration=``; the quant slice), and CheckpointManager
-sources for :meth:`Predictor.load`.
+``MXNET_COMPILE_CACHE_DIR``) and CheckpointManager sources for
+:meth:`Predictor.load`.
 """
 from __future__ import annotations
 
@@ -86,9 +89,10 @@ class Predictor:
         ``buckets`` is given). Larger requests are chunked.
     context : Context or list of Context, optional
         The serving device; defaults to the source module's.
-    calibration : optional
-        Static int8 activation ranges in the JAX package; refused here
-        (int8 serving comes with a later slice of the port).
+    calibration : CalibrationTable, optional
+        Static per-site activation ranges (``precision.quant``) for a
+        ``narrow_math`` policy: required by ``int8_serve`` (its int8
+        activation scales come from a calibration pass).
     """
 
     def __init__(self, module, data_shapes=None, buckets=None,
@@ -99,9 +103,6 @@ class Predictor:
                 "Predictor needs a plain Module (got %s); for wrapper "
                 "modules serve the underlying Module"
                 % type(module).__name__)
-        if calibration is not None:
-            raise MXNetError("calibrated int8 serving (calibration=) %s"
-                             % _LATER)
         self.logger = logger or logging.getLogger("mxnet_tpu_torch.serving")
         self._stats = ServingStats(latency_window=latency_window)
         self._lock = threading.RLock()
@@ -184,15 +185,34 @@ class Predictor:
                     for name, shape in self._data_descs]
 
         # serve under the source policy's eval-visible fields only: the
-        # forward keeps the compute dtype, and the training-only levers
-        # (remat, optimizer-state dtype, loss scale) are stripped; the
-        # mode name stays
+        # forward keeps the compute dtype, the input cast (act_cast) and
+        # the narrow-math GEMMs, and the training-only levers (remat,
+        # optimizer-state dtype, loss scale) are stripped; the mode name
+        # stays
         src_pol = module._precision
         serve_pol = None
         if src_pol is not None:
             from ..precision import PrecisionPolicy
-            serve_pol = PrecisionPolicy(name=src_pol.name,
-                                        compute_dtype=src_pol.compute_dtype)
+            narrow = src_pol.narrow_math
+            table = calibration if calibration is not None \
+                else src_pol.calibration
+            if narrow == "int8" and table is None:
+                raise MXNetError(
+                    "precision mode %r needs a CalibrationTable (static "
+                    "int8 activation scales): run "
+                    "precision.quant.calibrate(...) and pass the table "
+                    "via Predictor(calibration=...)" % src_pol.name)
+            serve_pol = PrecisionPolicy(
+                name=src_pol.name, compute_dtype=src_pol.compute_dtype,
+                act_cast=src_pol.act_cast,
+                weight_quant=src_pol.weight_quant, narrow_math=narrow,
+                calibration=table, experimental=src_pol.experimental)
+        elif calibration is not None:
+            raise MXNetError(
+                "Predictor(calibration=...) only applies to a module bound "
+                "under a narrow_math precision mode (e.g. 'int8_serve')")
+        self._calibration = calibration if serve_pol is None \
+            else serve_pol.calibration
 
         def _make():
             return Module(symbol, data_names=module._data_names,
@@ -251,6 +271,11 @@ class Predictor:
     @property
     def max_batch_size(self):
         return self._buckets[-1]
+
+    @property
+    def calibration(self):
+        """The CalibrationTable the buckets serve with (None without)."""
+        return self._calibration
 
     @property
     def output_names(self):

@@ -15,7 +15,9 @@ compared past that point.
 
 Within the port, bit for bit: continuous streams equal unbatched ones,
 bucketed prefill equals the exact-length forward, padding rows never
-land. Refusals (executable cache, precision modes), the thread-local
+land. The bf16 and int8_weight modes have a test here (and against the
+JAX engine in ``test_torch_quant.py``). Refusals (executable cache), the
+thread-local
 grad mode of the scheduler, the supervised restart (a launch patched to
 raise once: the port has no ``faults/`` seams yet) and state never
 written in place have a test each.
@@ -724,12 +726,43 @@ def test_compile_cache_env_refused(model, params, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("precision", ["int8_weight", "bf16"])
-def test_precision_modes_refused(model, params, precision):
-    with pytest.raises(MXNetError, match="A6"):
-        _engine(model, params, precision=precision, start=False)
-    eng = _engine(model, params, precision="f32", start=False)
-    assert eng.stats()["decode"]["precision_mode"] == "f32"
-    eng.release()
+def test_precision_modes_decode(model, params, precision):
+    """The two narrow decode modes: the staged weights (int8 leaves with
+    float32 scales, or bfloat16) shrink the bytes a step receives below
+    the f32 engine's, the mode is reported, the bucketed prefill equals
+    the exact-length forward bit for bit, and a stream repeats; its
+    greedy tokens follow the f32 engine's on most prompts."""
+    e32 = _engine(model, params, precision="f32", start=False)
+    eng = _engine(model, params, precision=precision, start=False)
+    try:
+        d = eng.stats()["decode"]
+        assert d["precision_mode"] == precision
+        assert d["weight_quant"] == \
+            ("int8" if precision == "int8_weight" else None)
+        assert e32.stats()["decode"]["precision_mode"] == "f32"
+        if precision == "int8_weight":
+            assert all(v.q.dtype == torch.int8 and v.s.dtype == torch.float32
+                       for k, v in eng._params.items() if k.endswith("weight"))
+        else:
+            assert all(v.dtype == torch.bfloat16
+                       for v in eng._params.values())
+        assert eng.weight_bytes() < e32.weight_bytes()
+        assert eng.step_argument_bytes() < e32.step_argument_bytes()
+        for n in (1, 3, 7, 8, 11):
+            assert eng.prefill_parity(list(range(1, n + 1)))
+        eng.start()
+        e32.start()
+        prompts = _prompts(8, seed=2)
+        s1 = [eng.generate(p, max_new_tokens=1, timeout=60) for p in prompts]
+        s2 = [eng.generate(p, max_new_tokens=1, timeout=60) for p in prompts]
+        ref = [e32.generate(p, max_new_tokens=1, timeout=60)
+               for p in prompts]
+        assert s1 == s2
+        assert sum(a == b for a, b in zip(s1, ref)) >= 6
+    finally:
+        for e in (eng, e32):
+            e.shutdown(drain=True)
+            e.release()
 
 
 def test_default_context_is_the_card(model, params):

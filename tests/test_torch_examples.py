@@ -11,9 +11,10 @@ depth, and on inception-bn; every zoo network taken by its argument
 check and built at its image shape; the scoring twin
 (``benchmark_score``) and the fine-tuning twin (``fine_tune``, its two
 asserts); the char-LM trained and served through the decode engine with
-the arguments ``tests/test_examples.py`` gives the JAX script; and every
-flag whose module the port does not have yet refused with ``MXNetError``
-naming its slice.
+the arguments ``tests/test_examples.py`` gives the JAX script, and again
+with ``--int8-weights``; the CIFAR twin under ``--precision int8_act``;
+and every flag whose module the port does not have yet refused with
+``MXNetError`` naming its slice.
 """
 import os
 import subprocess
@@ -246,6 +247,29 @@ def test_decode_lm_twin(tmp_path):
     assert "streams sha256: " in res.stdout
 
 
-def test_decode_lm_twin_refuses_int8_weights():
-    with pytest.raises(MXNetError, match="A6"):
-        decode_lm.main(["--cpu", "--int8-weights"])
+def test_decode_lm_twin_int8_weights():
+    """``--int8-weights`` as the JAX script runs it: the step's argument
+    bytes below f32 (the ratio printed), parity and continuation above
+    0.8, streams bit for bit, continuous faster than sequential."""
+    res = decode_lm.main(["--cpu", "--int8-weights", "--num-epochs", "3",
+                          "--seq-len", "16", "--num-hidden", "64"])
+    assert res["continuous"]["weight_quant"] == "int8"
+    assert res["continuous"]["precision_mode"] == "int8_weight"
+    assert res["step_bytes_ratio"] > 2.0
+    assert res["parity"] >= int(0.8 * res["prompts"])
+    assert res["continuation"] >= 0.8
+
+
+def test_train_cifar10_twin_int8_act(tmp_path):
+    """The CIFAR twin trains under the experimental ``int8_act`` mode
+    (bfloat16 compute, every input round-tripped through int8, the live
+    loss scale) at resnet-8 depth."""
+    env = dict(os.environ, MXNET_PRECISION_EXPERIMENTAL="1")
+    res = _ok(subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.examples.train_cifar10"]
+        + RESNET8 + ["--num-epochs", "1", "--precision", "int8_act",
+                     "--params-digest-out", str(tmp_path / "d")],
+        capture_output=True, text=True, timeout=TIMEOUT, cwd=str(tmp_path),
+        env=dict(env, OMP_NUM_THREADS="2", PYTHONPATH=ROOT)))
+    assert "precision mode: int8_act" in res.stderr
+    assert len((tmp_path / "d").read_text().strip()) == 64

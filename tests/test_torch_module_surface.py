@@ -172,9 +172,10 @@ def test_module_names_match_jax():
                for_training=False, shared_module=tm)
     other.borrow_optimizer(tm)
     assert other._updater is tm._updater
-    with pytest.raises(MXNetError, match="quant slice"):
-        tmx.mod.Module(_net(tmx, TNameManager), context=tmx.cpu(),
-                       precision="int8_weight")
+    serving_only = tmx.mod.Module(_net(tmx, TNameManager),
+                                  context=tmx.cpu(), precision="int8_weight")
+    with pytest.raises(ValueError, match="serving-only"):
+        serving_only.bind([("data", BOUND)], [("softmax_label", (4,))])
     tmx.mod.Module(_net(tmx, TNameManager), context=tmx.cpu(),
                    precision=None)
 

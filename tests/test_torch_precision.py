@@ -7,8 +7,9 @@ bf16 optimizer state (SGD momentum, Adam moments) reproducible within the
 mode, grouped steps equal to sequential under a mode, a bf16 checkpoint
 round trip that resumes bit for bit, cross-mode and tampered-dtype
 refusals, the legacy float32 payload, the loss-scale transition rule,
-modes refused off the fused route, the quantized modes refused naming
-their slice, and the serving gate (a module loaded under another mode is
+modes refused off the fused route, the quantized modes bound (the
+training ones train, the serving-only ones refuse a training bind), and
+the serving gate (a module loaded under another mode is
 refused; buckets strip the training-only fields).
 
 Against the JAX package, from the same numpy-seeded parameters, 3 steps:
@@ -145,10 +146,38 @@ def test_experimental_modes_gated_and_loss_scale_knobs(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["int8_act", "fp8", "fp8_native",
                                   "int8_weight", "int8_serve"])
-def test_quantized_modes_refused_naming_their_slice(mode, monkeypatch):
+def test_quantized_modes_bind(mode, monkeypatch):
+    """``int8_act`` and ``fp8`` train: bfloat16 compute under the live
+    loss scale, two runs bit for bit, finite moved parameters. The three
+    serving-only modes refuse a training bind with ``ValueError`` and
+    serve an eval bind (finite outputs of the bound shape)."""
     monkeypatch.setenv("MXNET_PRECISION_EXPERIMENTAL", "1")
-    with pytest.raises(MXNetError, match="quant slice"):
-        mx.mod.Module(_bn_mlp(), context=CPU, precision=mode)
+    if not resolve(mode).serving_only():
+        runs = []
+        for _ in range(2):
+            mod = _module(precision=mode)
+            before = _params(mod)
+            runs.append(_train(mod, n=3))
+            grp = mod._exec_group
+            assert mod._compute_dtype == "bfloat16"
+            assert grp.loss_scale() == 2.0 ** 15 and grp.scale_skips() == 0
+        _assert_equal(runs[0], runs[1])
+        assert all(np.isfinite(v).all() for v in runs[0].values())
+        assert not np.array_equal(runs[0]["fc2_weight"],
+                                  before["fc2_weight"])
+        return
+    mod = mx.mod.Module(_bn_mlp(), context=CPU, precision=mode)
+    with pytest.raises(ValueError, match="serving-only"):
+        mod.bind(data_shapes=[("data", (BATCH, 6))],
+                 label_shapes=[("softmax_label", (BATCH,))])
+    mod.bind(data_shapes=[("data", (BATCH, 6))],
+             label_shapes=[("softmax_label", (BATCH,))], for_training=False)
+    mx.random.seed(42)
+    mod.init_params(mx.init.Uniform(0.07))
+    mod.forward(_batches(1)[0], is_train=False)
+    out = mod.get_outputs()[0].asnumpy()
+    assert out.shape == (BATCH, 10) and np.isfinite(out).all()
+    assert mod.precision_mode == mode
 
 
 def test_policy_canonicalization_and_naming():
