@@ -6,9 +6,10 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's kernels from the checkout's sources with nvcc, one
-process per source, all at once: the CUDA BatchNorm and copy libraries
-into the git-ignored ``build/cuda`` and the CUDA generated from each of
-phase 6's five rtc bodies into ``build/rtc/<digest>``. Then it runs
+process per source, all at once: the CUDA BatchNorm, copy, NMS and ROI
+pooling libraries into the git-ignored ``build/cuda`` and the CUDA
+generated from each of phase 6's five rtc bodies into
+``build/rtc/<digest>``. Then it runs
 these phases, each printing JSON lines, and fails (exit code != 0, no
 result line) if any phase fails:
 
@@ -273,12 +274,57 @@ result line) if any phase fails:
    under deterministic cuDNN: bit for bit, the live loss scale with no
    skipped step, exactly 20 + 20 bfloat16 BN launches a step; no kernel
    of ours launches in (a)-(c);
-16. the kernels line (each kernel's launches on every path, decode's
+16. vision: the vision and detection operators, float32, TF32 off, and
+   their four hand-written kernels (``kernels/nms.py``: ``nms_mask``,
+   ``nms_scan``; ``kernels/roi_pooling.py``: ``roi_pool_fwd``,
+   ``roi_pool_bwd``). (a) Each kernel against its plain version: NMS keep
+   masks and suppression words bit for bit at ragged box counts (1, 63,
+   64, 65, 130, 1000), on integer boxes (IoUs of exactly 1/2 at threshold
+   1/2), on boxes clipped to [0, 1] (zero areas, copies, −1 scores), on
+   pairs whose float32 IoU is exactly the threshold or the next float32
+   above it (the strict ``>`` must say no, then yes), on
+   MultiBoxDetection's sorted boxes of the SSD300 batch that (b) runs (32
+   × 8,732) and at Proposal's 6,000; the ROI forward (out and tie counts)
+   bit for bit and the backward within ``ROI_BWD_TOL`` of the plain
+   gradient's max-abs, on post-ReLU maps full of zero ties, with empty and
+   one-pixel bins, ragged and at Faster R-CNN's full width (512×38×63, 300
+   ROIs, 7×7, 1/16; the backward at 128); every kernel twice, bit for bit.
+   (b) The phase's main path, part one: SSD300 (VOC, 21 classes, batch 32;
+   six maps 38²…1² with 4/6/6/6/4/4 anchors: MultiBoxPrior × 6 → Concat →
+   MultiBoxTarget on labels padded to 50 rows and MultiBoxDetection at nms
+   0.45, threshold 0.01) and Faster R-CNN with VGG16 (a 600×1000 image:
+   Proposal with 9 anchors, pre_n 6000, post_n 300, threshold 0.7 →
+   ROIPooling forward at 300 ROIs and forward + backward at 128) as graphs
+   bound through ``simple_bind``, once, every counter set to 0 just before
+   and read just after: all four kernels launched, no BN, copy or rtc
+   launch. Then each op's call, device (CUDA graph) and enqueue times;
+   each kernel alone at those shapes (call, device, enqueue ms), its plain
+   version's host ms on the same inputs (the NMS pair on all 32 images,
+   ``NMS_PLAIN_CHUNK`` a call) and its bound (bytes, or the IoU pairs'
+   ``NMS_PAIR_OPS`` at the float32 SIMT rate); the ROI backward's
+   ``max_abs_err`` is absolute, its ``max_rel_err`` of the plain
+   gradient's max-abs; ``F.ctc_loss`` beside the port's CTCLoss at the CTC
+   twins' shapes, as a yardstick. (c) Part two: the five twins at their
+   defaults, in process: ``train_ssd`` (NDArrayIter and
+   ``--use-recordio``) and ``train_rcnn``, their logged loss of the last
+   epoch below the first's and finite parameters; after ``train_ssd`` its
+   ``detect`` (``build_detector`` bound with the trained parameters) keeps
+   a box in every image and launches the NMS kernels; ``train_rcnn``'s
+   demo gives (16, 5) ROIs of image 0 (the JAX script's
+   ``rpn_post_nms_top_n`` is 16) and launches the NMS and ROI forward
+   kernels; ``fcn_xs``, ``ctc_train`` and ``deepspeech_mini`` pass their
+   own asserts; ms a step and seconds of each, and no BN, copy or rtc
+   launch. (d) One SSD training step of ``train_ssd``'s graph (batch 32)
+   from the same parameters on the card and on the CPU: outputs and every
+   gradient within relative L2 ``VISION_CPU_REL_L2``;
+17. the kernels line (each kernel's launches on every path, decode's
    and rnn's 0 among them, ``launches_api`` the BN kernels' 60 + 60 over
    phase 14 (b)'s three steps, ``launches_quant`` their 240 + 240 over
-   phase 15 (d), and the BN kernels' bfloat16, imagenet-twin and zoo
-   launches and times, inception-v3's per-step times), the seconds of
-   each phase, the card's nvidia-smi line, and the result line.
+   phase 15 (d), ``launches_vision`` every earlier kernel's 0 over phase
+   16's main path, the four vision kernels' launches over it, and the
+   BN kernels' bfloat16, imagenet-twin and zoo launches and times,
+   inception-v3's per-step times), the seconds of each phase, the card's
+   nvidia-smi line, and the result line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -4530,6 +4576,809 @@ def quant_phase_runs(mx, K, C, R, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the vision and detection operators
+# ---------------------------------------------------------------------------
+# SSD300 (Liu et al., VOC) at MXNet's SSD symbol's sizes and ratios: six
+# maps, 4/6/6/6/4/4 anchors a cell, 8,732 in all
+SSD_MAPS = [(38, (0.1, 0.141), (1, 2, 0.5)),
+            (19, (0.2, 0.272), (1, 2, 0.5, 3, 1 / 3.0)),
+            (10, (0.37, 0.447), (1, 2, 0.5, 3, 1 / 3.0)),
+            (5, (0.54, 0.619), (1, 2, 0.5, 3, 1 / 3.0)),
+            (3, (0.71, 0.79), (1, 2, 0.5)),
+            (1, (0.88, 0.961), (1, 2, 0.5))]
+SSD_ANCHORS = sum(side * side * (len(sizes) + len(ratios) - 1)
+                  for side, sizes, ratios in SSD_MAPS)
+SSD_BATCH, SSD_CLASSES, SSD_LABEL_ROWS = 32, 21, 50
+SSD_NMS, SSD_THRESH = 0.45, 0.01
+# Faster R-CNN with VGG16 (Ren et al.): a 600×1000 image, a 38×63 map at
+# stride 16, 9 anchors a cell, 512 channels under the ROI pooling
+RCNN_IMAGE, RCNN_MAP, RCNN_STRIDE = (600, 1000), (38, 63), 16
+RCNN_SCALES, RCNN_RATIOS = (8, 16, 32), (0.5, 1, 2)
+RCNN_PRE, RCNN_POST, RCNN_NMS = 6000, 300, 0.7
+ROI_CHANNELS, ROI_POOLED, ROI_SCALE = 512, (7, 7), 1.0 / 16
+ROI_FWD_ROIS, ROI_BWD_ROIS = 300, 128
+# images a call of the plain NMS: its mask holds a few B × N × N float32
+# matrices (2.4 GB each at 8 × 8,732²)
+NMS_PLAIN_CHUNK = 8
+NMS_RAGGED = (1, 63, 64, 65, 130, 1000)
+# float32 operations of nms_mask, per box pair above the diagonal:
+# max(x1), max(y1), min(x2), min(y2) (4); iw and ih, a subtraction and a
+# max with 0 each (4); inter = iw·ih (1); union = area_a + area_b − inter
+# (2); union > 0 (1); inter / union (1); iou > thresh (1). Per box, once:
+# its area, (x2 − x1)·(y2 − y1) and a max with 0 (4).
+NMS_PAIR_OPS, NMS_BOX_OPS = 14, 4
+NMS_AT_THRESH_DRAWS = 1 << 20   # pairs drawn to find IoUs at the threshold
+ROI_BWD_TOL = 1e-6         # of the plain gradient's max-abs
+VISION_CPU_REL_L2 = 1e-4
+VISION_TWINS = [("train_ssd", []), ("train_ssd", ["--use-recordio"]),
+                ("train_rcnn", []), ("fcn_xs", []), ("ctc_train", []),
+                ("deepspeech_mini", [])]
+VISION_TWIN_ARGS = ["--gpus", "0"]
+VISION_TIME_REPS = 10
+VISION_GRAPH_COPIES = 12   # ROI inputs per graph: 12 × 4.9 MB > L2
+# the twins' CTC shapes (T, N, classes with the blank, label length)
+VISION_CTC_SHAPES = {"ctc_train": (12, 32, 7, 4),
+                     "deepspeech_mini": (24, 32, 9, 4)}
+
+
+def vision_kernels():
+    from mxnet_tpu_torch.kernels import nms as NM
+    from mxnet_tpu_torch.kernels import roi_pooling as RP
+    return NM, RP
+
+
+def vision_counts(K, C, R):
+    """Every kernel's launch count, the vision kernels' and the rest."""
+    NM, RP = vision_kernels()
+    return dict(api_counts(K, C, R), nms_mask=NM.nms_mask.launches,
+                nms_scan=NM.nms_scan.launches,
+                roi_pool_fwd=RP.roi_pool_fwd.launches,
+                roi_pool_bwd=RP.roi_pool_bwd.launches)
+
+
+def vision_zero(K, C, R):
+    NM, RP = vision_kernels()
+    api_zero(K, C, R)
+    for counter in (NM.nms_mask, NM.nms_scan, RP.roi_pool_fwd,
+                    RP.roi_pool_bwd):
+        counter.launches = 0
+
+
+def vision_gen(seed):
+    import torch
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def vision_boxes(B, n, span, gen):
+    """(B, n, 4) random corner boxes in [0, span]², scores (B, n) with
+    ties, on ``gen``'s device."""
+    import torch
+    dev = gen.device
+    xy = torch.rand((B, n, 2), generator=gen, device=dev) * span
+    wh = torch.rand((B, n, 2), generator=gen, device=dev) * span / 4
+    scores = torch.rand((B, n), generator=gen, device=dev)
+    scores[:, ::7] = scores[:, :1].clone()
+    return torch.cat([xy, xy + wh], dim=2), scores
+
+
+def integer_boxes(B, n, gen):
+    """(B, n, 4) boxes with integer corners in [0, 16]: many pairs have an
+    IoU of exactly 1/2, 1/3, 1/4…, which the strict ``>`` keeps."""
+    import torch
+    c = torch.randint(0, 17, (B, n, 4), generator=gen,
+                      device=gen.device).float()
+    boxes = torch.cat([torch.minimum(c[..., :2], c[..., 2:]),
+                       torch.maximum(c[..., :2], c[..., 2:])], dim=2)
+    return boxes, torch.rand((B, n), generator=gen, device=gen.device)
+
+
+def clipped_boxes(B, n, gen):
+    """(B, n, 4) boxes as MultiBoxDetection hands them to NMS: clipped to
+    [0, 1], so some have zero area (union 0 against each other) and some
+    are identical (every fifth is a copy of an earlier one); a third of
+    the scores are −1, the value of a box at or below the threshold."""
+    import torch
+    dev = gen.device
+    xy = torch.rand((B, n, 2), generator=gen, device=dev) * 2.0 - 0.6
+    wh = torch.rand((B, n, 2), generator=gen, device=dev) * 0.6
+    boxes = torch.cat([xy, xy + wh], dim=2).clamp(0.0, 1.0)
+    boxes[:, 5::5] = boxes[:, 1:-4:5].clone()
+    scores = torch.rand((B, n), generator=gen, device=dev)
+    scores[:, ::3] = -1.0
+    return boxes, scores
+
+
+def threshold_pairs(NM, thresh, gen, draws=NMS_AT_THRESH_DRAWS):
+    """Box pairs (M, 2, 4) whose plain float32 IoU is exactly ``thresh``
+    (as float32), and pairs whose IoU is the next float32 above it: the
+    pairs where an IoU rounded otherwise (an fma contraction, an
+    approximate division) flips the strict ``>``. b is a shifted along x
+    by w·(1 − t)/(1 + t), an IoU of t, with x1 moved by up to 64 steps of
+    2⁻²⁴."""
+    import numpy as np
+    import torch
+    dev = gen.device
+    t = np.float32(thresh)
+    xy = torch.rand((draws, 2), generator=gen, device=dev)
+    wh = 0.05 + torch.rand((draws, 2), generator=gen, device=dev) * 0.5
+    a = torch.cat([xy, xy + wh], dim=1)
+    dx = wh[:, 0] * float((1 - t) / (1 + t))
+    jitter = torch.randint(-64, 65, (draws,), generator=gen,
+                           device=dev).float() * 2.0 ** -24
+    b = a.clone()
+    b[:, 0] += dx + jitter
+    b[:, 2] += dx
+    iou = NM.iou_matrix(a[:, None], b[:, None])[:, 0, 0]
+    pairs = torch.stack([a, b], dim=1)
+    above = float(np.nextafter(t, np.float32(1)))
+    return pairs[iou == float(t)], pairs[iou == above]
+
+
+def vision_sorted(boxes, scores):
+    import torch
+    order = torch.sort(-scores, dim=-1, stable=True).indices
+    return boxes.gather(1, order[..., None].expand(-1, -1, 4))
+
+
+def host_call(fn):
+    """(fn's result, its host-clock ms with the card's queue drained at
+    both ends): for the plain versions, many launches a call."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def nms_check(NM, boxes_s, thresh):
+    """Kernel against plain on score-sorted boxes (B, N, 4), the plain
+    version NMS_PLAIN_CHUNK images a call: (mask equal, keep equal,
+    repeat equal, kernel mask, kernel keep, the plain mask's and scan's
+    host ms over all B images)."""
+    import torch
+    n = boxes_s.shape[1]
+    mask = NM.nms_mask(boxes_s, thresh)
+    keep = NM.nms_scan(mask, n)
+    mask2 = NM.nms_mask(boxes_s, thresh)
+    keep2 = NM.nms_scan(mask2, n)
+    mask_eq = keep_eq = True
+    mask_ms = scan_ms = 0.0
+    for lo in range(0, boxes_s.shape[0], NMS_PLAIN_CHUNK):
+        hi = lo + NMS_PLAIN_CHUNK
+        pmask, ms = host_call(lambda: NM.nms_mask_plain(boxes_s[lo:hi],
+                                                        thresh))
+        mask_ms += ms
+        pkeep, ms = host_call(lambda: NM.nms_scan_plain(pmask, n))
+        scan_ms += ms
+        mask_eq = mask_eq and torch.equal(mask[lo:hi], pmask)
+        keep_eq = keep_eq and torch.equal(keep[lo:hi], pkeep)
+        del pmask, pkeep
+    return (mask_eq, keep_eq,
+            torch.equal(mask, mask2) and torch.equal(keep, keep2), mask,
+            keep, mask_ms, scan_ms)
+
+
+def roi_inputs(N, C, H, W, R, image, gen, relu=True):
+    """A feature map (post-ReLU: about half zeros) and R ROIs in image
+    coordinates (x within image[1], y within image[0]), with a few
+    one-pixel and off-map ones."""
+    import torch
+    dev = gen.device
+    data = torch.randn((N, C, H, W), generator=gen, device=dev)
+    if relu:
+        data = torch.relu(data)
+    xy = torch.rand((R, 2), generator=gen, device=dev) * \
+        torch.tensor([image[1], image[0]], device=dev, dtype=torch.float32)
+    wh = torch.rand((R, 2), generator=gen, device=dev) * \
+        torch.tensor([image[1], image[0]], device=dev,
+                     dtype=torch.float32) / 2
+    b = torch.randint(0, N, (R, 1), generator=gen, device=dev).float()
+    rois = torch.cat([b, xy, xy + wh], dim=1)
+    rois[::17, 3:] = rois[::17, 1:3]                # one-pixel ROIs
+    rois[5::23, 1:] += torch.tensor([2.0 * image[1], 2.0 * image[0]] * 2,
+                                    device=dev)     # off the map
+    return data, rois
+
+
+def roi_check(RP, data, rois, pooled, scale, gen, bwd_rois=None):
+    """Forward against plain bit for bit (out and count), backward within
+    ROI_BWD_TOL of the plain gradient's max-abs (on the first
+    ``bwd_rois``), repeats bit for bit. Returns (row, out, count)."""
+    import torch
+    out, count = RP.roi_pool_fwd(data, rois, pooled, scale)
+    out2, count2 = RP.roi_pool_fwd(data, rois, pooled, scale)
+    pout, pcount = RP.roi_pool_fwd_plain(data, rois, pooled, scale)
+    rb = rois[:bwd_rois] if bwd_rois else rois
+    o, c = (out[:bwd_rois], count[:bwd_rois]) if bwd_rois else (out, count)
+    g = torch.randn(o.shape, generator=gen, device=data.device)
+    dx = RP.roi_pool_bwd(g, data, rb, o, c, pooled, scale)
+    dx2 = RP.roi_pool_bwd(g, data, rb, o, c, pooled, scale)
+    pdx = RP.roi_pool_bwd_plain(g, data, rb, pooled, scale)
+    abs_err = float((dx - pdx).abs().max())
+    err = abs_err / (float(pdx.abs().max()) or 1.0)
+    row = {"fwd_bitwise": torch.equal(out, pout),
+           "count_bitwise": torch.equal(count, pcount),
+           "fwd_max_abs_err": float((out - pout).abs().max()),
+           "bwd_max_abs_err": abs_err, "bwd_rel_err": err,
+           "bwd_limit": ROI_BWD_TOL,
+           "repeat_bitwise": torch.equal(out, out2) and
+           torch.equal(count, count2) and torch.equal(dx, dx2),
+           "zero_share_of_out": float((out == 0).float().mean()),
+           "ties_share_of_bins": float((count > 1).float().mean()),
+           "empty_bins": int((count == 0).sum())}
+    row["ok"] = (row["fwd_bitwise"] and row["count_bitwise"]
+                 and err <= ROI_BWD_TOL and row["repeat_bitwise"])
+    return row, out, count
+
+
+def vision_checks(NM, RP, card, ssd_boxes):
+    """(a) The four kernels against their plain versions: NMS at ragged
+    sizes, on integer boxes, on clipped boxes, on pairs at the threshold,
+    on ``ssd_boxes`` (MultiBoxDetection's sorted boxes at SSD300's
+    full width) and at Proposal's; ROI pooling ragged and at full width.
+    Returns (failed, worst errors by kernel, the worst relative error of
+    the ROI backward, the plain mask's and scan's host ms on
+    ``ssd_boxes``)."""
+    import numpy as np
+    import torch
+    failed = []
+    worst = {"nms_mask": 0.0, "nms_scan": 0.0, "roi_pool_fwd": 0.0,
+             "roi_pool_bwd": 0.0}
+    gen = vision_gen(16)
+    t = np.float32(SSD_NMS)
+    eq, up = threshold_pairs(NM, SSD_NMS, gen)
+    cases = [("ragged", 0.3, vision_boxes(3, n, 40.0, gen))
+             for n in NMS_RAGGED] + [
+        ("integer", 0.5, integer_boxes(4, 1000, gen)),
+        ("clipped", SSD_NMS, clipped_boxes(3, 1000, gen)),
+        ("at_threshold", SSD_NMS, (torch.cat([eq, up]), None)),
+        ("ssd300_detection", SSD_NMS, (ssd_boxes, None)),
+        ("proposal", RCNN_NMS, vision_boxes(1, RCNN_PRE, 1000.0, gen))]
+    plain_ms = None
+    for name, thresh, (boxes, scores) in cases:
+        boxes_s = boxes if scores is None else vision_sorted(boxes, scores)
+        B, n = boxes_s.shape[:2]
+        mask_eq, keep_eq, rep, mask, keep, mask_ms, scan_ms = nms_check(
+            NM, boxes_s, thresh)
+        ok = mask_eq and keep_eq and rep
+        row = {"phase": "vision_nms_check", "case": name, "images": B,
+               "boxes": n, "thresh": thresh, "mask_bitwise": mask_eq,
+               "keep_bitwise": keep_eq, "repeat_bitwise": rep,
+               "kept": int(keep.sum()), "plain_mask_ms": mask_ms,
+               "plain_scan_ms": scan_ms}
+        if name == "integer":
+            iou = NM.iou_matrix(boxes_s, boxes_s)
+            upper = torch.ones(n, n, dtype=torch.bool,
+                               device=iou.device).triu(1)
+            row["pairs_at_thresh"] = int(((iou == 0.5) & upper).sum())
+        if name in ("clipped", "ssd300_detection"):
+            wh = boxes_s[..., 2:] - boxes_s[..., :2]
+            row["zero_area_boxes"] = int((wh.prod(-1) <= 0).sum())
+        if name == "at_threshold":
+            # bit 1 of row 0: iou(a, b) > t, false at t, true just above
+            bit = (mask[:, 0, 0] >> 1) & 1
+            row["pairs_at_thresh"], row["pairs_above"] = len(eq), len(up)
+            row["exact"] = bool((bit[:len(eq)] == 0).all()
+                                and (bit[len(eq):] == 1).all())
+            row["thresh_float32"] = float(t)
+            ok = ok and row["exact"] and len(eq) > 0 and len(up) > 0
+        if name == "ssd300_detection":
+            plain_ms = (mask_ms, scan_ms)
+        row.update(ok=ok, card=card)
+        emit(row)
+        if not ok:
+            failed.append("nms %s n=%d" % (name, n))
+            worst["nms_mask"] = worst["nms_scan"] = 1.0
+    bwd_rel = 0.0
+    for name, shape, R, image, scale, pooled, bwd in (
+            ("ragged", (2, 3, 13, 17), 40, (13, 17), 1.0, (5, 4), None),
+            ("ragged_scaled", (2, 5, 9, 11), 30, (144, 176), 1.0 / 16,
+             (3, 3), None),
+            ("rcnn_full_width", (1, ROI_CHANNELS) + RCNN_MAP, ROI_FWD_ROIS,
+             RCNN_IMAGE, ROI_SCALE, ROI_POOLED, ROI_BWD_ROIS)):
+        data, rois = roi_inputs(*shape, R, image, gen)
+        row, _, _ = roi_check(RP, data, rois, pooled, scale, gen, bwd)
+        emit({"phase": "vision_roi_check", "case": name,
+              "data": list(shape), "rois": R, "bwd_rois": bwd or R,
+              "pooled": list(pooled), "spatial_scale": scale, **row,
+              "card": card})
+        worst["roi_pool_fwd"] = max(worst["roi_pool_fwd"],
+                                    row["fwd_max_abs_err"])
+        worst["roi_pool_bwd"] = max(worst["roi_pool_bwd"],
+                                    row["bwd_max_abs_err"])
+        bwd_rel = max(bwd_rel, row["bwd_rel_err"])
+        if not row["ok"]:
+            failed.append("roi %s" % name)
+    return failed, worst, bwd_rel, plain_ms
+
+
+def ssd_inputs(gen):
+    """SSD300's anchors (MultiBoxPrior over the six maps), padded labels,
+    class predictions and probabilities, location predictions."""
+    import torch
+    dev = gen.device
+    anchors = ssd_anchors()
+    A = anchors.shape[1]
+    label = torch.full((SSD_BATCH, SSD_LABEL_ROWS, 5), -1.0, device=dev)
+    for b in range(SSD_BATCH):
+        m = 1 + b % 10
+        xy = torch.rand((m, 2), generator=gen, device=dev) * 0.7
+        wh = 0.05 + torch.rand((m, 2), generator=gen, device=dev) * 0.3
+        label[b, :m, 0] = torch.randint(0, SSD_CLASSES - 1, (m,),
+                                        generator=gen, device=dev).float()
+        label[b, :m, 1:] = torch.cat([xy, xy + wh], dim=1)
+    logits = torch.randn((SSD_BATCH, SSD_CLASSES, A), generator=gen,
+                         device=dev)
+    loc = torch.randn((SSD_BATCH, A * 4), generator=gen, device=dev) * 0.1
+    return anchors, label, logits, torch.softmax(logits, dim=1), loc
+
+
+def rpn_inputs(gen):
+    import torch
+    dev = gen.device
+    K = len(RCNN_SCALES) * len(RCNN_RATIOS)
+    H, W = RCNN_MAP
+    logits = torch.randn((1, 2, K, H, W), generator=gen, device=dev)
+    cls = torch.softmax(logits, dim=1).reshape(1, 2 * K, H, W)
+    deltas = torch.randn((1, 4 * K, H, W), generator=gen, device=dev) * 0.1
+    info = torch.tensor([[RCNN_IMAGE[0], RCNN_IMAGE[1], 1.0]], device=dev)
+    return cls, deltas, info
+
+
+def op_call(name, attrs):
+    from mxnet_tpu_torch import registry as treg
+    op = treg.get_op(name)
+    parsed = treg.parse_attrs(op, attrs)
+    return lambda ins: op.fcompute(parsed, ins, None)
+
+
+def op_times(fn, reps=VISION_TIME_REPS, copies=1):
+    """Call ms (one CUDA-event pair), device ms (a CUDA graph of
+    ``copies`` calls) and enqueue µs of ``fn``."""
+    from mxnet_tpu_torch.tools import bn_probe
+    device_ms, method = bn_probe.graph_ms([fn] * copies)
+    return {"ms": bn_probe.cuda_time(fn, reps=reps, warm=2),
+            "device_ms": device_ms, "device_method": method,
+            "enqueue_us": bn_probe.enqueue_us(fn, reps=reps)}
+
+
+def nms_scan_bytes(keep_s, words):
+    """The bytes the scan must move for this run's data: each image's
+    diagonal words, the rows of its kept boxes past their own tile, the
+    keep flags."""
+    import numpy as np
+    k = keep_s.cpu().numpy()
+    total = 0
+    for row in k:
+        tiles = np.nonzero(row)[0] // 64
+        total += 8 * (len(row) + int((words - 1 - tiles).sum())) + len(row)
+    return total
+
+
+def roi_bin_work(RP, data, rois, pooled, scale):
+    """Σ over (roi, bin) of the bin's positions, times the channels."""
+    H, W = data.shape[2], data.shape[3]
+    _, hs, he, ws, we = RP._bins(rois, scale, pooled, data.shape[0])
+    h = (he.clamp(0, H) - hs.clamp(0, H)).clamp_min(0)
+    w = (we.clamp(0, W) - ws.clamp(0, W)).clamp_min(0)
+    return float((h[:, :, None] * w[:, None, :]).sum()) * data.shape[1]
+
+
+def kernel_entry(name, source, replaces, t, plain_ms, bytes_moved, ops,
+                 err):
+    byte_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    op_ms = 1e3 * ops / F32_FLOPS_PER_S
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=t["ms"], device_ms=t["device_ms"],
+                enqueue_us=t["enqueue_us"], plain_ms=plain_ms,
+                bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                bound_bytes_ms=byte_ms, bound_operations_ms=op_ms,
+                library_ms=None)
+
+
+def vision_full_width(mx, NM, RP, card, worst, bwd_rel, ssd, nms_plain_ms):
+    """(b) Each op at SSD300's and Faster R-CNN's operating points (call,
+    device and enqueue times), each kernel alone at the ops' shapes beside
+    its plain version and its bound, and F.ctc_loss beside the port's CTC.
+    ``ssd`` is ssd_inputs' SSD300 batch, ``nms_plain_ms`` the plain NMS's
+    host ms on its 32 images (from the check). Returns the four kernels'
+    entries."""
+    import torch
+    gen = vision_gen(160)
+    anchors, label, logits, prob, loc = ssd
+    A = anchors.shape[1]
+    target = op_call("_contrib_MultiBoxTarget", {"overlap_threshold": 0.5})
+    detect = op_call("_contrib_MultiBoxDetection", {
+        "nms_threshold": SSD_NMS, "threshold": SSD_THRESH})
+    cls, deltas, info = rpn_inputs(gen)
+    proposal = op_call("_contrib_Proposal", {
+        "feature_stride": RCNN_STRIDE, "scales": RCNN_SCALES,
+        "ratios": RCNN_RATIOS, "rpn_pre_nms_top_n": RCNN_PRE,
+        "rpn_post_nms_top_n": RCNN_POST, "threshold": RCNN_NMS})
+    rois = proposal([cls, deltas, info])[0]
+    fmap = torch.relu(torch.randn((1, ROI_CHANNELS) + RCNN_MAP,
+                                  generator=gen, device="cuda"))
+    roi_op = op_call("ROIPooling", {"pooled_size": ROI_POOLED,
+                                    "spatial_scale": ROI_SCALE})
+    fmap_g = fmap.clone().requires_grad_(True)
+    g128 = torch.randn((ROI_BWD_ROIS, ROI_CHANNELS) + ROI_POOLED,
+                       generator=gen, device=fmap.device)
+
+    def roi_fwd_bwd():
+        out = roi_op([fmap_g, rois[:ROI_BWD_ROIS]])[0]
+        return torch.autograd.grad(out, fmap_g, g128)[0]
+
+    with torch.no_grad():
+        runs = [("MultiBoxPrior+Concat", ssd_anchors),
+                ("MultiBoxTarget", lambda: target([anchors, label, logits])),
+                ("MultiBoxDetection", lambda: detect([prob, loc, anchors])),
+                ("Proposal", lambda: proposal([cls, deltas, info])),
+                ("ROIPooling_fwd_300", lambda: roi_op([fmap, rois]))]
+        for name, fn in runs:
+            emit({"phase": "vision_op_times", "op": name, **op_times(fn),
+                  "card": card})
+    emit({"phase": "vision_op_times", "op": "ROIPooling_fwd_bwd_128",
+          **op_times(roi_fwd_bwd), "card": card})
+
+    # each kernel alone, at the ops' shapes, beside its plain version's
+    # host ms on the same inputs (the NMS pair's from vision_checks)
+    entries = []
+    boxes_s = ssd_sorted_boxes(prob, loc, anchors)
+    n, words = A, (A + 63) // 64
+    mask = NM.nms_mask(boxes_s, SSD_NMS)
+    keep_s = NM.nms_scan(mask, n)
+    for name, fn, plain_ms, moved, ops in (
+            ("nms_mask", lambda: NM.nms_mask(boxes_s, SSD_NMS),
+             nms_plain_ms[0], boxes_s.numel() * 4 + mask.numel() * 8,
+             SSD_BATCH * (n * (n - 1) / 2 * NMS_PAIR_OPS
+                          + n * NMS_BOX_OPS)),
+            ("nms_scan", lambda: NM.nms_scan(mask, n), nms_plain_ms[1],
+             nms_scan_bytes(keep_s, words), 0.0)):
+        e = kernel_entry(name, "mxnet_tpu_torch/kernels/csrc/nms.cu",
+                         "mxnet_tpu/ops/detection.py:114", op_times(fn),
+                         plain_ms, moved, ops, worst[name])
+        e.update(shape=[SSD_BATCH, n], plain_images=SSD_BATCH,
+                 kept_per_image_mean=float(keep_s.sum(1).float().mean()))
+        entries.append(e)
+    copies = [fmap.clone() for _ in range(VISION_GRAPH_COPIES)]
+    it = iter(range(10 ** 9))
+    t = op_times(lambda: RP.roi_pool_fwd(
+        copies[next(it) % VISION_GRAPH_COPIES], rois, ROI_POOLED,
+        ROI_SCALE), copies=VISION_GRAPH_COPIES)
+    out, count = RP.roi_pool_fwd(fmap, rois, ROI_POOLED, ROI_SCALE)
+    _, plain = host_call(lambda: RP.roi_pool_fwd_plain(
+        fmap, rois, ROI_POOLED, ROI_SCALE))
+    # the function's bytes: the map and the ROIs read, the pooled output
+    # written (the tie counts are this design's own, for its backward);
+    # one max a bin position a channel
+    work = roi_bin_work(RP, fmap, rois, ROI_POOLED, ROI_SCALE)
+    entries.append(kernel_entry(
+        "roi_pool_fwd", "mxnet_tpu_torch/kernels/csrc/roi_pooling.cu",
+        "mxnet_tpu/ops/conv.py:341", t, plain,
+        (fmap.numel() + rois.numel() + out.numel()) * 4, work,
+        worst["roi_pool_fwd"]))
+    entries[-1]["shape"] = {"data": list(fmap.shape), "rois": RCNN_POST,
+                            "pooled": list(ROI_POOLED)}
+    rb, ob, cb = rois[:ROI_BWD_ROIS], out[:ROI_BWD_ROIS], count[:ROI_BWD_ROIS]
+    t = op_times(lambda: RP.roi_pool_bwd(
+        g128, copies[next(it) % VISION_GRAPH_COPIES], rb, ob, cb,
+        ROI_POOLED, ROI_SCALE), copies=VISION_GRAPH_COPIES)
+    _, plain = host_call(lambda: RP.roi_pool_bwd_plain(
+        g128, fmap, rb, ROI_POOLED, ROI_SCALE))
+    # the inputs read (the head gradient, the forward's out and tie
+    # counts, the map, the ROIs), the map's gradient written; a compare,
+    # a division and an add a bin position a channel
+    work = roi_bin_work(RP, fmap, rb, ROI_POOLED, ROI_SCALE)
+    entries.append(kernel_entry(
+        "roi_pool_bwd", "mxnet_tpu_torch/kernels/csrc/roi_pooling.cu",
+        "mxnet_tpu/ops/conv.py:341", t, plain,
+        g128.numel() * 12 + fmap.numel() * 8 + rb.numel() * 4, 3 * work,
+        worst["roi_pool_bwd"]))
+    entries[-1]["shape"] = {"data": list(fmap.shape), "rois": ROI_BWD_ROIS,
+                            "pooled": list(ROI_POOLED)}
+    entries[-1]["max_rel_err"] = bwd_rel      # of the plain max-abs
+    for e in entries:
+        emit({"phase": "vision_kernel_times", **e, "card": card})
+    vision_ctc_yardstick(card)
+    return entries
+
+
+def ssd_anchors():
+    """MultiBoxPrior over SSD300's six maps, concatenated (the op's
+    anchors are cached per shape and device)."""
+    import torch
+    from mxnet_tpu_torch import registry as treg
+    prior = treg.get_op("_contrib_MultiBoxPrior")
+    dev = "cuda"
+    return torch.cat([prior.fcompute(
+        treg.parse_attrs(prior, {"sizes": sizes, "ratios": ratios}),
+        [torch.empty((SSD_BATCH, 1, side, side), device=dev)], None)[0]
+        for side, sizes, ratios in SSD_MAPS], dim=1)
+
+
+def ssd_sorted_boxes(prob, loc, anchors):
+    """MultiBoxDetection's decoded boxes sorted by the scores its NMS
+    sorts by (−1 at or below the threshold), as the NMS kernels see
+    them."""
+    import torch
+    from mxnet_tpu_torch.ops.detection import decode_detections
+    boxes, scores, valid = decode_detections({"threshold": SSD_THRESH},
+                                             [prob, loc, anchors])
+    return vision_sorted(boxes, torch.where(valid, scores,
+                                            torch.full_like(scores, -1.0)))
+
+
+def vision_ctc_yardstick(card):
+    """The port's CTCLoss (forward + backward) beside F.ctc_loss at the
+    twins' shapes; F.ctc_loss is a yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.tools import bn_probe
+    ctc = op_call("CTCLoss", {})
+    gen = vision_gen(161)
+    dev = "cuda"
+    for twin, (T, N, Cn, L) in VISION_CTC_SHAPES.items():
+        data = torch.randn((T, N, Cn), generator=gen, device=dev)
+        lens = torch.randint(2, L + 1, (N,), generator=gen, device=dev)
+        labels = torch.randint(1, Cn, (N, L), generator=gen, device=dev)
+        labels = torch.where(torch.arange(L, device=dev)[None] < lens[:, None],
+                             labels, torch.zeros_like(labels)).float()
+        d = data.clone().requires_grad_(True)
+
+        def port():
+            return torch.autograd.grad(ctc([d, labels])[0].sum(), d)[0]
+
+        def library():
+            lp = torch.log_softmax(d, dim=-1)
+            loss = F.ctc_loss(lp, labels.long(), torch.full((N,), T,
+                                                            device=dev),
+                              lens, blank=0, reduction="none",
+                              zero_infinity=False)
+            return torch.autograd.grad(loss.sum(), d)[0]
+
+        with torch.no_grad():
+            mine = ctc([data, labels])[0]
+            lib = F.ctc_loss(torch.log_softmax(data, dim=-1), labels.long(),
+                             torch.full((N,), T, device=dev), lens, blank=0,
+                             reduction="none")
+        emit({"phase": "vision_ctc_yardstick", "twin": twin,
+              "T_N_classes_L": [T, N, Cn, L],
+              "port_fwd_bwd_ms": bn_probe.cuda_time(port, reps=5, warm=1),
+              "ctc_loss_fwd_bwd_ms": bn_probe.cuda_time(library, reps=5,
+                                                        warm=1),
+              "loss_max_rel_diff": float(((mine - lib).abs()
+                                          / lib.abs()).max()),
+              "card": card})
+
+
+def vision_twins(mx, K, C, R, card):
+    """(c) The five twins at their defaults, in process, train_ssd with
+    both feeds, every counter set to 0 just before each and read just
+    after. Returns (failed, rows, the launches summed over them)."""
+    import importlib
+    import numpy as np
+    import torch
+    failed, rows = [], []
+    total = dict.fromkeys(vision_counts(K, C, R), 0)
+    for name, extra in VISION_TWINS:
+        twin = importlib.import_module("mxnet_tpu_torch.examples." + name)
+        args = VISION_TWIN_ARGS + extra
+        vision_zero(K, C, R)
+        t0 = time.time()
+        res = twin.main(args)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        row = {"phase": "vision_twin", "twin": name, "args": args,
+               "seconds": seconds, "ms_per_step": res["ms_per_step"],
+               "steps": res["steps"]}
+        gates = {}
+        if "losses" in res:
+            row["losses"] = res["losses"]
+            params = res["module"].get_params()[0]
+            gates["loss_falls"] = res["losses"][-1] < res["losses"][0]
+            gates["params_finite"] = all(
+                bool(np.isfinite(v.asnumpy()).all()) for v in params.values())
+        if name == "train_ssd":
+            t1 = time.time()
+            det = twin.detect(*res["module"].get_params(), res["images"],
+                              mx.gpu(0))
+            torch.cuda.synchronize()
+            row["detect_seconds"] = time.time() - t1
+            kept = (det[..., 0] >= 0).sum(1)
+            row["detect_shape"] = list(det.shape)
+            row["detect_kept_per_image"] = kept.tolist()
+            gates["detect_keeps_a_box_an_image"] = bool((kept >= 1).all())
+        if name == "train_rcnn":
+            rois = res["demo"]["rois"]
+            row["demo_rois_shape"] = list(rois.shape)
+            gates["demo_rois"] = rois.shape == (16, 5) and \
+                bool((rois[:, 0] == 0).all())
+        if "accuracy" in res:
+            row["accuracy"] = res["accuracy"]
+            if "iou" in res:
+                row["iou"] = res["iou"]
+        launches = vision_counts(K, C, R)
+        row["launches"] = launches
+        if name == "train_ssd":
+            gates["nms_in_detector"] = launches["nms_mask"] >= 1 and \
+                launches["nms_scan"] >= 1
+        if name == "train_rcnn":
+            gates["nms_and_roi_in_demo"] = launches["nms_mask"] >= 1 and \
+                launches["nms_scan"] >= 1 and launches["roi_pool_fwd"] >= 1
+        gates["no_bn_copy_rtc"] = not any(launches[k] for k in
+                                          ("bn_fwd", "bn_bwd", "copy",
+                                           "rtc"))
+        row["gates"] = gates
+        row["ok"] = all(gates.values())
+        row["card"] = card
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            failed.append("twin %s %s: %s" % (name, extra, gates))
+        total = {k: total[k] + v for k, v in launches.items()}
+        del res
+    return failed, rows, total
+
+
+def vision_card_vs_cpu(mx, card):
+    """(d) One SSD training step (the twin's graph at its batch, 32² images)
+    from the same parameters on the card and on the CPU: outputs and
+    every gradient within VISION_CPU_REL_L2."""
+    import numpy as np
+    from mxnet_tpu_torch.examples import train_ssd
+    rs = np.random.RandomState(16)
+    x, label = train_ssd.synth_batch(rs, 32)
+    sym = train_ssd.build_ssd()[0]
+    shapes = dict(zip(sym.list_arguments(),
+                      sym.infer_shape(data=x.shape, label=label.shape)[0]))
+    args = {k: (rs.randn(*s) * 0.1).astype(np.float32)
+            for k, s in shapes.items() if k not in ("data", "label")}
+    runs = {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        with deterministic_cudnn():
+            ex = sym.simple_bind(ctx, data=x.shape, label=label.shape)
+            for k, v in args.items():
+                ex.arg_dict[k][:] = v
+            ex.arg_dict["data"][:] = x
+            ex.arg_dict["label"][:] = label
+            outs = [o.asnumpy() for o in ex.forward(is_train=True)]
+            ex.backward()
+            runs[where] = (outs, {k: ex.grad_dict[k].asnumpy()
+                                  for k in args})
+    errs = {"out%d" % i: rel_l2(c, p) for i, (c, p) in
+            enumerate(zip(runs["card"][0], runs["cpu"][0]))}
+    errs.update({k: rel_l2(runs["card"][1][k], runs["cpu"][1][k])
+                 for k in args})
+    worst = max(errs.values())
+    ok = worst <= VISION_CPU_REL_L2
+    emit({"phase": "vision_card_vs_cpu", "rel_l2": errs, "worst": worst,
+          "limit": VISION_CPU_REL_L2, "ok": ok, "card": card})
+    return [] if ok else ["card vs cpu SSD step %.3g" % worst]
+
+
+def vision_graphs(mx, K, C, R, card, ssd):
+    """(b) The two detectors' operators at full width, once, as graphs
+    bound through ``simple_bind`` on the card: SSD300's MultiBoxPrior ×
+    6 → Concat → MultiBoxTarget and MultiBoxDetection, and Faster
+    R-CNN's Proposal → ROIPooling (forward at 300 ROIs, forward and
+    backward at 128), every counter set to 0 just before and read just
+    after; SSD300's inputs are ``ssd`` (ssd_inputs'). Returns (failed,
+    the launches)."""
+    import numpy as np
+    import torch
+    ctx = mx.gpu(0)
+    gen = vision_gen(162)
+    _, label, logits, prob, loc = ssd
+    sym = mx.sym
+    maps = [sym.Variable("map%d" % i) for i in range(len(SSD_MAPS))]
+    anc = sym.Concat(*[sym._contrib_MultiBoxPrior(m, sizes=sizes,
+                                                  ratios=ratios)
+                       for m, (_, sizes, ratios) in zip(maps, SSD_MAPS)],
+                     dim=1)
+    tgt = sym._contrib_MultiBoxTarget(anc, sym.Variable("label"),
+                                      sym.Variable("cls_pred"),
+                                      overlap_threshold=0.5)
+    det = sym._contrib_MultiBoxDetection(
+        sym.Variable("cls_prob"), sym.Variable("loc_pred"), anc,
+        nms_threshold=SSD_NMS, threshold=SSD_THRESH)
+    ssd = sym.Group([tgt[2], det])
+    shapes = {"map%d" % i: (SSD_BATCH, 1, s, s)
+              for i, (s, _, _) in enumerate(SSD_MAPS)}
+    feeds = {"label": label, "cls_pred": logits, "cls_prob": prob,
+             "loc_pred": loc}
+    shapes.update({k: tuple(v.shape) for k, v in feeds.items()})
+    cls, deltas, info = rpn_inputs(gen)
+    fmap = torch.relu(torch.randn((1, ROI_CHANNELS) + RCNN_MAP,
+                                  generator=gen, device="cuda"))
+    rois = sym._contrib_Proposal(
+        sym.Variable("rpn_cls_prob"), sym.Variable("rpn_bbox_pred"),
+        sym.Variable("im_info"), feature_stride=RCNN_STRIDE,
+        scales=RCNN_SCALES, ratios=RCNN_RATIOS, rpn_pre_nms_top_n=RCNN_PRE,
+        rpn_post_nms_top_n=RCNN_POST, threshold=RCNN_NMS)
+    feat = sym.Variable("feat")
+    pool = dict(pooled_size=ROI_POOLED, spatial_scale=ROI_SCALE)
+    pooled = sym.ROIPooling(feat, rois, **pool)
+    trained = sym.ROIPooling(feat, sym.slice_axis(rois, axis=0, begin=0,
+                                                  end=ROI_BWD_ROIS), **pool)
+    rcnn = sym.Group([sym.BlockGrad(rois), sym.BlockGrad(pooled),
+                      sym.MakeLoss(sym.sum(trained))])
+    rfeeds = {"rpn_cls_prob": cls, "rpn_bbox_pred": deltas,
+              "im_info": info, "feat": fmap}
+    vision_zero(K, C, R)
+    t0 = time.time()
+    ex = ssd.simple_bind(ctx, grad_req="null", **shapes)
+    for k, v in feeds.items():
+        ex.arg_dict[k][:] = v.cpu().numpy()
+    cls_t, dets = [o.asnumpy() for o in ex.forward(is_train=False)]
+    ex = rcnn.simple_bind(ctx, grad_req={"feat": "write"},
+                          **{k: tuple(v.shape) for k, v in rfeeds.items()})
+    for k, v in rfeeds.items():
+        ex.arg_dict[k][:] = v.cpu().numpy()
+    out_rois, out_pooled, _ = [o.asnumpy() for o in
+                               ex.forward(is_train=True)]
+    ex.backward()
+    grad = ex.grad_dict["feat"].asnumpy()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = vision_counts(K, C, R)
+    kept = (dets[..., 0] >= 0).sum(1)
+    gates = {
+        "ssd_shapes": dets.shape == (SSD_BATCH, SSD_ANCHORS, 6)
+        and cls_t.shape == (SSD_BATCH, SSD_ANCHORS),
+        "ssd_positives": bool(((cls_t > 0).sum(1) > 0).all()),
+        "ssd_kept": bool((kept > 0).all()),
+        "rcnn_rois": out_rois.shape == (RCNN_POST, 5)
+        and bool((out_rois[:, 0] == 0).all()),
+        "rcnn_pooled": out_pooled.shape == (RCNN_POST, ROI_CHANNELS)
+        + ROI_POOLED and bool(np.isfinite(out_pooled).all()),
+        "rcnn_grad": bool(np.isfinite(grad).all() and grad.sum() > 0),
+        "launched": all(launches[k] >= 1 for k in (
+            "nms_mask", "nms_scan", "roi_pool_fwd", "roi_pool_bwd")),
+        "no_bn_copy_rtc": not any(launches[k] for k in
+                                  ("bn_fwd", "bn_bwd", "copy", "rtc"))}
+    emit({"phase": "vision_graphs", "seconds": seconds,
+          "ssd_kept_per_image_min_max": [int(kept.min()), int(kept.max())],
+          "ssd_positives_per_image_min": int((cls_t > 0).sum(1).min()),
+          "rois": list(out_rois.shape), "launches": launches,
+          "gates": gates, "ok": all(gates.values()), "card": card})
+    failed = [] if all(gates.values()) else ["full-width graphs %s" % gates]
+    return failed, launches
+
+
+def vision_phase(mx, K, C, R, card):
+    """Phase 16 (module docstring). Returns (the four kernels' entries,
+    every kernel's launches over the phase's main path: the full-width
+    graphs and the twins)."""
+    NM, RP = vision_kernels()
+    # SSD300's batch: the kernels are checked on MultiBoxDetection's
+    # boxes of it, the full-width graph runs it, the kernels are timed on it
+    ssd = ssd_inputs(vision_gen(160))
+    failed, worst, bwd_rel, nms_plain_ms = vision_checks(
+        NM, RP, card, ssd_sorted_boxes(ssd[3], ssd[4], ssd[0]))
+    f, graph_launches = vision_graphs(mx, K, C, R, card, ssd)
+    failed += f
+    f, rows, twin_launches = vision_twins(mx, K, C, R, card)
+    failed += f
+    launches = {k: v + twin_launches[k] for k, v in graph_launches.items()}
+    entries = vision_full_width(mx, NM, RP, card, worst, bwd_rel, ssd,
+                                nms_plain_ms)
+    failed += vision_card_vs_cpu(mx, card)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+        e["launches_graphs"] = graph_launches[e["name"]]
+    emit({"phase": "vision_kernels", "launches": launches,
+          "launches_graphs": graph_launches,
+          "launches_twins": twin_launches,
+          "twins_seconds": sum(r["seconds"] for r in rows),
+          "ok": not failed})
+    if failed:
+        raise RuntimeError("vision phase failed: %s" % "; ".join(failed))
+    return entries, launches
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4556,6 +5405,8 @@ def main():
         from mxnet_tpu_torch.kernels import batchnorm as K
         from mxnet_tpu_torch.kernels import copy as C
         from mxnet_tpu_torch.kernels import rtc as R
+        from mxnet_tpu_torch.kernels import nms as NM
+        from mxnet_tpu_torch.kernels import roi_pooling as RP
     except ImportError as e:
         print("chip_smoke: run from a checkout of the repository (%s)" % e,
               file=sys.stderr)
@@ -4569,8 +5420,9 @@ def main():
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
-    # one nvcc per source, all at once: BatchNorm, copy, each rtc body
-    builds = [K._library, C._library] + [
+    # one nvcc per source, all at once: BatchNorm, copy, NMS, ROI pooling,
+    # each rtc body
+    builds = [K._library, C._library, NM._library, RP._library] + [
         functools.partial(R._library, ck) for ck in rtc_checked(mx)]
     emit({"phase": "build", "libraries": len(builds),
           "seconds": build_kernels(builds)})
@@ -4619,6 +5471,8 @@ def main():
     rnn_launches = timed("rnn", rnn_phase, mx, K, C, R, card)
     api_launches = timed("api", api_phase, mx, K, C, R, card)
     quant_launches = timed("quant", quant_phase, mx, K, C, R, card)
+    vision_entries, vision_launches = timed("vision", vision_phase, mx, K, C,
+                                            R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -4632,6 +5486,7 @@ def main():
                     launches_rnn=rnn_launches[k],
                     launches_api=api_launches[k],
                     launches_quant=quant_launches[k],
+                    launches_vision=vision_launches[k],
                     launches_bf16=launches16[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     max_abs_err_bf16=worst16[k],
@@ -4650,11 +5505,13 @@ def main():
         dict(rtc_entry, launches_decode=decode_launches["rtc"],
              launches_rnn=rnn_launches["rtc"],
              launches_api=api_launches["rtc"],
-             launches_quant=quant_launches["rtc"]),
+             launches_quant=quant_launches["rtc"],
+             launches_vision=vision_launches["rtc"]),
         dict(copy_entry, launches_decode=decode_launches["copy"],
              launches_rnn=rnn_launches["copy"],
              launches_api=api_launches["copy"],
-             launches_quant=quant_launches["copy"])]
+             launches_quant=quant_launches["copy"],
+             launches_vision=vision_launches["copy"])] + vision_entries
     emit({"phase": "done", "seconds": time.time() - t_start,
           "phase_seconds": seconds})
     print(card)

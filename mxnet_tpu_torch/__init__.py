@@ -6,7 +6,7 @@ far (``mx.nd``, ``mx.sym``, ``mx.mod``, ``mx.init``, ``mx.optimizer``,
 ``mx.models``, ``mx.checkpoint``, ``mx.monitor``, ``mx.telemetry``,
 ``mx.serving``, ``mx.rnn``, ``mx.precision``, ``mx.recordio``,
 ``mx.image``, ``mx.data``, ``mx.autograd``, ``mx.operator``, ``mx.kv``/
-``mx.kvstore``, ``mx.model.FeedForward``, ``mx.viz`` and
+``mx.kvstore``, ``mx.model.FeedForward``, ``mx.viz``, ``mx.plugin`` and
 ``mx.test_utils``). It
 imports torch and numpy, never JAX and
 nothing of ``mxnet_tpu``. Entry points run on ``gpu(0)`` unless the caller
@@ -47,6 +47,7 @@ from . import serving
 from . import rnn
 from . import precision
 from . import operator
+from . import plugin
 from . import visualization
 from . import visualization as viz
 from . import test_utils
@@ -58,4 +59,4 @@ __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "model", "mod", "models", "convert", "checkpoint", "monitor",
            "mon", "telemetry", "serving", "rnn", "precision", "recordio",
            "image", "data", "autograd", "operator", "kv", "kvstore", "opt",
-           "viz", "visualization", "test_utils", "FeedForward"]
+           "viz", "visualization", "test_utils", "FeedForward", "plugin"]

@@ -8,8 +8,8 @@ needs neither. Augmentation geometry is numpy on the host; batch assembly
 is ``io_runtime.assemble_batch`` (host path), or, with
 ``ImageRecordIter(device_augment=True)``, mirror/normalize/transpose on
 the card from uint8 NHWC batches, or, with ``device_augment="defer"``,
-the bound module's deferred augment (``data.DeviceAugment``).
-``image_det.py`` (detection) is not ported yet.
+the bound module's deferred augment (``data.DeviceAugment``). The
+detection pipeline (``image_det.py``) is re-exported here.
 """
 from __future__ import annotations
 
@@ -684,3 +684,11 @@ class ImageRecordIter(DataIter):
                 pool.shutdown(wait=False)
             except Exception:  # noqa: BLE001 — interpreter teardown
                 pass
+
+
+# the detection pipeline lives in its own module; re-exported here so the
+# reference surface (mx.image) finds it
+from .image_det import (DetAugmenter, DetLabel,  # noqa: E402,F401
+                        ImageDetRecordIter)
+
+__all__ += ["DetLabel", "DetAugmenter", "ImageDetRecordIter"]

@@ -73,7 +73,7 @@ from typing import NamedTuple
 import torch
 
 from ..base import MXNetError
-from .build import cuda_library
+from .build import cuda_library, current_stream, raise_if
 
 __all__ = ["bn_fwd", "bn_bwd", "bn_fwd_plain", "bn_bwd_plain", "plan",
            "Plan", "SLAB_BYTES"]
@@ -315,17 +315,6 @@ def _vec(v):
     return v.detach().to(torch.float32).contiguous()
 
 
-def _stream(device):
-    """PyTorch's current stream on ``device``, as the raw pointer."""
-    return torch._C._cuda_getCurrentRawStream(device)
-
-
-def _raise_if(err, name):
-    if err:
-        raise MXNetError("%s: kernel launch failed with CUDA error %d"
-                         % (name, err))
-
-
 def bn_fwd(x, gamma, beta, c, eps, fix_gamma, relu, exact):
     """BatchNorm(+ReLU) train forward: (y, mean, var, rstd, scale, shift).
 
@@ -343,11 +332,11 @@ def bn_fwd(x, gamma, beta, c, eps, fix_gamma, relu, exact):
     buf = torch.empty((call.rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
     ptr = buf.data_ptr()
-    _raise_if(lib.mx_bn_fwd(
+    raise_if(lib.mx_bn_fwd(
         xp, y.data_ptr(), g.data_ptr(), b.data_ptr(), cc.data_ptr(), ptr,
         ptr + 4 * call.scratch_row * x.shape[1], call.plan_ptr, eps,
-        bool(fix_gamma), bool(relu), bool(exact), dev, _stream(dev)),
-        "bn_fwd")
+        bool(fix_gamma), bool(relu), bool(exact), dev,
+        current_stream(dev)), "bn_fwd")
     bn_fwd.launches += 1
     bn_fwd.launches_bf16 += x.dtype == torch.bfloat16
     stats = buf if call.rows == 5 else buf[:5]
@@ -372,11 +361,11 @@ def bn_bwd(du, x, rstd, mean, scale, shift, relu, need_dx=True):
     buf = torch.empty((call.rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
     ptr = buf.data_ptr()
-    _raise_if(lib.mx_bn_bwd(
+    raise_if(lib.mx_bn_bwd(
         dup, xp, dx.data_ptr() if need_dx else None,
         mu.data_ptr(), rs.data_ptr(), sc.data_ptr(), sh.data_ptr(), ptr,
         ptr + 4 * call.scratch_row * x.shape[1], call.plan_ptr, bool(relu),
-        dev, _stream(dev)), "bn_bwd")
+        dev, current_stream(dev)), "bn_bwd")
     bn_bwd.launches += 1
     bn_bwd.launches_bf16 += x.dtype == torch.bfloat16
     dbeta, dgamma = (buf if call.rows == 2 else buf[:2]).unbind(0)

@@ -9,6 +9,10 @@ Every source has a plain C interface and includes no PyTorch header, so
 * a source generated at run time (``nvcc_library``: the rtc bodies,
   ``kernels/rtc.py``), built where its caller says.
 
+Every C entry takes the device and PyTorch's current stream on it
+(``current_stream``) and returns a cudaError_t, which ``raise_if`` turns
+into ``MXNetError``.
+
 A library's file name carries the sha256 of what it was built from (the
 source, the engine header it may include, the flags), so a library on
 disk is reused only for the same inputs, by any process. The library is
@@ -24,14 +28,17 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 from ..base import MXNetError
 
-__all__ = ["cuda_library", "nvcc_library", "digest", "CSRC", "FLAGS"]
+__all__ = ["cuda_library", "nvcc_library", "digest", "current_stream",
+           "raise_if", "CSRC", "FLAGS"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-HEADERS = ("stream.cuh",)
+HEADERS = ("stream.cuh", "device.cuh")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared")
 
@@ -86,3 +93,15 @@ def cuda_library(name, source):
     lib_path = os.path.join(_REPO_ROOT, "build", "cuda", name,
                             "lib%s-%s.so" % (name, tag))
     return nvcc_library(path, lib_path)
+
+
+def current_stream(device):
+    """PyTorch's current stream on ``device``, as the raw pointer."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+def raise_if(err, name):
+    """Raise ``MXNetError`` for a C entry's nonzero cudaError_t."""
+    if err:
+        raise MXNetError("%s: kernel launch failed with CUDA error %d"
+                         % (name, err))

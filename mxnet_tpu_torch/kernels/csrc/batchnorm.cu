@@ -53,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -655,23 +657,6 @@ cudaError_t bwd(const Call& a, const void* du, const void* x, void* dx,
                 static_cast<const float2*>(part), grads, g, a.S, a.C, relu);
 }
 
-// Runs on `device`, restoring the caller's current device afterwards.
-struct OnDevice {
-  int prev = -1;
-  cudaError_t err = cudaSuccess;
-  explicit OnDevice(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) {
-      err = cudaSetDevice(device);
-    } else {
-      prev = -1;
-    }
-  }
-  ~OnDevice() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
-
 // The 11 ints of a call's plan, as kernels/batchnorm.py packs them.
 enum PlanField { kDtype, kUnitBytes, kKind, kK, kThreads, kSmem, kShare,
                  kChunks, kN, kC, kHW };
@@ -706,7 +691,7 @@ extern "C" int mx_bn_fwd(const void* x, void* y, const float* gamma,
   int dtype, unit_bytes;
   if (!decode(plan, a, dtype, unit_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  OnDevice on(device);
+  mxcuda::DeviceGuard on(device);
   if (on.err != cudaSuccess) return static_cast<int>(on.err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MX_FWD(T, UB)                                                       \
@@ -736,7 +721,7 @@ extern "C" int mx_bn_bwd(const void* du, const void* x, void* dx,
   int dtype, unit_bytes;
   if (!decode(plan, a, dtype, unit_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  OnDevice on(device);
+  mxcuda::DeviceGuard on(device);
   if (on.err != cudaSuccess) return static_cast<int>(on.err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MX_BWD(T, UB) \

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
+
 namespace mxstream {
 // Internal linkage: each library that includes the header keeps its own
 // kernels, whatever else the process has loaded.
@@ -172,19 +174,8 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-// Makes `device` current for the launches of its scope and then restores
-// the caller's device, as PyTorch's device guard does.
-struct DeviceGuard {
-  int prev = -1, device;
-  cudaError_t err;
-  explicit DeviceGuard(int d) : device(d) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  }
-  ~DeviceGuard() {
-    if (err == cudaSuccess && prev != device) cudaSetDevice(prev);
-  }
-};
+// The C entries' device guard (device.cuh).
+using mxcuda::DeviceGuard;
 
 inline bool plan_ok(const Plan& p, long long n) {
   return p.head + p.body + p.tail == n && p.grid >= 1 &&

@@ -420,6 +420,12 @@ def onehot_encode(indices, out):
 _onehot_encode = onehot_encode
 
 
+def imdecode(str_img, **kwargs):
+    """Decode image bytes to a float32 HWC NDArray (``io_util.imdecode``)."""
+    from .io_util import imdecode as _imdecode
+    return _imdecode(str_img, **kwargs)
+
+
 def array(source_array, ctx=None, dtype=onp.float32):
     """Create an NDArray from any array-like (float32 unless told)."""
     ctx = ctx or current_context()

@@ -460,5 +460,21 @@ def _init_symbol_module():
             setattr(mod, name, _make_sym_func(_registry.get_op(name)))
 
 
+def maximum(lhs, rhs):
+    """Elementwise maximum of two symbols, or of a symbol and a scalar."""
+    if isinstance(lhs, Symbol) and isinstance(rhs, Symbol):
+        return _create("_maximum", [lhs, rhs], {})
+    s, other = (lhs, rhs) if isinstance(rhs, (int, float)) else (rhs, lhs)
+    return _create("_maximum_scalar", [s], {"scalar": float(other)})
+
+
+def minimum(lhs, rhs):
+    """Elementwise minimum of two symbols, or of a symbol and a scalar."""
+    if isinstance(lhs, Symbol) and isinstance(rhs, Symbol):
+        return _create("_minimum", [lhs, rhs], {})
+    s, other = (lhs, rhs) if isinstance(rhs, (int, float)) else (rhs, lhs)
+    return _create("_minimum_scalar", [s], {"scalar": float(other)})
+
+
 from . import ops as _ops  # noqa: E402,F401
 _init_symbol_module()

@@ -1,18 +1,22 @@
-"""The core operator surface of the PyTorch port (mxnet_tpu_torch
+"""The operator surface of the PyTorch port (mxnet_tpu_torch
 ``ops/elemwise.py``, ``broadcast.py``, ``init_ops.py``, ``matrix.py``,
-``sample.py`` and the RMSProp update ops) against the JAX package's, on
-the CPU.
+``sample.py``, the RMSProp update ops, and the vision, detection and
+sequence-loss ops of ``ops/conv.py``, ``contrib.py``, ``detection.py``,
+``sequence_loss.py`` and ``plugin/warpctc.py``) against the JAX
+package's, on the CPU.
 
-The port registers every name of the JAX registry but exactly the 32
-deferred ones (conv, contrib, detection, sequence-loss, parallel, Torch
-and WarpCTC operators), each with the JAX op's arguments, outputs and
-``needs_rng`` flag (``Custom``'s for a property class registered in both
-packages). Each operator's forward and input gradient
+The port registers every name of the JAX registry but exactly the 4
+deferred ones (the parallel operators ``MoE`` and ``RingAttention``, and
+``TorchModule``/``TorchCriterion``), each with the JAX op's arguments,
+outputs and ``needs_rng`` flag (``Custom``'s for a property class
+registered in both packages). Each operator's forward and input gradient
 equals the JAX op's on float32 inputs made by numpy from a seed, under a
 random head gradient: rtol 1e-5, atol 1e-6; rtol 1e-4 for ``gamma``,
-``gammaln``, ``erf``, the ``arc*`` functions and the power ops; exact for
-integer-valued outputs (comparisons, indices, one-hot, picks), whose
-inputs have no ties. The cases follow the tables of
+``gammaln``, ``erf``, the ``arc*`` functions, the power ops and
+SpatialTransformer's parameters; exact for integer-valued outputs
+(comparisons, indices, one-hot, picks), whose inputs have no ties. The
+detection ops and ``quantize`` are held forward only (no gradient runs
+through them in the JAX graphs; ``quantize`` outputs integers). The cases follow the tables of
 ``tests/test_operator_parity.py``. The samplers cannot share streams
 with JAX's threefry, so their moments and semantics are held, and the
 public ``mx.random.uniform``/``normal``/``randint`` take the JAX
@@ -38,30 +42,18 @@ RTOL, ATOL = 1e-5, 1e-6
 LOOSE = 1e-4
 
 DEFERRED = {
-    # ops/conv.py (ROADMAP A7)
-    "BilinearSampler", "Crop", "Deconvolution", "GridGenerator", "Pad",
-    "ROIPooling", "SpatialTransformer", "UpSampling", "pad",
-    # ops/contrib.py (A7)
-    "_contrib_MultiBoxPrior", "_contrib_count_sketch", "_contrib_dequantize",
-    "_contrib_fft", "_contrib_ifft", "_contrib_quantize", "dequantize",
-    "fft", "ifft", "quantize",
-    # ops/detection.py (A7)
-    "Proposal", "_contrib_MultiBoxDetection", "_contrib_MultiBoxTarget",
-    "_contrib_Proposal",
-    # ops/sequence_loss.py (the warpctc and deepspeech twins)
-    "CTCLoss", "Correlation", "_contrib_CTCLoss", "ctc_loss",
-    # ops/parallel_ops.py (A8), torch.py and plugin/warpctc (A10)
-    "MoE", "RingAttention", "TorchCriterion", "TorchModule", "WarpCTC",
+    # ops/parallel_ops.py (ROADMAP A8) and torch.py (A10)
+    "MoE", "RingAttention", "TorchCriterion", "TorchModule",
 }
 
 
 def test_registry_is_the_jax_one_minus_the_deferred_names():
     jax_names, port_names = set(jreg.list_ops()), set(treg.list_ops())
-    assert len(DEFERRED) == 32
+    assert len(DEFERRED) == 4
     assert port_names <= jax_names, sorted(port_names - jax_names)
     assert jax_names - port_names == DEFERRED, \
         sorted((jax_names - port_names) ^ DEFERRED)
-    assert len(port_names) == len(jax_names) - 32 == 235
+    assert len(port_names) == len(jax_names) - 4 == 263
 
 
 ATTR_PROBES = ({}, {"use_sequence_length": True}, {"mode": "gru"},
@@ -410,6 +402,184 @@ _EXACT = {"argmin", "argmin_keep", "argmin_all", "argmax", "argmax_channel",
 def test_misc(case):
     name, attrs, ins = MISC[case]
     _check(name, attrs, ins, exact=case in _EXACT)
+
+
+# the vision, detection and sequence-loss operators (ops/conv.py,
+# contrib.py, detection.py, sequence_loss.py, plugin/warpctc.py): each
+# name's forward and input gradient; the detection ops forward only (they
+# run without a gradient; in the JAX graphs none reaches a parameter)
+IMG = RS.rand(2, 3, 5, 6).astype(np.float32)
+RELU_MAP = np.maximum(RS.randn(2, 3, 9, 11), 0).astype(np.float32)
+ROIS = np.array([[0, 0, 0, 8, 8], [1, 2.5, 3.5, 10, 7], [0, 1, 1, 1, 1],
+                 [1, 0, 0, 20, 20], [0, 3, 2, 6, 8]], np.float32)
+THETA = np.array([[0.9, 0.1, 0.05, -0.1, 1.1, -0.05],
+                  [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]], np.float32)
+CTC_DATA = RS.randn(6, 3, 5).astype(np.float32)          # (T, N, C)
+CTC_LABEL = np.array([[1, 2, 2], [3, 0, 0], [4, 1, 0]], np.float32)
+SSD_ANCHORS = np.array([[[0.0, 0.0, 0.4, 0.4], [0.5, 0.5, 1.0, 1.0],
+                         [0.0, 0.6, 0.3, 1.0], [0.3, 0.3, 0.7, 0.7]]],
+                       np.float32)
+SSD_LABEL = np.array([[[2, 0.55, 0.55, 0.95, 0.95], [0, 0.0, 0.0, 0.35,
+                                                      0.45],
+                       [-1, 0, 0, 0, 0]],
+                      [[1, 0.3, 0.35, 0.72, 0.7], [-1, 0, 0, 0, 0],
+                       [-1, 0, 0, 0, 0]]], np.float32)
+SSD_PROB = np.array(RS.dirichlet(np.ones(3), (2, 4)).transpose(0, 2, 1),
+                    np.float32)                              # (B, C, A)
+
+
+def _softmax_np(x, axis):
+    e = np.exp(x - x.max(axis, keepdims=True))
+    return (e / e.sum(axis, keepdims=True)).astype(np.float32)
+
+
+VISION = {
+    "Deconvolution": ("Deconvolution", {"kernel": (3, 3), "stride": (2, 2),
+                                        "pad": (1, 1), "adj": (1, 1),
+                                        "num_filter": 4},
+                      [IMG, RS.randn(3, 4, 3, 3).astype(np.float32)]),
+    "Deconvolution_bias_groups": (
+        "Deconvolution", {"kernel": (2, 2), "stride": (2, 2),
+                          "num_filter": 4, "num_group": 2,
+                          "no_bias": False},
+        [RS.randn(2, 4, 3, 3).astype(np.float32),
+         RS.randn(4, 2, 2, 2).astype(np.float32),
+         RS.randn(4).astype(np.float32)]),
+    "UpSampling": ("UpSampling", {"scale": 2, "sample_type": "nearest"},
+                   [IMG]),
+    "UpSampling_bilinear_sum": ("UpSampling", {
+        "scale": 2, "sample_type": "bilinear", "num_args": 2,
+        "multi_input_mode": "sum"}, [IMG, IMG * 0.5]),
+    "UpSampling_concat": ("UpSampling", {"scale": 3, "num_args": 2},
+                          [IMG, IMG[:, :1]]),
+    "Pad": ("Pad", {"mode": "constant", "constant_value": 1.5,
+                    "pad_width": (0, 0, 1, 0, 2, 1, 0, 3)}, [IMG]),
+    "pad_edge": ("pad", {"mode": "edge",
+                         "pad_width": (0, 0, 0, 1, 2, 3, 1, 4)}, [IMG]),
+    "pad_reflect": ("pad", {"mode": "reflect",
+                            "pad_width": (1, 0, 2, 1, 4, 9, 5, 1)}, [IMG]),
+    "Crop": ("Crop", {"h_w": (3, 4), "offset": (1, 2)}, [IMG]),
+    "Crop_like_centre": ("Crop", {"num_args": 2, "center_crop": True},
+                         [IMG, IMG[:, :, :3, :3]]),
+    "ROIPooling": ("ROIPooling", {"pooled_size": (3, 2),
+                                  "spatial_scale": 1.0}, [RELU_MAP, ROIS]),
+    "ROIPooling_scaled": ("ROIPooling", {"pooled_size": (2, 4),
+                                         "spatial_scale": 0.5},
+                          [RELU_MAP, ROIS * np.float32([1, 2, 2, 2, 2])]),
+    "GridGenerator": ("GridGenerator", {"transform_type": "affine",
+                                        "target_shape": (4, 5)}, [THETA]),
+    "GridGenerator_warp": ("GridGenerator", {"transform_type": "warp"},
+                           [RS.randn(2, 2, 4, 5).astype(np.float32)]),
+    "BilinearSampler": ("BilinearSampler", {},
+                        [IMG, (RS.rand(2, 2, 4, 3) * 2.4 - 1.2)
+                         .astype(np.float32)]),
+    "SpatialTransformer": ("SpatialTransformer", {
+        "target_shape": (4, 4), "transform_type": "affine",
+        "sampler_type": "bilinear"}, [IMG, THETA]),
+    "_contrib_fft": ("_contrib_fft", {}, [RS.randn(3, 8).astype(
+        np.float32)]),
+    "fft": ("fft", {}, [RS.randn(2, 3, 5).astype(np.float32)]),
+    "_contrib_ifft": ("_contrib_ifft", {}, [RS.randn(3, 16).astype(
+        np.float32)]),
+    "ifft": ("ifft", {}, [RS.randn(2, 10).astype(np.float32)]),
+    "_contrib_count_sketch": ("_contrib_count_sketch", {"out_dim": 4}, [
+        RS.randn(3, 6).astype(np.float32),
+        np.array([0, 3, 1, 3, 2, 0], np.float32),
+        np.array([1, -1, -1, 1, 1, -1], np.float32)]),
+    "_contrib_MultiBoxPrior": ("_contrib_MultiBoxPrior", {
+        "sizes": (0.5, 0.25), "ratios": (1.0, 2.0, 0.5), "clip": True},
+        [IMG]),
+    "_contrib_MultiBoxPrior_steps": ("_contrib_MultiBoxPrior", {
+        "sizes": (0.3,), "steps": (0.2, 0.25), "offsets": (0.4, 0.6)},
+        [IMG]),
+    "_contrib_dequantize": ("_contrib_dequantize", {}, [
+        RS.randint(0, 256, (3, 4)).astype(np.uint8),
+        np.array([-1.5], np.float32), np.array([2.5], np.float32)]),
+    "dequantize_int8": ("dequantize", {}, [
+        RS.randint(-128, 128, (3, 4)).astype(np.int8),
+        np.array([-1.0], np.float32), np.array([3.0], np.float32)]),
+    "CTCLoss": ("CTCLoss", {}, [CTC_DATA, CTC_LABEL]),
+    "ctc_loss": ("ctc_loss", {}, [CTC_DATA * 2, CTC_LABEL]),
+    "_contrib_CTCLoss": ("_contrib_CTCLoss", {},
+                         [CTC_DATA[:4], CTC_LABEL]),
+    "Correlation": ("Correlation", {"max_displacement": 1},
+                    [IMG, IMG[::-1].copy()]),
+    "Correlation_absdiff_stride": ("Correlation", {
+        "max_displacement": 2, "stride2": 2, "is_multiply": False},
+        [IMG, IMG[::-1].copy()]),
+    "WarpCTC": ("WarpCTC", {"input_length": 6, "label_length": 3},
+                [CTC_DATA.reshape(18, 5), CTC_LABEL.reshape(-1)]),
+}
+FORWARD_ONLY = {
+    "_contrib_MultiBoxTarget": ("_contrib_MultiBoxTarget",
+                                {"overlap_threshold": 0.5},
+                                [SSD_ANCHORS, SSD_LABEL,
+                                 np.zeros((2, 3, 4), np.float32)]),
+    "_contrib_MultiBoxDetection": ("_contrib_MultiBoxDetection",
+                                   {"threshold": 0.2, "nms_threshold": 0.3},
+                                   [SSD_PROB, RS.randn(2, 16).astype(
+                                       np.float32) * 0.5, SSD_ANCHORS]),
+    "_contrib_Proposal": ("_contrib_Proposal", {
+        "feature_stride": 4, "scales": (2.0, 4.0), "ratios": (0.5, 1.0),
+        "rpn_pre_nms_top_n": 40, "rpn_post_nms_top_n": 12,
+        "threshold": 0.6}, [
+            _softmax_np(RS.randn(2, 2, 4, 5, 6), 1).reshape(2, 8, 5, 6),
+            RS.randn(2, 16, 5, 6).astype(np.float32) * 0.2,
+            np.array([[20, 24, 1], [18, 21, 1]], np.float32)]),
+    "Proposal": ("Proposal", {"feature_stride": 8, "scales": (1.0,),
+                              "ratios": (1.0,), "rpn_post_nms_top_n": 5},
+                 [_softmax_np(RS.randn(1, 2, 1, 3, 3), 1).reshape(1, 2, 3, 3),
+                  RS.randn(1, 4, 3, 3).astype(np.float32) * 0.2,
+                  np.array([[24, 24, 1]], np.float32)]),
+    "_contrib_quantize": ("_contrib_quantize", {}, [
+        RS.randn(3, 4).astype(np.float32), np.array([-1.5], np.float32),
+        np.array([2.0], np.float32)]),
+    "quantize_int8": ("quantize", {"out_type": "int8"}, [
+        RS.randn(3, 4).astype(np.float32), np.array([-1.0], np.float32),
+        np.array([1.0], np.float32)]),
+}
+
+
+# SpatialTransformer's affine parameters' gradients sum h·w·c products of
+# both signs, in another order in each package: rtol 1e-4 there
+_LOOSE_VISION = {"SpatialTransformer"}
+
+
+@pytest.mark.parametrize("case", sorted(VISION))
+def test_vision_ops(case):
+    name, attrs, ins = VISION[case]
+    _check(name, attrs, ins, rtol=LOOSE if case in _LOOSE_VISION else RTOL)
+
+
+@pytest.mark.parametrize("case", sorted(FORWARD_ONLY))
+def test_vision_ops_forward(case):
+    """Forward only: exact where the outputs are integers, class targets
+    or masks, else within the tolerance."""
+    name, attrs, ins = FORWARD_ONLY[case]
+    jop, top = jreg.get_op(name), treg.get_op(name)
+    jouts = jop.fcompute(jreg.parse_attrs(jop, attrs),
+                         [jnp.asarray(v) for v in ins], None)
+    touts = top.fcompute(treg.parse_attrs(top, attrs),
+                         [torch.tensor(v) for v in ins], None)
+    assert len(jouts) == len(touts)
+    for j, t in zip(jouts, touts):
+        j, t = np.asarray(j), t.numpy()
+        assert j.shape == t.shape and j.dtype == t.dtype, (j.shape, t.shape)
+        np.testing.assert_allclose(t, j, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_every_new_name_has_a_case():
+    covered = {c[0] for c in VISION.values()} | \
+        {c[0] for c in FORWARD_ONLY.values()}
+    new = {"BilinearSampler", "Crop", "Deconvolution", "GridGenerator",
+           "Pad", "ROIPooling", "SpatialTransformer", "UpSampling", "pad",
+           "_contrib_MultiBoxPrior", "_contrib_count_sketch",
+           "_contrib_dequantize", "_contrib_fft", "_contrib_ifft",
+           "_contrib_quantize", "dequantize", "fft", "ifft", "quantize",
+           "Proposal", "_contrib_MultiBoxDetection",
+           "_contrib_MultiBoxTarget", "_contrib_Proposal", "CTCLoss",
+           "Correlation", "_contrib_CTCLoss", "ctc_loss", "WarpCTC"}
+    assert len(new) == 28 and covered == new, sorted(covered ^ new)
 
 
 INIT = {
