@@ -317,14 +317,44 @@ result line) if any phase fails:
    launch. (d) One SSD training step of ``train_ssd``'s graph (batch 32)
    from the same parameters on the card and on the CPU: outputs and every
    gradient within relative L2 ``VISION_CPU_REL_L2``;
-17. the kernels line (each kernel's launches on every path, decode's
+17. guardian: ``Module.fit`` with the training guardian, the fault
+   plane and the training telemetry, float32, TF32 off, cuDNN
+   deterministic, telemetry enabled; resnet-20 at the CIFAR twin's
+   shapes (batch 128, 3×28×28, 10 classes, the twin's synthetic data),
+   3 epochs of 16 batches, SGD (lr 0.05, momentum 0.9, wd 1e-4), Xavier
+   from seed 7. (a) ``fit(guardian=None)``, the guardian armed clean and
+   armed with the SDC probe every 3rd step: the parameters bit for bit,
+   0 new programs after the warmup boundary, 16 probes and 0
+   mismatches. (b) ``GUARD_PLAN_B`` (a NaN batch at (1, 2), an infinite
+   spike at (2, 1)) with a checkpoint per epoch: healed by
+   rollback-and-skip onto the committed entries, bit for bit equal to a
+   guarded run on the same stream without those two batches; the
+   transcript exactly the planned incidents, one ``guardian_rollback``
+   flight event per fault. (c) a ``param_bitflip`` at restore walks back
+   to the entry before; a probe mismatch forced by one element of the
+   second run's parameter copy (``guardian.sdc``) sets
+   ``HEALTH_SDC_MISMATCH`` and rolls back; each bit for bit equal to its
+   excluded-batch reference. (d) transients at ``checkpoint.commit``
+   (healed by the ``checkpoint.save`` retry) and ``data.device_put``
+   (prefetched) land on the fault-free digest; a ``checkpoint.shard``
+   bit flip makes ``restore()`` fall back to the previous entry. (e)
+   exactly 20 + 20 BN launches a step, 40 + 40 on probed steps, and the
+   replayed steps after a rollback counted. (f) ResNet-50 (224², batch
+   32) 2 epochs of 3 steps, armed against unarmed: bit for bit, ms a
+   step for both (the timeline's median, each step synchronised) and
+   ``_health_update``'s device ms. (g) the counted FLOPs of the step
+   (``telemetry.introspect``) within 5% of 2·MACs·3 of every
+   convolution and FC layer, for resnet-20 and ResNet-50, beside the
+   live ``train.mfu`` / ``achieved_tflops`` of their records;
+18. the kernels line (each kernel's launches on every path, decode's
    and rnn's 0 among them, ``launches_api`` the BN kernels' 60 + 60 over
    phase 14 (b)'s three steps, ``launches_quant`` their 240 + 240 over
    phase 15 (d), ``launches_vision`` every earlier kernel's 0 over phase
-   16's main path, the four vision kernels' launches over it, and the
-   BN kernels' bfloat16, imagenet-twin and zoo launches and times,
-   inception-v3's per-step times), the seconds of each phase, the card's
-   nvidia-smi line, and the result line.
+   16's main path, the four vision kernels' launches over it,
+   ``launches_guardian`` every kernel's launches over phase 17's runs,
+   and the BN kernels' bfloat16, imagenet-twin and zoo launches and
+   times, inception-v3's per-step times), the seconds of each phase,
+   the card's nvidia-smi line, and the result line.
 
 Numerics: float32 means float32 here. TF32 is off for convolutions and
 matrix products (``cudnn.allow_tf32 = False``, matmul precision
@@ -5379,6 +5409,470 @@ def vision_phase(mx, K, C, R, card):
     return entries, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the guardian, fault injection and training telemetry
+# ---------------------------------------------------------------------------
+GUARD_DEVICE = "cuda"
+GUARD_NETWORK = "resnet-20"       # the CIFAR twin at its published width
+GUARD_BATCH = 128
+GUARD_BATCHES = 16                # a 3-epoch run of 16 batches
+GUARD_EPOCHS = 3
+GUARD_BN = 20                     # BatchNorms in resnet-20 (each kernel)
+GUARD_PROBE = 3                   # the SDC probe's period in (a)
+GUARD_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+# (b) resnet-20's data BatchNorm normalises a positive scale away, so the
+# default loss_spike (×1000) leaves its loss unchanged, and a finite
+# poison (a sign flip) lands inside the early epochs' loss spread the
+# spike judge's baseline holds: value=inf makes the poisoned step's
+# statistics non-finite, a verdict the phase can count on
+GUARD_PLAN_B = ("module.step:grad_nonfinite@epoch=1,nbatch=2; "
+                "module.step:loss_spike@epoch=2,nbatch=1,value=inf")
+GUARD_PLAN_C_RESTORE = ("checkpoint.params:param_bitflip@nth=1; "
+                        "module.step:grad_nonfinite@epoch=2,nbatch=1")
+GUARD_PLAN_C_SDC = "guardian.sdc:value@nth=2,value=0.25"
+GUARD_PLAN_D = ("checkpoint.commit:transient@step=0; "
+                "data.device_put:transient@nth=5; "
+                "checkpoint.shard:bitflip@step=2")
+# the README's chaos recipe: the twin rolls back onto its committed entry
+GUARD_TWIN_ARGS = ["--gpus", "0"]
+GUARD_TWIN_PLAN = "module.step:grad_nonfinite@epoch=2,nbatch=1"
+GUARD_R50_BATCHES = 3             # ResNet-50: 2 epochs of 3 = 6 steps
+GUARD_FLOPS_REL = 0.05            # counted FLOPs against 2·MACs·3
+GUARD_WORD_REPS = 20
+
+
+def guard_ctx(mx):
+    return mx.cpu() if GUARD_DEVICE == "cpu" else mx.gpu(0)
+
+
+def guard_sync():
+    import torch
+    if GUARD_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def guard_skipping_iter(mx, source, skips):
+    """``source`` with the (epoch, nbatch) coordinates ``skips`` dropped:
+    the clean stream a rollback-and-skip must land on."""
+
+    class Skipping(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(source.batch_size)
+            self.provide_data = source.provide_data
+            self.provide_label = source.provide_label
+            self.epoch, self.nbatch = 0, -1
+
+        def set_epoch(self, epoch):
+            self.epoch = int(epoch)
+
+        def reset(self):
+            self.nbatch = -1
+            source.reset()
+
+        def next(self):
+            while True:
+                batch = source.next()
+                self.nbatch += 1
+                if (self.epoch, self.nbatch) not in skips:
+                    return batch
+
+    return Skipping()
+
+
+def guard_digest(mod):
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(host_params(mod).items()):
+        h.update(k.encode())
+        h.update(v.tobytes())
+    return h.hexdigest()
+
+
+def guard_run(mx, K, net, data, epochs, guard=None, plan=None, skips=(),
+              checkpoint=False, prefetch=None, sync=False):
+    """One seeded ``fit`` of ``net`` on ``data`` (x, y, batch): the
+    guardian (a Guardian or None), a fault plan armed for the run, the
+    coordinates ``skips`` dropped from the stream, a checkpoint per epoch
+    into the guardian's manager, ``prefetch_to_device``. ``sync`` makes
+    every batch end wait for the card (the timeline's clocks are then the
+    device's). Returns the row and the module."""
+    import numpy as np
+    from mxnet_tpu_torch import faults, telemetry
+    x, y, batch = data
+    ctx = guard_ctx(mx)
+    np.random.seed(7)
+    mx.random.seed(7)
+    mod = mx.mod.Module(net, context=ctx)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    if skips:
+        it = guard_skipping_iter(mx, it, set(skips))
+    steps = [0]
+
+    def count(param):
+        steps[0] += 1
+        if sync:
+            guard_sync()
+
+    cb = mx.callback.module_checkpoint(
+        mod, save_optimizer_states=True, manager=guard.manager) \
+        if checkpoint else None
+    watch = telemetry.compile_watch()
+    reg = telemetry.registry()
+    c0 = {k: reg.counter(k).value for k in (
+        "compile.post_warmup_retraces", "checkpoint.restore_fallbacks",
+        "faults.retries")}
+    telemetry.timeline().clear()
+    telemetry.flight_recorder().clear()
+    fired = faults.arm(plan, seed=7) if plan else None
+    b0 = (K.bn_fwd.launches, K.bn_bwd.launches)
+    guard_sync()
+    t0 = time.perf_counter()
+    try:
+        mod.fit(it, num_epoch=epochs, optimizer="sgd",
+                optimizer_params=GUARD_SGD, batch_end_callback=count,
+                epoch_end_callback=cb, guardian=guard,
+                initializer=mx.init.Xavier(factor_type="in",
+                                           magnitude=2.34),
+                prefetch_to_device=prefetch)
+        guard_sync()
+        if guard is not None:
+            # the last epoch's async commit still evaluates its seams
+            guard.manager.wait_until_finished()
+    finally:
+        faults.disarm()
+    seconds = time.perf_counter() - t0
+    events = [e for e in telemetry.flight_recorder().snapshot("phase 17")
+              ["events"] if e["kind"] == "guardian_rollback"]
+    row = {"steps": steps[0], "seconds": seconds,
+           "launches": {"bn_fwd": K.bn_fwd.launches - b0[0],
+                        "bn_bwd": K.bn_bwd.launches - b0[1]},
+           "post_warmup_compiles":
+               reg.counter("compile.post_warmup_retraces").value
+               - c0["compile.post_warmup_retraces"],
+           "restore_fallbacks":
+               reg.counter("checkpoint.restore_fallbacks").value
+               - c0["checkpoint.restore_fallbacks"],
+           "retries": reg.counter("faults.retries").value
+               - c0["faults.retries"],
+           "compiles": watch.count, "digest": guard_digest(mod),
+           "rollback_events": [
+               {k: e[k] for k in ("verdict_kind", "epoch", "nbatch",
+                                  "flags", "restore_step")}
+               for e in events]}
+    if guard is not None:
+        row["guardian"] = guard.stats()
+    if fired is not None:
+        row["plan"] = fired.describe()["rules"]
+        row["unfired"] = fired.unfired()
+        row["incidents"] = [
+            {"site": i["site"], "kind": i["kind"], "ctx": i["ctx"]}
+            for i in fired.incidents()]
+    return row, mod
+
+
+def guard_timeline_roofline():
+    """The live roofline of the newest run: medians of the records that
+    carry it (every epoch after the first)."""
+    from mxnet_tpu_torch import telemetry
+    recs = [r for r in telemetry.timeline().records() if "mfu" in r]
+    if not recs:
+        return {"records": 0}
+    med = statistics.median
+    return {"records": len(recs),
+            "mfu": med(r["mfu"] for r in recs),
+            "achieved_tflops": med(r["achieved_tflops"] for r in recs),
+            "achieved_hbm_gbps": med(r["achieved_hbm_gbps"] for r in recs),
+            "total_ms": med(r["total_ms"] for r in recs),
+            "bound_by": sorted({r["bound_by"] for r in recs})}
+
+
+def guard_model_flops(net, shapes):
+    """The independent count: 2·MACs of every convolution and fully
+    connected layer (from the symbol's inferred shapes), ×3 for the
+    forward and the backward."""
+    import numpy as np
+    internals = net.get_internals()
+    arg, out, _ = internals.infer_shape(**shapes)
+    args = dict(zip(internals.list_arguments(), arg))
+    outs = dict(zip(internals.list_outputs(), out))
+    macs = 0
+    for node in net._topo():
+        if node.op is not None and node.op.name in ("Convolution",
+                                                    "FullyConnected"):
+            w = args[node.name + "_weight"]
+            macs += int(np.prod(outs[node.name + "_output"])) * \
+                int(np.prod(w[1:]))
+    return 2 * 3 * macs
+
+
+def guard_roofline_row(mx, mod, net, shapes, name, card):
+    """(g): the counted FLOPs of the step beside the independent count,
+    and the live roofline the run's records carry."""
+    basis = mod._exec_group.roofline_basis()
+    want = guard_model_flops(net, shapes)
+    row = {"phase": "guardian_roofline", "model": name, "card": card,
+           "counted_flops_per_step": basis["flops_per_step"],
+           "counted_bytes_per_step": basis["bytes_per_step"],
+           "independent_flops_per_step": want,
+           "counted_over_independent": basis["flops_per_step"] / want,
+           "peak_tflops": basis["peak_tflops"],
+           "peak_hbm_gbps": basis["peak_hbm_gbps"],
+           **guard_timeline_roofline()}
+    emit(row)
+    return abs(row["counted_over_independent"] - 1.0) <= GUARD_FLOPS_REL \
+        and row["records"] > 0
+
+
+def guard_word_cost(mx, mod):
+    """The health word's device cost: ``_health_update`` on the module's
+    own outputs, gradients and parameters, CUDA events around
+    ``GUARD_WORD_REPS`` calls (host ms, synchronised, on the CPU)."""
+    import torch
+    from mxnet_tpu_torch.module import mesh_executor_group as meg
+    grp = mod._exec_group
+    cfg = {"window": 32, "stat": mx.metric.create("ce").fused_stat()}
+    inputs = grp._inputs_now()
+    outs = tuple(o._read() for o in grp.execs[0].outputs)
+    grads = {n: grp._grad_dict[n]._read() for n in grp._grad_names}
+    params = grp._params_now()
+    dev = grp.contexts[0].torch_device()
+    health = (torch.zeros((), dtype=torch.int32, device=dev),
+              torch.full((), -1, dtype=torch.int32, device=dev),
+              torch.zeros((), dtype=torch.int32, device=dev),
+              torch.full((32,), float("nan"), device=dev))
+
+    def run():
+        h = health
+        for _ in range(GUARD_WORD_REPS):
+            h = meg._health_update(cfg, h, inputs, outs, grads, params,
+                                   grp._grad_names, grp._label_names)
+        return h
+
+    run()
+    if GUARD_DEVICE == "cpu":
+        t0 = time.perf_counter()
+        run()
+        return 1e3 * (time.perf_counter() - t0) / GUARD_WORD_REPS
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / GUARD_WORD_REPS
+
+
+def guard_twin(root, card):
+    """The chaos recipe the README gives: the CIFAR twin with ``--seed
+    --guardian --fault-plan`` and a checkpoint per epoch rolls back onto
+    the entry its last healthy epoch committed (step 1) and finishes
+    above the twin's accuracy gate. Returns the failed gates."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.examples import train_cifar10
+    telemetry.flight_recorder().clear()
+    t0 = time.time()
+    res = train_cifar10.main(GUARD_TWIN_ARGS + [
+        "--seed", "7", "--num-epochs", str(GUARD_EPOCHS), "--guardian",
+        "--fault-plan", GUARD_TWIN_PLAN, "--min-accuracy",
+        str(TWIN_MIN_ACCURACY), "--checkpoint-dir",
+        os.path.join(root, "twin")])
+    events = [e for e in telemetry.flight_recorder().snapshot("twin")
+              ["events"] if e["kind"] == "guardian_rollback"]
+    gates = {"one_rollback": res["guardian"]["rollbacks"] == 1,
+             "onto_committed_entry": [e["restore_step"] for e in events]
+             == [GUARD_EPOCHS - 2],
+             "planned_incident": [(i["site"], i["kind"]) for i in
+                                  res["incidents"]]
+             == [("module.step", "grad_nonfinite")]}
+    emit({"phase": "guardian_twin", "plan": GUARD_TWIN_PLAN,
+          "seconds": time.time() - t0, "accuracy": res["accuracy"],
+          "guardian": res["guardian"], "gates": gates, "card": card})
+    return ["(b) twin " + k for k, ok in gates.items() if not ok]
+
+
+def guardian_phase(mx, K, C, R, card):
+    """Phase 17 (module docstring). Returns every kernel's launches over
+    the phase's runs, zeroed just before them."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.examples.train_cifar10 import synthetic_cifar
+    from mxnet_tpu_torch.guardian import Guardian
+    from mxnet_tpu_torch.module.mesh_executor_group import \
+        HEALTH_SDC_MISMATCH
+    n = GUARD_BATCH * GUARD_BATCHES
+    x, y = synthetic_cifar(np.random.RandomState(0), n)
+    data = (x, y, GUARD_BATCH)
+    net = mx.models.get_symbol(GUARD_NETWORK, num_classes=10,
+                               image_shape=TWIN_IMAGE)
+    root = tempfile.mkdtemp(prefix="guardian_phase_")
+    dirs = iter(range(1000))
+
+    def guard(**kw):
+        return Guardian(os.path.join(root, "g%d" % next(dirs)), **kw)
+
+    per_step = GUARD_BN * GUARD_EPOCHS * GUARD_BATCHES
+    failed = []
+    vision_zero(K, C, R)
+    telemetry.enable()
+    try:
+        with deterministic_cudnn():
+            # (a) + (e) + (g): off, armed clean, armed with the probe
+            off, _ = guard_run(mx, K, net, data, GUARD_EPOCHS)
+            clean, mod = guard_run(mx, K, net, data, GUARD_EPOCHS, guard(),
+                                   sync=True)
+            roof_ok = guard_roofline_row(
+                mx, mod, net, {"data": (GUARD_BATCH,) + TWIN_IMAGE,
+                               "softmax_label": (GUARD_BATCH,)},
+                GUARD_NETWORK, card)
+            probe, _ = guard_run(mx, K, net, data, GUARD_EPOCHS,
+                                 guard(sdc_probe_period=GUARD_PROBE))
+            probed = probe["guardian"]["sdc_checks"]
+            gates = {
+                "bitwise": off["digest"] == clean["digest"]
+                == probe["digest"],
+                "post_warmup_compiles_0": all(
+                    r["post_warmup_compiles"] == 0
+                    for r in (off, clean, probe)),
+                "sdc_checks": probed == GUARD_EPOCHS * GUARD_BATCHES
+                // GUARD_PROBE,
+                "sdc_mismatches_0": probe["guardian"]["sdc_mismatches"] == 0,
+                "bn_launches": off["launches"] == clean["launches"] == {
+                    "bn_fwd": per_step, "bn_bwd": per_step} and
+                probe["launches"]["bn_fwd"] == probe["launches"]["bn_bwd"]
+                == per_step + GUARD_BN * probed,
+                "roofline_flops": roof_ok}
+            emit({"phase": "guardian_off_armed_probe", "off": off,
+                  "clean": clean, "probe": probe, "gates": gates,
+                  "card": card})
+            failed += ["(a) " + k for k, ok in gates.items() if not ok]
+
+            # (b): two numeric faults healed by rollback-and-skip
+            fault_b, _ = guard_run(mx, K, net, data, GUARD_EPOCHS, guard(),
+                                   plan=GUARD_PLAN_B, checkpoint=True)
+            ref_b, _ = guard_run(mx, K, net, data, GUARD_EPOCHS, guard(),
+                                 skips={(1, 2), (2, 1)}, checkpoint=True)
+            gates = {
+                "bitwise_vs_excluded": fault_b["digest"] == ref_b["digest"],
+                "incidents_as_planned": [
+                    (i["kind"], i["ctx"]["epoch"], i["ctx"]["nbatch"])
+                    for i in fault_b["incidents"]] == [
+                        ("grad_nonfinite", 1, 2), ("loss_spike", 2, 1)],
+                "unfired_none": fault_b["unfired"] == [],
+                "one_event_per_fault": [
+                    (e["epoch"], e["nbatch"])
+                    for e in fault_b["rollback_events"]] == [(1, 2), (2, 1)],
+                "onto_committed_entries": [
+                    e["restore_step"] for e in fault_b["rollback_events"]]
+                == [0, 1],
+                "bn_launches": all(
+                    r["launches"] == {"bn_fwd": GUARD_BN * r["steps"],
+                                      "bn_bwd": GUARD_BN * r["steps"]}
+                    for r in (fault_b, ref_b)),
+                "post_warmup_compiles_0":
+                    fault_b["post_warmup_compiles"] == 0}
+            emit({"phase": "guardian_rollback", "plan": GUARD_PLAN_B,
+                  "fault": fault_b, "reference": ref_b,
+                  "replayed_steps": fault_b["steps"] - ref_b["steps"],
+                  "gates": gates, "card": card})
+            failed += ["(b) " + k for k, ok in gates.items() if not ok]
+            failed += guard_twin(root, card)
+
+            # (c): a read-path SDC at restore, a forced probe mismatch
+            fault_c, _ = guard_run(mx, K, net, data, GUARD_EPOCHS, guard(),
+                                   plan=GUARD_PLAN_C_RESTORE,
+                                   checkpoint=True)
+            ref_c, _ = guard_run(mx, K, net, data, GUARD_EPOCHS, guard(),
+                                 skips={(2, 1)}, checkpoint=True)
+            sdc, _ = guard_run(mx, K, net, data, GUARD_EPOCHS,
+                               guard(sdc_probe_period=GUARD_PROBE),
+                               plan=GUARD_PLAN_C_SDC)
+            skipped = {tuple(c) for c in sdc["guardian"]["skipped"]}
+            ref_sdc, _ = guard_run(mx, K, net, data, GUARD_EPOCHS,
+                                   guard(sdc_probe_period=GUARD_PROBE),
+                                   skips=skipped)
+            gates = {
+                "restore_walks_back": fault_c["restore_fallbacks"] >= 1 and
+                [e["restore_step"] for e in fault_c["rollback_events"]]
+                == [0],
+                "restore_bitwise_vs_excluded":
+                    fault_c["digest"] == ref_c["digest"],
+                "sdc_flag": [e["flags"] for e in sdc["rollback_events"]]
+                == [HEALTH_SDC_MISMATCH],
+                "sdc_rolled_back": sdc["guardian"]["rollbacks"] == 1 and
+                skipped == {(0, GUARD_PROBE)},
+                "sdc_bitwise_vs_excluded":
+                    sdc["digest"] == ref_sdc["digest"],
+                "unfired_none": fault_c["unfired"] == sdc["unfired"] == []}
+            emit({"phase": "guardian_sdc", "restore": fault_c,
+                  "restore_reference": ref_c, "probe": sdc,
+                  "probe_reference": ref_sdc, "gates": gates,
+                  "card": card})
+            failed += ["(c) " + k for k, ok in gates.items() if not ok]
+
+            # (d): transients heal to the fault-free digest; a corrupted
+            # shard falls back to the previous entry
+            g_d = guard()
+            fault_d, _ = guard_run(mx, K, net, data, GUARD_EPOCHS, g_d,
+                                   plan=GUARD_PLAN_D, checkpoint=True,
+                                   prefetch=2)
+            ref_d, _ = guard_run(mx, K, net, data, GUARD_EPOCHS, guard(),
+                                 checkpoint=True, prefetch=2)
+            restored = g_d.manager.restore().step
+            gates = {
+                "healed_bitwise": fault_d["digest"] == ref_d["digest"]
+                == clean["digest"],
+                "retried": fault_d["retries"] >= 2,
+                "shard_fallback": restored == GUARD_EPOCHS - 2,
+                "unfired_none": fault_d["unfired"] == []}
+            emit({"phase": "guardian_transients", "plan": GUARD_PLAN_D,
+                  "fault": fault_d, "reference": ref_d,
+                  "restored_step": restored, "gates": gates, "card": card})
+            failed += ["(d) " + k for k, ok in gates.items() if not ok]
+
+            # (f) + (g): ResNet-50 f32, 6 steps, armed against unarmed
+            r50 = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                       image_shape=IMAGE)
+            rs = np.random.RandomState(17)
+            rows = GUARD_R50_BATCHES * BATCH
+            r50_data = (rs.randn(rows, *IMAGE).astype(np.float32),
+                        rs.randint(0, 1000, rows).astype(np.float32), BATCH)
+            un, _ = guard_run(mx, K, r50, r50_data, 2, sync=True)
+            un_roof = guard_timeline_roofline()
+            armed, mod50 = guard_run(mx, K, r50, r50_data, 2, guard(),
+                                     sync=True)
+            r50_ok = guard_roofline_row(
+                mx, mod50, r50, {"data": (BATCH,) + IMAGE,
+                                 "softmax_label": (BATCH,)},
+                "resnet-50", card)
+            word_ms = guard_word_cost(mx, mod50)
+            steps50 = 2 * GUARD_R50_BATCHES
+            gates = {"bitwise": un["digest"] == armed["digest"],
+                     "bn_launches": un["launches"] == armed["launches"] == {
+                         "bn_fwd": BN_PER_STEP * steps50,
+                         "bn_bwd": BN_PER_STEP * steps50},
+                     "roofline_flops": r50_ok}
+            emit({"phase": "guardian_resnet50", "batch": BATCH,
+                  "dtype": "float32", "steps": steps50, "unarmed": un,
+                  "armed": armed,
+                  "ms_per_step_unarmed": un_roof.get("total_ms"),
+                  "ms_per_step_armed":
+                      guard_timeline_roofline().get("total_ms"),
+                  "word_device_ms": word_ms, "gates": gates,
+                  "card": card})
+            failed += ["(f) " + k for k, ok in gates.items() if not ok]
+    finally:
+        telemetry.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = vision_counts(K, C, R)
+    emit({"phase": "guardian_kernels", "launches": launches,
+          "ok": not failed, "failed": failed})
+    if failed:
+        raise RuntimeError("guardian phase failed: %s" % "; ".join(failed))
+    return launches
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5473,6 +5967,7 @@ def main():
     quant_launches = timed("quant", quant_phase, mx, K, C, R, card)
     vision_entries, vision_launches = timed("vision", vision_phase, mx, K, C,
                                             R, card)
+    guard_launches = timed("guardian", guardian_phase, mx, K, C, R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -5487,6 +5982,7 @@ def main():
                     launches_api=api_launches[k],
                     launches_quant=quant_launches[k],
                     launches_vision=vision_launches[k],
+                    launches_guardian=guard_launches[k],
                     launches_bf16=launches16[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     max_abs_err_bf16=worst16[k],
@@ -5506,12 +6002,16 @@ def main():
              launches_rnn=rnn_launches["rtc"],
              launches_api=api_launches["rtc"],
              launches_quant=quant_launches["rtc"],
-             launches_vision=vision_launches["rtc"]),
+             launches_vision=vision_launches["rtc"],
+             launches_guardian=guard_launches["rtc"]),
         dict(copy_entry, launches_decode=decode_launches["copy"],
              launches_rnn=rnn_launches["copy"],
              launches_api=api_launches["copy"],
              launches_quant=quant_launches["copy"],
-             launches_vision=vision_launches["copy"])] + vision_entries
+             launches_vision=vision_launches["copy"],
+             launches_guardian=guard_launches["copy"])] + [
+        dict(e, launches_guardian=guard_launches[e["name"]])
+        for e in vision_entries]
     emit({"phase": "done", "seconds": time.time() - t_start,
           "phase_seconds": seconds})
     print(card)

@@ -6,8 +6,8 @@ far (``mx.nd``, ``mx.sym``, ``mx.mod``, ``mx.init``, ``mx.optimizer``,
 ``mx.models``, ``mx.checkpoint``, ``mx.monitor``, ``mx.telemetry``,
 ``mx.serving``, ``mx.rnn``, ``mx.precision``, ``mx.recordio``,
 ``mx.image``, ``mx.data``, ``mx.autograd``, ``mx.operator``, ``mx.kv``/
-``mx.kvstore``, ``mx.model.FeedForward``, ``mx.viz``, ``mx.plugin`` and
-``mx.test_utils``). It
+``mx.kvstore``, ``mx.model.FeedForward``, ``mx.viz``, ``mx.plugin``,
+``mx.faults``, ``mx.guardian`` and ``mx.test_utils``). It
 imports torch and numpy, never JAX and
 nothing of ``mxnet_tpu``. Entry points run on ``gpu(0)`` unless the caller
 passes ``mx.cpu()``.
@@ -15,6 +15,7 @@ passes ``mx.cpu()``.
 from .base import MXNetError, __version__
 from .context import Context, cpu, gpu, tpu, current_context
 from . import random
+from . import faults
 from . import ndarray
 from . import ndarray as nd
 from . import autograd
@@ -40,6 +41,7 @@ from . import module as mod
 from . import models
 from . import convert
 from . import checkpoint
+from . import guardian
 from . import monitor
 from . import monitor as mon
 from . import telemetry
@@ -59,4 +61,5 @@ __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "model", "mod", "models", "convert", "checkpoint", "monitor",
            "mon", "telemetry", "serving", "rnn", "precision", "recordio",
            "image", "data", "autograd", "operator", "kv", "kvstore", "opt",
-           "viz", "visualization", "test_utils", "FeedForward", "plugin"]
+           "viz", "visualization", "test_utils", "FeedForward", "plugin",
+           "faults", "guardian"]

@@ -27,8 +27,13 @@ the previous save and re-raises its failure first;
 when the interpreter exits is drained.
 
 The layout is the JAX package's (``serialize.FORMAT``, manifest keys,
-file names). Its fault-injection seams and retry policy come with the
-port's ``faults`` slice.
+file names), and so are its fault seams (``mxnet_tpu_torch.faults``):
+``checkpoint.commit`` between the staged write and the rename, healed
+through ``faults.retry`` (site ``checkpoint.save``) by re-staging the
+whole entry; ``checkpoint.shard`` and ``checkpoint.manifest`` corrupt a
+committed entry's file (restore then falls back to the previous entry);
+``checkpoint.params`` corrupts one restored parameter element after the
+crc checks passed (a read-path SDC the guardian's value check catches).
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import zlib
 from collections import namedtuple
 from concurrent.futures import ThreadPoolExecutor
 
+from .. import faults as _faults
 from .. import random as _random
 from .. import telemetry
 from ..base import MXNetError
@@ -178,12 +184,32 @@ class CheckpointManager(object):
         if opt_bytes is not None:
             n_bytes += len(opt_bytes)
 
+        def attempt():
+            # the retryable unit: a retried transient fault re-stages the
+            # WHOLE entry (the half-written tmp goes first), so a retry
+            # never commits a torn mix of two attempts
+            shutil.rmtree(tmp, ignore_errors=True)
+            self._write_entry(tmp, step, snaps, opt_bytes, extra,
+                              rng_state, save_time)
+            if _faults.armed():
+                # kill-mid-commit seam: the entry is staged but never
+                # renamed — what a process death here leaves behind
+                _faults.check("checkpoint.commit", step=step)
+            _commit_entry(tmp, final)
+
         def job():
             t1 = time.perf_counter()
             try:
-                self._write_entry(tmp, step, snaps, opt_bytes, extra,
-                                  rng_state, save_time)
-                _commit_entry(tmp, final)
+                with telemetry.span("checkpoint.save", step=step):
+                    _faults.retry(attempt, site="checkpoint.save",
+                                  seed=step)
+                if _faults.armed():
+                    # post-commit storage faults on the COMMITTED entry:
+                    # restore() must fall back to the previous entry
+                    _faults.corrupt_file("checkpoint.shard", final,
+                                         pattern="a*.npy", step=step)
+                    _faults.corrupt_file("checkpoint.manifest", final,
+                                         pattern=_MANIFEST, step=step)
                 self._gc()
             except BaseException:
                 _TEL.counter("save_errors").add()
@@ -392,6 +418,10 @@ class CheckpointManager(object):
         if manifest.get("rng"):
             rng = serialize.load_rng(
                 os.path.join(entry, manifest["rng"]["file"]))
+        if _faults.armed():
+            # restore hand-off SDC seam: one element of the ASSEMBLED
+            # params corrupted after the crc checks passed
+            _faults.corrupt_params("checkpoint.params", params, step=step)
         _TEL.counter("restores").add()
         _TEL.counter("restore_ms").add((time.perf_counter() - t0) * 1e3)
         _TEL.counter("bytes_read").add(

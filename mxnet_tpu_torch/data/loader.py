@@ -31,12 +31,14 @@ False`` is pulled on the consumer thread instead (pass-through).
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 
 import numpy as onp
 import torch
 
+from .. import faults as _faults
 from ..base import MXNetError
 from ..context import current_context
 from ..io import DataBatch, DataIter
@@ -126,14 +128,31 @@ class DeviceLoader(DataIter):
     ctx : Context, optional
         Target device without a module (default: the current context; a
         gpu context on a machine without CUDA raises here).
+    restart_on_error : bool, optional
+        A stager error is always delivered IN ORDER on the consumer
+        thread; by default the epoch then ends (``reset()`` recovers).
+        With ``restart_on_error`` (default ``MXNET_FAULT_STAGER_RESTART``
+        = 1) the stager relaunches after the delivery, so a consumer that
+        catches the error keeps iterating the surviving stream.
+
+    Fault seams (``mxnet_tpu_torch.faults``): ``data.stager`` at the top
+    of each ring entry, before any source pull (a transient fault heals
+    in place through ``faults.retry``; a permanent one is the stager's
+    crash), and ``data.device_put`` before each copy to the device
+    (healed through ``faults.retry``: the same bytes land on the retry).
     """
 
     def __init__(self, data_iter, module=None, depth=2, batch_group=None,
-                 stats=None, close_source=False, ctx=None):
+                 stats=None, close_source=False, ctx=None,
+                 restart_on_error=None):
         super().__init__(getattr(data_iter, "batch_size", 0))
         depth = int(depth)
         if depth < 1:
             raise MXNetError("depth must be >= 1 (got %d)" % depth)
+        if restart_on_error is None:
+            restart_on_error = os.environ.get(
+                "MXNET_FAULT_STAGER_RESTART", "0") == "1"
+        self._restart_on_error = bool(restart_on_error)
         group = int(batch_group) if batch_group else 0
         if group == 1:
             group = 0
@@ -221,8 +240,14 @@ class DeviceLoader(DataIter):
     def _stage_batch(self, batch):
         """One host batch -> (staged batch, pinned slab)."""
         n_data = len(batch.data)
-        labels = list(batch.label or [])
-        staged, slab = self._copy_arrays(list(batch.data) + labels)
+        arrays = list(batch.data) + list(batch.label or [])
+        if _faults.armed():
+            def attempt():
+                _faults.check("data.device_put")
+                return self._copy_arrays(arrays)
+            staged, slab = _faults.retry(attempt, site="data.device_put")
+        else:
+            staged, slab = self._copy_arrays(arrays)
         from ..ndarray import NDArray
         data = [NDArray(t) for t in staged[:n_data]]
         label = [None if t is None else NDArray(t)
@@ -239,8 +264,15 @@ class DeviceLoader(DataIter):
         stacked = stack_group_inputs(batches, self._data_names,
                                      self._label_names)
         names = list(stacked)
-        tensors, slab = self._copy_arrays([stacked[n] for n in names])
-        staged = self._group_handle.stage_stacked(dict(zip(names, tensors)))
+
+        def attempt():
+            if _faults.armed():
+                _faults.check("data.device_put", group=len(batches))
+            tensors, slab = self._copy_arrays([stacked[n] for n in names])
+            return self._group_handle.stage_stacked(
+                dict(zip(names, tensors))), slab
+
+        staged, slab = _faults.retry(attempt, site="data.device_put")
         out = []
         for j, b in enumerate(batches):
             data = [NDArray(staged[n][j]) for n in self._data_names
@@ -276,6 +308,12 @@ class DeviceLoader(DataIter):
         """Pull and stage the next ring entry: (list of delivered
         batches, the copies' event or None), or _END at epoch end."""
         from .. import telemetry
+        if _faults.armed():
+            # stager-crash seam: raises BEFORE any source pull, so a
+            # restarted stager resumes the stream with nothing lost
+            _faults.retry(
+                lambda: _faults.check("data.stager", group=self._group),
+                site="data.stager")
         if self._group:
             pulled = []
             for _ in range(self._group):
@@ -377,6 +415,20 @@ class DeviceLoader(DataIter):
             name="mxtpu-device-stager", daemon=True)
         self._stager.start()
 
+    def _restart_stager(self):
+        """Recover from a delivered stager error: join the exited stager
+        and rebase the epoch tag, so a fresh stager relaunches on the next
+        ``next()`` and continues the source stream where the crash left
+        it."""
+        from .. import telemetry
+        self._stop_stager()
+        with self._cond:
+            self._stop = False
+            self._exhausted = False
+            self._noted_full = False
+            self._live_epoch += 1
+        telemetry.registry().counter("data.stager_restarts").add()
+
     def _stop_stager(self):
         stager = self._stager
         if stager is None:
@@ -453,7 +505,8 @@ class DeviceLoader(DataIter):
                                      "while a next() was blocked")
                 self._cond.wait(0.05)
             entry = self._ring.pop(0)
-            if entry is _END or isinstance(entry, BaseException):
+            if entry is _END or (isinstance(entry, BaseException)
+                                 and not self._restart_on_error):
                 self._exhausted = True
             self.pipeline_stats.note_ring(len(self._ring))
             self._cond.notify_all()
@@ -461,6 +514,10 @@ class DeviceLoader(DataIter):
         if entry is _END:
             raise StopIteration
         if isinstance(entry, BaseException):
+            if self._restart_on_error:
+                # the stager exited when it delivered this error; a
+                # fresh one relaunches lazily on the next next()
+                self._restart_stager()
             raise entry
         batches = self._deliver(entry)
         self._pending = list(batches[1:])

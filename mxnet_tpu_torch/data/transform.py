@@ -9,15 +9,22 @@ batches are reassembled IN ORDER. The seed never depends on which worker
 took the batch or when, so the delivered stream is bitwise identical at
 1, 2 or 4 workers and a ``reset()`` replays the next epoch identically
 for the same epoch index. A transform's error is delivered to the
-consumer at its batch's position.
+consumer at its batch's position; with ``restart_on_error`` the stream
+then goes on past the failed batch.
+
+Fault seam (``mxnet_tpu_torch.faults``): ``data.transform`` at each
+worker's apply, healed through ``faults.retry`` — the batch's RNG is
+re-seeded for each attempt, so a healed retry delivers the same bytes.
 """
 from __future__ import annotations
 
+import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as onp
 
+from .. import faults as _faults
 from ..base import MXNetError
 from ..io import DataIter
 from .augment import fold_seed
@@ -52,11 +59,22 @@ class TransformIter(DataIter):
         instead of buffering an epoch in RAM.
     seed : int
         Root of the per-batch seeding.
+    restart_on_error : bool, optional
+        Deliver a TRANSFORM error in order and go on past the failed
+        batch (the pool and sequencer are still alive); a source error
+        stays terminal, since a source iterator's state after its own
+        exception is undefined. Default ``MXNET_FAULT_STAGER_RESTART``
+        = 1.
     """
 
     def __init__(self, data_iter, transform=None, num_workers=2,
-                 depth=None, seed=0):
+                 depth=None, seed=0, restart_on_error=None):
         super().__init__(getattr(data_iter, "batch_size", 0))
+        if restart_on_error is None:
+            restart_on_error = os.environ.get(
+                "MXNET_FAULT_STAGER_RESTART", "0") == "1"
+        self._restart_on_error = bool(restart_on_error)
+        self._source_dead = False
         if num_workers < 1:
             raise MXNetError("num_workers must be >= 1 (got %d)"
                              % num_workers)
@@ -95,6 +113,7 @@ class TransformIter(DataIter):
             self._next_get = 0      # next sequence number to deliver
             self._stop = False
             self._exhausted = False
+            self._source_dead = False
         self._epoch += 1
         with self._cond:
             # epoch tag: a straggler transform submitted before a
@@ -138,6 +157,7 @@ class TransformIter(DataIter):
                 self._finish(epoch, seq, _END)
                 return
             except Exception as exc:  # noqa: BLE001 — delivered in order
+                self._source_dead = True
                 self._finish(epoch, seq, exc)
                 return
             if self._transform is None:
@@ -146,9 +166,14 @@ class TransformIter(DataIter):
                 self._pool.submit(self._run_transform, epoch, seq, batch)
 
     def _run_transform(self, epoch, seq, batch):
-        try:
+        def attempt():
+            if _faults.armed():
+                _faults.check("data.transform", epoch=epoch, index=seq)
             rng = onp.random.RandomState(self._batch_seed(epoch, seq))
-            out = self._transform(batch, rng)
+            return self._transform(batch, rng)
+        try:
+            out = _faults.retry(attempt, site="data.transform",
+                                seed=self._seed)
         except Exception as exc:  # noqa: BLE001 — delivered in order
             out = exc
         self._finish(epoch, seq, out)
@@ -184,7 +209,9 @@ class TransformIter(DataIter):
                 self._cond.wait(0.05)
             value = self._results.pop(self._next_get)
             self._next_get += 1
-            if value is _END or isinstance(value, BaseException):
+            if value is _END or (isinstance(value, BaseException) and
+                                 not (self._restart_on_error and
+                                      not self._source_dead)):
                 self._exhausted = True
             self._cond.notify_all()
         if value is _END:

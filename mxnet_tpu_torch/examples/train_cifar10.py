@@ -6,13 +6,29 @@ train_cifar10.py``.
         [--exit-after-epoch 1]] [--serve-smoke] [--precision bf16]
         [--opt-state-dtype bfloat16] [--remat dots_saveable]
         [--batch-group 4] [--prefetch-device 2] [--device-augment
-        [--augment-placement host] [--cache-dataset]] ...
+        [--augment-placement host] [--cache-dataset]] [--guardian]
+        [--fault-plan PLAN] [--telemetry-jsonl F] [--telemetry-port P]
+        [--program-report F] [--health-report F] ...
 
 Uses a real CIFAR-10 python-pickle batch directory when ``--data-dir`` has
 one, else the JAX script's synthetic CIFAR-shaped data (the same seed, so
 the same values). Images are center-cropped to 28x28, as in the JAX
 script. ``--params-digest-out`` writes the same sha256 over the final
 parameter values as the JAX script.
+
+The robustness and telemetry flags are the JAX script's: ``--fault-plan``
+arms a seeded ``faults.FaultPlan`` and, after training, requires every
+deterministic rule to have fired and logs the incident transcript;
+``--guardian`` arms ``guardian.Guardian`` on the ``--checkpoint-dir``
+manager (else a run-local directory) and, when the plan holds a
+numeric rule (``module.step``, ``guardian.sdc``), requires a rollback;
+``--telemetry-jsonl``/``--telemetry-port`` enable telemetry (a step
+line per train step, a Prometheus endpoint) and require zero new
+programs after the warmup boundary; ``--program-report`` writes the
+program inventory and requires a counted train step, the optimizer
+account and (past one epoch) the live roofline's gauges;
+``--health-report`` writes the regression watchdog's report and requires
+it armed, calibrated (past one epoch) and healthy.
 
 The data flags are the JAX script's: ``--prefetch-device N`` trains
 through ``data.DeviceLoader`` (a ring of N batches staged on the card);
@@ -29,9 +45,9 @@ Differences from the JAX script: the twin trains on ``gpu(0)`` (or
 ``--gpus``/``--tpus``, one card) unless ``--cpu`` is given, where the JAX
 script defaults to the CPU; ``--seed`` also makes cuDNN pick deterministic
 algorithms, so that a preempted and resumed run retraces the
-uninterrupted one bit for bit; the flags whose modules the port does
-not have yet raise ``MXNetError`` naming the slice that brings them; and
-``--serve-smoke`` serves float32 rows, so it does not combine with the u8
+uninterrupted one bit for bit (and the guardian's probe can compare two
+runs); the checks after training raise ``MXNetError`` where the JAX
+script asserts; and ``--serve-smoke`` serves float32 rows, so it does not combine with the u8
 pipeline. ``main(argv)`` returns the run's results.
 """
 import argparse
@@ -58,15 +74,8 @@ from mxnet_tpu_torch.examples.common import (add_precision_args,
 # (tools/batch_parity.py finds the first node that differs)
 SERVE_REL_L2 = 1e-5
 
-# flag -> the slice of the port that brings its module
-LATER_SLICES = {
-    "fault_plan": "the faults slice (mxnet_tpu/faults)",
-    "guardian": "the guardian slice (mxnet_tpu/guardian)",
-    "telemetry_jsonl": "the training telemetry slice (mxnet_tpu/telemetry)",
-    "telemetry_port": "the training telemetry slice (mxnet_tpu/telemetry)",
-    "program_report": "the training telemetry slice (mxnet_tpu/telemetry)",
-    "health_report": "the training telemetry slice (mxnet_tpu/telemetry)",
-}
+# flag -> the slice of the port that brings its module (none left)
+LATER_SLICES = {}
 
 
 def load_cifar_dir(data_dir):
@@ -228,19 +237,38 @@ def parse_args(argv=None):
                         help="hold the decoded u8 epoch on the card "
                              "(data.CachedDataset): later epochs are a "
                              "gather there; implies the u8 pipeline")
-    # refused until their modules are ported (LATER_SLICES)
-    parser.add_argument("--telemetry-jsonl", default=None)
-    parser.add_argument("--telemetry-port", type=int, default=None)
-    parser.add_argument("--program-report", default=None)
-    parser.add_argument("--health-report", default=None)
-    parser.add_argument("--fault-plan", default=None)
-    parser.add_argument("--guardian", action="store_true", default=None)
+    parser.add_argument("--telemetry-jsonl", default=None,
+                        help="enable telemetry and stream one JSON line "
+                             "per train step (and per-epoch metrics "
+                             "snapshots) into this file; training stays "
+                             "bit for bit the telemetry-off run's")
+    parser.add_argument("--telemetry-port", type=int, default=None,
+                        help="serve the telemetry registry as a "
+                             "Prometheus /metrics endpoint on this port "
+                             "for the run (0 picks a free port)")
+    parser.add_argument("--program-report", default=None,
+                        help="enable telemetry, write the program "
+                             "inventory (counted FLOPs and bytes per "
+                             "program) here after training, and require "
+                             "a counted train step, the optimizer "
+                             "account and the live roofline's gauges")
+    parser.add_argument("--health-report", default=None,
+                        help="enable telemetry's regression watchdog and "
+                             "write its report here after training; "
+                             "require it armed, calibrated and healthy")
+    parser.add_argument("--fault-plan", default=None,
+                        help="arm a seeded faults.FaultPlan (grammar "
+                             "string, JSON list or @file); after training "
+                             "require every deterministic rule to have "
+                             "fired and log the incident transcript")
+    parser.add_argument("--guardian", action="store_true",
+                        help="arm the training guardian (numeric-health "
+                             "word on the step, rollback-and-skip) on the "
+                             "--checkpoint-dir manager, else a run-local "
+                             "directory; with numeric fault rules, "
+                             "require a rollback")
     args = parser.parse_args(argv)
     args.precision_policy = precision_policy(parser, args)
-    for dest, where in LATER_SLICES.items():
-        if getattr(args, dest) is not None:
-            raise mx.MXNetError("--%s comes with %s of the port"
-                                % (dest.replace("_", "-"), where))
     if args.exit_after_epoch is not None and args.checkpoint_dir is None:
         parser.error("--exit-after-epoch needs --checkpoint-dir (it "
                      "simulates preemption after the commit)")
@@ -306,19 +334,119 @@ def check_u8_pipeline(args, mod, train):
                      info["built_epoch"])
 
 
+def check_telemetry(args):
+    """The telemetry flags' checks (the JAX script's asserts): no new
+    program after the warmup boundary, the program report and the health
+    report where asked. Returns what they read."""
+    watch = mx.telemetry.compile_watch()
+    if watch.post_warmup_count:
+        raise mx.MXNetError(
+            "the train loop ran %d new program(s) after the warmup "
+            "boundary: %r" % (watch.post_warmup_count, watch.events()))
+    tl = mx.telemetry.timeline()
+    logging.info("telemetry: %d step records; slowest: %r", len(tl),
+                 tl.slowest(1))
+    mx.telemetry.flush_metrics("train_cifar10 end")
+    out = {"step_records": len(tl)}
+    if args.program_report:
+        report = mx.telemetry.dump_programs(args.program_report)
+        kinds = {p["kind"] for p in report["programs"]
+                 if p.get("flops") and p.get("bytes_accessed")}
+        if not kinds & {"train_step", "train_step_grouped"}:
+            raise mx.MXNetError("program report lacks a counted train "
+                                "step with FLOPs and bytes: %r"
+                                % sorted(kinds))
+        if "optimizer_update" not in kinds:
+            raise mx.MXNetError("program report lacks the optimizer-"
+                                "update account: %r" % sorted(kinds))
+        gauges = mx.telemetry.registry().snapshot()["gauges"]
+        if args.num_epochs > 1:
+            # the live roofline resolves at the end of the first epoch
+            missing = [g for g in ("train.mfu", "train.achieved_tflops",
+                                   "train.achieved_hbm_gbps",
+                                   "train.bound_by") if g not in gauges]
+            if missing:
+                raise mx.MXNetError("roofline gauges missing: %r"
+                                    % missing)
+        logging.info("program report: %d programs -> %s",
+                     report["n_programs"], args.program_report)
+        out["programs"] = report
+    if args.health_report:
+        rep = mx.telemetry.health_report()
+        if not rep["armed"]:
+            raise mx.MXNetError("the health watchdog never armed")
+        if args.num_epochs > 1 and not rep["calibrated"]:
+            raise mx.MXNetError("the health watchdog never calibrated: %r"
+                                % (rep,))
+        if not rep["healthy"]:
+            raise mx.MXNetError("a clean run raised health incidents: %r"
+                                % (rep["incidents"],))
+        mx.telemetry.atomic_json_dump(args.health_report, rep)
+        logging.info("health report: armed=%s healthy=%s polls=%d -> %s",
+                     rep["armed"], rep["healthy"], rep["polls"],
+                     args.health_report)
+        out["health"] = rep
+    return out
+
+
+def check_guardian(guard, fault_plan):
+    """A planned numeric fault must have been healed by a rollback (and
+    training reached its end, which returning here proves)."""
+    st = guard.stats()
+    logging.info("guardian: rollbacks=%d skipped=%r sdc_checks=%d "
+                 "sdc_mismatches=%d", st["rollbacks"], st["skipped"],
+                 st["sdc_checks"], st["sdc_mismatches"])
+    numeric = [r.describe() for r in (fault_plan.rules if fault_plan
+                                      else [])
+               if r.site in ("module.step", "guardian.sdc")]
+    if numeric and st["rollbacks"] < 1:
+        raise mx.MXNetError("numeric fault(s) %r were planned but the "
+                            "guardian never rolled back" % (numeric,))
+    return st
+
+
+def check_fault_plan(fault_plan):
+    """Every deterministic rule must have fired (a plan that missed its
+    target coordinates is a failure, not a pass); logs the transcript and
+    disarms. Returns the incidents."""
+    unfired = fault_plan.unfired()
+    if unfired:
+        raise mx.MXNetError("fault plan rules never fired: %r" % (unfired,))
+    incidents = fault_plan.incidents()
+    logging.info("fault plan: %d incident(s) injected and recovered: %s",
+                 len(incidents), ", ".join("%s(%s)" % (i["site"], i["kind"])
+                                           for i in incidents))
+    mx.faults.disarm()
+    return incidents
+
+
 def main(argv=None):
     """Train; returns a dict of the results (``score``, ``accuracy``,
     ``params_digest`` when asked, ``fit_s``, ``fit_img_per_s`` over each
     epoch's batches after its first, ``serving`` stats, ``module``,
-    ``manager``)."""
+    ``manager``; with the robustness and telemetry flags ``guardian``
+    stats, the plan's ``incidents``, ``step_records``, ``programs``,
+    ``health``)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     ctx = device_context(args)
+    telemetry_on = (args.telemetry_jsonl or args.telemetry_port is not None
+                    or args.program_report or args.health_report)
+    if telemetry_on:
+        server = mx.telemetry.enable(jsonl=args.telemetry_jsonl,
+                                     port=args.telemetry_port)
+        if server is not None:
+            logging.info("telemetry: Prometheus endpoint at %s", server.url)
     if args.seed is not None:
         np.random.seed(args.seed)
         mx.random.seed(args.seed)
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
+    fault_plan = None
+    if args.fault_plan:
+        fault_plan = mx.faults.arm(args.fault_plan, seed=args.seed or 0)
+        logging.info("fault plan armed (seed %d): %s", fault_plan.seed,
+                     "; ".join(r.describe() for r in fault_plan.rules))
 
     batch_dir = os.path.join(args.data_dir, "cifar-10-batches-py")
     if os.path.exists(batch_dir):
@@ -361,6 +489,16 @@ def main(argv=None):
 
         callbacks.append(_preempt)
 
+    guard = None
+    if args.guardian:
+        import tempfile
+        guard = mx.guardian.Guardian(
+            manager if manager is not None
+            else tempfile.mkdtemp(prefix="cifar_guardian_"))
+        logging.info("guardian armed: window=%d threshold=%g "
+                     "max_rollbacks=%d sdc_period=%d", guard.spike_window,
+                     guard.spike_threshold, guard.max_rollbacks,
+                     guard.sdc_probe_period)
     stamps = {}   # epoch -> batch-end host times
 
     def _stamp(param):
@@ -377,13 +515,19 @@ def main(argv=None):
             epoch_end_callback=callbacks or None,
             resume_from=manager if args.resume else None,
             batch_group=args.batch_group,
-            prefetch_to_device=args.prefetch_device)
+            prefetch_to_device=args.prefetch_device, guardian=guard)
     if manager is not None:
         manager.wait_until_finished()
+    result = {"module": mod, "manager": manager}
+    if telemetry_on:
+        result.update(check_telemetry(args))
+    if guard is not None:
+        result["guardian"] = check_guardian(guard, fault_plan)
+    if fault_plan is not None:
+        result["incidents"] = check_fault_plan(fault_plan)
     check_grouped(mod, args.batch_group)
     check_u8_pipeline(args, mod, train)
-    result = {"fit_s": time.perf_counter() - t0, "module": mod,
-              "manager": manager}
+    result["fit_s"] = time.perf_counter() - t0
     span = sum(t[-1] - t[0] for t in stamps.values() if len(t) > 1)
     if span > 0:
         result["fit_img_per_s"] = sum(

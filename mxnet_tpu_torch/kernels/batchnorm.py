@@ -64,6 +64,13 @@ layout they do not take, a failed build, a refused launch); nothing falls
 back. ``bn_fwd.launches`` and ``bn_bwd.launches`` count calls that
 launched, never plain runs; ``launches_bf16`` counts those of them on
 bfloat16 activations.
+
+Program analysis (``telemetry.introspect``): while a first run is being
+counted, each call adds its own work — ~7 float32 operations an element
+and x read + y written forward, ~16 operations and x and du read (+ dx
+written) backward, as ``chip_smoke.py`` bounds the kernels — and hides
+the aten ops around or instead of it, so the CPU and the card count the
+same.
 """
 from __future__ import annotations
 
@@ -73,6 +80,7 @@ from typing import NamedTuple
 import torch
 
 from ..base import MXNetError
+from ..telemetry.introspect import active_counter, kernel_work
 from .build import cuda_library, current_stream, raise_if
 
 __all__ = ["bn_fwd", "bn_bwd", "bn_fwd_plain", "bn_bwd_plain", "plan",
@@ -320,6 +328,13 @@ def bn_fwd(x, gamma, beta, c, eps, fix_gamma, relu, exact):
 
     x is (N, C, ...) in float32 or bfloat16; gamma, beta and the centre c
     are (C,). y comes back in x's dtype, the statistics in float32."""
+    if active_counter() is not None:
+        with kernel_work(7 * x.numel(), 2 * x.numel() * x.element_size()):
+            return _bn_fwd(x, gamma, beta, c, eps, fix_gamma, relu, exact)
+    return _bn_fwd(x, gamma, beta, c, eps, fix_gamma, relu, exact)
+
+
+def _bn_fwd(x, gamma, beta, c, eps, fix_gamma, relu, exact):
     if x.device.type == "cpu":
         return bn_fwd_plain(x, gamma, beta, c, eps, fix_gamma, relu, exact)
     _check_cuda("bn_fwd", (x,), (gamma, beta, c))
@@ -348,6 +363,15 @@ def bn_bwd(du, x, rstd, mean, scale, shift, relu, need_dx=True):
     """BatchNorm(+ReLU) backward from the forward's statistics and affine:
     (dx, dbeta, dgamma); dx in x's dtype (None unless ``need_dx``), dbeta
     and dgamma (C,) float32."""
+    if active_counter() is not None:
+        sweeps = 3 if need_dx else 2
+        with kernel_work(16 * x.numel(),
+                         sweeps * x.numel() * x.element_size()):
+            return _bn_bwd(du, x, rstd, mean, scale, shift, relu, need_dx)
+    return _bn_bwd(du, x, rstd, mean, scale, shift, relu, need_dx)
+
+
+def _bn_bwd(du, x, rstd, mean, scale, shift, relu, need_dx):
     if x.device.type == "cpu":
         return bn_bwd_plain(du, x, rstd, mean, scale, shift, relu, need_dx)
     _check_cuda("bn_bwd", (x, du), (rstd, mean, scale, shift))

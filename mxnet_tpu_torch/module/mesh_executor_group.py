@@ -47,6 +47,24 @@ to the host. Here the step is one Python function over tensors,
   :meth:`score_device`): the metric's ``fused_stat`` rows add into a
   (sums float32, counts int32) pair on the device; the metric reads it
   back once.
+* The guardian's health word (:meth:`enable_health`): a (flags int32,
+  first_bad int32, count int32, loss ring float32) word on the device
+  that every step folds its observation into, as the loss-scale triple
+  rides — non-finite loss, gradients or updated parameters set a flag
+  bit, ``first_bad`` keeps the step ordinal of the first bad one and the
+  ring the step's loss scalar; :meth:`health_poll` is its only readback,
+  at the epoch or commit boundary. A skipped overflow step of the loss
+  scaler has non-finite gradients and sets its flag, as in the JAX
+  package. With ``probe_period=N`` every N-th step (a grouped step
+  counts as one) also runs a second time from copies of the same
+  parameters, states, aux and staged inputs, and the two runs' updated
+  parameters are compared bitwise on the device (the SDC probe).
+* Programs: each (kind, input shapes) pair's first run is this route's
+  "compile" (cuDNN picks its algorithms, the allocator grows). It is
+  reported to an attached ``telemetry.CompileWatch`` and, while
+  telemetry is enabled, counted (``telemetry.introspect``: FLOPs and
+  bytes) into the process ``ProgramInventory``, whose train-step entry
+  is the live roofline's basis (:meth:`roofline_basis`).
 
 Storage, shapes, ``reshape``, ``set_params``/``get_params`` and
 ``shared_group`` are the classic group's (this class extends
@@ -67,20 +85,22 @@ device (a ``DeviceLoader`` batch) are copied on the device, never read
 back.
 
 Left for later slices of the port (each refused where it is asked for):
-the guardian's health word and SDC probe, mesh axes, parameter sharding
-and pipeline microbatches, the program and roofline introspection,
-CUDA-graph capture of the step. ``MXNET_XLA_COMPILER_OPTIONS`` is XLA's
-own and has no counterpart.
+mesh axes, parameter sharding and pipeline microbatches, CUDA-graph
+capture of the step. ``MXNET_XLA_COMPILER_OPTIONS`` is XLA's own and has
+no counterpart.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import numpy as onp
 import torch
 
+from .. import faults as _faults
 from .. import ndarray as nd
 from .. import random as _random
+from .. import telemetry
 from ..base import MXNetError
 from ..data.augment import crop_input_name, mirror_input_name, unwrap
 from ..executor import _build_eval_segmented
@@ -88,7 +108,22 @@ from ..precision.policy import fake_cast, loss_scale_config, state_np_dtype
 from ..precision.quant import trace_gemm_scope
 from .executor_group import DataParallelExecutorGroup
 
-__all__ = ["MeshExecutorGroup"]
+__all__ = ["MeshExecutorGroup", "HEALTH_LOSS_NONFINITE",
+           "HEALTH_GRAD_NONFINITE", "HEALTH_PARAM_NONFINITE",
+           "HEALTH_SDC_MISMATCH"]
+
+# guardian health-word flag bits (mxnet_tpu_torch.guardian reads these)
+HEALTH_LOSS_NONFINITE = 1
+HEALTH_GRAD_NONFINITE = 2
+HEALTH_PARAM_NONFINITE = 4
+HEALTH_SDC_MISMATCH = 8
+
+# ops whose CUDA backward adds with atomics (grid_sample, interpolate):
+# two runs of a net holding one need not agree bit for bit
+_NONDETERMINISTIC_OPS = ("BilinearSampler", "SpatialTransformer")
+
+# inventory owner names, one per group
+_OWNERS = itertools.count()
 
 
 class _Deferred(nd.NDArray):
@@ -172,6 +207,108 @@ def _ls_step(cfg, ls, finite):
     return new_scale, new_good, skips + (~finite).to(skips.dtype)
 
 
+def _all_finite(tensors):
+    """0-d bool tensor: every element of every tensor is finite. One
+    concatenation and one reduction, whatever the number of tensors."""
+    return torch.isfinite(torch.cat([t.reshape(-1).float()
+                                     for t in tensors])).all()
+
+
+def _health_update(cfg, health, inputs, outs, grads, new_params, grad_names,
+                   label_names):
+    """Fold one step's numeric-health observation into the guardian word
+    ``(flags int32, first_bad int32, count int32, ring float32)``: pure
+    reads of values the step computed, so the parameters' math is
+    untouched, and nothing read back. ``flags`` gathers the sentinel
+    bits, ``first_bad`` keeps the step ordinal (since the last
+    ``health_reset``) of the FIRST bad observation, ``count`` counts
+    steps and slot ``count % window`` of ``ring`` takes the step's loss
+    scalar for the host's spike judge."""
+    flags, first_bad, count, ring = health
+    bad = (torch.where(torch.isfinite(outs[0]).all(), 0,
+                       HEALTH_LOSS_NONFINITE)
+           | torch.where(_all_finite(grads.values()), 0,
+                         HEALTH_GRAD_NONFINITE)
+           | torch.where(_all_finite(new_params[n] for n in grad_names), 0,
+                         HEALTH_PARAM_NONFINITE)).to(flags.dtype)
+    new_flags = flags | bad
+    first_bad = torch.where((flags == 0) & (new_flags != 0), count,
+                            first_bad)
+    scalar = None
+    stat = cfg.get("stat")
+    if stat is not None:
+        # the spike metric's fused statistic over this batch (sum/count
+        # of its first slot: for the default cross-entropy, the batch's
+        # mean loss). A statistic that cannot run on this model's label
+        # and output shapes must not take the step down: the ring then
+        # carries the coarse output mean, and the downgrade is recorded
+        try:
+            rows = stat(torch, [inputs[n] for n in label_names], outs)
+            if isinstance(rows, tuple):
+                rows = [rows]
+            s, c = rows[0]
+            s = torch.as_tensor(s, dtype=torch.float32, device=ring.device)
+            c = torch.as_tensor(c, dtype=torch.float32, device=ring.device)
+            scalar = s / torch.clamp_min(c, 1.0)
+        except Exception as exc:  # noqa: BLE001 - any failure degrades
+            cfg["stat"] = None
+            cfg["stat_degraded"] = "%s: %s" % (type(exc).__name__, exc)
+            import logging
+            logging.getLogger("mxnet_tpu_torch.guardian").warning(
+                "guardian spike metric cannot run over this model's "
+                "label/output shapes (%s); falling back to the coarse "
+                "output-mean loss scalar", cfg["stat_degraded"])
+    if scalar is None:
+        scalar = outs[0].float().mean()
+    slot = torch.remainder(count, int(cfg["window"])).long().reshape(1)
+    ring = ring.scatter(0, slot, scalar.reshape(1).to(ring.dtype))
+    return new_flags, first_bad, count + 1, ring
+
+
+def _bits(t):
+    """``t``'s bit pattern as integers of its width: a NaN payload equals
+    itself, +0 and -0 differ."""
+    width = {8: torch.int64, 4: torch.int32, 2: torch.int16,
+             1: torch.uint8}[t.element_size()]
+    return t.view(width)
+
+
+def _sdc_fold(a_params, b_params, health, grad_names):
+    """Fold an SDC probe's verdict into the health word: the two runs'
+    updated parameters compared BITWISE; any difference sets the SDC
+    flag. The probed step already counted (its health update ran in
+    the first run), so its ordinal is ``count - 1``."""
+    flags, first_bad, count, ring = health
+    neq = torch.stack([(_bits(a_params[n]) != _bits(b_params[n])).any()
+                       for n in grad_names]).any()
+    new_flags = flags | torch.where(neq, HEALTH_SDC_MISMATCH,
+                                    0).to(flags.dtype)
+    first_bad = torch.where((flags == 0) & (new_flags != 0),
+                            torch.clamp_min(count - 1, 0), first_bad)
+    return new_flags, first_bad, count, ring
+
+
+def _flat_leaves(t):
+    """The tensors of a tree of tuples and lists, in order."""
+    if isinstance(t, torch.Tensor):
+        return [t]
+    if isinstance(t, (tuple, list)):
+        return [leaf for v in t for leaf in _flat_leaves(v)]
+    return []
+
+
+def _clone_tree(t):
+    """Fresh copies of every tensor in a tree of tuples, lists and dicts
+    (None and other leaves pass through)."""
+    if isinstance(t, torch.Tensor):
+        return t.clone()
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_clone_tree(v) for v in t)
+    return t
+
+
 class MeshExecutorGroup(DataParallelExecutorGroup):
     """The fused route's group on one device (module docstring)."""
 
@@ -208,6 +345,13 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         self._metric_slots = 1
         self._metric_step_done = False
         self._shared_out = False
+        self._health_cfg = None      # the guardian's word (enable_health)
+        self._health_state = None
+        self._probe_count = 0
+        self._programs_seen = set()  # (kind, input signature) run so far
+        self._program_names = {}     # base kind -> inventory entry name
+        self._inventory_owner = "module%d" % next(_OWNERS)
+        self._compile_watch = None   # set by CompileWatch.attach
         super().__init__(symbol, contexts, data_shapes, label_shapes,
                          param_names, for_training, fixed_param_names,
                          grad_req, shared_group, inputs_need_grad=False)
@@ -429,11 +573,12 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         return grads
 
     def _step_math(self, fa, params, aux, states, inputs, lrs, wds,
-                   macc=None, ls=None, key=None):
+                   macc=None, ls=None, health=None, key=None):
         """ONE training step as one function of tensors: forward,
         backward, the optimizer's apply on every parameter with a
-        gradient, the metric tally and the loss-scale transition.
-        Nothing in it reads a value back to the host."""
+        gradient, the metric tally, the loss-scale transition and the
+        guardian's health word. Nothing in it reads a value back to the
+        host."""
         if ls is None:
             outs, new_aux, grads = self._fwd_bwd(params, aux, inputs,
                                                  key=key)
@@ -459,7 +604,11 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
                               outs, macc)
         if ls is not None:
             ls = _ls_step(self._ls_cfg, ls, finite)
-        return outs, new_aux, grads, new_params, new_states, macc, ls
+        if health is not None:
+            health = _health_update(self._health_cfg, health, inputs, outs,
+                                    grads, new_params, self._grad_names,
+                                    self._label_names)
+        return outs, new_aux, grads, new_params, new_states, macc, ls, health
 
     # ------------------------------------------------------------ writes
     def _write_outs(self, outs):
@@ -561,8 +710,10 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             else None
         if not is_train:
             self._train_staged = False
-            outs, _ = self._forward_only(self._params_now(), self._aux_now(),
-                                         self._inputs_now(), False)
+            inputs = self._inputs_now()
+            with self._program("fwd_eval", inputs):
+                outs, _ = self._forward_only(self._params_now(),
+                                             self._aux_now(), inputs, False)
             self._write_outs(outs)
             self._outputs_from = "fwd"
             return
@@ -583,15 +734,16 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         self._clear_force()
         aux = self._aux_now()
         self._last_aux = [a.clone() for a in aux]
-        if self._grad_names:
-            graph, new_aux, leaves = self._fwd_graph(
-                self._params_now(), aux, self._inputs_now(), self._key)
-            self._held = (graph, leaves)
-            outs = tuple(o.detach().float() for o in graph)
-        else:
-            outs, new_aux = self._forward_only(self._params_now(), aux,
-                                               self._inputs_now(), True,
-                                               self._key)
+        inputs = self._inputs_now()
+        with self._program("fwd_train", inputs):
+            if self._grad_names:
+                graph, new_aux, leaves = self._fwd_graph(
+                    self._params_now(), aux, inputs, self._key)
+                self._held = (graph, leaves)
+                outs = tuple(o.detach().float() for o in graph)
+            else:
+                outs, new_aux = self._forward_only(
+                    self._params_now(), aux, inputs, True, self._key)
         self._write_outs(outs)
         self._write_aux(new_aux)
         self._outputs_from = "fwd"
@@ -632,9 +784,10 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             return
         aux = self._last_aux if self._last_aux is not None \
             else self._aux_now()
-        outs, new_aux, grads = self._fwd_bwd(
-            self._params_now(), aux, self._inputs_now(), heads,
-            key=self._key)
+        inputs = self._inputs_now()
+        with self._program("fwd_bwd", inputs):
+            outs, new_aux, grads = self._fwd_bwd(
+                self._params_now(), aux, inputs, heads, key=self._key)
         self._last_aux = None
         self._write_outs(outs)
         self._write_aux(new_aux)
@@ -684,8 +837,8 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         return t
 
     def _step_extras(self):
-        """The metric tally and the loss-scale triple, created on the
-        device at first use (None where not in use)."""
+        """The metric tally, the loss-scale triple and the health word,
+        created on the device at first use (None where not in use)."""
         dev = self.contexts[0].torch_device()
         macc = None
         if self._metric_stat is not None:
@@ -696,10 +849,10 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
                     torch.zeros(self._metric_slots, dtype=torch.int32,
                                 device=dev))
             macc = self._metric_acc
-        return macc, self._ls_current()
+        return macc, self._ls_current(), self._health_current()
 
     def _commit(self, updater, keys, res):
-        outs, new_aux, grads, new_params, new_states, macc, ls = res
+        outs, new_aux, grads, new_params, new_states, macc, ls, health = res
         self._write_outs(outs)
         self._write_aux(new_aux)
         self._write_grads(grads)
@@ -713,8 +866,140 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             self._metric_step_done = True
         if ls is not None:
             self._ls_state = ls
+        if health is not None:
+            self._health_state = health
         self._last_aux = None
         self._outputs_from = "bwd"
+
+    def _launch_step(self, kind, inputs, run, args, extra=None):
+        """Run one step (``run(*args)``, args = (params, aux, states,
+        inputs, rest...)) as program ``kind``; on an SDC-probe step run it
+        a second time from copies of the same arguments and fold the
+        bitwise comparison of the two runs' updated parameters into the
+        health word. The first run is the committed one."""
+        hcfg = self._health_cfg
+        probe = False
+        if hcfg and hcfg["probe_period"]:
+            probe = self._probe_count % hcfg["probe_period"] == 0
+            self._probe_count += 1
+        if not probe:
+            with self._program(kind, inputs, extra):
+                return run(*args)
+        n = self._probe_count - 1
+        copies = _clone_tree(args)
+        if _faults.armed():
+            # guardian.sdc seam (kind=value): add the injected delta to
+            # one element of the second run's parameter copy, on the
+            # device — a deterministic mismatch, so the detect->rollback
+            # chain downstream is the real one
+            delta = _faults.value("guardian.sdc", None, probe=n)
+            if delta is not None:
+                with torch.no_grad():
+                    copies[0][self._grad_names[0]].view(-1)[0] += \
+                        float(delta)
+        with self._program(kind, inputs, extra):
+            res = run(*args)
+        again = run(*copies)
+        telemetry.registry().scope("guardian").counter("sdc_checks").add()
+        health = _sdc_fold(res[3], again[3], res[7], self._grad_names)
+        return res[:7] + (health,)
+
+    @contextlib.contextmanager
+    def _program(self, kind, inputs, extra=None):
+        """Bracket one run of program ``kind`` on ``inputs`` (a dict of
+        tensors). The first run of each (kind, input shapes and dtypes)
+        is this route's compile: it is reported to the attached
+        CompileWatch and, while telemetry is enabled, counted into the
+        process ProgramInventory. Later runs pay one set lookup."""
+        sig = tuple(sorted((n, tuple(v.shape), str(v.dtype))
+                           for n, v in inputs.items()))
+        if (kind, sig) in self._programs_seen:
+            yield
+            return
+        self._programs_seen.add((kind, sig))
+        if self._compile_watch is not None:
+            self._compile_watch.note_program(
+                kind, {n: shape for n, shape, _ in sig})
+        if not telemetry.enabled():
+            yield
+            return
+        counter = telemetry.ProgramCounter()
+        with counter:
+            yield
+        base = kind.split(":")[0]
+        meta = {"batch_size": self.batch_size,
+                "precision_mode": self.precision_mode_name(),
+                "ops": counter.ops, "kernel_calls": counter.kernels}
+        meta.update(extra or {})
+        self._program_names[base] = telemetry.inventory().register(
+            "%s.%s" % (self._inventory_owner, base), kind=base,
+            device_kind=self._device_kind(), meta=meta,
+            flops=counter.flops, bytes_accessed=counter.bytes)
+
+    def _device_kind(self):
+        dev = self.contexts[0].torch_device()
+        return torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+            else dev.type
+
+    def _note_optimizer_analytic(self, states):
+        """Register the optimizer-update traffic the fused step folds in
+        as an analytic inventory entry (the JAX package's account): read
+        w and g and write w in float32, plus a read and a write of every
+        state leaf at its storage dtype."""
+        if "optimizer_update" in self._program_names or \
+                not telemetry.enabled():
+            return
+        leaves = _flat_leaves(states)
+        n_par = sum(self._param_dict[n].size for n in self._grad_names)
+        state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        self._program_names["optimizer_update"] = \
+            telemetry.inventory().register(
+                "%s.optimizer_update" % self._inventory_owner,
+                kind="optimizer_update", analytic=True,
+                flops=4.0 * n_par,
+                bytes_accessed=4.0 * 3 * n_par + 2.0 * state_bytes,
+                device_kind=self._device_kind(),
+                meta={"fused_into": "%s.train_step" % self._inventory_owner,
+                      "n_params": n_par,
+                      "n_state": sum(t.numel() for t in leaves),
+                      "state_bytes": state_bytes,
+                      "precision_mode": self.precision_mode_name()})
+
+    def program_basis(self, base_kinds):
+        """Counted per-STEP (flops, bytes) and the card's peaks for the
+        first of ``base_kinds`` this group has registered, or None. A
+        grouped entry divides by its ``batch_group``."""
+        inv = telemetry.inventory()
+        for base in base_kinds:
+            name = self._program_names.get(base)
+            a = inv.analyze(name) if name is not None else None
+            if not a or not a.get("flops"):
+                continue
+            k = max(int(a["meta"].get("batch_group", 1)), 1)
+            pt, pb = telemetry.device_peaks(a["device_kind"],
+                                            self.compute_dtype or "float32")
+            return {"program": name, "kind": base,
+                    "flops_per_step": a["flops"] / k,
+                    "bytes_per_step": a["bytes_accessed"] / k,
+                    "peak_tflops": pt, "peak_hbm_gbps": pb,
+                    "precision_mode": self.precision_mode_name()}
+        return None
+
+    def roofline_basis(self):
+        """The FLOPs/bytes basis of ``fit``'s live roofline: the counted
+        train step (grouped when the fit runs grouped); when only the
+        forward + backward was counted (the classic update ran), the
+        optimizer's traffic is added analytically, as the JAX package
+        does."""
+        basis = self.program_basis(("train_step_grouped", "train_step"))
+        if basis is not None:
+            return basis
+        basis = self.program_basis(("fwd_bwd",))
+        if basis is not None:
+            n_par = sum(self._param_dict[n].size for n in self._grad_names)
+            basis["flops_per_step"] += 4.0 * n_par
+            basis["bytes_per_step"] += 5.0 * 4 * n_par
+        return basis
 
     def step_update(self, updater):
         """Run the deferred forward + backward AND the optimizer as one
@@ -734,10 +1019,18 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         lw = self._to_device(rows)
         aux = self._last_aux if self._last_aux is not None \
             else self._aux_now()
-        macc, ls = self._step_extras()
-        res = self._step_math(fa, self._params_now(), aux, states,
-                              self._inputs_now(), lw[0], lw[1], macc, ls,
-                              self._key)
+        macc, ls, health = self._step_extras()
+        inputs = self._inputs_now()
+        key = self._key
+
+        def run(params, aux, states, inputs, lw, macc, ls, health):
+            return self._step_math(fa, params, aux, states, inputs, lw[0],
+                                   lw[1], macc, ls, health, key)
+
+        res = self._launch_step(
+            "train_step" + self._health_kind_tag(), inputs, run,
+            (self._params_now(), aux, states, inputs, lw, macc, ls, health))
+        self._note_optimizer_analytic(states)
         self._commit(updater, keys, res)
         return True
 
@@ -783,18 +1076,31 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         K = next(iter(inputs.values())).shape[0]
         keys, states, rows = self._optimizer_rows(updater, K)
         lw = self._to_device(rows)
-        params, aux = self._params_now(), self._aux_now()
-        macc, ls = self._step_extras()
+        macc, ls, health = self._step_extras()
         # K independent keys from one draw, as the JAX package's grouped
         # step splits its key
         step_keys = _random.split(_random.next_key(), K) \
             if self._needs_rng else [None] * K
-        res = None
-        for k in range(K):
-            res = self._step_math(fa, params, aux, states,
-                                  {n: v[k] for n, v in inputs.items()},
-                                  lw[k], lw[K], macc, ls, step_keys[k])
-            _, aux, _, params, states, macc, ls = res
+
+        def run(params, aux, states, inputs, lw, macc, ls, health):
+            res = None
+            for k in range(K):
+                res = self._step_math(fa, params, aux, states,
+                                      {n: v[k] for n, v in inputs.items()},
+                                      lw[k], lw[K], macc, ls, health,
+                                      step_keys[k])
+                _, aux, _, params, states, macc, ls, health = res
+            return res
+
+        # the program is the per-step function run K times: its
+        # signature is one step's shapes, so a tail group of another K
+        # runs no new program
+        res = self._launch_step(
+            "train_step_grouped" + self._health_kind_tag(),
+            {n: v[0] for n, v in inputs.items()}, run,
+            (self._params_now(), self._aux_now(), states, inputs, lw, macc,
+             ls, health), extra={"batch_group": K})
+        self._note_optimizer_analytic(states)
         self._commit(updater, keys, res)
         self._train_staged = False
         return True
@@ -806,9 +1112,12 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         inputs = self.stage_stacked(stacked_data, is_train=False)
         K = next(iter(inputs.values())).shape[0]
         params, aux = self._params_now(), self._aux_now()
-        outs = [self._forward_only(params, aux,
-                                   {n: v[k] for n, v in inputs.items()},
-                                   False)[0] for k in range(K)]
+        with self._program("fwd_eval_stacked",
+                           {n: v[0] for n, v in inputs.items()},
+                           {"batch_group": K}):
+            outs = [self._forward_only(params, aux,
+                                       {n: v[k] for n, v in inputs.items()},
+                                       False)[0] for k in range(K)]
         return tuple(torch.stack(o) for o in zip(*outs))
 
     # ------------------------------------------------------ loss scale
@@ -848,6 +1157,96 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         if self._ls_state is None:
             return 0
         return int(self._ls_state[2])
+
+    # -------------------------------------------- guardian health word
+    def enable_health(self, window=32, stat_metric=None, probe_period=0):
+        """Arm the device health word (module docstring): later steps
+        thread it, and :meth:`health_poll` reads it back off the step
+        path. ``stat_metric`` (an EvalMetric with a device statistic,
+        e.g. CrossEntropy) defines the ring's per-step loss scalar; None
+        falls back to the first output's mean. ``probe_period=N`` also
+        runs every N-th step twice and compares the updated parameters
+        bitwise (the SDC probe), which needs runs that repeat bit for
+        bit: on the card it refuses unless cuDNN is deterministic with
+        its autotuner off, and it refuses nets holding an op whose CUDA
+        backward adds with atomics."""
+        probe_period = int(probe_period or 0)
+        if probe_period:
+            self._check_probe_determinism()
+        stat = None
+        if stat_metric is not None and self._label_names:
+            stat = stat_metric.fused_stat()
+        self._health_cfg = {"window": int(window), "stat": stat,
+                            "probe_period": probe_period}
+        self._health_state = None
+        self._probe_count = 0
+
+    def _check_probe_determinism(self):
+        if self.contexts[0].torch_device().type != "cuda":
+            return
+        if not torch.backends.cudnn.deterministic or \
+                torch.backends.cudnn.benchmark:
+            raise MXNetError(
+                "the SDC probe compares two runs bit for bit and needs "
+                "torch.backends.cudnn.deterministic = True and "
+                "torch.backends.cudnn.benchmark = False (now %s and %s); "
+                "set them before arming it"
+                % (torch.backends.cudnn.deterministic,
+                   torch.backends.cudnn.benchmark))
+        ops = sorted({n.op.name for n in self.symbol._topo()
+                      if n.op is not None and (
+                          n.op.name in _NONDETERMINISTIC_OPS or
+                          (n.op.name == "UpSampling" and
+                           n.attrs.get("sample_type") == "bilinear"))})
+        if ops:
+            raise MXNetError(
+                "the SDC probe compares two runs bit for bit, and the "
+                "CUDA backward of %s adds with atomics; arm the guardian "
+                "without the probe (sdc_probe_period=0)" % ", ".join(ops))
+
+    def disable_health(self):
+        self._health_cfg = None
+        self._health_state = None
+
+    def _health_kind_tag(self):
+        """The program-kind tag an armed health word adds to a step (its
+        window shapes the ring)."""
+        cfg = self._health_cfg
+        return "" if cfg is None else ":h%d" % cfg["window"]
+
+    def _health_current(self):
+        """The device health word, (re)created at first use: flags 0,
+        first_bad -1, count 0, ring NaN-filled."""
+        if self._health_cfg is None:
+            return None
+        if self._health_state is None:
+            dev = self.contexts[0].torch_device()
+            i32 = {"dtype": torch.int32, "device": dev}
+            self._health_state = (
+                torch.zeros((), **i32), torch.full((), -1, **i32),
+                torch.zeros((), **i32),
+                torch.full((self._health_cfg["window"],), float("nan"),
+                           dtype=torch.float32, device=dev))
+        return self._health_state
+
+    def health_poll(self):
+        """Read the health word back to the host — OFF the step path (the
+        guardian calls this at the epoch or commit boundary only):
+        ``{"flags", "first_bad", "count", "ring"}``, or None when unarmed
+        or no step has run."""
+        if self._health_cfg is None or self._health_state is None:
+            return None
+        flags, first_bad, count, ring = self._health_state
+        head = torch.stack([flags, first_bad, count]).cpu().tolist()
+        return {"flags": int(head[0]), "first_bad": int(head[1]),
+                "count": int(head[2]),
+                "ring": ring.cpu().numpy().astype(onp.float32)}
+
+    def health_reset(self):
+        """Zero the health word (the guardian's epoch bracket): the next
+        step re-creates it, so ``count`` is the step ordinal within the
+        polling window."""
+        self._health_state = None
 
     # ------------------------------------------------------------ reads
     def get_outputs(self, merge_multi_context=True):
@@ -938,7 +1337,8 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
                            for lb in batch.label])
             self._stage(batch)
             inputs = self._inputs_now()
-            outs, _ = self._forward_only(params, aux, inputs, False)
+            with self._program("fwd_eval_stat", inputs):
+                outs, _ = self._forward_only(params, aux, inputs, False)
             labels = [inputs[n] for n in self._label_names]
             if 0 < rows < self.batch_size:
                 outs = tuple(o[:rows] if o.dim() >= 1 and

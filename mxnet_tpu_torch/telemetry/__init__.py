@@ -1,53 +1,81 @@
-"""mxnet_tpu_torch.telemetry — the metrics registry, host spans, SLO
-burn-rate tracking and the exporters the serving stack records into
-(the part of ``mxnet_tpu/telemetry`` the port carries so far).
+"""mxnet_tpu_torch.telemetry — unified metrics, tracing and step-timeline
+observability (the port's counterpart of ``mxnet_tpu/telemetry``).
 
-Every serving counter records into ONE process-wide
-:class:`MetricsRegistry`, exportable as an append-only JSONL event log
-and a Prometheus ``/metrics`` endpoint; host spans land in a bounded
-Chrome-trace ring; an :class:`SLOTracker` evaluates declared serving
-objectives over multi-window rolling burn rates (``slo.*`` gauges, fed
-by ``DynamicBatcher(slo=...)``).
+Every subsystem records into ONE process-wide :class:`MetricsRegistry`,
+exportable as an append-only JSONL event log and a Prometheus
+``/metrics`` endpoint; host spans land in a bounded Chrome-trace ring;
+an :class:`SLOTracker` evaluates declared serving objectives over
+multi-window rolling burn rates (``slo.*`` gauges, fed by
+``DynamicBatcher(slo=...)``). For training, the :class:`StepTimeline`
+answers "why was step 412 slow" after the fact, the
+:class:`CompileWatch` attributes every program's first run to a call
+site and warns when one lands after the warmup boundary, the
+:class:`ProgramInventory` holds each program's counted FLOPs and bytes
+(the live roofline's basis), the :class:`RegressionWatchdog` compares
+live step windows against a baseline and emits warn-once ``health.*``
+incidents, and the :class:`FlightRecorder` commits a postmortem when
+``fit`` dies.
 
 Quick start::
 
     from mxnet_tpu_torch import telemetry
 
     telemetry.enable(jsonl="run.jsonl", port=9100)  # both optional
-    ...                                             # serve traffic
+    mod.fit(...)                                    # emits step records
+    print(telemetry.timeline().slowest(3))          # worst steps
     print(telemetry.registry().snapshot())          # every counter
     telemetry.disable()
 
-Disabled mode costs one branch per call site (``telemetry.enabled()``
-/ a shared no-op span). Spans and traces read host clocks only: they
-never synchronise with the device.
+The contracts: a telemetry-on ``fit`` trains to the same parameters bit
+for bit (host clocks only: no readback, no RNG); disabled mode costs one
+branch per call site (``telemetry.enabled()`` / a shared no-op span);
+the steady-state train loop runs no new program after the warmup
+boundary (``compile.post_warmup_retraces`` stays 0).
 
 Env: ``MXNET_TELEMETRY=1`` enables at import (the programmatic
 ``enable()`` twin); ``MXNET_TELEMETRY_JSONL`` / ``MXNET_TELEMETRY_PORT``
-set the sink path / metrics port for that autostart.
+set the sink path / metrics port for that autostart;
+``MXNET_TELEMETRY_BLACKBOX=<dir>`` arms the flight recorder there.
 """
 from __future__ import annotations
 
 import os
 import threading
 
-from .export import JsonlSink, MetricsServer, render_prometheus
+from .compile_watch import CompileWatch
+from .export import (JsonlSink, MetricsServer, atomic_json_dump,
+                     render_prometheus)
+from .flight import FlightRecorder, load_postmortem
+from .health import RegressionWatchdog
+from .introspect import (ProgramCounter, ProgramInventory, analyze_compiled,
+                         device_peaks, roofline, BOUND_BY_CODES)
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry, Scope,
                        instrument_value, DEFAULT_MS_BUCKETS)
 from .slo import SLOTracker
+from .timeline import StepTimeline
 from .tracing import (NOOP_SPAN, Span, clear_trace, record_events, span,
                       trace_events)
 
 __all__ = [
     "MetricsRegistry", "Counter", "Gauge", "Histogram", "Scope",
     "instrument_value", "Span", "span", "JsonlSink", "MetricsServer",
-    "render_prometheus", "SLOTracker", "registry", "enable", "disable",
-    "enabled", "flush_metrics", "trace_events",
-    "clear_trace", "record_events", "NOOP_SPAN", "DEFAULT_MS_BUCKETS",
-    "set_active_pipeline", "active_pipeline",
+    "render_prometheus", "atomic_json_dump", "SLOTracker", "StepTimeline",
+    "CompileWatch", "ProgramCounter", "ProgramInventory", "FlightRecorder",
+    "load_postmortem", "RegressionWatchdog", "analyze_compiled",
+    "device_peaks", "roofline", "BOUND_BY_CODES", "registry", "timeline",
+    "compile_watch", "inventory", "dump_programs", "flight_recorder",
+    "health_watchdog", "health_report", "enable", "disable", "enabled",
+    "log_event", "flush_metrics",
+    "trace_events", "clear_trace", "record_events", "NOOP_SPAN",
+    "DEFAULT_MS_BUCKETS", "set_active_pipeline", "active_pipeline",
 ]
 
 _REGISTRY = MetricsRegistry()
+_TIMELINE = StepTimeline()
+_WATCH = None
+_INVENTORY = None
+_FLIGHT = None
+_WATCHDOG = None
 _lock = threading.Lock()
 _state = {"enabled": False, "sink": None, "server": None,
           "active_pipeline": None}
@@ -57,6 +85,65 @@ def registry():
     """The process-wide :class:`MetricsRegistry` every subsystem
     records into."""
     return _REGISTRY
+
+
+def timeline():
+    """The process-wide :class:`StepTimeline` the ``fit`` loop writes."""
+    return _TIMELINE
+
+
+def compile_watch():
+    """The process-wide :class:`CompileWatch` (created on first use)."""
+    global _WATCH
+    with _lock:
+        if _WATCH is None:
+            _WATCH = CompileWatch()
+        return _WATCH
+
+
+def inventory():
+    """The process-wide :class:`ProgramInventory` every analysed program
+    registers into (created on first use)."""
+    global _INVENTORY
+    with _lock:
+        if _INVENTORY is None:
+            _INVENTORY = ProgramInventory(registry=_REGISTRY)
+        return _INVENTORY
+
+
+def dump_programs(path=None):
+    """The program inventory as JSON (see
+    :meth:`ProgramInventory.dump_programs`)."""
+    return inventory().dump_programs(path)
+
+
+def flight_recorder():
+    """The process-wide :class:`FlightRecorder` (created on first use;
+    unarmed — and therefore silent — until :meth:`FlightRecorder.arm` or
+    ``MXNET_TELEMETRY_BLACKBOX`` points it at a directory)."""
+    global _FLIGHT
+    with _lock:
+        if _FLIGHT is None:
+            _FLIGHT = FlightRecorder()
+        return _FLIGHT
+
+
+def health_watchdog():
+    """The process-wide :class:`RegressionWatchdog` (created on first
+    use; unarmed — and therefore silent — until ``Module.fit`` arms it
+    at the warmup boundary or :meth:`RegressionWatchdog.arm` is called)."""
+    global _WATCHDOG
+    with _lock:
+        if _WATCHDOG is None:
+            _WATCHDOG = RegressionWatchdog(registry=_REGISTRY,
+                                           timeline=_TIMELINE)
+        return _WATCHDOG
+
+
+def health_report():
+    """The watchdog's state as JSON (armed/baseline/incidents/healthy) —
+    also served as ``GET /health`` by the MetricsServer."""
+    return health_watchdog().report()
 
 
 def enabled():
@@ -97,6 +184,13 @@ def disable():
         server.close()
 
 
+def log_event(kind, payload):
+    """Append one event line to the JSONL sink (no-op without one)."""
+    sink = _state["sink"]
+    if sink is not None:
+        sink.write(kind, payload)
+
+
 def flush_metrics(reason=""):
     """Append a full registry snapshot to the JSONL sink as one
     ``{"kind": "metrics"}`` line (no-op without a sink)."""
@@ -121,6 +215,11 @@ def active_pipeline():
 
 
 def _autostart():
+    blackbox = os.environ.get("MXNET_TELEMETRY_BLACKBOX")
+    if blackbox:
+        # the crash black box: fit faults, SIGTERM and unhandled
+        # exceptions leave an atomic postmortem in this directory
+        flight_recorder().arm(blackbox).install()
     if os.environ.get("MXNET_TELEMETRY", "0") != "1":
         return
     jsonl = os.environ.get("MXNET_TELEMETRY_JSONL") or None

@@ -12,7 +12,11 @@ Two export paths, both fed from the ONE :class:`MetricsRegistry`:
   buckets), served live by :class:`MetricsServer` — a stdlib
   ``http.server`` daemon thread with ``GET /metrics`` — so a scraper
   can sit next to a :class:`~mxnet_tpu_torch.serving.DynamicBatcher`
-  without any new dependency.
+  without any new dependency; it also serves the program inventory
+  (``/programs``) and the regression watchdog's report (``/health``);
+* :func:`atomic_json_dump` — the one atomic JSON-report writer the
+  program inventory, the flight recorder's postmortems and the
+  watchdog's baselines share.
 
 The port runs one process, so no line or sample carries the
 ``rank``/``process_count`` labels a multi-process JAX job adds.
@@ -20,13 +24,32 @@ The port runs one process, so no line or sample carries the
 from __future__ import annotations
 
 import json
+import os
 import re
 import threading
 import time
 
-__all__ = ["JsonlSink", "render_prometheus", "MetricsServer"]
+__all__ = ["JsonlSink", "render_prometheus", "MetricsServer",
+           "atomic_json_dump"]
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
+
+
+def atomic_json_dump(path, payload, indent=1, fsync=False):
+    """Write ``payload`` as JSON to ``path`` through ``<path>.tmp-<pid>``
+    (+ fsync with ``fsync=True``) and ``os.replace``: a reader never sees
+    a torn file, a crash mid-write leaves only a ``.tmp-*``. Returns
+    ``path``."""
+    path = str(path)
+    tmp = "%s.tmp-%d" % (path, os.getpid())
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=indent, sort_keys=True, default=str)
+        f.write("\n")
+        if fsync:
+            f.flush()
+            os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
 
 
 class JsonlSink(object):
@@ -94,8 +117,10 @@ class MetricsServer(object):
     """``GET /metrics`` over stdlib ``http.server`` on a daemon thread.
 
     Zero dependencies, bounded surface: ``/metrics`` renders the
-    registry as Prometheus text and ``/healthz`` answers ``ok`` (a
-    load-balancer liveness probe for a serving deployment). ``port=0``
+    registry as Prometheus text, ``/healthz`` answers ``ok`` (a
+    load-balancer liveness probe for a serving deployment),
+    ``/programs`` serves ``telemetry.dump_programs()`` and ``/health``
+    ``telemetry.health_report()`` as JSON. ``port=0``
     picks a free port (``.port`` reports the bound one). It binds
     ``127.0.0.1`` unless told otherwise.
     """
@@ -113,6 +138,13 @@ class MetricsServer(object):
                     ctype = "text/plain; version=0.0.4"
                 elif route == "/healthz":
                     body, ctype = b"ok\n", "text/plain"
+                elif route in ("/programs", "/health"):
+                    import mxnet_tpu_torch.telemetry as _tel
+                    payload = _tel.dump_programs() \
+                        if route == "/programs" else _tel.health_report()
+                    body = json.dumps(payload, sort_keys=True,
+                                      default=str).encode()
+                    ctype = "application/json"
                 else:
                     self.send_error(404)
                     return

@@ -244,14 +244,40 @@ def test_resume_from_empty_manager_starts_fresh(tmp_path):
 
 
 def test_resume_refuses_step_granular_entry(tmp_path):
+    """A step-granular entry (``extra={"epoch": e, "nbatch": b}``), which
+    resume refused until the mid-epoch skip was ported, now resumes
+    inside its epoch: the batches it trained are pulled and discarded,
+    and the run ends on the uninterrupted run's parameters bit for
+    bit."""
+    def seeded_module():
+        tmx.random.seed(3)
+        np.random.seed(3)
+        return tmx.mod.Module(_mlp(), context=CPU)
+
+    ref = seeded_module()
+    _fit(ref, _iter(shuffle=False), 2)
     mgr = CheckpointManager(str(tmp_path / "ckpt"))
-    mod = tmx.mod.Module(_mlp(), context=CPU)
-    _fit(mod, _iter(), 1)
-    mod.save_checkpoint(None, 0, manager=mgr, async_save=False,
-                        extra={"nbatch": 3})
-    with pytest.raises(MXNetError, match="dist slice"):
-        _fit(tmx.mod.Module(_mlp(), context=CPU), _iter(), 2,
-             resume_from=mgr)
+    mod = seeded_module()
+
+    class Preempted(Exception):
+        pass
+
+    def preempt(param):
+        if (param.epoch, param.nbatch) == (1, 1):
+            mod.save_checkpoint(None, 5, save_optimizer_states=True,
+                                manager=mgr, async_save=False,
+                                extra={"epoch": 1, "nbatch": 1})
+            raise Preempted()
+
+    with pytest.raises(Preempted):
+        mod.fit(_iter(shuffle=False), num_epoch=2,
+                batch_end_callback=preempt, initializer=tmx.init.Xavier(),
+                optimizer_params=OPT)
+    resumed = tmx.mod.Module(_mlp(), context=CPU)
+    _fit(resumed, _iter(shuffle=False), 2, resume_from=mgr)
+    want, got = _params_np(ref), _params_np(resumed)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_load_legacy_prefix_colliding_with_directory(tmp_path, monkeypatch):

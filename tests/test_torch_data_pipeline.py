@@ -567,8 +567,23 @@ def test_fit_prefetch_leaves_callers_iterator_usable():
     assert not alive, alive
 
 
-def test_fit_guardian_still_refused():
+def test_fit_guardian_still_refused(tmp_path):
+    """fit(guardian=) took a refusal until the guardian was ported; now a
+    guardian armed over a prefetched fit (DeviceLoader batches) trains to
+    the parameters of the unguarded prefetched fit, bit for bit."""
     X, y = _data()
-    with pytest.raises(MXNetError, match="guardian slice"):
-        mx.mod.Module(_bn_mlp(), context=CPU).fit(
-            NDArrayIter(X, y, batch_size=8), num_epoch=1, guardian="d")
+    got = []
+    for g in (None, str(tmp_path / "guardian")):
+        mx.random.seed(4)
+        np.random.seed(4)
+        mod = mx.mod.Module(_bn_mlp(), context=CPU)
+        mod.fit(NDArrayIter(X, y, batch_size=8), num_epoch=2,
+                prefetch_to_device=2, guardian=g,
+                optimizer_params={"learning_rate": 0.1},
+                initializer=mx.init.Uniform(0.07))
+        a, x = mod.get_params()
+        got.append({k: v.asnumpy() for k, v in
+                    list(a.items()) + list(x.items())})
+    assert sorted(got[0]) == sorted(got[1])
+    for k in got[0]:
+        np.testing.assert_array_equal(got[0][k], got[1][k], err_msg=k)
