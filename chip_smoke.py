@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's kernels from the checkout's sources with nvcc, one
-process per source, all at once: the CUDA BatchNorm, copy, NMS and ROI
+process per source, all at once (phase 18's subprocesses build their own
+into a cache directory of theirs): the CUDA BatchNorm, copy, NMS and ROI
 pooling libraries into the git-ignored ``build/cuda`` and the CUDA
 generated from each of phase 6's five rtc bodies into
 ``build/rtc/<digest>``. Then it runs
@@ -346,12 +347,43 @@ result line) if any phase fails:
    (``telemetry.introspect``) within 5% of 2·MACs·3 of every
    convolution and FC layer, for resnet-20 and ResNet-50, beside the
    live ``train.mfu`` / ``achieved_tflops`` of their records;
-18. the kernels line (each kernel's launches on every path, decode's
+18. serve_cache: serving's executable cache and replica warm start,
+   cuDNN deterministic. (a) The serve twin
+   (``mxnet_tpu_torch.examples.serve_cifar10``) in a process of its own
+   with a fresh checkpoint and cache directory: it loads its BN kernels
+   (one ``nvcc``, into the cache's ``cuda/``), trains resnet-8 for 2
+   epochs of 32 batches (exactly 8 + 8 BN launches a step), checkpoints
+   through a ``CheckpointManager``, serves from that directory, traces
+   and commits each bucket (2…32) with ``torch.export``, and passes its
+   asserts (client rows, the Prometheus scrape, the SLO report, the
+   in-process second replica). (b) The twin again with ``--expect-warm``:
+   0 ``nvcc``, 0 traces, 0 compiles and warmup compiles, no training and
+   no BN launch, every bucket loaded, the served digest of (a) bit for
+   bit; each bucket's warmup ms cold against warm. (c) In process, on
+   (a)'s checkpoint and cache: every bucket's program loaded from (a)'s
+   entries serves the eager Predictor's rows bit for bit (pads, chunks);
+   a tampered, a truncated and a ``.tmp-*`` entry (buckets 2 and 4) each
+   re-trace exactly that bucket and serve a cache-less replica's rows,
+   and the replica after them loads both; two
+   calibrations of the net under ``int8_serve`` never share an entry
+   (the second's rows differ from the first's and equal a cache-less
+   predictor's bit for bit); ``DecodeEngine`` cold → warm through the
+   cache streams as the eager engine bit for bit and traces nothing
+   warm. (d) At buckets 2 and 32 the exported program against the eager
+   executor: forward event ms (median of 10 after 3), host enqueue ms,
+   ``predict`` call ms (median of 10); the profiler_demo twin's dump
+   (its scopes, and the card's kernel events it caught), the debug_conv
+   twin, and the memcost twin
+   (held and peak MiB, FLOPs; its asserts); no kernel launched in
+   process;
+19. the kernels line (each kernel's launches on every path, decode's
    and rnn's 0 among them, ``launches_api`` the BN kernels' 60 + 60 over
    phase 14 (b)'s three steps, ``launches_quant`` their 240 + 240 over
    phase 15 (d), ``launches_vision`` every earlier kernel's 0 over phase
    16's main path, the four vision kernels' launches over it,
    ``launches_guardian`` every kernel's launches over phase 17's runs,
+   ``launches_serve_cache`` the BN kernels' 512 + 512 in phase 18's cold
+   twin and every other count 0,
    and the BN kernels' bfloat16, imagenet-twin and zoo launches and
    times, inception-v3's per-step times), the seconds of each phase,
    the card's nvidia-smi line, and the result line.
@@ -5873,6 +5905,395 @@ def guardian_phase(mx, K, C, R, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: serving's executable cache and replica warm start
+# ---------------------------------------------------------------------------
+SC_DEVICE = "cuda"
+SC_TWIN_ARGS = ["--gpus", "0"]
+SC_NETWORK = "resnet-8"           # the serve twin's net, 28² CIFAR crops
+SC_BATCH = 128
+SC_STEPS = 2 * 4096 // SC_BATCH   # the twin's 2 epochs of 4,096 images
+SC_MAX_BATCH = 32                 # buckets 2, 4, 8, 16, 32
+SC_TIME_BUCKETS = (2, 32)
+SC_ROWS = (1, 3, 8, 17, 32, 45)   # pad, exact, chunked requests
+SC_CALIB_MAX_BATCH = 4            # the calibration check's buckets: 2, 4
+SC_DAMAGE_MAX_BATCH = 4           # the damaged-entry checks' buckets: 2, 4
+SC_DAMAGE_ROWS = (1, 3, 4, 7)     # pad, exact, chunked over bucket 4
+SC_DEMO_ITERS = 20
+SC_DEMO_ARGS = ["--gpus", "0", "--iter-num", str(SC_DEMO_ITERS), "--size",
+                "512"]
+SC_HOWTO_ARGS = ["--gpus", "0"]
+
+
+def sc_ctx(mx):
+    return mx.cpu() if SC_DEVICE == "cpu" else mx.gpu(0)
+
+
+def sc_sync():
+    import torch
+    if SC_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def serve_twin(args, cwd):
+    """The serve twin in a process of its own, as a user runs it: (exit
+    code, its SERVE_CIFAR10 numbers or None, seconds, output tail)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("MXNET_COMPILE_CACHE_DIR", None)
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.examples.serve_cifar10"]
+        + SC_TWIN_ARGS + args, capture_output=True, text=True, timeout=600,
+        cwd=cwd, env=env)
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("SERVE_CIFAR10 ")]
+    out = json.loads(lines[-1][len("SERVE_CIFAR10 "):]) if lines else None
+    return (res.returncode, out, time.time() - t0,
+            res.stdout[-1500:] + res.stderr[-3000:])
+
+
+def sc_twins(mx, work, card, check):
+    """(a) the cold replica (trains, checkpoints, serves, commits) and (b)
+    the warm one, in two processes sharing one checkpoint and one cache
+    directory. Returns the cold run's numbers."""
+    per_step = sum(model_bn_shapes(mx, SC_NETWORK, (3, 28, 28), 10,
+                                   SC_BATCH).values())
+    ck, cache = os.path.join(work, "ck"), os.path.join(work, "cache")
+    on_card = SC_DEVICE != "cpu"   # the CPU runs plain BN and no nvcc
+    rc, cold, sec, tail = serve_twin(
+        ["--checkpoint-dir", ck, "--cache-dir", cache, "--slo-report",
+         "--digest-out", os.path.join(work, "cold.sha")], work)
+    cold = cold or {}
+    want_bn = per_step * SC_STEPS if on_card else 0
+    buckets = sorted(cold.get("warmup", {}), key=int)
+    check("cold replica", rc == 0 and cold.get("train_steps") == SC_STEPS
+          and cold.get("bn_fwd_launches") == want_bn
+          and cold.get("bn_bwd_launches") == want_bn
+          and cold.get("nvcc_builds") == int(on_card)
+          and cold.get("traces") == len(buckets) == 5
+          and {r["source"] for r in cold["warmup"].values()} == {"compiled"},
+          {"phase": "serve_cache_cold", "exit_code": rc, "seconds": sec,
+           "bn_per_step": per_step, "bn_want": want_bn,
+           "numbers": cold, "tail": None if rc == 0 else tail,
+           "card": card})
+    rc, warm, sec, tail = serve_twin(
+        ["--checkpoint-dir", ck, "--cache-dir", cache, "--expect-warm",
+         "--digest-out", os.path.join(work, "warm.sha")], work)
+    warm = warm or {}
+    check("warm replica", rc == 0 and warm.get("nvcc_builds") == 0
+          and warm.get("traces") == 0 and warm.get("compiles") == 0
+          and warm.get("warmup_compiles") == 0
+          and warm.get("bn_fwd_launches") == 0
+          and warm.get("bn_bwd_launches") == 0
+          and warm.get("train_steps") == 0
+          and {r["source"] for r in warm.get("warmup", {}).values()} ==
+          {"deserialized"}
+          and warm.get("digest") == cold.get("digest") is not None,
+          {"phase": "serve_cache_warm", "exit_code": rc, "seconds": sec,
+           "numbers": warm, "digest_equal":
+               warm.get("digest") == cold.get("digest"),
+           "tail": None if rc == 0 else tail, "card": card})
+    emit({"phase": "serve_cache_warmup_ms", "card": card, "buckets": {
+        b: {"cold_ms": cold["warmup"][b]["warmup_ms"],
+            "warm_ms": warm.get("warmup", {}).get(b, {}).get("warmup_ms")}
+        for b in buckets}})
+    return cold, ck
+
+
+def sc_predictor(mx, mod, cache=None, top=SC_MAX_BATCH):
+    from mxnet_tpu_torch.serving import Predictor
+    pred = Predictor(mod, data_shapes=[("data", (SC_BATCH, 3, 28, 28))],
+                     max_batch_size=top)
+    pred.warmup(cache_dir=cache)
+    return pred
+
+
+def sc_sources(pred):
+    return sorted(r["source"] for r in pred.warmup_report().values())
+
+
+def sc_damaged_entries(mx, mod, X, cache, check):
+    """(c) a tampered, a truncated and a ``.tmp-*`` entry of the cold
+    twin's cache, each under a replica of buckets 2 and 4: it re-traces
+    exactly the damaged bucket and serves a cache-less replica's rows
+    bit for bit; the replica after the three loads both again."""
+    import glob
+    import numpy as np
+    from mxnet_tpu_torch.serving.cache import ExecutableCache
+    aot = os.path.join(cache, "aot")
+    store = ExecutableCache(aot)
+    eager = sc_predictor(mx, mod, top=SC_DAMAGE_MAX_BATCH)
+    want = {n: eager.predict(X[:n]) for n in SC_DAMAGE_ROWS}
+    paths = {b: store.path_for(eager._bucket_cache_key(
+        eager._modules[b]._exec_group, b)) for b in eager.buckets}
+    eager.release()
+
+    def flip(path):
+        blob = open(path, "rb").read()
+        with open(path, "wb") as f:
+            f.write(blob[:-10] + bytes([blob[-10] ^ 0xFF]) + blob[-9:])
+
+    def truncate(path):
+        blob = open(path, "rb").read()
+        with open(path, "wb") as f:
+            f.write(blob[:len(blob) // 2])
+
+    def partial(path):
+        os.rename(path, os.path.join(aot, ".tmp-%s-deadbeef"
+                                     % os.path.basename(path)))
+
+    for b, name, damage in ((2, "tampered", flip), (4, "truncated", truncate),
+                            (2, "tmp_partial", partial)):
+        damage(paths[b])
+        pred = sc_predictor(mx, mod, cache, top=SC_DAMAGE_MAX_BATCH)
+        same = all(np.array_equal(pred.predict(X[:n]), want[n])
+                   for n in SC_DAMAGE_ROWS)
+        rep = pred.warmup_report()
+        pred.release()
+        check("%s entry" % name,
+              rep[b]["source"] == "compiled" and all(
+                  r["source"] == "deserialized" for k, r in rep.items()
+                  if k != b) and same,
+              {"phase": "serve_cache_%s" % name, "bucket": b,
+               "sources": {k: r["source"] for k, r in rep.items()},
+               "rows_bitwise": same,
+               "tmp_files": len(glob.glob(os.path.join(aot, ".tmp-*")))})
+    healed = sc_predictor(mx, mod, cache, top=SC_DAMAGE_MAX_BATCH)
+    srcs = sc_sources(healed)
+    healed.release()
+    check("healed entries", set(srcs) == {"deserialized"},
+          {"phase": "serve_cache_healed", "sources": srcs})
+
+
+def sc_calibration(mx, mod, X, work, check):
+    """(c) two calibrations of one net under ``int8_serve``: the replica
+    warmed from the second table serves its own scales: rows that differ
+    from the first table's and equal a cache-less predictor's bit for
+    bit."""
+    import numpy as np
+    from mxnet_tpu_torch.precision import quant
+    from mxnet_tpu_torch.serving import Predictor
+    arg, aux = mod._arg_params, mod._aux_params    # the restored entry
+    shapes = [("data", (SC_MAX_BATCH, 3, 28, 28))]
+    top = SC_CALIB_MAX_BATCH
+
+    def module(precision):
+        m = mx.mod.Module(mod.symbol, context=sc_ctx(mx), precision=precision)
+        m.bind(data_shapes=shapes, for_training=False)
+        m.init_params(arg_params=arg, aux_params=aux)
+        return m
+
+    rs = np.random.RandomState(5)
+    tables = []
+    for scale in (1.0, 4.0):
+        xs = (rs.rand(4 * SC_MAX_BATCH, 3, 28, 28) * scale).astype(
+            np.float32)
+        tables.append(quant.calibrate(module(None), mx.io.NDArrayIter(
+            xs, None, batch_size=SC_MAX_BATCH), num_batches=4))
+    cache = os.path.join(work, "calib")
+    preds = []
+    for t in tables:
+        p = Predictor(module("int8_serve"), max_batch_size=top,
+                      calibration=t)
+        p.warmup(cache_dir=cache)
+        preds.append(p)
+    plain = Predictor(module("int8_serve"), max_batch_size=top,
+                      calibration=tables[1])
+    plain.warmup()
+    x = X[:top]
+    ra, rb, rp = preds[0].predict(x), preds[1].predict(x), plain.predict(x)
+    srcs = [sc_sources(p) for p in preds]
+    for p in preds + [plain]:
+        p.release()
+    check("calibrations apart",
+          tables[0].digest() != tables[1].digest()
+          and set(srcs[1]) == {"compiled"} and not np.array_equal(ra, rb)
+          and np.array_equal(rb, rp),
+          {"phase": "serve_cache_calibration", "sources": srcs,
+           "rows_differ": not np.array_equal(ra, rb),
+           "rows_equal_cacheless": bool(np.array_equal(rb, rp)),
+           "max_abs_diff_a_b": float(np.abs(ra - rb).max())})
+
+
+def sc_decode(mx, work, check):
+    """(c) DecodeEngine cold → warm through the cache: streams bit for bit
+    with the eager engine's, no trace on the warm side."""
+    from mxnet_tpu_torch.serving import cache as serving_cache
+    # prefill buckets up to 4 (longer prompts chunk): state init, the
+    # step and one prefill program
+    cfg = dict(DECODE_LSTM, requests=8, new_tokens=32, max_prefill_len=4)
+    model = decode_model(cfg)
+    params = model.init_params(seed=cfg["seed"])
+    prompts = decode_prompts(cfg)
+    runs = []
+    for cache in (None, os.path.join(work, "decode"),
+                  os.path.join(work, "decode")):
+        eng = decode_engine(mx, cfg, model, params, sc_ctx(mx), 0.8)
+        t0, traces0 = time.perf_counter(), serving_cache.traces
+        rep = eng.warmup(cache_dir=cache)
+        warm_s = time.perf_counter() - t0
+        reqs = [eng.submit(p, max_new_tokens=cfg["new_tokens"], seed=i)
+                for i, p in enumerate(prompts)]
+        eng.start()
+        streams = [r.result(timeout=600) for r in reqs]
+        eng.shutdown(drain=True)
+        runs.append({"sources": sorted({r["source"] for r in rep.values()}),
+                     "traces": serving_cache.traces - traces0,
+                     "compiles": eng.stats()["compiles"],
+                     "warmup_s": warm_s, "streams": streams})
+        eng.release()
+    eager, cold, warm = runs
+    check("decode cold/warm",
+          cold["sources"] == ["compiled"] and warm["sources"] ==
+          ["deserialized"] and warm["traces"] == 0 and
+          warm["compiles"] == 0 and
+          eager["streams"] == cold["streams"] == warm["streams"],
+          {"phase": "serve_cache_decode",
+           "runs": [{k: v for k, v in r.items() if k != "streams"}
+                    for r in runs],
+           "streams_bitwise": eager["streams"] == cold["streams"] ==
+           warm["streams"]})
+
+
+def sc_times(mx, eager, cached, X, card):
+    """(d) at buckets 2 and 32: the exported program against the eager
+    executor, as phase 8 times the bucket forward (CUDA events around one
+    call, median of 10 after 3; host enqueue) and ``Predictor.predict``
+    on exactly ``b`` rows (median of 10)."""
+    import torch
+    from mxnet_tpu_torch.tools.bn_probe import cuda_time, enqueue_us
+    rows = []
+    for b in SC_TIME_BUCKETS:
+        x = X[:b]
+        grp = cached._modules[b]._exec_group
+        dev = grp.contexts[0].torch_device()
+        args = cached._program_args(grp, {"data": torch.from_numpy(x).to(
+            dev)})
+        program = cached._programs[b]
+        eager.predict(x)          # the bound data holds the request
+        ex = eager._modules[b]._exec_group.execs[0]
+
+        def eager_fwd():
+            ex.forward(is_train=False)
+
+        def program_fwd():
+            with torch.no_grad():
+                program(*args)
+
+        row = {"bucket": b, "card": card}
+        for name, fn in (("eager", eager_fwd), ("exported", program_fwd)):
+            row[name + "_forward_event_ms"] = cuda_time(fn, reps=10, warm=3)
+            row[name + "_forward_enqueue_ms"] = enqueue_us(fn, 10) / 1e3
+        for name, pred in (("eager", eager), ("exported", cached)):
+            for _ in range(3):
+                pred.predict(x)
+            calls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                pred.predict(x)
+                calls.append(1e3 * (time.perf_counter() - t0))
+            row[name + "_call_ms"] = statistics.median(calls)
+        rows.append(row)
+        emit(dict(row, phase="serve_cache_times"))
+    return rows
+
+
+def sc_howtos(work, card, check):
+    """(d) the profiler twin's dump on the card, and the debug_conv and
+    memcost twins with their scripts' asserts."""
+    from mxnet_tpu_torch.examples import debug_conv, memcost, profiler_demo
+    out = os.path.join(work, "profile_matmul.json")
+    t0 = time.time()
+    res = profiler_demo.main(SC_DEMO_ARGS + ["--output", out])
+    cats = {}
+    for e in res["events"]:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    kernels = sorted({e["name"] for e in res["events"]
+                      if e.get("cat") == "kernel"})
+    check("profiler demo", {e["name"] for e in res["events"]} >=
+          {"matmul_%d" % i for i in range(SC_DEMO_ITERS)},
+          {"phase": "serve_cache_profiler_demo", "events": len(res["events"]),
+           "by_cat": cats, "kernel_names": kernels[:8],
+           "bytes": os.path.getsize(out), "seconds": time.time() - t0,
+           "card": card})
+    res = debug_conv.main(SC_HOWTO_ARGS)
+    check("debug_conv", any("conv1" in k for k in res["taps"]),
+          {"phase": "serve_cache_debug_conv", "taps": sorted(res["taps"])})
+    t0 = time.time()
+    res = memcost.main(SC_HOWTO_ARGS)
+    held_p, held_s, mem_p, mem_s, fl_p, fl_s = res["evaluator"]
+    held_n, held_f, mm_none, mm_full, fl_none, fl_full = res["module"]
+
+    def mib(*bs):
+        return [None if b is None else b / 2**20 for b in bs]
+
+    check("memcost", True,
+          {"phase": "serve_cache_memcost", "card": card,
+           "evaluator_held_mib": mib(held_p, held_s),
+           "evaluator_peak_mib": mib(mem_p, mem_s),
+           "evaluator_flops": [fl_p, fl_s],
+           "module_step_held_mib": mib(held_n, held_f),
+           "module_step_peak_mib": mib(mm_none, mm_full),
+           "module_step_flops": [fl_none, fl_full],
+           "seconds": time.time() - t0})
+
+
+def serve_cache_phase(mx, K, C, R, card):
+    """Phase 18 (module docstring). Returns the kernels' launches: the BN
+    pair's from the cold replica's training, every in-process count 0."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    failed = []
+
+    def check(name, ok, row):
+        emit(dict(row, ok=bool(ok)))
+        if not ok:
+            failed.append(name)
+
+    vision_zero(K, C, R)
+    work = tempfile.mkdtemp(prefix="serve_cache_", dir=os.path.join(
+        ROOT, "build"))
+    try:
+        cold, ck = sc_twins(mx, work, card, check)
+        mod = mx.mod.Module.load(ck, context=sc_ctx(mx))
+        X = np.random.RandomState(3).rand(
+            max(SC_ROWS), 3, 28, 28).astype(np.float32)
+        eager = sc_predictor(mx, mod)
+        want = {n: eager.predict(X[:n]) for n in SC_ROWS}
+        # this process loads what the cold twin's process committed
+        cache = os.path.join(work, "cache")
+        cached = sc_predictor(mx, mod, cache)
+        same = all(np.array_equal(cached.predict(X[:n]), want[n])
+                   for n in SC_ROWS)
+        check("exported rows", same and set(sc_sources(cached)) ==
+              {"deserialized"},
+              {"phase": "serve_cache_rows", "rows": list(SC_ROWS),
+               "sources": sc_sources(cached), "bitwise_vs_eager": same})
+        sc_times(mx, eager, cached, X, card)
+        eager.release()
+        cached.release()
+        sc_damaged_entries(mx, mod, X, cache, check)
+        sc_calibration(mx, mod, X, work, check)
+        sc_decode(mx, work, check)
+        sc_howtos(work, card, check)
+        sc_sync()
+        inproc = vision_counts(K, C, R)
+        check("kernels in process", not any(inproc.values()),
+              {"phase": "serve_cache_kernels", "in_process": inproc,
+               "cold_replica_bn": [cold.get("bn_fwd_launches"),
+                                   cold.get("bn_bwd_launches")]})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise RuntimeError("serve_cache phase failed: %s" % "; ".join(failed))
+    return dict(inproc, bn_fwd=cold["bn_fwd_launches"],
+                bn_bwd=cold["bn_bwd_launches"])
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5968,6 +6389,8 @@ def main():
     vision_entries, vision_launches = timed("vision", vision_phase, mx, K, C,
                                             R, card)
     guard_launches = timed("guardian", guardian_phase, mx, K, C, R, card)
+    cache_launches = timed("serve_cache", serve_cache_phase, mx, K, C, R,
+                           card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -5983,6 +6406,7 @@ def main():
                     launches_quant=quant_launches[k],
                     launches_vision=vision_launches[k],
                     launches_guardian=guard_launches[k],
+                    launches_serve_cache=cache_launches[k],
                     launches_bf16=launches16[k],
                     max_abs_err=worst[k], bound_by="bytes",
                     max_abs_err_bf16=worst16[k],
@@ -6003,14 +6427,17 @@ def main():
              launches_api=api_launches["rtc"],
              launches_quant=quant_launches["rtc"],
              launches_vision=vision_launches["rtc"],
-             launches_guardian=guard_launches["rtc"]),
+             launches_guardian=guard_launches["rtc"],
+             launches_serve_cache=cache_launches["rtc"]),
         dict(copy_entry, launches_decode=decode_launches["copy"],
              launches_rnn=rnn_launches["copy"],
              launches_api=api_launches["copy"],
              launches_quant=quant_launches["copy"],
              launches_vision=vision_launches["copy"],
-             launches_guardian=guard_launches["copy"])] + [
-        dict(e, launches_guardian=guard_launches[e["name"]])
+             launches_guardian=guard_launches["copy"],
+             launches_serve_cache=cache_launches["copy"])] + [
+        dict(e, launches_guardian=guard_launches[e["name"]],
+             launches_serve_cache=cache_launches[e["name"]])
         for e in vision_entries]
     emit({"phase": "done", "seconds": time.time() - t_start,
           "phase_seconds": seconds})

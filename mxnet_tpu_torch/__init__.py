@@ -7,13 +7,16 @@ far (``mx.nd``, ``mx.sym``, ``mx.mod``, ``mx.init``, ``mx.optimizer``,
 ``mx.serving``, ``mx.rnn``, ``mx.precision``, ``mx.recordio``,
 ``mx.image``, ``mx.data``, ``mx.autograd``, ``mx.operator``, ``mx.kv``/
 ``mx.kvstore``, ``mx.model.FeedForward``, ``mx.viz``, ``mx.plugin``,
-``mx.faults``, ``mx.guardian`` and ``mx.test_utils``). It
+``mx.faults``, ``mx.guardian``, ``mx.engine``, ``mx.profiler`` and
+``mx.test_utils``, with ``mx.waitall``, ``mx.cpu_pinned``,
+``mx.AttrScope`` and ``mx.NameManager``). It
 imports torch and numpy, never JAX and
 nothing of ``mxnet_tpu``. Entry points run on ``gpu(0)`` unless the caller
 passes ``mx.cpu()``.
 """
 from .base import MXNetError, __version__
-from .context import Context, cpu, gpu, tpu, current_context
+from .context import Context, cpu, gpu, tpu, cpu_pinned, current_context
+from . import engine
 from . import random
 from . import faults
 from . import ndarray
@@ -53,7 +56,13 @@ from . import plugin
 from . import visualization
 from . import visualization as viz
 from . import test_utils
+from . import profiler
+from . import attribute
+from . import name
+from .attribute import AttrScope
+from .name import NameManager
 from .model import FeedForward
+from .ndarray import waitall
 
 __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "current_context", "random", "nd", "sym", "init",
@@ -62,4 +71,5 @@ __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "mon", "telemetry", "serving", "rnn", "precision", "recordio",
            "image", "data", "autograd", "operator", "kv", "kvstore", "opt",
            "viz", "visualization", "test_utils", "FeedForward", "plugin",
-           "faults", "guardian"]
+           "faults", "guardian", "engine", "profiler", "waitall",
+           "cpu_pinned", "AttrScope", "NameManager", "attribute", "name"]

@@ -15,7 +15,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "current_context"]
 
 
 class Context:
@@ -24,8 +24,8 @@ class Context:
     Usable as a ``with`` scope that sets the default context."""
 
     # dev-type codes follow the reference enum; tpu aliases gpu
-    devtype2str = {1: "cpu", 2: "gpu"}
-    devstr2type = {"cpu": 1, "gpu": 2, "tpu": 2}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "tpu": 2, "cpu_pinned": 3}
     _default_ctx = threading.local()
 
     def __init__(self, device_type, device_id=0):
@@ -65,7 +65,7 @@ class Context:
     def torch_device(self):
         """The ``torch.device`` of this context; raises for a gpu context
         when CUDA has no such device."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -80,6 +80,12 @@ class Context:
 def cpu(device_id=0):
     """Return a CPU context (mirrors mx.cpu)."""
     return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """Pinned-host context; its arrays live in host memory as ``cpu()``'s
+    do (the JAX package's rule)."""
+    return Context("cpu_pinned", device_id)
 
 
 def gpu(device_id=0):

@@ -395,7 +395,8 @@ class Executor:
             cb = self._monitor_callback
 
             def tap(name, val):
-                cb(name, nd.NDArray(val.detach(), ctx=self._ctx))
+                cb(name, nd.NDArray(val.detach(), ctx=self._ctx,
+                                    writable=False))
         if is_train and self._diff_idx:
             leaves = []
             for i in self._diff_idx:
@@ -450,6 +451,18 @@ class Executor:
                 buf._write(buf._read() + g)
             else:
                 buf._write(g)
+
+    def debug_str(self):
+        """The graph as the reference's debug string: the outputs, then
+        each op node in evaluation order."""
+        lines = ["Symbol outputs: %s"
+                 % ", ".join(self._symbol.list_outputs())]
+        for n in self._symbol._topo():
+            if n.op is not None:
+                lines.append("Op:%s, Name=%s" % (n.op.name, n.name))
+        lines.append("Memory planning: delegated to PyTorch's caching "
+                     "allocator")
+        return "\n".join(lines)
 
     def set_monitor_callback(self, callback):
         """Hand every op output of later forwards to

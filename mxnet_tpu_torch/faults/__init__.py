@@ -7,22 +7,30 @@ list of ``(site, trigger, kind)`` rules — grammar in
 injection seams threaded through the stack evaluate it. The port's
 seams so far:
 
-=====================  ===============  ===============================
-site                   entry point      where it lives
-=====================  ===============  ===============================
-``checkpoint.commit``  check            between entry write and rename
-``checkpoint.shard``   corrupt_file     a committed shard file
-``checkpoint.manifest``  corrupt_file   a committed manifest
-``checkpoint.params``  corrupt_params   restore hand-off (read SDC)
-``data.transform``     check            TransformIter worker apply
-``data.stager``        check            DeviceLoader stage entry
-``data.device_put``    check            DeviceLoader device placement
-``module.step``        poison           fit step boundary (numeric)
-``guardian.sdc``       value            SDC probe's second run
-=====================  ===============  ===============================
+===========================  ===============  =============================
+site                         entry point      where it lives
+===========================  ===============  =============================
+``checkpoint.commit``        check            between entry write and rename
+``checkpoint.shard``         corrupt_file     a committed shard file
+``checkpoint.manifest``      corrupt_file     a committed manifest
+``checkpoint.params``        corrupt_params   restore hand-off (read SDC)
+``data.transform``           check            TransformIter worker apply
+``data.stager``              check            DeviceLoader stage entry
+``data.device_put``          check            DeviceLoader device placement
+``module.step``              poison           fit step boundary (numeric)
+``guardian.sdc``             value            SDC probe's second run
+``serving.worker``           check            DynamicBatcher launch path
+``serving.device``           check            Predictor device launch
+``serving.queue_flood``      fires            DynamicBatcher submit
+``serving.cache``            corrupt_file     a committed executable entry
+``serving.decode_worker``    check            DecodeEngine scheduler tick
+``serving.decode_step``      check            DecodeEngine per-step launch
+``serving.decode_abandon``   fires            DecodeEngine mid-stream abandon
+===========================  ===============  =============================
 
-The JAX package's serving, decode, dist, gateway and autopilot seams
-come with the port's slices of those modules. The discipline is
+``SITES`` holds the same table (site -> entry point). The JAX package's
+dist, gateway and autopilot seams come with the port's slices of those
+modules. The discipline is
 ``telemetry.enabled()``'s: an UNARMED process pays one module-attribute
 branch per seam (``faults.armed()``) and trains bit for bit as a build
 without the seams. Armed, every firing is recorded — the plan's
@@ -51,11 +59,32 @@ from .plan import (FaultError, FaultPlan, FaultRule, InjectedFault,
 from .retry import retry
 
 __all__ = ["FaultError", "InjectedFault", "TransientFault", "WorkerLost",
-           "FaultRule", "FaultPlan", "KINDS", "retry", "arm", "disarm",
+           "FaultRule", "FaultPlan", "KINDS", "SITES", "retry", "arm",
+           "disarm",
            "armed", "active", "check", "value", "fires", "corrupt_file",
            "poison", "corrupt_params", "incidents"]
 
 _log = logging.getLogger("mxnet_tpu_torch.faults")
+
+# the seam table (module docstring): site -> its one entry point
+SITES = {
+    "checkpoint.commit": "check",
+    "checkpoint.shard": "corrupt_file",
+    "checkpoint.manifest": "corrupt_file",
+    "checkpoint.params": "corrupt_params",
+    "data.transform": "check",
+    "data.stager": "check",
+    "data.device_put": "check",
+    "module.step": "poison",
+    "guardian.sdc": "value",
+    "serving.worker": "check",
+    "serving.device": "check",
+    "serving.queue_flood": "fires",
+    "serving.cache": "corrupt_file",
+    "serving.decode_worker": "check",
+    "serving.decode_step": "check",
+    "serving.decode_abandon": "fires",
+}
 _PLAN = None
 _lock = threading.Lock()
 

@@ -18,7 +18,8 @@ stores (``stream.plan``: vectors aligned to the first output, a ref off
 that alignment moving as words).
 
 Build: the generated source is written to ``build/rtc/<digest>/rtc.cu``
-(under a temporary name, then renamed, so processes never race on one
+(``<dir>/cuda/rtc/<digest>/`` under ``MXNET_COMPILE_CACHE_DIR=<dir>``;
+``rtc_dir``) (under a temporary name, then renamed, so processes never race on one
 file) and ``nvcc`` builds ``librtc.so`` beside it (``kernels/build.py``;
 ``-fmad=false -prec-div=true -prec-sqrt=true``, no fast math). The digest
 covers the generated text, the engine header and the flags, so each body
@@ -50,12 +51,11 @@ import torch
 from ..base import MXNetError
 from . import build, rtc_codegen, stream
 
-__all__ = ["rtc_kernel", "rtc_plain", "check_tensors", "FLAGS"]
+__all__ = ["rtc_kernel", "rtc_plain", "check_tensors", "rtc_dir", "FLAGS"]
 
 FLAGS = ("-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false")
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "rtc")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "build", "rtc")
 _F32 = torch.float32
 _LOCK = threading.Lock()     # bodies may be built from several threads
 
@@ -169,11 +169,21 @@ def check_tensors(ck, ins, outs):
                          % ref.numel())
 
 
+def rtc_dir(tag):
+    """The directory of the body whose CUDA text has digest ``tag`` (its
+    ``rtc.cu`` and ``librtc.so``): under the compile cache's ``cuda/rtc/``
+    when one is in force (``build.cache_root``), else the checkout's
+    ``build/rtc/``."""
+    root = build.cache_root()
+    return os.path.join(root, "cuda", "rtc", tag) if root else \
+        os.path.join(_BUILD_DIR, tag)
+
+
 def _write_source(text, tag):
-    """Save ``text`` as ``build/rtc/<tag>/rtc.cu`` unless it is there; the
-    write goes to a name of this process first and is renamed into
+    """Save ``text`` as ``rtc.cu`` in ``rtc_dir(tag)`` unless it is there;
+    the write goes to a name of this process first and is renamed into
     place."""
-    d = os.path.join(_BUILD_DIR, tag)
+    d = rtc_dir(tag)
     os.makedirs(d, exist_ok=True)
     path = os.path.join(d, "rtc.cu")
     if not os.path.exists(path):

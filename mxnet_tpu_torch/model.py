@@ -17,7 +17,8 @@ from . import context as ctx_mod
 from . import kvstore as kvs
 from . import symbol as sym_mod
 
-__all__ = ["FeedForward", "save_checkpoint", "load_checkpoint"]
+__all__ = ["FeedForward", "BatchEndParam", "save_checkpoint",
+           "load_checkpoint"]
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
@@ -239,3 +240,8 @@ class FeedForward(object):
                   eval_end_callback=eval_end_callback,
                   eval_batch_end_callback=eval_batch_end_callback)
         return model
+
+
+# the fit loop's batch-end record, defined with the module code (imported
+# last: module/module.py imports this file's helpers)
+from .module.base_module import BatchEndParam  # noqa: E402

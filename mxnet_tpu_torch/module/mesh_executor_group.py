@@ -514,17 +514,20 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             vals.append(v)
         return vals
 
-    def _forward_only(self, params, aux, inputs, is_train, key=None):
+    def _forward_only(self, params, aux, inputs, is_train, key=None,
+                      tap=None):
         """A forward without gradients: (float32 outputs, new aux). An
         eval forward runs inside the policy's GEMM scope
         (``precision.quant.trace_gemm_scope``: a calibration pass, native
         int8/fp8 products, or a no-op), whose site counters restart
-        here."""
+        here. ``tap(name, tensor)`` sees every op output (the serving
+        cache's trace names the node it stops at)."""
         scope = contextlib.nullcontext() if is_train else \
             trace_gemm_scope(self._precision)
         with torch.no_grad(), scope:
             outs, new_aux = self._eval_fn(
-                self._arg_vals(params, inputs), aux, is_train, key=key)
+                self._arg_vals(params, inputs), aux, is_train, tap=tap,
+                key=key)
         return tuple(o.float() for o in outs), new_aux
 
     def _fwd_bwd(self, params, aux, inputs, heads=None, scale=None,

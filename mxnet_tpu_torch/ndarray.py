@@ -34,14 +34,15 @@ _py_slice = slice
 class NDArray:
     """Multi-dimensional mutable array on a device context."""
 
-    __slots__ = ("_t", "_ctx")
+    __slots__ = ("_t", "_ctx", "writable")
 
-    def __init__(self, tensor, ctx=None):
+    def __init__(self, tensor, ctx=None, writable=True):
         if ctx is None:
             ctx = Context("cpu") if tensor.device.type == "cpu" else \
                 Context("gpu", tensor.device.index or 0)
         self._t = tensor
         self._ctx = ctx
+        self.writable = writable
 
     # ------------------------------------------------------------------ io
     def _read(self):
@@ -50,6 +51,8 @@ class NDArray:
 
     def _write(self, new):
         """Copy tensor ``new`` into this array in place."""
+        if not self.writable:
+            raise MXNetError("trying to write to a readonly NDArray")
         if tuple(new.shape) != tuple(self._t.shape):
             new = new.reshape(self._t.shape)
         with torch.no_grad():
@@ -117,6 +120,8 @@ class NDArray:
         if self._t.is_cuda:
             torch.cuda.synchronize(self._t.device)
 
+    wait_to_write = wait_to_read
+
     # -------------------------------------------------------------- copy
     def copy(self):
         """A new array with this one's value, on the same context."""
@@ -141,17 +146,19 @@ class NDArray:
     def slice(self, start, stop):
         """Axis-0 slice sharing this array's storage."""
         start, stop, _ = _py_slice(start, stop).indices(self.shape[0])
-        return NDArray(self._t[start:stop], ctx=self._ctx)
+        return NDArray(self._t[start:stop], ctx=self._ctx,
+                       writable=self.writable)
 
     def at(self, idx):
         """View of row ``idx`` with the leading axis removed."""
-        return NDArray(self._t[idx], ctx=self._ctx)
+        return NDArray(self._t[idx], ctx=self._ctx, writable=self.writable)
 
     def reshape(self, shape):
         """Shape-changing view sharing storage."""
         if isinstance(shape, int):
             shape = (shape,)
-        return NDArray(self._t.view(tuple(shape)), ctx=self._ctx)
+        return NDArray(self._t.view(tuple(shape)), ctx=self._ctx,
+                       writable=self.writable)
 
     def __getitem__(self, key):
         if isinstance(key, int):
@@ -164,6 +171,8 @@ class NDArray:
         raise ValueError("NDArray only supports int/slice as index")
 
     def __setitem__(self, key, value):
+        if not self.writable:
+            raise MXNetError("trying to write to a readonly NDArray")
         full_slice = isinstance(key, _py_slice) and key.start is None \
             and key.stop is None and key.step is None
         view = self if full_slice else self[key]
@@ -447,8 +456,9 @@ def concatenate(arrays, axis=0, always_copy=True):
 
 
 def waitall():
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    """Block until all pending host (engine) and card work is done."""
+    from . import engine as _engine
+    _engine.waitall()
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,6 @@ package, cached per shape and attributes.
 """
 from __future__ import annotations
 
-import functools
 
 import numpy as onp
 import torch
@@ -66,8 +65,22 @@ def _count_sketch(attrs, ins, octx):
     return [data @ (hot.to(data.dtype) * s.reshape(-1, 1))]
 
 
-@functools.lru_cache(maxsize=64)
-def _prior_anchors(h, w, sizes, ratios, steps, offsets, clip, device):
+_ANCHORS = {}    # (grid, sizes, ..., device) -> the anchors on the device
+
+
+def _prior_anchors(*key):
+    """The cached anchors of ``_prior_anchors_on(*key)``. A tensor made
+    under a trace (``torch.export``'s fake tensors) is never cached."""
+    from torch._subclasses.fake_tensor import is_fake
+    t = _ANCHORS.get(key)
+    if t is None:
+        t = _prior_anchors_on(*key)
+        if not is_fake(t) and len(_ANCHORS) < 64:
+            _ANCHORS[key] = t
+    return t
+
+
+def _prior_anchors_on(h, w, sizes, ratios, steps, offsets, clip, device):
     step_y = steps[0] if steps[0] > 0 else 1.0 / h
     step_x = steps[1] if steps[1] > 0 else 1.0 / w
     cy = (onp.arange(h) + offsets[0]) * step_y

@@ -113,6 +113,11 @@ class Optimizer(object):
     def _apply(self, weight, grad, state, lr, wd):
         raise NotImplementedError()
 
+    def set_lr_scale(self, args_lrscale):
+        """Deprecated in MXNet 0.9.5 as in the JAX package: raises
+        ``DeprecationWarning``; use :meth:`set_lr_mult`."""
+        raise DeprecationWarning
+
     def set_lr_mult(self, args_lr_mult):
         """Per-parameter lr multipliers, from ``__lr_mult__`` symbol attrs
         and then ``args_lr_mult``."""

@@ -346,12 +346,16 @@ _CONSTS = {}
 
 
 def _const(value, device):
-    """A cached float32 0-d tensor on ``device``."""
+    """A cached float32 0-d tensor on ``device``. A tensor made under a
+    trace (``torch.export``'s fake tensors) is the trace's own and is
+    never cached: a later eager call or trace must not find it."""
+    from torch._subclasses.fake_tensor import is_fake
     key = (float(value), device)
     t = _CONSTS.get(key)
     if t is None:
-        t = _CONSTS[key] = torch.tensor(float(value), dtype=torch.float32,
-                                        device=device)
+        t = torch.tensor(float(value), dtype=torch.float32, device=device)
+        if not is_fake(t):
+            _CONSTS[key] = t
     return t
 
 

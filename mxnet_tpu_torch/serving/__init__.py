@@ -1,7 +1,8 @@
 """mxnet_tpu_torch.serving — online inference on the card: dynamic
 batching over batch-size buckets, with backpressure and tenancy, and
-continuous-batching decode of sequence models (the port of
-``mxnet_tpu/serving``, without its executable cache).
+continuous-batching decode of sequence models, and the persistent
+executable cache that warm-starts a replica (the port of
+``mxnet_tpu/serving``).
 
 * :class:`Predictor` — binds a trained/loaded Module for inference, one
   module per padded batch-size bucket, all on one set of parameter
@@ -22,8 +23,20 @@ continuous-batching decode of sequence models (the port of
   TTFT / per-token SLO trackers, and token streams bit for bit equal to
   the same request decoded alone.
 * :class:`ServingStats` — one snapshot (``stats()``) of latency
-  p50/p95/p99, batch-fill ratio, queue depth and the compile counter;
-  with telemetry enabled, per-request phase traces too.
+  p50/p95/p99, batch-fill ratio, queue depth, the compile counter and
+  the cache's hits and misses; with telemetry enabled, per-request phase
+  traces too.
+* :class:`ExecutableCache` (:mod:`.cache`) — the persistent executable
+  cache: ``Predictor.warmup(cache_dir=)`` and ``DecodeEngine.warmup(
+  cache_dir=)`` trace each program once with ``torch.export`` and a
+  second replica loads it (``MXNET_COMPILE_CACHE_DIR`` sets both the
+  executable store and, through :func:`enable_persistent_compile_cache`'s
+  rule, where every ``nvcc`` build goes).
+
+Fault seams (``faults``): ``serving.device`` (Predictor launch),
+``serving.worker`` and ``serving.queue_flood`` (DynamicBatcher),
+``serving.cache`` (a committed cache entry), ``serving.decode_worker``,
+``serving.decode_step`` and ``serving.decode_abandon`` (DecodeEngine).
 
 Quick start::
 
@@ -31,16 +44,17 @@ Quick start::
     from mxnet_tpu_torch.serving import Predictor, DynamicBatcher
 
     pred = Predictor(trained_module, max_batch_size=32)
-    pred.warmup()                      # every bucket's first forward
+    pred.warmup(cache_dir="/var/cache/mx")   # trace or load each bucket
     with DynamicBatcher(pred, max_queue=256, max_wait_ms=2) as srv:
         probs = srv.submit(x).result()   # from any number of threads
     print(pred.stats())
-
-The persistent executable cache comes with a later slice of the port.
 """
 from __future__ import annotations
 
+from . import cache
 from .batcher import DynamicBatcher
+from .cache import (CacheMiss, ExecutableCache,
+                    enable_persistent_compile_cache)
 from .decode import (DecodeEngine, DecodeModel, DecodeRequest, LSTMCharLM,
                      TransformerLM)
 from .errors import (QueueFull, RequestAbandoned, RequestTimeout,
@@ -53,4 +67,5 @@ __all__ = ["Predictor", "DynamicBatcher", "ServingStats", "Tenant",
            "DecodeEngine", "DecodeModel", "DecodeRequest", "LSTMCharLM",
            "TransformerLM",
            "QueueFull", "RequestAbandoned", "RequestTimeout",
-           "ServerClosed", "TenantShed", "WorkerCrashed"]
+           "ServerClosed", "TenantShed", "WorkerCrashed", "cache",
+           "CacheMiss", "ExecutableCache", "enable_persistent_compile_cache"]

@@ -71,6 +71,7 @@ from concurrent.futures import Future, InvalidStateError
 import numpy as onp
 import torch
 
+from .. import faults as _faults
 from .. import telemetry
 from .errors import (QueueFull, RequestTimeout, ServerClosed, TenantShed,
                      WorkerCrashed)
@@ -388,10 +389,15 @@ class DynamicBatcher:
         req = _Request(arrays, rows, Future(),
                        t + limit if limit is not None else None, t,
                        req_id=ten.stats.new_request_id())
+        # queue-flood seam: a fired rule makes THIS submit see the queue
+        # at capacity, the deterministic stand-in for a burst arriving
+        # faster than the worker drains (clients see the same QueueFull)
+        flood = _faults.armed() and _faults.fires("serving.queue_flood",
+                                                  tenant=ten.name)
         with self._cond:
             if self._closed:
                 raise ServerClosed("batcher is shut down")
-            full = self._n_queued >= self._max_queue
+            full = flood or self._n_queued >= self._max_queue
             if not full:
                 self._queues[ten.name].append(req)
                 self._n_queued += 1
@@ -647,6 +653,12 @@ class DynamicBatcher:
     def _launch(self, ten, reqs):
         tracing = telemetry.enabled()
         total = sum(r.rows for r in reqs)
+        if _faults.armed():
+            # worker-death seam: raises OUTSIDE the launch's error
+            # handling below, so the exception reaches the supervisor as
+            # an unexpected bug would (WorkerCrashed, restart budget)
+            _faults.check("serving.worker", tenant=ten.name,
+                          rows=total, requests=len(reqs))
         t_launch = time.perf_counter()
         timing = {} if tracing else None
         try:

@@ -48,11 +48,16 @@ holds per-channel int8 weights and float32 scales
 reference widens them (``dequant_params``), so the bytes a step receives
 (:meth:`DecodeEngine.step_argument_bytes`) count the int8 storage.
 
-Not in this slice, each refused with ``MXNetError`` naming its ROADMAP
-item: the persistent executable cache (``warmup(cache_dir=)``,
-``MXNET_COMPILE_CACHE_DIR``; A5). The fault seams
-``serving.decode_worker`` / ``.decode_step`` / ``.decode_abandon`` come
-with ``faults/`` (A9); the port does not call them.
+Persistent executable cache (``warmup(cache_dir=)`` or
+``MXNET_COMPILE_CACHE_DIR``; :mod:`mxnet_tpu_torch.serving.cache`): state
+init, the step and each prefill bucket are traced once with
+``torch.export`` (parameters and state as inputs) into entries keyed by
+the model's digest, the mode, the program and its shapes, the sampler's
+temperature and the backend; a warm replica loads them, traces nothing,
+and streams bit for bit as the cold one. Fault seams:
+``serving.decode_worker`` (the scheduler tick), ``serving.decode_step``
+(each step launch) and ``serving.decode_abandon`` (the oldest active
+request's client walks away mid-stream).
 
 Quick start::
 
@@ -85,6 +90,7 @@ import numpy as onp
 import torch
 import torch.nn.functional as F
 
+from .. import faults as _faults
 from .. import telemetry
 from ..base import MXNetError, torch_dtype
 from ..context import Context, gpu
@@ -380,9 +386,12 @@ class TransformerLM(DecodeModel):
                           num_blocks=blocks), arrs, "TransformerLM")
 
     def _mask_on(self, device):
+        from torch._subclasses.fake_tensor import is_fake
         m = self._masks.get(device)
         if m is None:
-            m = self._masks[device] = torch.from_numpy(self._mask).to(device)
+            m = torch.from_numpy(self._mask).to(device)
+            if not is_fake(m):      # a trace's tensor is the trace's own
+                self._masks[device] = m
         return m
 
     def _block(self, params, x, i):
@@ -700,6 +709,7 @@ class DecodeEngine(object):
         self._transcript = []
         self._warmup_report = {}
         self._ran = set()        # programs whose first run has happened
+        self._programs = {}      # name -> exported program (cache)
         self._state = None
         self._thread = None
         if start:
@@ -758,7 +768,58 @@ class DecodeEngine(object):
 
     def _launch_init(self):
         self._first_run("state_init")
+        program = self._programs.get("state_init")
+        if program is not None:
+            return self._state_of(program())
         return self._state_zeros(self._slots)
+
+    # the programs as functions of flat tensors (what a trace captures and
+    # an exported program takes): the parameter leaves (sorted names, an
+    # int8 leaf as its payload and scales), then the state (sorted keys)
+    def _param_leaves(self):
+        out = []
+        for k in sorted(self._params):
+            v = self._params[k]
+            out.extend([v.q, v.s] if _quant.is_quantized(v) else [v])
+        return out
+
+    def _params_of(self, leaves):
+        """The dense parameters a step computes from, rebuilt from
+        ``_param_leaves`` order (``_dense_params``'s rule)."""
+        tree, i = {}, 0
+        for k in sorted(self._params):
+            if _quant.is_quantized(self._params[k]):
+                tree[k] = _quant.QuantLeaf(q=leaves[i], s=leaves[i + 1])
+                i += 2
+            else:
+                tree[k] = leaves[i]
+                i += 1
+        if self._weight_quant != "int8":
+            return tree
+        return _quant.dequant_params(tree, self._cdt)
+
+    def _state_keys(self):
+        return sorted(self._model.state_struct())
+
+    def _state_of(self, leaves):
+        return dict(zip(self._state_keys(), leaves))
+
+    def _step_flat(self, *flat):
+        n_p, n_s = len(self._param_leaves()), len(self._state_keys())
+        params = self._params_of(flat[:n_p])
+        state = self._state_of(flat[n_p:n_p + n_s])
+        tokens, active, steps, seeds = flat[n_p + n_s:]
+        state, nxt = self._step_math(params, state, tokens, active, steps,
+                                     seeds)
+        return [state[k] for k in self._state_keys()] + [nxt]
+
+    def _prefill_flat(self, *flat):
+        n_p, n_s = len(self._param_leaves()), len(self._state_keys())
+        params = self._params_of(flat[:n_p])
+        state = self._state_of(flat[n_p:n_p + n_s])
+        rows, logits, first = self._prefill_math(params, state,
+                                                 *flat[n_p + n_s:])
+        return [rows[k] for k in self._state_keys()] + [logits, first]
 
     def step_device(self, state, tokens, active, steps, seeds):
         """The decode step on device tensors (``(slots,)`` int64 tokens,
@@ -766,7 +827,11 @@ class DecodeEngine(object):
         Every row runs, whatever the occupancy; inactive rows keep their
         state and token through an exact ``where``. Enqueues only: no
         host synchronisation."""
-        rows, logits = self._model.step(self._dense_params(), tokens, state)
+        return self._step_math(self._dense_params(), state, tokens, active,
+                               steps, seeds)
+
+    def _step_math(self, params, state, tokens, active, steps, seeds):
+        rows, logits = self._model.step(params, tokens, state)
         nxt = self._select(logits, steps, seeds)
         state = {k: torch.where(
             active.view((self._slots,) + (1,) * (n.dim() - 1)), n, state[k])
@@ -777,8 +842,14 @@ class DecodeEngine(object):
         self._first_run("step")
         d_tok, d_act, d_steps, d_seeds = self._upload(
             [tokens, active, steps, seeds], buf)
-        return self.step_device(state, d_tok, d_act.bool(), d_steps,
-                                d_seeds)
+        program = self._programs.get("step")
+        if program is None:
+            return self.step_device(state, d_tok, d_act.bool(), d_steps,
+                                    d_seeds)
+        out = program(*self._param_leaves(),
+                      *[state[k] for k in self._state_keys()], d_tok,
+                      d_act.bool(), d_steps, d_seeds)
+        return self._state_of(out[:-1]), out[-1]
 
     def _launch_prefill(self, L, state, tokens, lengths, idx, resume,
                         seeds):
@@ -794,18 +865,35 @@ class DecodeEngine(object):
             self._upload([tokens, lengths, resume, seeds,
                           onp.clip(idx, 0, slots - 1), real, idx[real],
                           onp.zeros((pb,), onp.int64)])
-        res = d_res.bool()
-        rows0 = {k: torch.where(res.view((pb,) + (1,) * (s.dim() - 1)),
-                                s.index_select(0, d_clip), 0)
-                 for k, s in state.items()}
-        rows, logits = self._model.prefill(self._dense_params(), d_tok, d_len,
-                                           rows0)
+        program = self._programs.get("prefill_%d" % L)
+        if program is None:
+            rows, logits, first = self._prefill_math(
+                self._dense_params(), state, d_tok, d_len, d_res.bool(),
+                d_seeds, d_clip, d_zero)
+        else:
+            out = program(*self._param_leaves(),
+                          *[state[k] for k in self._state_keys()], d_tok,
+                          d_len, d_res.bool(), d_seeds, d_clip, d_zero)
+            rows, logits, first = self._state_of(out[:-2]), out[-2], out[-1]
         if real.size:
             state = {k: s.index_copy(0, d_dst,
                                      rows[k].index_select(0, d_real)
                                      .to(s.dtype))
                      for k, s in state.items()}
-        return state, logits, self._select(logits, d_zero, d_seeds)
+        return state, logits, first
+
+    def _prefill_math(self, params, state, d_tok, d_len, res, d_seeds,
+                      d_clip, d_zero):
+        """The prefill of ``PREFILL_ROWS`` rows from ``state``'s slots
+        ``d_clip`` (where ``res``): (state rows, logits, first tokens).
+        The rows' landing (a host-chosen count of rows) is the
+        caller's."""
+        pb = PREFILL_ROWS
+        rows0 = {k: torch.where(res.view((pb,) + (1,) * (s.dim() - 1)),
+                                s.index_select(0, d_clip), 0)
+                 for k, s in state.items()}
+        rows, logits = self._model.prefill(params, d_tok, d_len, rows0)
+        return rows, logits, self._select(logits, d_zero, d_seeds)
 
     # -- bucket ladder and accounting ------------------------------------
     @property
@@ -864,14 +952,20 @@ class DecodeEngine(object):
         active), each read back. This sets up the card's library handles
         and grows the caching allocator; afterwards ``stats()['compiles']``
         stays frozen under any occupancy churn. Returns
-        ``{name: {"warmup_ms", "source": "eager"}}``. The persistent
-        executable cache (``cache_dir=``, ``MXNET_COMPILE_CACHE_DIR``)
-        refuses: ROADMAP A5."""
-        if cache_dir is not None or os.environ.get("MXNET_COMPILE_CACHE_DIR"):
-            raise MXNetError(
-                "the persistent executable cache (warmup(cache_dir=...), "
-                "MXNET_COMPILE_CACHE_DIR) comes with a later slice of the "
-                "port (ROADMAP A5)")
+        ``{name: {"warmup_ms", "source"}}``.
+
+        ``cache_dir`` (default ``$MXNET_COMPILE_CACHE_DIR``; entries in
+        its ``aot/``) turns on the persistent executable cache with the
+        Predictor's key discipline: each program LOADS from its entry
+        (``"deserialized"``: no trace) or is traced with ``torch.export``
+        and committed (``"compiled"``, one compile), and the engine then
+        runs it. Without one every program runs eagerly (``"eager"``)."""
+        from . import cache as _cache
+        aot = _cache.aot_dir(cache_dir)
+        store = _cache.ExecutableCache(aot) if aot is not None else None
+        if store is None:
+            self._programs.clear()      # every program eager again
+        watch = telemetry.compile_watch()
         pb, n = PREFILL_ROWS, self._slots
         z = onp.zeros((n,), onp.int64)
         pad = onp.full((pb,), n, onp.int64)
@@ -886,19 +980,98 @@ class DecodeEngine(object):
                     L, self._state_zeros(n), onp.zeros((pb, L), onp.int64),
                     zpb, pad, zpb, zpb)[2]))
         report = {}
-        with self._device_scope():
+        with self._device_scope(), watch.warmup_scope():
             for name, bucket, run in programs:
                 t0 = time.perf_counter()
+                source = self._warm_program(name, bucket, store, watch) \
+                    if store is not None else None
+                if source is None and name not in self._ran:
+                    watch.note_program("decode.%s" % name, {})
                 out = run()
                 for t in (out.values() if isinstance(out, dict) else [out]):
                     t.cpu()
+                if name in self._programs:
+                    # the first run checked the inputs against the traced
+                    # shapes; later launches build them by the same rule
+                    self._programs[name].validate_inputs = False
                 ms = (time.perf_counter() - t0) * 1000.0
-                self._stats.note_warmup_bucket(bucket, ms)
-                report[name] = {"warmup_ms": round(ms, 3), "source": "eager"}
+                self._stats.note_warmup_bucket(bucket, ms, source)
+                report[name] = {"warmup_ms": round(ms, 3),
+                                "source": source or "eager"}
             if self._state is None:
                 self._state = self._launch_init()
         self._warmup_report = report
         return {k: dict(v) for k, v in report.items()}
+
+    def _program_key(self, name, bucket):
+        """The executable-cache key of one program: the model's digest,
+        the mode, and what the trace froze besides (the program and its
+        shapes, the sampler's temperature, the weight storage)."""
+        from . import cache as _cache
+        input_sig = ("decode.%s:model=%s;slots=%d;pb=%d;temp=%r;cdt=%s"
+                     % (name, self._model.signature(), self._slots,
+                        PREFILL_ROWS, self._temperature, self._cdt))
+        if self._weight_quant:
+            input_sig += ";wq=%s" % self._weight_quant
+        return _cache.cache_key(self._digest, self._policy.name, bucket,
+                                input_sig,
+                                _cache.backend_signature(self._device))
+
+    def _program_inputs(self, name):
+        """(function of flat tensors, example tensors) of one program."""
+        n, pb = self._slots, PREFILL_ROWS
+        dev = self._device
+
+        def ints(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+        if name == "state_init":
+            return (lambda: [self._state_zeros(n)[k]
+                             for k in self._state_keys()]), ()
+        state = self._state_zeros(n)
+        head = tuple(self._param_leaves()) + \
+            tuple(state[k] for k in self._state_keys())
+        if name == "step":
+            return self._step_flat, head + (
+                ints(n), torch.zeros((n,), dtype=torch.bool, device=dev),
+                ints(n), ints(n))
+        L = int(name.split("_")[1])
+        return self._prefill_flat, head + (
+            ints(pb, L), ints(pb),
+            torch.zeros((pb,), dtype=torch.bool, device=dev), ints(pb),
+            ints(pb), ints(pb))
+
+    def _warm_program(self, name, bucket, store, watch):
+        """Load-or-trace one program through the executable cache and
+        install it: ``"deserialized"`` or ``"compiled"``."""
+        from . import cache as _cache
+        key = self._program_key(name, bucket)
+        program, source = None, "compiled"
+        try:
+            program = _cache.load_program(store.load(key))
+            source = "deserialized"
+        except _cache.CacheMiss as e:
+            log = logger.info if e.reason == "absent" else logger.warning
+            log("decode program %s: executable cache %s: tracing afresh "
+                "(%s)", name, e.reason, e.detail or store.path_for(key))
+        except Exception as e:  # noqa: BLE001 - any load failure
+            logger.warning("decode program %s: cached program failed to "
+                           "load (%s): tracing afresh", name, e)
+        if program is None:
+            fn, args = self._program_inputs(name)
+            ep = _cache.export_program(fn, args, "decode program %s" % name)
+            self._stats.note_compile()
+            watch.note_program("decode.%s" % name, {})
+            store.store(key, _cache.program_bytes(ep))
+            program = _cache.program_module(ep)
+        if source == "deserialized":
+            watch.note_cache_hit()
+        else:
+            watch.note_cache_miss()
+        self._programs[name] = program
+        with self._lock:
+            self._ran.add(name)     # its first run is warmup, no compile
+        return source
 
     def warmup_report(self):
         """Per-program outcome of the last :meth:`warmup`."""
@@ -1011,7 +1184,12 @@ class DecodeEngine(object):
         if self._state is None:
             # lazy, so that an engine that was never warmed still works
             self._state = self._launch_init()
+        if _faults.armed():
+            _faults.check("serving.decode_worker", step=self._n_steps)
         self._admit_pending()
+        if _faults.armed() and _faults.fires("serving.decode_abandon",
+                                             step=self._n_steps):
+            self._abandon_oldest()
         for s in range(self._slots):
             req = self._slot_req[s]
             if req is not None and req._cancel:
@@ -1020,6 +1198,8 @@ class DecodeEngine(object):
                     "tokens" % (req.id, len(req.tokens()))))
         if not self._any_active():
             return
+        if _faults.armed():
+            _faults.check("serving.decode_step", step=self._n_steps)
         t0 = time.perf_counter()
         n_active = int(self._active.sum())
         state, nxt = self._launch_step(
@@ -1176,6 +1356,20 @@ class DecodeEngine(object):
         req._resolve(outcome, exc)
         with self._cond:
             self._cond.notify_all()
+
+    def _abandon_oldest(self):
+        """The ``serving.decode_abandon`` seam's body: the oldest active
+        request's client walks away mid-stream."""
+        oldest, t = None, None
+        for s in range(self._slots):
+            req = self._slot_req[s]
+            if req is not None and (t is None or req.t_admit < t):
+                oldest, t = s, req.t_admit
+        if oldest is not None:
+            req = self._slot_req[oldest]
+            self._retire(oldest, "abandoned", RequestAbandoned(
+                "decode request %s abandoned mid-stream (injected client "
+                "disconnect) after %d tokens" % (req.id, len(req.tokens()))))
 
     def _fail_pending(self, exc):
         """Resolve every queued and active request with ``exc`` (no-drain

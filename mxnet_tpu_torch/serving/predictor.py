@@ -38,12 +38,17 @@ mode name is kept. ``int8_serve`` takes its static activation scales from
 a :class:`~mxnet_tpu_torch.precision.quant.CalibrationTable`
 (``calibration=``), whose digest the buckets' policy describes
 (``calibration_digest``). A module loaded from a checkpoint entry
-recorded under another mode than the one it runs is refused.
+recorded under another mode than the one it runs is refused, and so is
+one whose parameters no longer match the entry's recorded params digest.
 
-Not in this slice of the port (each raises ``MXNetError`` instead of
-being ignored): the persistent executable cache (``warmup(cache_dir=)``,
-``MXNET_COMPILE_CACHE_DIR``) and CheckpointManager sources for
-:meth:`Predictor.load`.
+Persistent executable cache (``warmup(cache_dir=)`` or
+``MXNET_COMPILE_CACHE_DIR``; :mod:`mxnet_tpu_torch.serving.cache`): each
+bucket's eval forward is traced once with ``torch.export`` (parameters
+and aux states as inputs) and kept on disk, keyed by (params digest,
+precision mode, bucket, input signature, backend); a second replica
+loads the programs and traces nothing. With a cache directory every
+bucket serves through its exported program, whose rows are bit for bit
+the executor's.
 """
 from __future__ import annotations
 
@@ -65,9 +70,6 @@ from ..module.base_module import pad_batch_rows
 from .stats import ServingStats
 
 __all__ = ["Predictor"]
-
-_LATER = "comes with a later slice of the port"
-
 
 class Predictor:
     """Bind a trained/loaded :class:`Module` for online inference.
@@ -137,6 +139,17 @@ class Predictor:
             data_shapes = module.data_shapes
         self._params_digest = params_digest(
             symbol.tojson(), pack_params(arg_params, aux_params))
+        # a manager-restored module carries its entry's digest: another
+        # one means the parameters were swapped after the load, and a
+        # cache entry keyed on either digest could serve a stale program
+        recorded = getattr(module, "_ckpt_params_digest", None)
+        if recorded is not None and recorded != self._params_digest:
+            raise MXNetError(
+                "refusing to serve: the module's parameters no longer "
+                "match the checkpoint manifest's recorded params digest "
+                "(%s... != %s...); the params were replaced after load; "
+                "rebuild the module from its checkpoint"
+                % (self._params_digest[:12], recorded[:12]))
         self._data_descs = [(name, tuple(shape))
                             for name, shape in data_shapes]
         if context is None:
@@ -213,6 +226,13 @@ class Predictor:
                 "under a narrow_math precision mode (e.g. 'int8_serve')")
         self._calibration = calibration if serve_pol is None \
             else serve_pol.calibration
+        # what a trace freezes into a bucket's program besides its shapes
+        # (serving.cache keys it): the policy's eval fields
+        self._policy_sig = "policy=%s" % (
+            "none,cdt=%s" % module._compute_dtype if serve_pol is None else
+            "%s,cdt=%s,act_cast=%s,narrow=%s,wq=%s" % (
+                serve_pol.name, serve_pol.compute_dtype, serve_pol.act_cast,
+                serve_pol.narrow_math, serve_pol.weight_quant))
 
         def _make():
             return Module(symbol, data_names=module._data_names,
@@ -233,33 +253,38 @@ class Predictor:
             self._modules[b] = m
         self._base = base
         self._launched = set()    # buckets whose first forward has run
+        self._programs = {}       # bucket -> exported program (cache)
 
     # ------------------------------------------------------------------
     @staticmethod
     def load(source, epoch=None, data_shapes=None, data_names=("data",),
              label_names=("softmax_label",), context=None, precision=None,
              **kwargs):
-        """Predictor straight from a legacy checkpoint: ``source`` is the
-        ``prefix`` of ``prefix-symbol.json`` + ``prefix-%04d.params``
-        (either package's) and ``epoch`` selects the params file. Routes
-        through :meth:`Module.load`. A CheckpointManager (or checkpoint
-        directory) source raises: it comes with a later slice of the
-        port. A legacy prefix records no precision mode, so a
-        ``precision=`` other than ``"f32"`` raises too: load the module
-        with ``Module.load(..., precision=)`` and pass it to
-        ``Predictor``."""
-        if precision not in (None, "f32"):
+        """Predictor straight from a checkpoint: ``source`` is a legacy
+        prefix (``prefix-symbol.json`` + ``prefix-%04d.params`` of either
+        package, ``epoch`` required), a ``CheckpointManager``, or a
+        checkpoint directory (``epoch`` then selects a committed step,
+        default the latest). Routes through :meth:`Module.load`, so on
+        the manager path the symbol comes from the manifest, the entry's
+        recorded precision mode is adopted, and an explicit ``precision=``
+        that differs from it is refused at construction. A legacy prefix
+        records no mode, so a ``precision=`` other than ``"f32"`` raises
+        there: load it with ``Module.load(prefix, epoch, precision=)`` and
+        serve that module."""
+        from ..checkpoint import CheckpointManager
+        from ..checkpoint.manager import is_checkpoint_dir
+        managed = isinstance(source, CheckpointManager) or (
+            isinstance(source, str) and os.path.isdir(source) and
+            (epoch is None or is_checkpoint_dir(source)))
+        if not managed and precision not in (None, "f32"):
             raise MXNetError(
                 "precision mode %r: a legacy prefix records no mode; load "
                 "it with Module.load(prefix, epoch, precision=...) and "
                 "serve that module" % (precision,))
-        if not isinstance(source, str) or epoch is None or \
-                os.path.isdir(source):
-            raise MXNetError(
-                "Predictor.load from a CheckpointManager or checkpoint "
-                "directory %s; pass a legacy prefix and an epoch" % _LATER)
+        mkw = {"precision": precision} if managed and precision else {}
         mod = Module.load(source, epoch, data_names=list(data_names),
-                          label_names=list(label_names), context=context)
+                          label_names=list(label_names), context=context,
+                          **mkw)
         return Predictor(mod, data_shapes=data_shapes, context=context,
                          **kwargs)
 
@@ -357,37 +382,179 @@ class Predictor:
 
     def warmup_report(self):
         """Per-bucket outcome of the last :meth:`warmup`:
-        ``{bucket: {"warmup_ms", "source"}}``; ``source`` is ``"eager"``
-        (the port runs each bucket's first forward eagerly; the JAX
-        package's ``"jit"``)."""
+        ``{bucket: {"warmup_ms", "source"}}``; ``source`` is
+        ``"deserialized"`` (the bucket's program loaded from the cache:
+        no trace), ``"compiled"`` (traced with ``torch.export`` and
+        committed for the next replica) or ``"eager"`` (no cache
+        directory: the executor's first forward; the JAX package's
+        ``"jit"``)."""
         return {b: dict(r) for b, r in
                 getattr(self, "_warmup_report", {}).items()}
 
     def warmup(self, cache_dir=None):
-        """Run every bucket's first forward BEFORE traffic (zero rows,
-        read back); afterwards ``stats()['compiles']`` equals the bucket
-        count and stays frozen. Each bucket's wall time, readback
-        included, publishes as a ``serving.<i>.b<bucket>.warmup_ms``
-        gauge (also ``stats()["warmup_ms"]``). Returns the stats
-        snapshot. The persistent executable cache (``cache_dir=``,
-        ``MXNET_COMPILE_CACHE_DIR``) raises: it comes with a later slice
-        of the port."""
-        if cache_dir is not None or os.environ.get("MXNET_COMPILE_CACHE_DIR"):
-            raise MXNetError(
-                "the persistent executable cache (warmup(cache_dir=...), "
-                "MXNET_COMPILE_CACHE_DIR) %s" % _LATER)
+        """Bring every bucket to its steady state BEFORE traffic;
+        afterwards ``stats()['compiles']`` stays frozen. Returns the
+        stats snapshot.
+
+        Without a cache directory each bucket runs its first forward
+        (zero rows, read back), and ``compiles`` equals the bucket count.
+        ``cache_dir`` (default ``$MXNET_COMPILE_CACHE_DIR``; entries live
+        in its ``aot/``) turns on the persistent executable cache
+        (:mod:`mxnet_tpu_torch.serving.cache`): each bucket LOADS its
+        exported program from a crc-verified entry keyed by (params
+        digest, precision mode, bucket, input signature, backend) — no
+        trace, no compile — or traces it with ``torch.export`` and
+        commits the entry for the next replica (one compile). Either way
+        the bucket then serves through that program and runs it once on
+        zeros. Any key mismatch (drifted digest, other mode or backend,
+        corrupt or ``.tmp-*`` entry) falls back LOUDLY to a fresh trace;
+        a net the trace cannot capture raises ``MXNetError`` naming the
+        node (ROADMAP A12).
+
+        Each bucket's wall time, first run and readback included,
+        publishes as a ``serving.<i>.b<bucket>.warmup_ms`` gauge (also
+        ``stats()["warmup_ms"]``); hits and misses count into the serving
+        scope and ``compile.cache_hits``/``cache_misses``; traces and
+        first runs count into ``compile.warmup_compiles``, never the
+        training ``compile.retraces`` stream."""
+        from . import cache as _cache
+        aot = _cache.aot_dir(cache_dir)
+        store = None
+        if aot is not None:
+            bad = _cache.untraceable_node(self._base._exec_group.symbol)
+            if bad is not None:
+                raise MXNetError(
+                    "warmup(cache_dir=): node %r (%s) cannot be traced "
+                    "into a cached program: %s (ROADMAP A12); warm up "
+                    "without a cache directory" % bad)
+            if not getattr(self._base._exec_group, "fused", False):
+                raise MXNetError(
+                    "warmup(cache_dir=) traces the fused route's eval "
+                    "forward; this module runs the classic per-executor "
+                    "route (_allow_fused=False / MXNET_MODULE_FUSED=0); "
+                    "warm up without a cache directory")
+            store = _cache.ExecutableCache(aot)
+        else:
+            self._programs.clear()      # the executor serves again
+        watch = telemetry.compile_watch()
+        for m in self._modules.values():
+            watch.attach(m)
         report = {}
-        with self._lock:
+        with self._lock, watch.warmup_scope():
             for b in self._buckets:
                 t0 = time.perf_counter()
+                source = self._warm_bucket(b, store, watch) \
+                    if store is not None else None
                 zeros = {name: onp.zeros((b,) + shape[1:], onp.float32)
                          for name, shape in self._data_descs}
                 self._run_bucket(b, zeros, b, warmup=True)
+                if b in self._programs:
+                    # the first run checked the inputs against the traced
+                    # shapes; traffic builds them by the same rule
+                    self._programs[b].validate_inputs = False
                 ms = (time.perf_counter() - t0) * 1000.0
-                self._stats.note_warmup_bucket(b, ms)
-                report[b] = {"warmup_ms": round(ms, 3), "source": "eager"}
+                self._stats.note_warmup_bucket(b, ms, source)
+                report[b] = {"warmup_ms": round(ms, 3),
+                             "source": source or "eager"}
         self._warmup_report = report
         return self.stats()
+
+    def _bucket_cache_key(self, grp, bucket):
+        """The executable-cache key of ``bucket``'s program."""
+        from . import cache as _cache
+        backend = _cache.backend_signature(grp.contexts[0].torch_device())
+        input_sig = "%s;%s" % (_cache.input_signature(self._data_descs),
+                               self._policy_sig)
+        if self._calibration is not None:
+            # two calibrations of one net have other static scales, which
+            # the trace makes constants of the program: the table's digest
+            # keeps their entries apart
+            input_sig += ";calib=%s" % self._calibration.digest()
+        return _cache.cache_key(self._params_digest,
+                                grp.precision_mode_name(), bucket, input_sig,
+                                backend)
+
+    def _program_args(self, grp, inputs):
+        """The exported program's positional tensors: the (shared)
+        parameters in ``param_names`` order, the aux states, then the
+        group's inputs (``inputs`` by name, the bound arrays for the
+        rest, e.g. labels)."""
+        ex = grp.execs[0]
+        return tuple(ex.arg_dict[n]._read() for n in grp.param_names) + \
+            tuple(a._read() for a in ex.aux_arrays) + \
+            tuple(inputs[n] if n in inputs else ex.arg_dict[n]._read()
+                  for n in grp._input_names)
+
+    def _trace_bucket(self, grp, bucket):
+        """Trace ``bucket``'s eval forward (``grp._forward_only``, the
+        executor's own forward) into an exported program."""
+        from . import cache as _cache
+        pnames, inames = list(grp.param_names), list(grp._input_names)
+        n_p, n_aux = len(pnames), len(grp.execs[0].aux_arrays)
+        last = [None]
+
+        def tap(name, _value):
+            last[0] = name
+
+        def forward(*flat):
+            outs, _ = grp._forward_only(
+                dict(zip(pnames, flat[:n_p])), list(flat[n_p:n_p + n_aux]),
+                dict(zip(inames, flat[n_p + n_aux:])), False, tap=tap)
+            return outs
+
+        def where():
+            ops = [n.name for n in grp.execs[0]._symbol._topo()
+                   if n.op is not None]
+            if last[0] is None:
+                return "node %r" % ops[0] if ops else ""
+            done = last[0].rsplit("_output", 1)[0]
+            i = ops.index(done) + 1 if done in ops else len(ops)
+            return "node %r" % ops[i] if i < len(ops) else \
+                "the outputs"
+
+        zeros = {name: torch.zeros((bucket,) + tuple(shape[1:]),
+                                   device=grp.contexts[0].torch_device())
+                 for name, shape in self._data_descs}
+        return _cache.export_program(
+            forward, self._program_args(grp, zeros),
+            "the serving bucket %d's eval forward" % bucket, where)
+
+    def _warm_bucket(self, bucket, store, watch):
+        """Load-or-trace one bucket's program through the executable
+        cache and install it: ``"deserialized"`` (loaded) or
+        ``"compiled"`` (traced now, entry committed)."""
+        from . import cache as _cache
+        grp = self._modules[bucket]._exec_group
+        key = self._bucket_cache_key(grp, bucket)
+        program, source = None, "compiled"
+        try:
+            program = _cache.load_program(store.load(key))
+            source = "deserialized"
+        except _cache.CacheMiss as e:
+            log = self.logger.info if e.reason == "absent" \
+                else self.logger.warning
+            log("serving bucket %d: executable cache %s: tracing afresh "
+                "(%s)", bucket, e.reason, e.detail or store.path_for(key))
+        except Exception as e:  # noqa: BLE001 - any load failure
+            self.logger.warning(
+                "serving bucket %d: cached program failed to load (%s): "
+                "tracing afresh", bucket, e)
+        if program is None:
+            ep = self._trace_bucket(grp, bucket)
+            self._stats.note_compile()
+            watch.note_program("serving.b%d.fwd_eval" % bucket,
+                               {n: (bucket,) + tuple(s[1:])
+                                for n, s in self._data_descs})
+            store.store(key, _cache.program_bytes(ep))
+            program = _cache.program_module(ep)
+        if source == "deserialized":
+            watch.note_cache_hit()
+        else:
+            watch.note_cache_miss()
+        self._programs[bucket] = program
+        # the program's first run is part of warmup, not a compile
+        self._launched.add(bucket)
+        return source
 
     def release(self):
         """Drop this Predictor's ``serving.<i>`` registry scope (see
@@ -429,6 +596,12 @@ class Predictor:
         does its own request accounting). ``timing`` (a dict) receives
         accumulated ``pad_ms`` / ``device_ms`` clocks for the request
         trace — chunked oversized requests accumulate across launches."""
+        from .. import faults as _faults
+        if _faults.armed():
+            # device-slowdown seam (kind=delay): a straggling or
+            # throttled device; the latency lands in the device_ms phase
+            # and the SLO burn windows, the rows unchanged
+            _faults.check("serving.device", rows=rows)
         parts = []
         with self._lock:
             start = 0
@@ -462,9 +635,14 @@ class Predictor:
             t0 = time.perf_counter()
             timing["pad_ms"] = timing.get("pad_ms", 0.0) \
                 + (t0 - t_pad) * 1000.0
+        program = self._programs.get(bucket)
         with telemetry.span("serving.launch", bucket=bucket, rows=rows):
-            mod.forward(batch, is_train=False)
-            outs = [o[:rows].asnumpy() for o in mod.get_outputs()]
+            if program is None:
+                mod.forward(batch, is_train=False)
+                outs = [o[:rows].asnumpy() for o in mod.get_outputs()]
+            else:
+                outs = self._run_program(mod._exec_group, program, batch,
+                                         rows)
         if timing is not None:
             timing["device_ms"] = timing.get("device_ms", 0.0) \
                 + (time.perf_counter() - t0) * 1000.0
@@ -473,3 +651,19 @@ class Predictor:
             self._stats.note_compile()
         self._stats.note_batch(bucket, rows, warmup=warmup)
         return outs
+
+    def _run_program(self, grp, program, batch, rows):
+        """One launch through a bucket's exported program: the padded
+        rows go to the device as the group's staging does, the program
+        reads the shared parameter tensors, and only the real rows come
+        back."""
+        dev = grp.contexts[0].torch_device()
+        inputs = {}
+        for (name, _), v in zip(self._data_descs, batch.data):
+            if hasattr(v, "_read"):
+                v = v._read()
+            inputs[name] = v.to(dev) if isinstance(v, torch.Tensor) \
+                else torch.from_numpy(onp.ascontiguousarray(v)).to(dev)
+        with torch.no_grad():
+            outs = program(*self._program_args(grp, inputs))
+        return [o[:rows].cpu().numpy() for o in outs]

@@ -7,8 +7,10 @@ One :class:`ServingStats` instance is shared by a ``Predictor`` and any
 snapshot of the serving stack: request outcomes, device-launch batch
 fill, queue depth, and the compile counter that pins the "zero
 compiles after warmup" contract. In the port a "compile" is the first
-forward of a bucket's module: that forward is where cuDNN picks its
-algorithms for the bucket's shapes and the caching allocator grows.
+forward of a bucket's module (where cuDNN picks its algorithms for the
+bucket's shapes and the caching allocator grows) or, with the persistent
+executable cache, the ``torch.export`` trace of the bucket's program; a
+program loaded from the cache compiles nothing.
 
 ServingStats is a **view over the shared**
 :class:`mxnet_tpu_torch.telemetry.MetricsRegistry`: every counter lives
@@ -78,10 +80,9 @@ class ServingStats:
         self._c_warmup_batches = c("warmup_batches")
         self._c_real_rows = c("real_rows")     # request rows served
         self._c_padded_rows = c("padded_rows")  # bucket rows launched
-        self._c_compiles = c("compiles")   # first forward per bucket
-        # warm starts from a persistent executable cache; the port has
-        # no such cache yet, so both stay 0 (same snapshot keys as the
-        # JAX package)
+        self._c_compiles = c("compiles")   # first forward or trace per bucket
+        # the persistent executable cache (serving.cache): buckets whose
+        # program was loaded (hit) or traced afresh (miss) at warmup
         self._c_cache_hits = c("cache_hits")
         self._c_cache_misses = c("cache_misses")
         # SLO-driven admission: requests shed because the tenant's own
@@ -94,7 +95,7 @@ class ServingStats:
         self._h_latency = self.scope.histogram("latency_ms")
         self._h_timeout_age = self.scope.histogram("timeout_age_ms")
         self._h_shed_age = self.scope.histogram("shed_age_ms")
-        self._warmup_ms = {}       # bucket -> first-forward ms
+        self._warmup_ms = {}       # bucket -> warmup ms (trace/load + run)
         self._g_queue = self.scope.gauge("queue_depth")
         self.compile_tracking = True
         self.bucket_hits = {}      # bucket size -> launch count
@@ -181,13 +182,19 @@ class ServingStats:
         restarted (`serving.<i>.worker_restarts`)."""
         self._c_worker_restarts.add()
 
-    def note_warmup_bucket(self, bucket, ms):
-        """One bucket's warmup wall time (its first forward, read back)
-        into the ``b<bucket>.warmup_ms`` gauge."""
+    def note_warmup_bucket(self, bucket, ms, source=None):
+        """One bucket's warmup wall time (its trace or load, and its first
+        run, read back) into the ``b<bucket>.warmup_ms`` gauge; ``source``
+        counts a cache hit (``"deserialized"``) or miss (``"compiled"``);
+        None: no cache in play."""
         ms = round(float(ms), 3)
         with self._lock:
             self._warmup_ms[int(bucket)] = ms
         self.scope.gauge("b%d.warmup_ms" % int(bucket)).set(ms)
+        if source == "deserialized":
+            self._c_cache_hits.add()
+        elif source == "compiled":
+            self._c_cache_misses.add()
 
     def note_batch(self, bucket, rows, warmup=False):
         if warmup:

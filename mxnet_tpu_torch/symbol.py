@@ -20,7 +20,8 @@ from .attribute import AttrScope
 from .name import NameManager
 from . import registry as _registry
 
-__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
+           "fromjson"]
 
 
 class _Node:
@@ -309,6 +310,20 @@ class Symbol:
         from .executor import Executor
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)
 
+    def eval(self, ctx=None, **kwargs):
+        """Bind to the input arrays ``kwargs`` (no gradients) and run one
+        forward: the output NDArrays. ``ctx`` defaults to the context of
+        the first array given (the JAX package's default is ``cpu()``;
+        the port runs where the data is), else the current context."""
+        if ctx is None:
+            first = next(iter(kwargs.values()), None)
+            ctx = first.context if hasattr(first, "context") else None
+        if ctx is None:
+            from .context import current_context
+            ctx = current_context()
+        ex = self.bind(ctx, kwargs, grad_req="null")
+        return ex.forward()
+
 
 # ---------------------------------------------------------------------------
 # construction helpers
@@ -331,6 +346,9 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
         attr["__init__"] = init.dumps() if hasattr(init, "dumps") \
             else str(init)
     return Symbol([(_Node(None, name, attr_dict=attr), 0)])
+
+
+var = Variable
 
 
 def Group(symbols):
@@ -369,6 +387,11 @@ def load_json(json_str):
                 if src.op is None:
                     src.is_aux = True
     return Symbol([(nodes[h[0]], h[1]) for h in data["heads"]])
+
+
+def fromjson(json_str):
+    """Alias of :func:`load_json` (``mx.sym.fromjson``)."""
+    return load_json(json_str)
 
 
 # ---------------------------------------------------------------------------

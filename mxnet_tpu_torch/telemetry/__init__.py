@@ -65,7 +65,8 @@ __all__ = [
     "device_peaks", "roofline", "BOUND_BY_CODES", "registry", "timeline",
     "compile_watch", "inventory", "dump_programs", "flight_recorder",
     "health_watchdog", "health_report", "enable", "disable", "enabled",
-    "log_event", "flush_metrics",
+    "log_event", "flush_metrics", "jsonl_sink", "metrics_server",
+    "serve_metrics",
     "trace_events", "clear_trace", "record_events", "NOOP_SPAN",
     "DEFAULT_MS_BUCKETS", "set_active_pipeline", "active_pipeline",
 ]
@@ -182,6 +183,25 @@ def disable():
         sink.close()
     if server is not None:
         server.close()
+
+
+def jsonl_sink():
+    """The live :class:`JsonlSink`, or None."""
+    return _state["sink"]
+
+
+def metrics_server():
+    """The live :class:`MetricsServer`, or None."""
+    return _state["server"]
+
+
+def serve_metrics(port=0):
+    """Start (or return the already-running) Prometheus endpoint
+    (``port=0`` picks a free port). Recording stays as it was."""
+    with _lock:
+        if _state["server"] is None:
+            _state["server"] = MetricsServer(_REGISTRY, port=port)
+        return _state["server"]
 
 
 def log_event(kind, payload):

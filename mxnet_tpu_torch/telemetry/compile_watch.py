@@ -20,6 +20,12 @@ Usage::
         ``compile.post_warmup_retraces`` and logs a warning naming the
         call site and input shapes ...
 
+``serving.Predictor.warmup`` and ``DecodeEngine.warmup`` run inside
+:meth:`CompileWatch.warmup_scope`: a bucket's first run, or its
+``torch.export`` trace under the persistent executable cache, counts into
+``compile.warmup_compiles`` (never ``compile.retraces``), and the cache's
+loads and fresh traces into ``compile.cache_hits``/``cache_misses``.
+
 ``Module.fit`` does all of this automatically when telemetry is
 enabled: attach at fit start, warmup boundary after the first epoch
 (every steady shape — the eval pass included — has run by then),
@@ -65,6 +71,10 @@ class CompileWatch(object):
         # declared warmups count into their own stream (not the
         # training stream a dashboard alerts on)
         self._c_warmup = scope.counter("warmup_compiles")
+        # serving warm starts (serving.cache): programs loaded from the
+        # persistent executable cache (hits) or traced afresh (misses)
+        self._c_cache_hits = scope.counter("cache_hits")
+        self._c_cache_misses = scope.counter("cache_misses")
         self.logger = logger or logging.getLogger(
             "mxnet_tpu_torch.telemetry")
         self._lock = threading.Lock()
@@ -149,6 +159,16 @@ class CompileWatch(object):
         finally:
             self._tls.warmup = prev
 
+    def note_cache_hit(self):
+        """A serving program loaded from the persistent executable cache
+        (``compile.cache_hits``): no trace, no compile."""
+        self._c_cache_hits.add()
+
+    def note_cache_miss(self):
+        """A serving program traced afresh at warmup because its cache
+        entry was absent, drifted or corrupt (``compile.cache_misses``)."""
+        self._c_cache_misses.add()
+
     # -- warmup boundary ------------------------------------------------
     def mark_warmup_done(self):
         """Declare the warmup boundary: retraces from here on count as
@@ -174,6 +194,14 @@ class CompileWatch(object):
     @property
     def warmup_compiles(self):
         return self._c_warmup.value
+
+    @property
+    def cache_hits(self):
+        return self._c_cache_hits.value
+
+    @property
+    def cache_misses(self):
+        return self._c_cache_misses.value
 
     def events(self):
         """The newest new-program events: ``{"time", "site", "shapes",

@@ -708,21 +708,58 @@ def test_step_argument_and_weight_bytes(model, params):
 
 
 # ---------------------------------------------------------------------------
-# refusals: what the port does not have yet
+# the executable cache (refused before it was ported; now the working path)
 # ---------------------------------------------------------------------------
-def test_warmup_cache_dir_refused(model, params, tmp_path):
-    eng = _engine(model, params, start=False)
-    with pytest.raises(MXNetError, match="A5"):
-        eng.warmup(cache_dir=str(tmp_path))
+def _cached_streams(model, params, cache_dir, prompts, **kw):
+    eng = _engine(model, params, **kw)
+    rep = eng.warmup(cache_dir=cache_dir)
+    reqs = [eng.submit(p, max_new_tokens=8, seed=i)
+            for i, p in enumerate(prompts)]
+    streams = [r.result(timeout=60) for r in reqs]
+    compiles = eng.stats()["compiles"]
+    eng.shutdown()
     eng.release()
+    return rep, streams, compiles
+
+
+def test_warmup_cache_dir_refused(model, params, tmp_path):
+    """``warmup(cache_dir=)``: a cold engine traces every program
+    (state init, step, each prefill bucket) and commits it; a warm one
+    loads all of them, traces nothing, compiles nothing, and streams
+    bit for bit as the cold one and the eager engine."""
+    from mxnet_tpu_torch.serving import cache as C
+    prompts = _prompts(3, seed=5, hi=14)
+    eager = _sequential_streams(model, params, prompts, max_new=8)
+    cold, s_cold, c_cold = _cached_streams(model, params, str(tmp_path),
+                                           prompts)
+    names = {"state_init", "step", "prefill_4", "prefill_8"}
+    assert set(cold) == names
+    assert {r["source"] for r in cold.values()} == {"compiled"}
+    assert c_cold == len(names)
+    t0 = C.traces
+    warm, s_warm, c_warm = _cached_streams(model, params, str(tmp_path),
+                                           prompts)
+    assert C.traces == t0 and c_warm == 0
+    assert {r["source"] for r in warm.values()} == {"deserialized"}
+    assert s_cold == s_warm == eager
 
 
 def test_compile_cache_env_refused(model, params, tmp_path, monkeypatch):
+    """``MXNET_COMPILE_CACHE_DIR`` is the default store (``<dir>/aot``),
+    and the key keeps the sampler's temperature: a sampled engine never
+    loads the greedy engine's step."""
     monkeypatch.setenv("MXNET_COMPILE_CACHE_DIR", str(tmp_path))
-    eng = _engine(model, params, start=False)
-    with pytest.raises(MXNetError, match="A5"):
-        eng.warmup()
-    eng.release()
+    prompts = _prompts(2, seed=6)
+    rep, s0, _ = _cached_streams(model, params, None, prompts)
+    assert {r["source"] for r in rep.values()} == {"compiled"}
+    assert (tmp_path / "aot").is_dir()
+    rep, s1, _ = _cached_streams(model, params, None, prompts,
+                                 temperature=0.8)
+    assert {r["source"] for r in rep.values()} == {"compiled"}
+    rep, s2, _ = _cached_streams(model, params, None, prompts,
+                                 temperature=0.8)
+    assert {r["source"] for r in rep.values()} == {"deserialized"}
+    assert s1 == s2 and s1 != s0
 
 
 @pytest.mark.parametrize("precision", ["int8_weight", "bf16"])

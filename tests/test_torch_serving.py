@@ -532,23 +532,42 @@ def test_latency_stats_fields(served, trained):
 
 
 # ---------------------------------------------------------------------
-# what this slice refuses, and the legacy checkpoint route
+# the executable cache's entry points, what still refuses, and the
+# legacy checkpoint route
 # ---------------------------------------------------------------------
-def test_later_slice_features_raise(served, monkeypatch, tmp_path):
-    tmod = served[2]
-    pred = Predictor(tmod, max_batch_size=4)
+def test_later_slice_features_raise(served, trained, monkeypatch, tmp_path):
+    """``warmup(cache_dir=)`` and ``MXNET_COMPILE_CACHE_DIR`` (refused
+    before the executable cache was ported) now warm-start: the env
+    replica loads what the explicit one committed, both serve the
+    eager predictor's rows bit for bit. A calibration on an f32 module,
+    an empty checkpoint directory and a legacy prefix with a mode still
+    raise."""
+    tpred, tmod, X = served[0], served[2], trained[5]
+    pred = Predictor(tmod, max_batch_size=16)
+    env = None
     try:
-        with pytest.raises(tmx.MXNetError):
-            pred.warmup(cache_dir=str(tmp_path))
-        monkeypatch.setenv("MXNET_COMPILE_CACHE_DIR", str(tmp_path))
-        with pytest.raises(tmx.MXNetError):
-            pred.warmup()
+        s = pred.warmup(cache_dir=str(tmp_path / "c"))
+        assert s["cache_misses"] == len(pred.buckets) == s["compiles"]
+        assert {r["source"] for r in pred.warmup_report().values()} == \
+            {"compiled"}
+        monkeypatch.setenv("MXNET_COMPILE_CACHE_DIR", str(tmp_path / "c"))
+        env = Predictor(tmod, max_batch_size=16)
+        s = env.warmup()
+        assert s["cache_hits"] == len(env.buckets) and s["compiles"] == 0
+        assert {r["source"] for r in env.warmup_report().values()} == \
+            {"deserialized"}
+        for n in (1, 3, 16, 21):
+            want = tpred.predict(X[:n])
+            assert np.array_equal(pred.predict(X[:n]), want), n
+            assert np.array_equal(env.predict(X[:n]), want), n
     finally:
         pred.release()
+        if env is not None:
+            env.release()
     with pytest.raises(tmx.MXNetError):
         Predictor(tmod, calibration=object())
     with pytest.raises(tmx.MXNetError):
-        Predictor.load(str(tmp_path), data_shapes=[("data", (8, DIM))])
+        Predictor.load(str(tmp_path / "empty"), data_shapes=[("data", (8, DIM))])
     with pytest.raises(tmx.MXNetError):
         Predictor.load(str(tmp_path / "m"), 1, precision="bf16",
                        data_shapes=[("data", (8, DIM))])
