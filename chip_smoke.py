@@ -376,14 +376,49 @@ result line) if any phase fails:
    twin, and the memcost twin
    (held and peak MiB, FLOPs; its asserts); no kernel launched in
    process;
-19. the kernels line (each kernel's launches on every path, decode's
+19. dist: multi-process data parallelism (``mxnet_tpu_torch.dist``), TF32
+   off, cuDNN deterministic. (a) At every ResNet-50 BatchNorm shape
+   (batch 32, the main path's flags), in float32 and bfloat16, the four
+   cross-rank entry points of the BatchNorm core (``bn_fwd_partials``,
+   ``bn_fwd_apply``, ``bn_bwd_partials``, ``bn_bwd_dx``) against their
+   plain versions, and two half-batches' partials, summed (standing for
+   the all-reduce of two ranks) and applied, against K1's one-call pair
+   on the whole batch, both within phase 3's tolerances (exact statistics
+   too at the 64- and 2048-channel shapes); each entry point's call,
+   device and enqueue times, its plain version's, its byte bound and the
+   SyncBatchNorm primitive that computes the same function
+   (``batch_norm_stats``; ``batch_norm_gather_stats_with_counts`` +
+   ``batch_norm_elemt``; ``batch_norm_backward_reduce``;
+   ``batch_norm_backward_elemt``), which the port never calls. (b) A
+   process group of one on ``nccl`` (bootstrap, an all-reduce, a
+   barrier), and resnet-20 ``fit`` with ``kvstore="dist_sync"`` equal to
+   a plain ``fit`` bit for bit. (c) The main path of the phase: ResNet-50
+   trained by two ranks on the one card over ``gloo`` (NCCL refuses two
+   ranks on one card), launched by ``tools/launch.py -n 2 --launcher
+   local`` through the ImageNet twin with ``--kv-store dist_sync``, 32
+   rows a rank, 3 steps (lr 0.01) on a ``.npy`` pack; held against one
+   process at batch 64 from the same seed and stream: the parameters'
+   relative L2 (as one vector) and the loss of a training forward on a
+   fixed batch within max(1e-4, 4 × the one-process run's own spread
+   between one-pass and exact statistics); every rank's launches: each
+   split entry point 51 a step (``bn_bwd_dx`` 50: the data's BatchNorm
+   has no dx) and the one-call pair 0; each rank's step and all-reduce
+   ms. (d) Three ranks' push/pull of card tensors over ``gloo``
+   (``mxnet_tpu_torch.tools.dist_worker sync``): ``dist_sync``'s exact
+   sums and ``dist_async`` one push late. (e) The elastic twin
+   (``examples.elastic_virtual_hosts``) on the card: 4 virtual hosts
+   → 2, the resume bit for bit equal to the continuous width-2 run, at
+   resnet-20 width and with the JAX script's MLP (its accuracy assert);
+20. the kernels line (each kernel's launches on every path, decode's
    and rnn's 0 among them, ``launches_api`` the BN kernels' 60 + 60 over
    phase 14 (b)'s three steps, ``launches_quant`` their 240 + 240 over
    phase 15 (d), ``launches_vision`` every earlier kernel's 0 over phase
    16's main path, the four vision kernels' launches over it,
    ``launches_guardian`` every kernel's launches over phase 17's runs,
    ``launches_serve_cache`` the BN kernels' 512 + 512 in phase 18's cold
-   twin and every other count 0,
+   twin and every other count 0, ``launches_dist`` every kernel's
+   launches summed over phase 19 (c)'s two ranks, the four split entry
+   points with ``launches`` from that run and ``launches_by_rank``,
    and the BN kernels' bfloat16, imagenet-twin and zoo launches and
    times, inception-v3's per-step times), the seconds of each phase,
    the card's nvidia-smi line, and the result line.
@@ -6294,6 +6329,546 @@ def serve_cache_phase(mx, K, C, R, card):
                 bn_bwd=cold["bn_bwd_launches"])
 
 
+# ---------------------------------------------------------------------------
+# phase 19: dist (multi-process data parallelism)
+# ---------------------------------------------------------------------------
+DIST_DEVICE = "cuda"
+DIST_ONE_BACKEND = "nccl"          # (b)
+DIST_TIME_DTYPES = ("float32", "bfloat16")
+DIST_FIT_NETWORK = "resnet-20"     # (b): the CIFAR twin's net and shapes
+DIST_FIT_BATCH = 128
+DIST_FIT_BATCHES = 4
+DIST_RANKS = 2                     # (c): ranks on the one card, over gloo
+DIST_RANK_BATCH = 32
+DIST_STEPS = 3                     # (c): one epoch of 3 global batches
+DIST_NETWORK = "resnet-50"
+DIST_LR = 0.01                     # (c): 3 steps from random init stay sane
+DIST_PUSH_RANKS = 3                # (d)
+DIST_TWIN_ARGS = ["--gpus", "0"]
+DIST_ELASTIC_ARGS = ["--gpus", "0", "--network", "resnet-20"]
+DIST_SPREAD_FACTOR = 4.0           # (c): tolerance over the exact spread
+DIST_REL_FLOOR = 1e-4
+
+
+def dist_ctx(mx):
+    return mx.cpu() if DIST_DEVICE == "cpu" else mx.gpu(0)
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def dist_split_case(K, inputs, dtype, relu, fix_gamma, exact, need_dx):
+    """The four split entry points against their plain versions, and two
+    half-batches' partials summed and applied against K1's one-call pair
+    on the whole batch (the sum standing for the all-reduce of two
+    ranks). Returns (row fields, ok, worst abs err per entry point)."""
+    import torch
+    x, gamma, beta, c, du = inputs
+    n = float(x.numel() // x.shape[1])
+    centre = c.float()
+    worst = dict.fromkeys(K.SPLIT_KERNELS, 0.0)
+    reds, outs = [], []
+    if exact:
+        s0 = K.bn_fwd_partials(x, None)
+        reds.append(reduction_error(s0, K.bn_fwd_partials_plain(x, None)))
+        centre = s0[:, 0] / n
+    s = K.bn_fwd_partials(x, centre)
+    sp = K.bn_fwd_partials_plain(x, centre)
+    reds.append(reduction_error(s, sp))
+    f = K.bn_fwd_apply(x, sp, centre, gamma, beta, EPS, n, fix_gamma, relu,
+                       exact)
+    fp = K.bn_fwd_apply_plain(x, sp, centre, gamma, beta, EPS, n,
+                              fix_gamma, relu, exact)
+    _, mean, _, rstd, scale, shift = fp
+    g = K.bn_bwd_partials(du, x, mean, rstd, scale, shift, relu)
+    gp = K.bn_bwd_partials_plain(du, x, mean, rstd, scale, shift, relu)
+    reds.append(reduction_error(g, gp))
+    dx = K.bn_bwd_dx(du, x, mean, rstd, scale, shift, gp, n, relu)
+    dxp = K.bn_bwd_dx_plain(du, x, mean, rstd, scale, shift, gp, n, relu)
+    torch.cuda.synchronize()
+    y_err, y_bad = compare_outputs(f[0], fp[0], dtype)
+    dx_err, dx_bad = compare_outputs(dx, dxp, dtype)
+    reds += [reduction_error(a, b) for a, b in zip(f[1:], fp[1:])]
+    worst["bn_fwd_partials"] = float((s - sp).abs().max())
+    worst["bn_fwd_apply"] = y_err
+    worst["bn_bwd_partials"] = float((g - gp).abs().max())
+    worst["bn_bwd_dx"] = dx_err
+    # two ranks: each half's partials, summed, applied on each half
+    halves = [t.contiguous() for t in x.chunk(2)]
+    dhalves = [t.contiguous() for t in du.chunk(2)]
+
+    def reduce_sum(parts):
+        tot = parts[0] + parts[1]
+        return [tot, tot.clone()]
+
+    if exact:
+        tot = reduce_sum([K.bn_fwd_partials(h, None) for h in halves])[0]
+        hcentre = tot[:, 0] / n
+    else:
+        hcentre = c.float()
+    sums = reduce_sum([K.bn_fwd_partials(h, hcentre) for h in halves])
+    hf = [K.bn_fwd_apply(h, s_, hcentre, gamma, beta, EPS, n, fix_gamma,
+                         relu, exact) for h, s_ in zip(halves, sums)]
+    one = K.bn_fwd(x, gamma, beta, c, EPS, fix_gamma, relu, exact)
+    _, m1, _, r1, sc1, sh1 = one
+    bsums = reduce_sum([K.bn_bwd_partials(d, h, m1, r1, sc1, sh1, relu)
+                        for d, h in zip(dhalves, halves)])
+    ob = K.bn_bwd(du, x, r1, m1, sc1, sh1, relu, need_dx=True)
+    hdx = [K.bn_bwd_dx(d, h, m1, r1, sc1, sh1, s_, n, relu)
+           for d, h, s_ in zip(dhalves, halves, bsums)]
+    torch.cuda.synchronize()
+    sy_err, sy_bad = compare_outputs(torch.cat([h[0] for h in hf]), one[0],
+                                     dtype)
+    sdx_err, sdx_bad = compare_outputs(torch.cat(hdx), ob[0], dtype)
+    sred = max([reduction_error(a, b) for a, b in zip(hf[0][1:], one[1:])]
+               + [reduction_error(bsums[0][:, 0], ob[1]),
+                  reduction_error(bsums[0][:, 1], ob[2])])
+    allowed = int(TOL["flip_fraction"] * x.numel())
+    fields = {"y_max_abs_err": y_err, "y_outside": y_bad,
+              "dx_max_abs_err": dx_err, "dx_outside": dx_bad,
+              "reduction_rel_err": max(reds),
+              "halves_vs_one_call": {
+                  "y_max_abs_err": sy_err, "y_outside": sy_bad,
+                  "dx_max_abs_err": sdx_err, "dx_outside": sdx_bad,
+                  "reduction_rel_err": sred}}
+    ok = (max(y_bad, dx_bad, sy_bad, sdx_bad) <= allowed
+          and max(max(reds), sred) <= TOL["reduction"])
+    del need_dx
+    return fields, ok, worst
+
+
+def dist_split_times(K, shape, dtype, relu, fix_gamma, need_dx, gen):
+    """Each entry point's call ms (one CUDA-event pair), device ms (a
+    CUDA graph of ``GRAPH_CALLS`` calls on their own input copies) and
+    enqueue µs at one shape, its plain version's ms, its byte bound, and
+    the SyncBatchNorm primitive that computes the same function
+    (``batch_norm_stats``; ``batch_norm_gather_stats_with_counts`` +
+    ``batch_norm_elemt``; ``batch_norm_backward_reduce``;
+    ``batch_norm_backward_elemt``), which the port never calls."""
+    import torch
+    from mxnet_tpu_torch.tools.bn_probe import (GRAPH_CALLS, cuda_time,
+                                                enqueue_us, graph_ms)
+    x, gamma, beta, c, du = bn_inputs(shape, dtype, gen)
+    es = x.element_size()
+    numel = x.numel()
+    n = float(numel // shape[1])
+    centre = c.float()
+    xs = [x] + [x.clone() for _ in range(GRAPH_CALLS - 1)]
+    dus = [du] + [du.clone() for _ in range(GRAPH_CALLS - 1)]
+    sums = K.bn_fwd_partials(x, centre)
+    f = K.bn_fwd_apply(x, sums, centre, gamma, beta, EPS, n, fix_gamma,
+                       relu, False)
+    _, mean, _, rstd, scale, shift = f
+    gsums = K.bn_bwd_partials(du, x, mean, rstd, scale, shift, relu)
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    # the SyncBatchNorm primitives' inputs (a yardstick: where they do not
+    # run, library_ms is None with the reason)
+    lib_error = None
+    try:
+        smean, sinv = torch.batch_norm_stats(x, EPS)
+        counts = torch.full((1,), n, device=x.device, dtype=x.dtype)
+        sdy, sdyx, _, _ = torch.batch_norm_backward_reduce(
+            du, x, smean, sinv, g, True, True, True)
+        cnt = torch.full((1,), int(n), device=x.device, dtype=torch.int32)
+    except (RuntimeError, NotImplementedError) as e:
+        lib_error = str(e)[:300]
+    ents = {
+        "bn_fwd_partials": (
+            lambda i: K.bn_fwd_partials(xs[i], centre),
+            lambda: K.bn_fwd_partials_plain(x, centre),
+            lambda i: torch.batch_norm_stats(xs[i], EPS), 1),
+        "bn_fwd_apply": (
+            lambda i: K.bn_fwd_apply(xs[i], sums, centre, gamma, beta, EPS,
+                                     n, fix_gamma, relu, False),
+            lambda: K.bn_fwd_apply_plain(x, sums, centre, gamma, beta, EPS,
+                                         n, fix_gamma, relu, False),
+            lambda i: torch.batch_norm_elemt(
+                xs[i], g, beta, *torch.batch_norm_gather_stats_with_counts(
+                    xs[i], smean[None], sinv[None], None, None, 0.1, EPS,
+                    counts), EPS), 2),
+        "bn_bwd_partials": (
+            lambda i: K.bn_bwd_partials(dus[i], xs[i], mean, rstd, scale,
+                                        shift, relu),
+            lambda: K.bn_bwd_partials_plain(du, x, mean, rstd, scale, shift,
+                                            relu),
+            lambda i: torch.batch_norm_backward_reduce(
+                dus[i], xs[i], smean, sinv, g, True, True, True), 2),
+        "bn_bwd_dx": (
+            lambda i: K.bn_bwd_dx(dus[i], xs[i], mean, rstd, scale, shift,
+                                  gsums, n, relu),
+            lambda: K.bn_bwd_dx_plain(du, x, mean, rstd, scale, shift,
+                                      gsums, n, relu),
+            lambda i: torch.batch_norm_backward_elemt(
+                dus[i], xs[i], smean, sinv, g, sdy, sdyx, cnt), 3),
+    }
+    out = {}
+    for name, (kern, plain, lib, sweeps) in ents.items():
+        if name == "bn_bwd_dx" and not need_dx:
+            continue
+        dev, method = graph_ms([functools.partial(kern, i)
+                                for i in range(GRAPH_CALLS)])
+        row = {
+            "ms": cuda_time(lambda: kern(0)), "device_ms": dev,
+            "device_ms_by": method,
+            "enqueue_us": enqueue_us(lambda: kern(0)),
+            "plain_ms": cuda_time(plain, reps=5),
+            "bound_ms": 1e3 * sweeps * numel * es / HBM_BYTES_PER_S}
+        try:
+            if lib_error is not None:
+                raise RuntimeError(lib_error)
+            row["library_ms"] = cuda_time(lambda: lib(0))
+            row["library_device_ms"] = graph_ms(
+                [functools.partial(lib, i) for i in range(GRAPH_CALLS)])[0]
+        except (RuntimeError, NotImplementedError) as e:
+            row["library_ms"] = row["library_device_ms"] = None
+            row["library_error"] = str(e)[:300]
+        out[name] = row
+    del xs, dus
+    return out
+
+
+def dist_kernels(mx, K, card):
+    """(a) At every ResNet-50 BatchNorm shape (batch 32, the main path's
+    flags), in float32 and bfloat16: the four entry points against their
+    plain versions, two halves against the one-call pair, exact
+    statistics at two shapes, and each entry point's times. Returns the
+    per-step time sums by dtype and the worst errors."""
+    import torch
+    gen = torch.Generator(device=DIST_DEVICE).manual_seed(19)
+    r50 = model_bn_shapes(mx, DIST_NETWORK, IMAGE, 1000, BATCH)
+    keys = ("ms", "device_ms", "enqueue_us", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms")
+    totals, worst, failures = {}, {}, []
+    for dname in DIST_TIME_DTYPES:
+        dtype = getattr(torch, dname)
+        tot = {k: dict.fromkeys(keys, 0.0) for k in K.SPLIT_KERNELS}
+        wst = dict.fromkeys(K.SPLIT_KERNELS, 0.0)
+        for (shape, fix_gamma, relu, need_dx), n in sorted(r50.items()):
+            exacts = (False, True) if shape[1] in (64, 2048) else (False,)
+            for exact in exacts:
+                fields, ok, w = dist_split_case(
+                    K, bn_inputs(shape, dtype, gen), dtype, relu, fix_gamma,
+                    exact, need_dx)
+                row = {"phase": "dist_kernels", "shape": list(shape),
+                       "dtype": dname, "relu": relu, "fix_gamma": fix_gamma,
+                       "exact": exact, "per_step": n, **fields, "ok": ok}
+                emit(row)
+                if not ok:
+                    failures.append(row)
+                for k in wst:
+                    wst[k] = max(wst[k], w[k])
+            times = dist_split_times(K, shape, dtype, relu, fix_gamma,
+                                     need_dx, gen)
+            emit({"phase": "dist_kernel_times", "shape": list(shape),
+                  "dtype": dname, "per_step": n, "card": card, **times})
+            for name, t in times.items():
+                for key in keys:
+                    if tot[name][key] is None or t[key] is None:
+                        tot[name][key] = None
+                    else:
+                        tot[name][key] += n * t[key]
+        totals[dname] = tot
+        worst[dname] = wst
+        emit({"phase": "dist_kernel_times_per_step", "dtype": dname,
+              "batch": BATCH, "card": card, **tot})
+    if failures:
+        raise RuntimeError("dist kernel check failed at %d case(s)"
+                           % len(failures))
+    return totals, worst
+
+
+def dist_fit_digest(mod):
+    import hashlib
+    h = hashlib.sha256()
+    args, auxs = mod.get_params()
+    for k in sorted(args):
+        h.update(args[k].asnumpy().tobytes())
+    for k in sorted(auxs):
+        h.update(auxs[k].asnumpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_world_of_one(mx, card):
+    """(b) A process group of one on nccl: bootstrap (telemetry), an
+    all-reduce and a barrier; then resnet-20 ``fit`` with
+    ``kvstore="dist_sync"`` against a plain ``fit``, bit for bit."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import dist
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.reset_runtime()
+    t0 = time.time()
+    rt = dist.initialize(coordinator_address="127.0.0.1:%d" % free_port(),
+                         num_processes=1, process_id=0,
+                         backend=DIST_ONE_BACKEND)
+    try:
+        boot_s = time.time() - t0
+        t = torch.arange(1024, device=DIST_DEVICE, dtype=torch.float32)
+        rt.allreduce_(t)
+        reduced_ok = bool(torch.equal(t, torch.arange(
+            1024, device=DIST_DEVICE, dtype=torch.float32)))
+        barrier_ms = rt.barrier()
+        rng = np.random.RandomState(0)
+        n = DIST_FIT_BATCH * DIST_FIT_BATCHES
+        x = rng.rand(n, 3, 28, 28).astype(np.float32)
+        y = rng.randint(0, 10, n).astype(np.float32)
+        net = mx.models.get_symbol(DIST_FIT_NETWORK, num_classes=10,
+                                   image_shape=(3, 28, 28))
+        digests = {}
+        for kv in ("local", "dist_sync"):
+            mx.random.seed(7)
+            mod = mx.mod.Module(net, context=dist_ctx(mx))
+            mod.fit(mx.io.NDArrayIter(x, y, batch_size=DIST_FIT_BATCH),
+                    num_epoch=2, kvstore=kv, optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.05,
+                                      "momentum": 0.9},
+                    initializer=mx.init.Xavier())
+            digests[kv] = dist_fit_digest(mod)
+        snap = mx.telemetry.registry().snapshot()
+        row = {"phase": "dist_world_of_one", "backend": rt.backend,
+               "rank": rt.rank, "size": rt.size, "bootstrap_s": boot_s,
+               "bootstrap_ms_counter": snap["counters"].get(
+                   "dist.bootstrap_ms"),
+               "allreduce_identity": reduced_ok, "barrier_ms": barrier_ms,
+               "fit_dist_sync_equals_plain": digests["local"]
+               == digests["dist_sync"], "card": card}
+        emit(row)
+    finally:
+        rt.shutdown()
+        dist.reset_runtime()
+    if not (reduced_ok and row["fit_dist_sync_equals_plain"]
+            and rt.backend == DIST_ONE_BACKEND):
+        raise RuntimeError("dist world of one failed: %s" % row)
+
+
+def dist_twin_cmd(pack, out, batch, extra=()):
+    return [sys.executable, "-m", "mxnet_tpu_torch.examples.train_imagenet",
+            *DIST_TWIN_ARGS, "--network", DIST_NETWORK, "--image-shape",
+            ",".join(map(str, IMAGE)), "--lr", str(DIST_LR),
+            "--batch-size", str(batch),
+            "--data-train", pack, "--num-epochs", "1", "--seed", "7",
+            "--save-params", out, *extra]
+
+
+def dist_run(cmd, cwd, env=None, timeout=600):
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=timeout, cwd=cwd,
+                         env=dict(os.environ, PYTHONPATH=ROOT, **(env or {})))
+    if res.returncode:
+        raise RuntimeError("%s exited %d:\n%s" % (
+            " ".join(cmd[:6]), res.returncode,
+            res.stdout[-2000:] + res.stderr[-4000:]))
+    return res
+
+
+def dist_loss(mx, params, x, y):
+    """Softmax cross-entropy of a ResNet-50 with ``params`` on one batch,
+    on the card: a training forward (batch statistics, as the steps
+    computed it; the moving statistics of 3 steps are still far from
+    them)."""
+    import numpy as np
+    sym = mx.models.get_symbol(DIST_NETWORK, num_classes=1000,
+                               image_shape=IMAGE)
+    mod = mx.mod.Module(sym, context=dist_ctx(mx))
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    args = {k[4:]: mx.nd.array(v, ctx=mx.cpu()) for k, v in params.items()
+            if k.startswith("arg:")}
+    auxs = {k[4:]: mx.nd.array(v, ctx=mx.cpu()) for k, v in params.items()
+            if k.startswith("aux:")}
+    mod.init_params(arg_params=args, aux_params=auxs)
+    mod.forward(mx.io.DataBatch([mx.nd.array(x, ctx=dist_ctx(mx))],
+                                [mx.nd.array(y, ctx=dist_ctx(mx))]),
+                is_train=True)
+    p = mod.get_outputs()[0].asnumpy()
+    return float(-np.log(np.maximum(
+        p[np.arange(len(y)), y.astype(int)], 1e-30)).mean())
+
+
+def dist_two_ranks(mx, K, card, work):
+    """(c) ResNet-50 trained by two ranks on the one card over gloo,
+    launched by tools/launch.py through the ImageNet twin with
+    ``--kv-store dist_sync`` (32 rows a rank, ``DIST_STEPS`` steps),
+    against one process at batch 64 from the same seed and stream: the
+    parameters' relative L2 and the loss on a fixed batch within
+    max(``DIST_REL_FLOOR``, ``DIST_SPREAD_FACTOR`` × the one-process run's
+    own spread between the one-pass and the exact statistics). Every
+    rank's launch counts: each split entry point 51 a step (the data's
+    BatchNorm has no dx: 50 for ``bn_bwd_dx``), the one-call pair 0."""
+    import numpy as np
+    glob_batch = DIST_RANKS * DIST_RANK_BATCH
+    pack = os.path.join(work, "dist.rec")
+    write_pack(pack, glob_batch * DIST_STEPS, IMAGE, 8)
+    outs = {k: os.path.join(work, k + ".npz")
+            for k in ("dist", "one", "one_exact")}
+    t0 = time.time()
+    res = dist_run([sys.executable, os.path.join(ROOT, "tools", "launch.py"),
+                    "-n", str(DIST_RANKS), "--launcher", "local"]
+                   + dist_twin_cmd(pack, outs["dist"], DIST_RANK_BATCH,
+                                   ["--kv-store", "dist_sync"]),
+                   work, env={"MXNET_DIST_BACKEND": "gloo"})
+    dist_s = time.time() - t0
+    ranks = [json.loads(ln.split("DIST_TWIN ", 1)[1])
+             for ln in res.stdout.splitlines() if ln.startswith("DIST_TWIN ")]
+    t0 = time.time()
+    dist_run(dist_twin_cmd(pack, outs["one"], glob_batch), work)
+    one_s = time.time() - t0
+    dist_run(dist_twin_cmd(pack, outs["one_exact"], glob_batch), work,
+             env={"MXNET_BN_EXACT_STATS": "1"})
+    p = {k: dict(np.load(v)) for k, v in outs.items()}
+    names = sorted(n for n in p["one"] if n.startswith("arg:"))
+
+    def flat(d):
+        return np.concatenate([d[n].ravel() for n in names])
+
+    # the parameters as one vector: a key of a tiny norm (a β near 0) would
+    # make a per-key ratio meaningless
+    spread = rel_l2(flat(p["one_exact"]), flat(p["one"]))
+    tol = max(DIST_REL_FLOOR, DIST_SPREAD_FACTOR * spread)
+    params_rel = rel_l2(flat(p["dist"]), flat(p["one"]))
+    worst_key = max(names, key=lambda n: float(np.linalg.norm(
+        p["dist"][n] - p["one"][n])))
+    rs = np.random.RandomState(5)
+    xb = rs.randn(glob_batch, *IMAGE).astype(np.float32)
+    yb = rs.randint(0, 8, glob_batch).astype(np.float32)
+    loss = {k: dist_loss(mx, p[k], xb, yb) for k in ("dist", "one")}
+    loss_rel = abs(loss["dist"] - loss["one"]) / max(abs(loss["one"]), 1e-30)
+    bns = model_bn_shapes(mx, DIST_NETWORK, IMAGE, 1000, DIST_RANK_BATCH)
+    n_bn = sum(bns.values())
+    want = {n: DIST_STEPS * n_bn for n in K.SPLIT_KERNELS}
+    want["bn_bwd_dx"] = DIST_STEPS * sum(v for k, v in bns.items() if k[3])
+    if DIST_DEVICE == "cpu":    # a rehearsal: plain versions, no launches
+        want = dict.fromkeys(want, 0)
+    counts_ok = len(ranks) == DIST_RANKS and all(
+        r["steps"] == DIST_STEPS
+        and all(r["launches"][n] == want[n] for n in K.SPLIT_KERNELS)
+        and r["launches"]["bn_fwd"] == 0 and r["launches"]["bn_bwd"] == 0
+        for r in ranks)
+    row = {"phase": "dist_two_ranks", "network": DIST_NETWORK,
+           "ranks": DIST_RANKS, "rank_batch": DIST_RANK_BATCH,
+           "steps": DIST_STEPS, "backend": "gloo", "card": card,
+           "per_rank": ranks, "two_rank_s": dist_s, "one_process_s": one_s,
+           "params_rel_l2": params_rel, "largest_diff_param": worst_key,
+           "loss": loss, "loss_rel": loss_rel,
+           "exact_spread_rel_l2": spread, "tolerance": tol,
+           "expected_launches_per_rank": want, "launches_ok": counts_ok}
+    emit(row)
+    if not (counts_ok and params_rel <= tol and loss_rel <= tol
+            and tol < 0.5):
+        raise RuntimeError("two-rank ResNet-50 check failed: %s"
+                           % json.dumps(row))
+    total = {}
+    for r in ranks:
+        for name, v in r["launches"].items():
+            total[name] = total.get(name, 0) + v
+    return total, [r["launches"] for r in ranks]
+
+
+def dist_push_pull(work, card):
+    """(d) Three ranks' push/pull of card tensors over gloo
+    (``mxnet_tpu_torch.tools.dist_worker sync`` with ``DIST_CTX=gpu``):
+    the exact sums of dist_sync, and dist_async one push late."""
+    rows = []
+    for kind in ("dist_sync", "dist_async"):
+        port = free_port()
+        procs = []
+        for rank in range(DIST_PUSH_RANKS):
+            env = dict(os.environ, PYTHONPATH=ROOT,
+                       DIST_CTX="cpu" if DIST_DEVICE == "cpu" else "gpu",
+                       DIST_KV_TYPE=kind, MXNET_DIST_BACKEND="gloo",
+                       DMLC_NUM_WORKER=str(DIST_PUSH_RANKS),
+                       DMLC_WORKER_ID=str(rank), DMLC_ROLE="worker",
+                       DMLC_PS_ROOT_URI="127.0.0.1",
+                       DMLC_PS_ROOT_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "mxnet_tpu_torch.tools.dist_worker",
+                 "sync"], env=env, cwd=work, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append((p.communicate(timeout=300)[0], p.returncode))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        ok = all(rc == 0 and "DIST_WORKER_OK" in out for out, rc in outs)
+        row = {"phase": "dist_push_pull", "kind": kind,
+               "ranks": DIST_PUSH_RANKS, "device": DIST_DEVICE, "ok": ok,
+               "card": card}
+        emit(row)
+        if not ok:
+            raise RuntimeError("%s push/pull failed:\n%s" % (
+                kind, "\n".join(out[-1500:] for out, _ in outs)))
+        rows.append(row)
+    return rows
+
+
+def dist_elastic(mx, K, card):
+    """(e) The elastic twin on the card: 4 virtual hosts → 2, the resume
+    bit for bit equal to the continuous width-2 run (its own assert), at
+    resnet-20 width and with the JAX script's MLP (and its accuracy
+    assert)."""
+    from mxnet_tpu_torch.examples import elastic_virtual_hosts
+    rows = []
+    for args in (DIST_ELASTIC_ARGS, DIST_TWIN_ARGS):
+        t0 = time.time()
+        res = elastic_virtual_hosts.main(list(args))
+        row = {"phase": "dist_elastic", "args": list(args),
+               "seconds": time.time() - t0, "accuracy": res["accuracy"],
+               "resume_step": res["resume_step"],
+               "num_update": res["num_update"],
+               "widths": [e["dp_width"] for e in res["transcript"]],
+               "card": card}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def dist_phase(mx, K, C, R, card):
+    """Phase 19: (a) the split BatchNorm entry points, (b) a world of one
+    on nccl, (c) two ranks of ResNet-50 through tools/launch.py, (d)
+    three ranks' push/pull, (e) the elastic twin. Returns the launch
+    counts of (c) (summed over the ranks) and per rank, and (a)'s times
+    and errors."""
+    import shutil
+    import tempfile
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t = {}
+    t0 = time.time()
+    totals, worst = dist_kernels(mx, K, card)
+    t["a"] = time.time() - t0
+    t0 = time.time()
+    dist_world_of_one(mx, card)
+    t["b"] = time.time() - t0
+    work = tempfile.mkdtemp(prefix="dist_phase_", dir=os.path.join(
+        ROOT, "build"))
+    try:
+        t0 = time.time()
+        launches, by_rank = dist_two_ranks(mx, K, card, work)
+        t["c"] = time.time() - t0
+        t0 = time.time()
+        dist_push_pull(work, card)
+        t["d"] = time.time() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.time()
+    dist_elastic(mx, K, card)
+    t["e"] = time.time() - t0
+    emit({"phase": "dist_seconds", **t})
+    return launches, by_rank, totals, worst
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -6391,6 +6966,8 @@ def main():
     guard_launches = timed("guardian", guardian_phase, mx, K, C, R, card)
     cache_launches = timed("serve_cache", serve_cache_phase, mx, K, C, R,
                            card)
+    dist_launches, dist_by_rank, dist_times, dist_worst = timed(
+        "dist", dist_phase, mx, K, C, R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -6439,6 +7016,27 @@ def main():
         dict(e, launches_guardian=guard_launches[e["name"]],
              launches_serve_cache=cache_launches[e["name"]])
         for e in vision_entries]
+    for e in kernels:
+        e["launches_dist"] = dist_launches[e["name"]]
+    split_replaces = {"bn_fwd_partials": "mxnet_tpu/ops/nn.py:460",
+                      "bn_fwd_apply": "mxnet_tpu/ops/nn.py:460",
+                      "bn_bwd_partials": "tools/bn_pallas_probe.py:76",
+                      "bn_bwd_dx": "tools/bn_pallas_probe.py:76"}
+    for k in K.SPLIT_KERNELS:
+        f32, bf16 = dist_times["float32"][k], dist_times["bfloat16"][k]
+        kernels.append(dict(
+            name=k, route="cuda",
+            source="mxnet_tpu_torch/kernels/csrc/batchnorm.cu",
+            replaces=split_replaces[k], launches=dist_launches[k],
+            launches_dist=dist_launches[k],
+            launches_by_rank=[r[k] for r in dist_by_rank],
+            max_abs_err=dist_worst["float32"][k], bound_by="bytes",
+            max_abs_err_bf16=dist_worst["bfloat16"][k],
+            **{key: f32[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "library_ms")},
+            **{key + "_bf16": bf16[key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+            device_ms=f32["device_ms"]))
     emit({"phase": "done", "seconds": time.time() - t_start,
           "phase_seconds": seconds})
     print(card)

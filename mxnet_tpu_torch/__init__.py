@@ -7,8 +7,8 @@ far (``mx.nd``, ``mx.sym``, ``mx.mod``, ``mx.init``, ``mx.optimizer``,
 ``mx.serving``, ``mx.rnn``, ``mx.precision``, ``mx.recordio``,
 ``mx.image``, ``mx.data``, ``mx.autograd``, ``mx.operator``, ``mx.kv``/
 ``mx.kvstore``, ``mx.model.FeedForward``, ``mx.viz``, ``mx.plugin``,
-``mx.faults``, ``mx.guardian``, ``mx.engine``, ``mx.profiler`` and
-``mx.test_utils``, with ``mx.waitall``, ``mx.cpu_pinned``,
+``mx.faults``, ``mx.guardian``, ``mx.engine``, ``mx.profiler``,
+``mx.dist``, ``mx.parallel`` and ``mx.test_utils``, with ``mx.waitall``, ``mx.cpu_pinned``,
 ``mx.AttrScope`` and ``mx.NameManager``). It
 imports torch and numpy, never JAX and
 nothing of ``mxnet_tpu``. Entry points run on ``gpu(0)`` unless the caller
@@ -57,6 +57,8 @@ from . import visualization
 from . import visualization as viz
 from . import test_utils
 from . import profiler
+from . import dist
+from . import parallel
 from . import attribute
 from . import name
 from .attribute import AttrScope
@@ -71,5 +73,6 @@ __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "mon", "telemetry", "serving", "rnn", "precision", "recordio",
            "image", "data", "autograd", "operator", "kv", "kvstore", "opt",
            "viz", "visualization", "test_utils", "FeedForward", "plugin",
-           "faults", "guardian", "engine", "profiler", "waitall",
+           "faults", "guardian", "engine", "profiler", "waitall", "dist",
+           "parallel",
            "cpu_pinned", "AttrScope", "NameManager", "attribute", "name"]

@@ -18,18 +18,24 @@
   after the first are served by a gather on the card, bit-identical to
   streaming, with a budgeted host fallback.
 
+* :class:`ShardedCachedDataset` — the cache sharded over the dp world
+  (virtual hosts, or the ranks of a process group): each shard holds its
+  row block only, with an ``hbm`` -> ``host`` -> ``recordio`` budget
+  ladder and a global shuffle that no width enters.
+
 ``Module.fit(prefetch_to_device=2)`` trains to parameters bit-equal to an
-unprefetched ``fit``. The pod-sharded cache (``ShardedCachedDataset``)
-comes with the dist slice of the port.
+unprefetched ``fit``.
 """
 from __future__ import annotations
 
 from .augment import DeviceAugment, DeviceAugmentIter, fold_seed
 from .cached import CachedDataset, global_shuffle_order
 from .loader import DeviceLoader
+from .sharded_cache import ShardedCachedDataset, cache_row_of_pos
 from .stats import PipelineStats
 from .transform import TransformIter
 
 __all__ = ["DeviceLoader", "TransformIter", "PipelineStats",
            "DeviceAugment", "DeviceAugmentIter", "CachedDataset",
-           "global_shuffle_order", "fold_seed"]
+           "global_shuffle_order", "fold_seed", "ShardedCachedDataset",
+           "cache_row_of_pos"]

@@ -17,9 +17,12 @@ def device_context(args):
         return mx.cpu()
     ids = [int(i) for i in (args.tpus or "0").split(",")]
     if len(ids) != 1:
-        raise mx.MXNetError("the port trains on one device; multi-device "
-                            "binding comes with the dist slice (got %s)"
-                            % args.tpus)
+        raise mx.MXNetError("one process trains on one device (got %s): "
+                            "several devices in one process come with the "
+                            "model-parallel half of the port (ROADMAP "
+                            "A8b); data parallelism launches one process "
+                            "per card (tools/launch.py, --kv-store "
+                            "dist_sync)" % args.tpus)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return mx.gpu(ids[0])

@@ -17,14 +17,25 @@ with ``--model-prefix`` and ``Speedometer``; ``--dtype bfloat16`` computes
 in bfloat16 with float32 master weights (``compute_dtype=``). Prints
 ``TRAIN_IMAGENET_DONE`` at the end.
 
+Distributed training: ``--kv-store dist_sync`` (or ``dist_device_sync``,
+``dist``, ``dist_async``) under ``tools/launch.py -n N`` trains one global
+batch of N × ``--batch-size`` rows: every rank reads the same pack (the
+same shuffle) at the global batch and trains its row block
+(``dist.ShardedDataIter``), gradients summed over the ranks, BatchNorm
+over the global batch. ``--seed`` seeds the initialisation (rank 0's is
+broadcast); ``--save-params`` writes the final parameters (rank 0, npz of
+``arg:``/``aux:`` names); every rank prints a ``DIST_TWIN`` line with its
+rank, steps, step time, all-reduce time and every kernel's launch count
+(JSON).
+
 Differences from the JAX script: the twin trains on ``gpu(0)`` (or the
-one card of ``--gpus``/``--tpus``) unless ``--cpu`` is given; a
-``--kv-store`` other than ``local`` raises ``MXNetError`` naming the
-slice that brings it, and a ``--network`` the zoo does not have raises
-``MXNetError`` at the argument check.
+one card of ``--gpus``/``--tpus``; under an NCCL group the rank's own
+card) unless ``--cpu`` is given, and a ``--network`` the zoo does not
+have raises ``MXNetError`` at the argument check.
 ``main(argv)`` returns the run's results.
 """
 import argparse
+import json
 import logging
 import os
 import shutil
@@ -61,6 +72,23 @@ def synth_rec(path, n, hw, classes, rng):
         rec.write(recordio.pack(
             recordio.IRHeader(0, float(cls), i, 0), buf.getvalue()))
     rec.close()
+
+
+def kernel_launches():
+    """Every hand-written kernel's launch count in this process."""
+    from mxnet_tpu_torch.kernels import batchnorm as K
+    from mxnet_tpu_torch.kernels import copy as C
+    from mxnet_tpu_torch.kernels import nms as NM
+    from mxnet_tpu_torch.kernels import roi_pooling as RP
+    from mxnet_tpu_torch.kernels import rtc as R
+    counts = {"bn_fwd": K.bn_fwd.launches, "bn_bwd": K.bn_bwd.launches,
+              "copy": C.copy.launches, "rtc": R.rtc_kernel.launches,
+              "nms_mask": NM.nms_mask.launches,
+              "nms_scan": NM.nms_scan.launches,
+              "roi_pool_fwd": RP.roi_pool_fwd.launches,
+              "roi_pool_bwd": RP.roi_pool_bwd.launches}
+    counts.update({n: getattr(K, n).launches for n in K.SPLIT_KERNELS})
+    return counts
 
 
 def check_network(name):
@@ -100,12 +128,12 @@ def parse_args(argv=None):
     parser.add_argument("--model-prefix", default=None)
     parser.add_argument("--synthetic-images", type=int, default=256,
                         help="rec size when --data-train is absent")
+    parser.add_argument("--seed", type=int, default=None,
+                        help="seed the initialisation")
+    parser.add_argument("--save-params", default=None,
+                        help="write the final parameters here (npz)")
     args = parser.parse_args(argv)
     check_network(args.network)
-    if args.kv_store != "local":
-        raise mx.MXNetError("--kv-store %s comes with the dist slice of "
-                            "the port; this slice trains on one device "
-                            "(local)" % args.kv_store)
     return args
 
 
@@ -115,7 +143,16 @@ def main(argv=None):
     first, ``steps``)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.seed is not None:
+        mx.random.seed(args.seed)
+        np.random.seed(args.seed)
+    kv = mx.kv.create(args.kv_store)
+    workers = kv.num_workers
     ctx = device_context(args)
+    rt = mx.dist.get_runtime() if args.kv_store.startswith("dist") \
+        else None
+    if rt is not None and rt.backend == "nccl" and not args.cpu:
+        ctx = mx.gpu(rt.device.index)
 
     shape = tuple(int(x) for x in args.image_shape.split(","))
     tmp = None
@@ -130,8 +167,12 @@ def main(argv=None):
     mean = dict(zip(("mean_r", "mean_g", "mean_b"), IMAGENET_MEAN))
     train = mx.io.ImageRecordIter(
         path_imgrec=args.data_train, data_shape=shape,
-        batch_size=args.batch_size, shuffle=True, rand_mirror=True,
+        batch_size=args.batch_size * workers, shuffle=True, rand_mirror=True,
         preprocess_threads=4, label_name="softmax_label", **mean)
+    if workers > 1:
+        # every rank reads the global stream and trains its row block
+        train_src = train
+        train = mx.dist.ShardedDataIter(train_src, kv.rank, workers)
     val = None
     if args.data_val:
         val = mx.io.ImageRecordIter(
@@ -150,21 +191,29 @@ def main(argv=None):
 
     epoch_cb = (mx.callback.do_checkpoint(args.model_prefix)
                 if args.model_prefix else None)
+    # the global batch's rescale, except for dist_async, which the
+    # reference scales by the rank's own batch
+    global_batch = args.batch_size * (
+        1 if args.kv_store == "dist_async" else workers)
+    tel = mx.telemetry.registry().scope("dist")
+    ar0 = tel.counter("allreduce_ms").value
     t0 = time.perf_counter()
     try:
         mod.fit(train, eval_data=val, num_epoch=args.num_epochs,
                 optimizer="sgd",
                 optimizer_params={"learning_rate": args.lr,
                                   "momentum": args.mom, "wd": args.wd,
-                                  "rescale_grad": 1.0 / args.batch_size},
+                                  "rescale_grad": 1.0 / global_batch},
                 initializer=mx.init.Xavier(rnd_type="gaussian",
                                            factor_type="in", magnitude=2),
-                eval_metric=metric, kvstore=args.kv_store,
+                eval_metric=metric,
+                kvstore=kv if args.kv_store.startswith("dist")
+                else args.kv_store,
                 batch_end_callback=[
                     mx.callback.Speedometer(args.batch_size, 10), _stamp],
                 epoch_end_callback=epoch_cb)
     finally:
-        train.close()
+        (train_src if workers > 1 else train).close()
         if val is not None:
             val.close()
         if tmp is not None:
@@ -177,6 +226,20 @@ def main(argv=None):
         result["fit_img_per_s"] = sum(
             len(t) - 1 for t in stamps.values()) * args.batch_size / span
     logging.info("final train accuracy: %.3f", result["train_accuracy"])
+    if args.save_params and kv.rank == 0:
+        arg_p, aux_p = mod.get_params()
+        np.savez(args.save_params,
+                 **{"arg:" + k: v.asnumpy() for k, v in arg_p.items()},
+                 **{"aux:" + k: v.asnumpy() for k, v in aux_p.items()})
+    if args.kv_store.startswith("dist"):
+        steps = result["steps"]
+        result["allreduce_ms"] = tel.counter("allreduce_ms").value - ar0
+        timed = sum(len(t) - 1 for t in stamps.values())
+        print("DIST_TWIN " + json.dumps({
+            "rank": kv.rank, "world": workers, "steps": steps,
+            "step_ms": span * 1000.0 / timed if timed else None,
+            "allreduce_ms_per_step": result["allreduce_ms"] / max(steps, 1),
+            "launches": kernel_launches()}), flush=True)
     print("TRAIN_IMAGENET_DONE")
     return result
 

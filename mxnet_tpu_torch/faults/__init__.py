@@ -26,10 +26,14 @@ site                         entry point      where it lives
 ``serving.decode_worker``    check            DecodeEngine scheduler tick
 ``serving.decode_step``      check            DecodeEngine per-step launch
 ``serving.decode_abandon``   fires            DecodeEngine mid-stream abandon
+``dist.connect``             check            bootstrap coordinator connect
+``dist.heartbeat``           value            HeartbeatMonitor dead-node probe
+``dist.straggler``           check            VirtualFeed per-host slice clock
+``dist.worker``              check            ElasticTrainer per-batch check
 ===========================  ===============  =============================
 
 ``SITES`` holds the same table (site -> entry point). The JAX package's
-dist, gateway and autopilot seams come with the port's slices of those
+gateway and autopilot seams come with the port's slices of those
 modules. The discipline is
 ``telemetry.enabled()``'s: an UNARMED process pays one module-attribute
 branch per seam (``faults.armed()``) and trains bit for bit as a build
@@ -84,6 +88,10 @@ SITES = {
     "serving.decode_worker": "check",
     "serving.decode_step": "check",
     "serving.decode_abandon": "fires",
+    "dist.connect": "check",
+    "dist.heartbeat": "value",
+    "dist.straggler": "check",
+    "dist.worker": "check",
 }
 _PLAN = None
 _lock = threading.Lock()

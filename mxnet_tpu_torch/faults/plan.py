@@ -43,7 +43,7 @@ Kinds (which seams honor which kind is the seam table in
 ``transient``  raise :class:`TransientFault` (healed by ``faults.retry``)
 ``delay``      ``time.sleep(ms)`` — a straggler / slow device
 ``value``      seam reads an injected value (heartbeat dead count)
-``worker_lost``  raise :class:`WorkerLost` (the elastic path's signal)
+``worker_lost``  raise :class:`mxnet_tpu_torch.dist.WorkerLost` (elastic path)
 ``flood``      boolean fire — the serving queue treats itself as full
 ``bitflip``    flip one byte of a committed artifact file
 ``truncate``   truncate a committed artifact file to half its size
@@ -107,14 +107,10 @@ class TransientFault(InjectedFault):
     heals it with bounded jittered backoff."""
 
 
-class WorkerLost(InjectedFault):
-    """An injected loss of ``dead_count`` peers (``kind=worker_lost``).
-    The JAX package raises its ``dist.WorkerLost``; the port has no
-    distributed runtime yet, so the signal is this permanent fault."""
-
-    def __init__(self, msg, dead_count=1):
-        super().__init__(msg)
-        self.dead_count = int(dead_count)
+# the elastic path's signal is the dist runtime's own class (the same
+# object, so one ``except WorkerLost`` catches a planned and a detected
+# loss alike)
+from ..dist.elastic import WorkerLost  # noqa: E402
 
 
 def splitmix64(x):

@@ -84,7 +84,10 @@ from ..telemetry.introspect import active_counter, kernel_work
 from .build import cuda_library, current_stream, raise_if
 
 __all__ = ["bn_fwd", "bn_bwd", "bn_fwd_plain", "bn_bwd_plain", "plan",
-           "Plan", "SLAB_BYTES"]
+           "Plan", "SLAB_BYTES", "bn_fwd_partials", "bn_fwd_apply",
+           "bn_bwd_partials", "bn_bwd_dx", "bn_fwd_partials_plain",
+           "bn_fwd_apply_plain", "bn_bwd_partials_plain", "bn_bwd_dx_plain",
+           "bn_fwd_split", "bn_bwd_split", "SPLIT_KERNELS"]
 
 
 def _red_axes(x):
@@ -196,11 +199,13 @@ def _slab_threads(share):
     return t
 
 
-def plan(op, shape, dtype, need_dx=True, align=16):
+def plan(op, shape, dtype, need_dx=True, align=16, split=False):
     """The plan of ``op`` ("fwd" or "bwd") on an (N, C, ...) tensor of
     ``dtype`` whose pointers are all ``align``-byte aligned. The slab is
     x in the forward and x and du in the backward; a backward without dx
-    keeps nothing on chip (``smem`` 0) but takes the same layout."""
+    keeps nothing on chip (``smem`` 0) but takes the same layout.
+    ``split=True`` asks for the split layout whatever the slab's size:
+    the cross-rank entry points run on its grid."""
     if op not in ("fwd", "bwd"):
         raise MXNetError("plan: op must be 'fwd' or 'bwd', not %r" % (op,))
     if dtype not in _ESIZE:
@@ -215,7 +220,7 @@ def plan(op, shape, dtype, need_dx=True, align=16):
     units = N * hw * es // ub
     arrays = 1 if op == "fwd" else 2
     kept = arrays if (op == "fwd" or need_dx) else 0
-    for k in CLUSTERS:
+    for k in () if split else CLUSTERS:
         share = _cdiv(units, k)
         if share * ub * arrays <= SLAB_BYTES:
             return Plan("block" if k == 1 else "cluster", k,
@@ -257,7 +262,14 @@ def _library():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mx_bn_fwd.argtypes = [P] * 8 + [F] + [I] * 4 + [P]
     lib.mx_bn_bwd.argtypes = [P] * 10 + [I] * 2 + [P]
-    lib.mx_bn_fwd.restype = lib.mx_bn_bwd.restype = I
+    lib.mx_bn_fwd_partials.argtypes = [P] * 5 + [I, P]
+    lib.mx_bn_fwd_apply.argtypes = [P] * 8 + [F, F] + [I] * 4 + [P]
+    lib.mx_bn_bwd_partials.argtypes = [P] * 9 + [I, I, P]
+    lib.mx_bn_bwd_dx.argtypes = [P] * 9 + [F, I, I, P]
+    for fn in (lib.mx_bn_fwd, lib.mx_bn_bwd, lib.mx_bn_fwd_partials,
+               lib.mx_bn_fwd_apply, lib.mx_bn_bwd_partials,
+               lib.mx_bn_bwd_dx):
+        fn.restype = I
     _LIB.append(lib)
     return lib
 
@@ -398,3 +410,246 @@ def _bn_bwd(du, x, rstd, mean, scale, shift, relu, need_dx):
 
 bn_fwd.launches = bn_fwd.launches_bf16 = 0
 bn_bwd.launches = bn_bwd.launches_bf16 = 0
+
+
+# ---------------------------------------------------------------------------
+# the cross-rank split (K1's cross-rank form)
+# ---------------------------------------------------------------------------
+# Under a dp mesh the JAX package reduces the core's per-channel moments and
+# its backward sums over the GLOBAL batch (GSPMD inserts the psum). The
+# one-call pair above computes the statistics and applies them in one call,
+# so a world of two or more ranks takes these four entry points instead,
+# with one all-reduce of a (C, 2) float32 tensor between each partials call
+# and its apply (two for the exact statistics: the mean, then the centred
+# moments). Each runs on the split plan's grid: a pass over the rank's x
+# (and du) writing one partial per (chunk, channel), added in chunk order.
+# Bound: bytes, as the pair: partials read x (and du), the applies read x
+# (and du) and write y (dx). The centre of the one-pass moments is the
+# running mean, the same value on every rank.
+
+SPLIT_KERNELS = ("bn_fwd_partials", "bn_fwd_apply", "bn_bwd_partials",
+                 "bn_bwd_dx")
+
+
+def _sums_plain(a, b):
+    return torch.stack([a, b], dim=1)
+
+
+def bn_fwd_partials_plain(x, center=None):
+    """Plain PyTorch: (C, 2) float32 (sum (x − c), sum (x − c)²) per
+    channel over x's rows, c = ``center`` (or 0 when None)."""
+    axes, bshape = _red_axes(x), _bshape(x)
+    xc = x.to(torch.float32)
+    if center is not None:
+        xc = xc - center.to(torch.float32).reshape(bshape)
+    return _sums_plain(xc.sum(axes), (xc * xc).sum(axes))
+
+
+def _moments(sums, center, n, exact):
+    t = sums.to(torch.float32)
+    if exact:
+        return center.to(torch.float32), t[:, 1] / n
+    m1, m2 = t[:, 0] / n, t[:, 1] / n
+    return center.to(torch.float32) + m1, torch.clamp_min(m2 - m1 * m1, 0.0)
+
+
+def bn_fwd_apply_plain(x, sums, center, gamma, beta, eps, n, fix_gamma,
+                       relu, exact):
+    """Plain PyTorch: from the global (C, 2) ``sums`` over ``n`` elements
+    a channel, (y, mean, var, rstd, scale, shift) as ``bn_fwd_plain``
+    returns them: one-pass moments about ``center``, or under ``exact``
+    the mean given as ``center`` and var = sum (x − mean)² / n."""
+    mean, var = _moments(sums, center, n, exact)
+    rstd = torch.rsqrt(var + eps)
+    g = torch.ones_like(rstd) if fix_gamma else gamma.to(torch.float32)
+    scale = g * rstd
+    shift = beta.to(torch.float32) - mean * scale
+    y = _affine(x.to(torch.float32), scale, shift, _bshape(x))
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.to(x.dtype), mean, var, rstd, scale, shift
+
+
+def bn_bwd_partials_plain(du, x, mean, rstd, scale, shift, relu):
+    """Plain PyTorch: (C, 2) float32 (sum dv, sum dv·x̂) over x's rows, dv
+    = du masked by the ReLU: the rank's dβ and dγ."""
+    _, dbeta, dgamma = bn_bwd_plain(du, x, rstd, mean, scale, shift, relu,
+                                    need_dx=False)
+    return _sums_plain(dbeta, dgamma)
+
+
+def bn_bwd_dx_plain(du, x, mean, rstd, scale, shift, sums, n, relu):
+    """Plain PyTorch: dx from the global (dβ, dγ) ``sums`` over ``n``
+    elements a channel."""
+    f32 = torch.float32
+    bshape = _bshape(x)
+    xf = x.to(f32)
+    xhat = (xf - mean.reshape(bshape)) * rstd.reshape(bshape)
+    duf = du.to(f32)
+    if relu:
+        y = _affine(xf, scale, shift, bshape)
+        duf = torch.where(y > 0, duf, torch.zeros_like(duf))
+    t = sums.to(f32)
+    dx = (duf - (t[:, 0] / n).reshape(bshape)
+          - xhat * (t[:, 1] / n).reshape(bshape)) * scale.reshape(bshape)
+    return dx.to(x.dtype)
+
+
+_SPLIT_CALLS = {}   # (shape, dtype, align) -> (ints, plan pointer, chunks)
+
+
+def _split_call(x, align):
+    key = (x.shape, x.dtype, align)
+    hit = _SPLIT_CALLS.get(key)
+    if hit is None:
+        p = plan("fwd", x.shape, x.dtype, align=align, split=True)
+        N, C = x.shape[0], x.shape[1]
+        ints = (ctypes.c_int * 11)(
+            _DTYPE[x.dtype], p.unit_bytes, _KIND[p.kind], p.cluster,
+            p.threads, p.smem, p.share, p.chunks, N, C,
+            x.numel() // (N * C))
+        hit = _SPLIT_CALLS[key] = (ints, ctypes.addressof(ints), p.chunks)
+    return hit
+
+
+def _check_sums(name, sums, x):
+    if sums.device != x.device or sums.dtype != torch.float32 or \
+            tuple(sums.shape) != (x.shape[1], 2) or \
+            not sums.is_contiguous():
+        raise MXNetError("%s: sums must be a contiguous (%d, 2) float32 "
+                         "tensor on %s" % (name, x.shape[1], x.device))
+
+
+def _count(fn, x):
+    fn.launches += 1
+    fn.launches_bf16 += x.dtype == torch.bfloat16
+
+
+def bn_fwd_partials(x, center=None):
+    """(C, 2) float32 partial moments of this rank's x about ``center``
+    (None: 0); see :func:`bn_fwd_partials_plain`."""
+    if x.device.type == "cpu":
+        return bn_fwd_partials_plain(x, center)
+    vecs = () if center is None else (center,)
+    _check_cuda("bn_fwd_partials", (x,), vecs)
+    lib = _library()
+    xp = x.data_ptr()
+    _, plan_ptr, chunks = _split_call(x, _align(xp))
+    C, dev = x.shape[1], x.get_device()
+    cc = None if center is None else _vec(center)
+    sums = torch.empty((C, 2), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((chunks * C * 2,), dtype=torch.float32,
+                          device=x.device)
+    raise_if(lib.mx_bn_fwd_partials(
+        xp, None if cc is None else cc.data_ptr(), sums.data_ptr(),
+        scratch.data_ptr(), plan_ptr, dev, current_stream(dev)),
+        "bn_fwd_partials")
+    _count(bn_fwd_partials, x)
+    return sums
+
+
+def bn_fwd_apply(x, sums, center, gamma, beta, eps, n, fix_gamma, relu,
+                 exact):
+    """(y, mean, var, rstd, scale, shift) from the global ``sums``; see
+    :func:`bn_fwd_apply_plain`."""
+    if x.device.type == "cpu":
+        return bn_fwd_apply_plain(x, sums, center, gamma, beta, eps, n,
+                                  fix_gamma, relu, exact)
+    _check_cuda("bn_fwd_apply", (x,), (center, gamma, beta))
+    _check_sums("bn_fwd_apply", sums, x)
+    lib = _library()
+    xp = x.data_ptr()
+    _, plan_ptr, _ = _split_call(x, _align(xp))
+    C, dev = x.shape[1], x.get_device()
+    cc, g, b = _vec(center), _vec(gamma), _vec(beta)
+    y = torch.empty_like(x)
+    stats = torch.empty((5, C), dtype=torch.float32, device=x.device)
+    raise_if(lib.mx_bn_fwd_apply(
+        xp, y.data_ptr(), sums.data_ptr(), cc.data_ptr(), g.data_ptr(),
+        b.data_ptr(), stats.data_ptr(), plan_ptr, float(n), float(eps),
+        bool(fix_gamma), bool(relu), bool(exact), dev,
+        current_stream(dev)), "bn_fwd_apply")
+    _count(bn_fwd_apply, x)
+    mean, var, rstd, scale, shift = stats.unbind(0)
+    return y, mean, var, rstd, scale, shift
+
+
+def bn_bwd_partials(du, x, mean, rstd, scale, shift, relu):
+    """(C, 2) float32 (dβ, dγ) partial sums of this rank's rows; see
+    :func:`bn_bwd_partials_plain`."""
+    if x.device.type == "cpu":
+        return bn_bwd_partials_plain(du, x, mean, rstd, scale, shift, relu)
+    _check_cuda("bn_bwd_partials", (x, du), (mean, rstd, scale, shift))
+    lib = _library()
+    xp, dup = x.data_ptr(), du.data_ptr()
+    _, plan_ptr, chunks = _split_call(x, _align(xp, dup))
+    C, dev = x.shape[1], x.get_device()
+    mu, rs, sc, sh = _vec(mean), _vec(rstd), _vec(scale), _vec(shift)
+    sums = torch.empty((C, 2), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((chunks * C * 2,), dtype=torch.float32,
+                          device=x.device)
+    raise_if(lib.mx_bn_bwd_partials(
+        dup, xp, mu.data_ptr(), rs.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+        sums.data_ptr(), scratch.data_ptr(), plan_ptr, bool(relu), dev,
+        current_stream(dev)), "bn_bwd_partials")
+    _count(bn_bwd_partials, x)
+    return sums
+
+
+def bn_bwd_dx(du, x, mean, rstd, scale, shift, sums, n, relu):
+    """dx from the global (dβ, dγ) ``sums``; see :func:`bn_bwd_dx_plain`."""
+    if x.device.type == "cpu":
+        return bn_bwd_dx_plain(du, x, mean, rstd, scale, shift, sums, n,
+                               relu)
+    _check_cuda("bn_bwd_dx", (x, du), (mean, rstd, scale, shift))
+    _check_sums("bn_bwd_dx", sums, x)
+    lib = _library()
+    xp, dup = x.data_ptr(), du.data_ptr()
+    dx = torch.empty_like(x)
+    _, plan_ptr, _ = _split_call(x, _align(xp, dup, dx.data_ptr()))
+    dev = x.get_device()
+    mu, rs, sc, sh = _vec(mean), _vec(rstd), _vec(scale), _vec(shift)
+    raise_if(lib.mx_bn_bwd_dx(
+        dup, xp, dx.data_ptr(), mu.data_ptr(), rs.data_ptr(), sc.data_ptr(),
+        sh.data_ptr(), sums.data_ptr(), plan_ptr, float(n), bool(relu), dev,
+        current_stream(dev)), "bn_bwd_dx")
+    _count(bn_bwd_dx, x)
+    return dx
+
+
+for _fn in (bn_fwd_partials, bn_fwd_apply, bn_bwd_partials, bn_bwd_dx):
+    _fn.launches = _fn.launches_bf16 = 0
+
+
+def bn_fwd_split(x, gamma, beta, c, eps, fix_gamma, relu, exact, reduce_,
+                 world):
+    """The train forward over the global batch of ``world`` ranks, each
+    holding an equal row block: (y, mean, var, rstd, scale, shift) as
+    :func:`bn_fwd` returns them. ``reduce_`` sums a (C, 2) float32
+    tensor over the ranks in place: once for the one-pass moments about
+    the shared centre ``c``, twice under ``exact`` (the mean, then the
+    moments about it)."""
+    n = float(x.numel() // x.shape[1] * int(world))
+    if exact:
+        first = reduce_(bn_fwd_partials(x, None))
+        centre = first[:, 0] / n
+    else:
+        centre = c.detach().to(torch.float32)
+    sums = reduce_(bn_fwd_partials(x, centre))
+    return bn_fwd_apply(x, sums, centre, gamma, beta, eps, n, fix_gamma,
+                        relu, exact)
+
+
+def bn_bwd_split(du, x, rstd, mean, scale, shift, relu, need_dx, reduce_,
+                 world):
+    """The backward of :func:`bn_fwd_split`: (dx, dbeta, dgamma), dx from
+    the sums reduced over the ranks (None unless ``need_dx``), dbeta and
+    dgamma this rank's own partial sums (summed over the ranks with the
+    other gradients, as a data-parallel step sums every gradient)."""
+    local = bn_bwd_partials(du, x, mean, rstd, scale, shift, relu)
+    dx = None
+    if need_dx:
+        n = float(x.numel() // x.shape[1] * int(world))
+        sums = reduce_(local.clone())
+        dx = bn_bwd_dx(du, x, mean, rstd, scale, shift, sums, n, relu)
+    return dx, local[:, 0], local[:, 1]

@@ -15,6 +15,14 @@
 //   (m1 = sum(x - c)/n, m2 = sum(x - c)^2/n, mean = c + m1,
 //   var = max(m2 - m1^2, 0)), or two-pass mean-then-var under `exact`;
 //   rstd, scale, shift; y = fma(x, scale, shift) and the optional ReLU.
+// * mx_bn_fwd_partials, mx_bn_fwd_apply, mx_bn_bwd_partials and
+//   mx_bn_bwd_dx are the cross-rank form of the same pair: under a dp mesh
+//   the JAX package reduces the core's moments and backward sums over the
+//   global batch (GSPMD inserts the psum). A rank's partial sums (about a
+//   centre every rank shares) go out as one (C, 2) float tensor, the
+//   caller all-reduces it over the ranks, and the apply kernels finish
+//   from the global sums. They run on the split plan's grid, each chunk's
+//   partials added in chunk order, so a rank's sums are deterministic too.
 //
 // Bound: bytes. A few flops per element, far below the card's balance
 // point. The least traffic is 2 activation sweeps for the forward (read x,
@@ -526,6 +534,83 @@ bwd_apply(const T* __restrict__ du, const T* __restrict__ x,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// cross-rank split: one rank's per-channel partial sums, and the
+// elementwise passes from the sums all-reduced over the ranks (the caller
+// reduces one (C, 2) float tensor between a partials call and its apply).
+// The passes over x use the split plan's grid (S, C); the partials of a
+// channel's S chunks are added in chunk order by chunk_sums, grid (C).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kSplitThreads)
+chunk_sums(const float2* __restrict__ part, float2* __restrict__ out,
+           int S) {
+  __shared__ Scratch sh;
+  const int c = blockIdx.x;
+  const float2 t = chunk_total(part + c * S, S, sh);
+  if (threadIdx.x == 0) out[c] = t;
+}
+
+// y over chunk s of channel c from the global sums: one-pass moments about
+// center (mean = center + m1, var = max(m2 - m1^2, 0)), or, under exact,
+// the mean given as center and var = sum (x - mean)^2 / n.
+template <typename T, int UB>
+__global__ void __launch_bounds__(kSplitThreads)
+fwd_apply_sums(const T* __restrict__ x, T* __restrict__ y,
+               const float2* __restrict__ sums,
+               const float* __restrict__ center,
+               const float* __restrict__ gamma,
+               const float* __restrict__ beta, float* __restrict__ stats,
+               Geom g, int C, float n, float eps, int fix_gamma, int relu,
+               int exact) {
+  using U = Unit<T, UB>;
+  const int s = blockIdx.x, c = blockIdx.y;
+  const float2 t = sums[c];
+  float mean, var;
+  if (exact) {
+    mean = center[c];
+    var = t.y / n;
+  } else {
+    const float m1 = t.x / n, m2 = t.y / n;
+    mean = center[c] + m1;
+    var = fmaxf(m2 - m1 * m1, 0.f);
+  }
+  const Affine f = affine(mean, var, eps, gamma, beta, c, fix_gamma);
+  if (s == 0 && threadIdx.x == 0) write_stats(stats, C, c, f);
+  const int lo = s * g.share, hi = min(lo + g.share, g.units);
+  const U* xc = reinterpret_cast<const U*>(x) + c * g.hwu;
+  U* yc = reinterpret_cast<U*>(y) + c * g.hwu;
+  for (Cursor<1> cu(g, lo); cu.more(hi);) {
+    int idx[1], off[1];
+    cu.next(g, lo, hi, idx, off);
+    yc[off[0]] = apply_unit(xc[off[0]], f, relu);
+  }
+}
+
+// dx over chunk s of channel c from the global (dbeta, dgamma) sums.
+template <typename T, int UB>
+__global__ void __launch_bounds__(kSplitThreads)
+bwd_dx_sums(const T* __restrict__ du, const T* __restrict__ x,
+            T* __restrict__ dx, const float* __restrict__ mean,
+            const float* __restrict__ rstd, const float* __restrict__ scale,
+            const float* __restrict__ shift,
+            const float2* __restrict__ sums, Geom g, float n, int relu) {
+  using U = Unit<T, UB>;
+  const int s = blockIdx.x, c = blockIdx.y;
+  const Chan p = chan(mean, rstd, scale, shift, c, relu);
+  const float2 t = sums[c];
+  const float db_n = t.x / n, dg_n = t.y / n;
+  const int lo = s * g.share, hi = min(lo + g.share, g.units);
+  const U* xc = reinterpret_cast<const U*>(x) + c * g.hwu;
+  const U* dc = reinterpret_cast<const U*>(du) + c * g.hwu;
+  U* oc = reinterpret_cast<U*>(dx) + c * g.hwu;
+  for (Cursor<1> cu(g, lo); cu.more(hi);) {
+    int idx[1], off[1];
+    cu.next(g, lo, hi, idx, off);
+    oc[off[0]] = dx_unit(xc[off[0]], dc[off[0]], p, db_n, dg_n);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -671,6 +756,31 @@ bool decode(const int* p, Call& a, int& dtype, int& unit_bytes) {
          valid(a, unit_bytes, dtype == 0 ? 4 : 2);
 }
 
+
+// The element type and unit width of a decoded plan, as a type for the
+// generic lambdas of the split entry points.
+template <typename T, int UB>
+struct Tag {
+  using type = T;
+  static constexpr int ub = UB;
+};
+
+template <typename F>
+cudaError_t dispatch(int dtype, int unit_bytes, F&& f) {
+  switch (dtype * 100 + unit_bytes) {
+    case 16: return f(Tag<float, 16>{});
+    case 4: return f(Tag<float, 4>{});
+    case 116: return f(Tag<__nv_bfloat16, 16>{});
+    case 104: return f(Tag<__nv_bfloat16, 4>{});
+    case 102: return f(Tag<__nv_bfloat16, 2>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A split plan decoded, or false.
+bool decode_split(const int* plan, Call& a, int& dtype, int& unit_bytes) {
+  return decode(plan, a, dtype, unit_bytes) && a.plan == kSplit;
+}
 }  // namespace
 
 // The forward of one BatchNorm(+ReLU): y, and stats = (mean, var, rstd,
@@ -735,4 +845,121 @@ extern "C" int mx_bn_bwd(const void* du, const void* x, void* dx,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MX_BWD
+}
+
+// ---------------------------------------------------------------------------
+// cross-rank split entry points (a split plan each; see the kernels above).
+// Each returns the first failing launch's cudaError_t, 0 on success, and
+// cudaErrorInvalidValue without a launch for a plan that is not a split.
+// ---------------------------------------------------------------------------
+
+// sums[c] = (sum (x - cc), sum (x - cc)^2) over this rank's rows, cc =
+// center[c], or 0 when center is null. scratch: 16-byte aligned room for
+// C * chunks float2.
+extern "C" int mx_bn_fwd_partials(const void* x, const float* center,
+                                  float* sums, float* scratch,
+                                  const int* plan, int device,
+                                  void* stream) {
+  Call a;
+  int dtype, unit_bytes;
+  if (!decode_split(plan, a, dtype, unit_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mxcuda::DeviceGuard on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float2* part = reinterpret_cast<float2*>(scratch);
+  return static_cast<int>(dispatch(dtype, unit_bytes, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    constexpr int UB = decltype(tag)::ub;
+    const Geom g = geom<T, UB>(a);
+    cudaError_t e = launch(fwd_partials<T, UB>, dim3(a.S, a.C), a.threads,
+                           0, 1, st, static_cast<const T*>(x), center,
+                           static_cast<const float2*>(nullptr), part, g,
+                           a.S);
+    if (e != cudaSuccess) return e;
+    return launch(chunk_sums, dim3(a.C), kSplitThreads, 0, 1, st,
+                  static_cast<const float2*>(part),
+                  reinterpret_cast<float2*>(sums), a.S);
+  }));
+}
+
+// y and stats = (mean, var, rstd, scale, shift) as 5 rows of C floats from
+// the all-reduced sums over n elements a channel (see fwd_apply_sums).
+extern "C" int mx_bn_fwd_apply(const void* x, void* y, const float* sums,
+                               const float* center, const float* gamma,
+                               const float* beta, float* stats,
+                               const int* plan, float n, float eps,
+                               int fix_gamma, int relu, int exact,
+                               int device, void* stream) {
+  Call a;
+  int dtype, unit_bytes;
+  if (!decode_split(plan, a, dtype, unit_bytes) || !(n > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mxcuda::DeviceGuard on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch(dtype, unit_bytes, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    constexpr int UB = decltype(tag)::ub;
+    const Geom g = geom<T, UB>(a);
+    return launch(fwd_apply_sums<T, UB>, dim3(a.S, a.C), a.threads, 0, 1,
+                  st, static_cast<const T*>(x), static_cast<T*>(y),
+                  reinterpret_cast<const float2*>(sums), center, gamma,
+                  beta, stats, g, a.C, n, eps, fix_gamma, relu, exact);
+  }));
+}
+
+// sums[c] = (sum dv, sum dv * x^) over this rank's rows, dv = du masked by
+// the ReLU. scratch as mx_bn_fwd_partials.
+extern "C" int mx_bn_bwd_partials(const void* du, const void* x,
+                                  const float* mean, const float* rstd,
+                                  const float* scale, const float* shift,
+                                  float* sums, float* scratch,
+                                  const int* plan, int relu, int device,
+                                  void* stream) {
+  Call a;
+  int dtype, unit_bytes;
+  if (!decode_split(plan, a, dtype, unit_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mxcuda::DeviceGuard on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float2* part = reinterpret_cast<float2*>(scratch);
+  return static_cast<int>(dispatch(dtype, unit_bytes, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    constexpr int UB = decltype(tag)::ub;
+    const Geom g = geom<T, UB>(a);
+    cudaError_t e = launch(bwd_partials<T, UB>, dim3(a.S, a.C), a.threads,
+                           0, 1, st, static_cast<const T*>(du),
+                           static_cast<const T*>(x), mean, rstd, scale,
+                           shift, part, g, a.S, relu);
+    if (e != cudaSuccess) return e;
+    return launch(chunk_sums, dim3(a.C), kSplitThreads, 0, 1, st,
+                  static_cast<const float2*>(part),
+                  reinterpret_cast<float2*>(sums), a.S);
+  }));
+}
+
+// dx from the all-reduced (dbeta, dgamma) sums over n elements a channel.
+extern "C" int mx_bn_bwd_dx(const void* du, const void* x, void* dx,
+                            const float* mean, const float* rstd,
+                            const float* scale, const float* shift,
+                            const float* sums, const int* plan, float n,
+                            int relu, int device, void* stream) {
+  Call a;
+  int dtype, unit_bytes;
+  if (!decode_split(plan, a, dtype, unit_bytes) || !(n > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mxcuda::DeviceGuard on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch(dtype, unit_bytes, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    constexpr int UB = decltype(tag)::ub;
+    const Geom g = geom<T, UB>(a);
+    return launch(bwd_dx_sums<T, UB>, dim3(a.S, a.C), a.threads, 0, 1, st,
+                  static_cast<const T*>(du), static_cast<const T*>(x),
+                  static_cast<T*>(dx), mean, rstd, scale, shift,
+                  reinterpret_cast<const float2*>(sums), g, n, relu);
+  }));
 }

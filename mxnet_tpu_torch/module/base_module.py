@@ -352,8 +352,13 @@ class BaseModule(object):
         if aug_spec and not self.binded and \
                 getattr(self, "_device_augment", None) == {}:
             self._device_augment = dict(aug_spec)
-        self.bind(data_shapes=train_data.provide_data,
-                  label_shapes=train_data.provide_label,
+        # a sharded iterator reports the global batch; each rank binds
+        # its own rows (the rank's block, the reference's per-worker
+        # batch) and the step's all-reduce makes the global batch
+        self.bind(data_shapes=getattr(train_data, "local_provide_data",
+                                      None) or train_data.provide_data,
+                  label_shapes=getattr(train_data, "local_provide_label",
+                                       None) or train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
         if monitor is not None:
             self.install_monitor(monitor)
@@ -408,6 +413,11 @@ class BaseModule(object):
                 loader.close()
             if guardian is not None:
                 guardian.disarm()
+        # dist_async holds each key's last reduction in flight: apply it
+        # before fit returns (the store's barrier drains it)
+        kv = getattr(self, "_kvstore", None)
+        if kv is not None and kv.type == "dist_async":
+            kv.barrier()
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, begin_epoch, num_epoch, group_k,

@@ -11,8 +11,11 @@ groups bound at several batch sizes or sequence lengths (the buckets of
 a ``BucketingModule``) hold one copy of the parameters. ``reshape``
 binds again at new input shapes through ``Executor.reshape``:
 parameters, aux states and their gradients stay the same tensors.
-Splitting a batch over several devices comes with a later slice of the
-port.
+Splitting a batch over several devices of one process comes with the
+model-parallel half of the port (ROADMAP A8b); across processes,
+``Module.bind`` sets the data-parallel world (``_dp``: the group holds
+the rank's row block, sums the gradients over the ranks after the
+backward, and runs BatchNorm over the global batch).
 """
 from __future__ import annotations
 
@@ -24,12 +27,21 @@ __all__ = ["DataParallelExecutorGroup"]
 
 
 class DataParallelExecutorGroup(object):
+    # the data-parallel world (a dist.DistRuntime of two or more ranks,
+    # set by Module.bind) and whether the group sums its gradients over
+    # it (False when a dist_async kvstore reduces them instead)
+    _dp = None
+    _reduce_grads = False
+
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
                  grad_req="write", shared_group=None,
                  inputs_need_grad=False):
         if len(contexts) != 1:
-            raise MXNetError("this slice of the port binds one device")
+            raise MXNetError("one process binds one device; several "
+                             "contexts in one process come with the "
+                             "model-parallel half of the port (ROADMAP "
+                             "A8b)")
         symbol = fuse_bn_relu(symbol)
         self.symbol = symbol
         self.contexts = contexts
@@ -142,6 +154,18 @@ class DataParallelExecutorGroup(object):
         for name, block in zip(self.aux_names, self.aux_arrays):
             block[0].copyto(aux_params[name])
 
+    def _dp_scope(self):
+        """The cross-rank BatchNorm scope of a training pass."""
+        from ..ops.nn import cross_rank_bn
+        return cross_rank_bn(self._dp)
+
+    def _reduce_grad_arrays(self):
+        """Sum the gradient arrays over the ranks in place."""
+        if self._reduce_grads:
+            self._dp.allreduce_tensors_(
+                [g._read() for g in self.execs[0].grad_arrays
+                 if g is not None])
+
     def forward(self, data_batch, is_train=None):
         if is_train is None:
             is_train = self.for_training
@@ -150,6 +174,10 @@ class DataParallelExecutorGroup(object):
         if self.label_arrays is not None and data_batch.label:
             for src, dst in zip(data_batch.label, self.label_arrays):
                 dst[0][:] = src
+        if is_train and self._dp is not None:
+            with self._dp_scope():
+                self.execs[0].forward(is_train=is_train)
+            return
         self.execs[0].forward(is_train=is_train)
 
     def install_monitor(self, mon):
@@ -165,7 +193,12 @@ class DataParallelExecutorGroup(object):
     def backward(self, out_grads=None):
         if not self.for_training:
             raise MXNetError("re-bind with for_training=True")
-        self.execs[0].backward(out_grads=out_grads)
+        if self._dp is None:
+            self.execs[0].backward(out_grads=out_grads)
+            return
+        with self._dp_scope():
+            self.execs[0].backward(out_grads=out_grads)
+        self._reduce_grad_arrays()
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.execs[0].outputs)

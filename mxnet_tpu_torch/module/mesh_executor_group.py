@@ -40,6 +40,13 @@ to the host. Here the step is one Python function over tensors,
   a grouped step draws one key and splits it into K; eval, ``predict``,
   ``score`` and ``score_stacked`` draw none. A net without such ops
   draws nothing.
+* Data parallelism (``_dp``, a ``dist.DistRuntime`` of R ranks set by
+  ``Module.bind``): the group holds this rank's row block; every
+  training forward and
+  backward runs inside ``ops.nn.cross_rank_bn`` (BatchNorm over the
+  global batch) and, unless a ``dist_async`` store reduces instead,
+  ``_grads_of`` sums the gradients over the ranks in one all-reduce per
+  dtype, the JAX step's ``psum``.
 * :meth:`step_update_grouped` runs K whole steps in one call over a
   (K, batch, ...) block staged with one copy per input, each step with
   its own lr row; K sequential steps give the same bits.
@@ -522,7 +529,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         int8/fp8 products, or a no-op), whose site counters restart
         here. ``tap(name, tensor)`` sees every op output (the serving
         cache's trace names the node it stops at)."""
-        scope = contextlib.nullcontext() if is_train else \
+        scope = self._dp_scope() if is_train else \
             trace_gemm_scope(self._precision)
         with torch.no_grad(), scope:
             outs, new_aux = self._eval_fn(
@@ -547,7 +554,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         leaves = {}
         vals = self._arg_vals(params, inputs, leaves)
         fn = self._remat_eval_fn or self._eval_fn
-        with torch.enable_grad():
+        with torch.enable_grad(), self._dp_scope():
             outs, new_aux = fn(vals, aux, True, key=key)
         return outs, new_aux, leaves
 
@@ -562,9 +569,12 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
             hs = [h * scale.to(h.dtype) for h in hs]
         pairs = [(o, h) for o, h in zip(outs, hs) if o.requires_grad]
         names = list(leaves)
-        got = torch.autograd.grad([o for o, _ in pairs],
-                                  [leaves[n] for n in names],
-                                  [h for _, h in pairs], allow_unused=True)
+        # the scope reaches a remat recompute inside the backward
+        with self._dp_scope():
+            got = torch.autograd.grad([o for o, _ in pairs],
+                                      [leaves[n] for n in names],
+                                      [h for _, h in pairs],
+                                      allow_unused=True)
         grads = {}
         for n, g in zip(names, got):
             if g is None:
@@ -573,6 +583,10 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         if scale is not None:
             inv = 1.0 / scale
             grads = {n: g * inv for n, g in grads.items()}
+        if self._reduce_grads:
+            # the data-parallel psum: every gradient summed over the ranks
+            # (one SUM all-reduce per dtype) before the optimizer
+            self._dp.allreduce_tensors_(list(grads.values()))
         return grads
 
     def _step_math(self, fa, params, aux, states, inputs, lrs, wds,

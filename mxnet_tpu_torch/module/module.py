@@ -19,9 +19,15 @@ per-executor route (``DataParallelExecutorGroup``); a precision mode
 other than f32, or ``device_augment``, refuses to bind there.
 ``device_augment={name: data.DeviceAugment}`` (usually adopted by ``fit``
 from the train iterator's ``device_augment_spec``) stages uint8 wire
-batches and runs the augment on the device at staging. Multi-device
-binding, mesh axes, parameter sharding and pipeline microbatches come
-with later slices of the port.
+batches and runs the augment on the device at staging.
+
+Data parallelism runs one process per device: under a live ``dist``
+runtime of R ranks each rank binds its row block, rank 0's parameters
+are broadcast at ``init_params``, the step sums the gradients over the
+ranks, BatchNorm reduces over the global batch, and checkpoint entries
+carry ``dp_width`` (rank 0 writes them). Several devices in one process,
+mesh axes, parameter sharding and pipeline microbatches come with the
+model-parallel half of the port (ROADMAP A8b).
 """
 from __future__ import annotations
 
@@ -53,14 +59,14 @@ class Module(BaseModule):
                  param_sharding=None, pipeline_microbatches=None,
                  device_augment=None, precision=None, _allow_fused=True):
         super().__init__(logger=logger)
-        for name, value, where in (
-                ("mesh_axes", mesh_axes, "the dist slice"),
-                ("param_sharding", param_sharding, "the dist slice"),
-                ("pipeline_microbatches", pipeline_microbatches,
-                 "the dist slice")):
+        for name, value in (("mesh_axes", mesh_axes),
+                            ("param_sharding", param_sharding),
+                            ("pipeline_microbatches", pipeline_microbatches)):
             if value:
-                raise MXNetError("Module(%s=...) comes with %s of the port"
-                                 % (name, where))
+                raise MXNetError(
+                    "Module(%s=...) comes with the model-parallel half of "
+                    "the port (ROADMAP A8b); data parallelism runs one "
+                    "process per device (mxnet_tpu_torch.dist)" % name)
         # the precision mode: a name or PrecisionPolicy (None consults
         # MXNET_PRECISION_MODE); it folds into compute_dtype and remat,
         # explicit keywords winning, and also sets the optimizer-state
@@ -96,8 +102,11 @@ class Module(BaseModule):
         if isinstance(context, ctx_mod.Context):
             context = [context]
         if len(context) != 1:
-            raise MXNetError("this slice of the port binds one device; got "
-                             "%d contexts" % len(context))
+            raise MXNetError(
+                "one process binds one device; got %d contexts (several "
+                "devices in one process come with the model-parallel half "
+                "of the port, ROADMAP A8b; data parallelism runs one "
+                "process per device, mxnet_tpu_torch.dist)" % len(context))
         context[0].torch_device()   # a gpu context without CUDA raises here
         self._context = context
         self._symbol = symbol
@@ -117,6 +126,11 @@ class Module(BaseModule):
         self._updater = None
         self._kvstore = None
         self._update_on_kvstore = False
+        # the store update() routes gradients through: None without one,
+        # and for a synchronous dist store, whose sum the group's step
+        # makes itself (over the dp world of the bind)
+        self._grad_kvstore = None
+        self._dp_reduce = True      # False: a dist_async store reduces
         self._preload_opt_states = None
         self._exec_group = None
         self._eval_pad_extra = 0
@@ -342,8 +356,15 @@ class Module(BaseModule):
                   "params_digest": params_digest(sym_json, arrays)}
         if self._precision is not None:
             merged["precision"] = self._precision.describe()
+        rt = getattr(grp, "_dp", None)
+        if rt is not None:
+            # the width it was trained at; a resume may run at another
+            merged["dp_width"] = rt.size
         if extra:
             merged.update(extra)
+        if rt is not None and rt.rank != 0:
+            # the ranks hold the same state: rank 0 commits the entry
+            return step
         manager.save(step, arrays, optimizer_state=opt_state, extra=merged,
                      async_save=async_save)
         self.logger.info('Staged checkpoint step %d into "%s"%s', step,
@@ -423,6 +444,14 @@ class Module(BaseModule):
         self.params_initialized = True
         self._params_dirty = False
         self._exec_group.set_params(self._arg_params, self._aux_params)
+        grp = self._exec_group
+        if grp._dp is not None:
+            # every rank starts from rank 0's values (the kvstore init of
+            # MXNet's dist training): one broadcast per dtype
+            grp._dp.broadcast_tensors_(
+                [a[0]._read() for a in grp.param_arrays] +
+                [a[0]._read() for a in grp.aux_arrays])
+            self._params_dirty = True
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
@@ -525,6 +554,7 @@ class Module(BaseModule):
                 self._symbol, self._context, data_shapes, label_shapes,
                 self._param_names, for_training, self._fixed_param_names,
                 grad_req, shared_group, inputs_need_grad)
+        self._attach_dp(self._exec_group)
         if shared_module is not None:
             self.params_initialized = True
             self._arg_params = shared_module._arg_params
@@ -534,6 +564,21 @@ class Module(BaseModule):
                 self.borrow_optimizer(shared_module)
         elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    def _attach_dp(self, grp):
+        """Give a new group the data-parallel world: the live runtime of
+        two or more ranks (``dist.runtime.dp_runtime``), whose ranks each
+        train their row block of one global batch."""
+        from ..dist.runtime import dp_runtime
+        grp._dp = dp_runtime()
+        grp._reduce_grads = grp._dp is not None and self._dp_reduce
+
+    @property
+    def dp_world(self):
+        """The number of ranks this module's step spans (1 alone)."""
+        grp = self._exec_group
+        rt = getattr(grp, "_dp", None)
+        return rt.size if rt is not None else 1
 
     def _fused_eligible(self, shared_group, inputs_need_grad, grad_req):
         """Whether a bind takes the fused route: allowed
@@ -574,6 +619,7 @@ class Module(BaseModule):
             self._symbol, self._context, grp.data_shapes, grp.label_shapes,
             self._param_names, self.for_training, self._fixed_param_names,
             "write", None, False)
+        self._attach_dp(self._exec_group)
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
         self.logger.info("%s: training continues on the classic route",
@@ -591,19 +637,39 @@ class Module(BaseModule):
         the optimizer and every ``update()`` pushes the gradients to it
         and pulls the weights back (update on the kvstore). Without a
         store, on the fused route, it turns on the one-function step
-        that ``update()`` runs."""
+        that ``update()`` runs.
+
+        Data parallelism (a bind over a world of R ranks, or a dist
+        store): ``dist_sync``, ``dist_device_sync`` and ``dist`` keep the
+        one-function step, which sums the gradients over the ranks (one
+        all-reduce) before the optimizer, every rank applying the same
+        update; ``rescale_grad`` defaults to 1/(R × batch), the global
+        batch, as the JAX package's ``psum`` step has it. ``dist_async``
+        updates on its store (each push applied one step late) from the
+        rank's own gradients, with ``rescale_grad`` 1/batch (the
+        reference scales ``_sync`` kinds only)."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params first")
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring")
             return
+        from ..kvstore import SYNC_DIST
         kvstore, update_on_kvstore = _create_kvstore(kvstore, 1,
                                                      self._arg_params)
+        grp = self._exec_group
+        sync_dist = kvstore is not None and kvstore.type in SYNC_DIST
+        if sync_dist:
+            update_on_kvstore = False   # the step sums; every rank updates
+        self._dp_reduce = not (kvstore is not None
+                               and kvstore.type == "dist_async")
+        grp._reduce_grads = grp._dp is not None and self._dp_reduce
+        batch = grp.batch_size
+        if self._dp_reduce:
+            batch *= self.dp_world
         want = self._opt_state_dtype
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
-            optimizer_params.setdefault("rescale_grad",
-                                        1.0 / self._exec_group.batch_size)
+            optimizer_params.setdefault("rescale_grad", 1.0 / batch)
             if want is not None:
                 optimizer_params.setdefault("state_dtype", want)
             optimizer = opt.create(
@@ -621,10 +687,11 @@ class Module(BaseModule):
                     "two settings" % (have, self.precision_mode, want))
         self._optimizer = optimizer
         self._kvstore = kvstore
+        self._grad_kvstore = None if sync_dist else kvstore
         self._update_on_kvstore = update_on_kvstore
         self._updater = None
-        if kvstore:
-            _initialize_kvstore(kvstore, self._exec_group.param_arrays,
+        if self._grad_kvstore:
+            _initialize_kvstore(kvstore, grp.param_arrays,
                                 self._arg_params, self._param_names,
                                 update_on_kvstore)
         if update_on_kvstore:
@@ -633,7 +700,7 @@ class Module(BaseModule):
             self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._fused:
-            self._exec_group._step_enabled = kvstore is None
+            grp._step_enabled = self._grad_kvstore is None
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
@@ -646,10 +713,11 @@ class Module(BaseModule):
         self._optimizer = shared_module._optimizer
         self._updater = shared_module._updater
         self._kvstore = shared_module._kvstore
+        self._grad_kvstore = shared_module._grad_kvstore
         self._update_on_kvstore = shared_module._update_on_kvstore
         self.optimizer_initialized = True
         if self._fused:
-            self._exec_group._step_enabled = self._kvstore is None
+            self._exec_group._step_enabled = self._grad_kvstore is None
 
     def reshape(self, data_shapes, label_shapes=None):
         """Bind again at new input shapes on the same parameters: every
@@ -669,8 +737,22 @@ class Module(BaseModule):
         train = self.for_training if is_train is None else bool(is_train)
         if not train:
             data_batch = self._pad_eval_tail(data_batch)
+        else:
+            data_batch = self._rank_block(data_batch)
         self._reshape_to(data_batch)
         self._exec_group.forward(data_batch, is_train)
+
+    def _rank_block(self, batch):
+        """A training batch of R times the bound rows under a data-parallel
+        world of R ranks is a replicated global batch: this rank trains
+        its row block of it (``dist.sharded_iter.rank_batch``). Any other
+        batch is the rank's own."""
+        grp = self._exec_group
+        rt = getattr(grp, "_dp", None)
+        if rt is None or batch.data[0].shape[0] != grp.batch_size * rt.size:
+            return batch
+        from ..dist.sharded_iter import rank_batch
+        return rank_batch(batch, rt.rank, rt.size)
 
     def _reshape_to(self, batch):
         """Re-bind at ``batch``'s shapes when they differ from the bound
@@ -746,11 +828,11 @@ class Module(BaseModule):
             _update_params_on_kvstore(grp.param_arrays, grp.grad_arrays,
                                       self._kvstore)
             return
-        if self._fused and self._kvstore is None and \
+        if self._fused and self._grad_kvstore is None and \
                 grp.step_update(self._updater):
             return
         _update_params(grp.param_arrays, grp.grad_arrays, self._updater,
-                       kvstore=self._kvstore)
+                       kvstore=self._grad_kvstore)
 
     def grouped_train_engaged(self):
         """Whether a grouped (``fit(batch_group=K)``) step has run on

@@ -11,6 +11,7 @@ masks and slopes from the node's key (``random.key_uniform``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from ..registry import register
+from ..kernels import batchnorm as _bnk
 from ..kernels.batchnorm import bn_fwd, bn_bwd
 from ..precision import quant as _quant
 from .. import random as _random
@@ -425,22 +427,65 @@ def _exact_stats():
     return os.environ.get("MXNET_BN_EXACT_STATS", "0") == "1"
 
 
+# the runtime of the open cross_rank_bn scope: process-wide, not per
+# thread, since autograd may run a backward (and a remat recompute inside
+# it) on its own device thread
+_CROSS_RANK = [None]
+
+
+@contextlib.contextmanager
+def cross_rank_bn(runtime):
+    """Within this scope a training BatchNorm reduces its statistics and
+    backward sums over the ranks of ``runtime`` (a ``dist.DistRuntime``
+    of two or more ranks; None leaves the core on this process's rows).
+    The executor groups of a data-parallel module open it around every
+    training forward and backward."""
+    prev = _CROSS_RANK[0]
+    _CROSS_RANK[0] = runtime
+    try:
+        yield
+    finally:
+        _CROSS_RANK[0] = prev
+
+
+def _cross_rank_runtime():
+    rt = _CROSS_RANK[0]
+    return rt if rt is not None and rt.size > 1 else None
+
+
 class _BNTrainCore(torch.autograd.Function):
     """The train-mode BatchNorm(+ReLU) core with its hand-derived backward
-    (the JAX package's ``_bn_train_core_make``): forward ``bn_fwd``,
-    backward ``bn_bwd``. mean and var carry no gradient (their only
-    consumer is the moving-stat EMA); the centre c has zero gradient by
-    construction (mean = c + E[x − c]); fix_gamma gives zero dγ. dx is
-    computed only where x needs a gradient (not for the data's
-    BatchNorm, as the JAX step differentiates the parameters only)."""
+    (the JAX package's ``_bn_train_core_make``). Two explicit routes:
+
+    * one process (no ``cross_rank_bn`` scope, or a world of one): the
+      one-call pair, forward ``bn_fwd`` and backward ``bn_bwd``;
+    * a world of two or more ranks: the cross-rank split
+      (``kernels.batchnorm.bn_fwd_split``/``bn_bwd_split``), whose
+      statistics and dx are those of the global batch, as the JAX
+      package's core under a dp mesh computes them. Its dγ and dβ are the
+      rank's own partial sums, summed over the ranks with every other
+      gradient by the step.
+
+    mean and var carry no gradient (their only consumer is the
+    moving-stat EMA); the centre c has zero gradient by construction
+    (mean = c + E[x − c]); fix_gamma gives zero dγ. dx is computed only
+    where x needs a gradient (not for the data's BatchNorm, as the JAX
+    step differentiates the parameters only)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, c, eps, fix_gamma, relu, exact):
         x = x.contiguous()
-        y, mean, var, rstd, scale, shift = bn_fwd(
-            x, gamma, beta, c, eps, fix_gamma, relu, exact)
+        rt = _cross_rank_runtime()
+        if rt is None:
+            y, mean, var, rstd, scale, shift = bn_fwd(
+                x, gamma, beta, c, eps, fix_gamma, relu, exact)
+        else:
+            y, mean, var, rstd, scale, shift = _bnk.bn_fwd_split(
+                x, gamma, beta, c, eps, fix_gamma, relu, exact,
+                rt.allreduce_, rt.size)
         ctx.save_for_backward(x, rstd, mean, scale, shift)
         ctx.flags = (fix_gamma, relu, gamma.dtype, beta.dtype)
+        ctx.runtime = rt
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -448,8 +493,15 @@ class _BNTrainCore(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, rstd, mean, scale, shift = ctx.saved_tensors
         fix_gamma, relu, gdt, bdt = ctx.flags
-        dx, dbeta, dgamma = bn_bwd(dy.contiguous(), x, rstd, mean, scale,
-                                   shift, relu, ctx.needs_input_grad[0])
+        rt = ctx.runtime
+        if rt is None:
+            dx, dbeta, dgamma = bn_bwd(dy.contiguous(), x, rstd, mean,
+                                       scale, shift, relu,
+                                       ctx.needs_input_grad[0])
+        else:
+            dx, dbeta, dgamma = _bnk.bn_bwd_split(
+                dy.contiguous(), x, rstd, mean, scale, shift, relu,
+                ctx.needs_input_grad[0], rt.allreduce_, rt.size)
         dg = torch.zeros_like(dgamma) if fix_gamma else dgamma
         return dx, dg.to(gdt), dbeta.to(bdt), None, None, None, None, None
 

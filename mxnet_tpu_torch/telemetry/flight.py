@@ -178,6 +178,13 @@ class FlightRecorder(object):
         self.last_dump_path = path
         return path
 
+    def pop_last_dump(self):
+        """The most recent committed dump path, consumed: how
+        ``ElasticTrainer`` picks up the dump the fit loop already made
+        for a ``WorkerLost`` instead of writing a second one."""
+        path, self.last_dump_path = self.last_dump_path, None
+        return path
+
     # -- process hooks --------------------------------------------------
     @property
     def installed(self):

@@ -8,8 +8,10 @@ contexts) in fixed order, a custom updater, ``set_optimizer`` (SGD, and
 SGD with momentum over 3 pushes), pull into a list, the kinds and
 ``get_num_dead_node``; the pulled values agree within rtol 1e-5,
 atol 1e-6 (float32) and the sums exactly. The optimizer states
-round-trip through the port's v2 payload. The ``dist_*`` kinds raise
-``MXNetError`` naming ROADMAP A8. ``Module.fit`` with a ``KVStore``
+round-trip through the port's v2 payload. The ``dist_*`` kinds work in
+a world of one (rank 0, one worker, a free barrier; ``dist_async`` one
+push late); their multi-process cases are
+``tests/test_torch_dist_multiprocess.py``'s. ``Module.fit`` with a ``KVStore``
 instance (the update on the store, by push and pull) gives the same
 parameters, bit for bit, as ``kvstore="local"`` (no store on one device,
 the fused step), and ``SequentialModule`` stages train on it too.
@@ -142,15 +144,27 @@ def test_pull_broadcast_multi_devs():
 
 
 def test_kvstore_types_and_dist_refusals():
+    """Every kind is created; in a world of one the dist kinds are rank 0
+    of one worker with no dead node and a free barrier, dist_sync applies
+    a push at once and dist_async one push later (the barrier applies
+    the last). Only an unknown kind is refused."""
     for kind in ["local", "device", "local_allreduce_cpu",
-                 "local_allreduce_device"]:
+                 "local_allreduce_device", "dist_sync", "dist_async",
+                 "dist_device_sync", "dist"]:
         kv = tkvs.create(kind)
         assert kv.type == kind and kv.rank == 0 and kv.num_workers == 1
         assert kv.get_num_dead_node(0) == 0
         kv.barrier()
-    for kind in ["dist_sync", "dist_async", "dist_device_sync", "dist"]:
-        with pytest.raises(tmx.MXNetError, match="A8"):
-            tkvs.create(kind)
+    for kind, lag in [("dist_sync", False), ("dist_async", True)]:
+        kv = tkvs.create(kind)
+        kv.init(3, tmx.nd.ones(SHAPE, ctx=tmx.cpu()))
+        kv.push(3, tmx.nd.ones(SHAPE, ctx=tmx.cpu()) * 4)
+        out = tmx.nd.zeros(SHAPE, ctx=tmx.cpu())
+        kv.pull(3, out=out)
+        assert (out.asnumpy() == (1.0 if lag else 4.0)).all(), kind
+        kv.barrier()
+        kv.pull(3, out=out)
+        assert (out.asnumpy() == 4.0).all(), kind
     with pytest.raises(tmx.MXNetError):
         tkvs.create("bogus_type")
     assert tmx.kv is tkvs and tmx.kvstore is tkvs

@@ -42,7 +42,7 @@ RTOL, ATOL = 1e-5, 1e-6
 LOOSE = 1e-4
 
 DEFERRED = {
-    # ops/parallel_ops.py (ROADMAP A8) and torch.py (A10)
+    # ops/parallel_ops.py (ROADMAP A8b) and torch.py (A10)
     "MoE", "RingAttention", "TorchCriterion", "TorchModule",
 }
 
