@@ -74,7 +74,7 @@ result line) if any phase fails:
    1e-5; one more training step of the source leaves served rows as
    they were); per bucket the forward's device time (CUDA events, and a
    CUDA graph replay), host enqueue, call, host→card copy and readback
-   times; 8 clients for 10 s of bench.py's request mix through the
+   times; 8 clients for 5 s of bench.py's request mix through the
    batcher (requests/s, rows/s, p50/p99, batch fill, rejects, compiles
    after warmup: 0, launches per bucket, the device's estimated busy
    share); each client's last rows checked bit for bit; and no
@@ -211,7 +211,7 @@ result line) if any phase fails:
    one RNN launch a step, and 10 steps under the profiler (device busy,
    idle share). (c) ``mxnet_tpu_torch.examples.bucketing_lstm`` at
    MXNet 0.9.5 lstm_bucketing.py's widths (2 × 200 LSTM, embedding 200,
-   batch 32, buckets 10–60, a 10,000-word vocabulary over 6,400 Zipf
+   batch 32, buckets 10–60, a 10,000-word vocabulary over 3,200 Zipf
    sentences, 2 epochs), twice from one seed under deterministic cuDNN,
    the first with per-bucket times: ms a step by bucket, positions/s,
    the six buckets bound on one parameter and gradient storage
@@ -409,7 +409,38 @@ result line) if any phase fails:
    (``examples.elastic_virtual_hosts``) on the card: 4 virtual hosts
    → 2, the resume bit for bit equal to the continuous width-2 run, at
    resnet-20 width and with the JAX script's MLP (its accuracy assert);
-20. the kernels line (each kernel's launches on every path, decode's
+20. gateway: the network serving plane (``gateway``, ``autopilot``,
+   ``scenarios``), float32, TF32 off, cuDNN deterministic. (a) A
+   ``GatewayServer`` on 127.0.0.1 (port 0) over a ``ReplicaPool`` of two
+   ResNet-50 ``Predictor``s (224², 1000 classes, Xavier weights from seed
+   0, buckets 2…32, warmed) and phase 10 (a)'s LSTM ``DecodeEngine``:
+   64 predict requests of 1 row from 8 client threads, each bit
+   for bit a direct ``Predictor`` call on the same rows; p50/p95 of a
+   bucket-8 predict through the gateway against a direct call (and the
+   JSON encode and decode of its 24 MB body); 8 concurrent
+   ``/v1/generate`` streams, each byte for byte the engine's own greedy
+   stream, and the time to the first token through the gateway against
+   the engine's; the ``gateway.accept`` (flood healed by the client's
+   retry), ``gateway.route`` (503, then served) and ``gateway.stream``
+   (transient, the exact stream) seams; a drain with a request in
+   flight: ``/readyz`` 503, the request completed bit for bit, new
+   requests 503;
+   no kernel of ours launched. (b) The pool from 1 to 2 to 1 replica
+   under the ``Autopilot`` (an SLO breach, the ``autopilot.scale`` seam
+   failing the first spin-up, cooldown, the retry, sustained idle) while
+   4 threads predict through it: no request enters a released replica
+   and every reply is bit for bit; a NaN-poisoned checkpoint generation
+   admitted by the ``CanaryController`` is rolled back on its probe and
+   the stable tenant's rows stay bit for bit; ``ElasticTrainer`` over 4
+   virtual hosts of resnet-20 (28², batch 32, 16 steps) with a
+   ``PeerCheckpointStore``: hosts 1 and 3 die at update 6, the resume
+   comes from peer memory and trains to the disk resume's parameters bit
+   for bit, the store's newest capture restores the manager's entry bit
+   for bit, 20 + 20 BN launches a step. (c) ``scenarios.run_matrix()``:
+   all six scenarios green on the card with 0 post-warmup retraces
+   (``ssd_toy`` launches the NMS kernels), and ``chaos_sweep`` of
+   ``nce_loss`` healed to the fault-free digest;
+21. the kernels line (each kernel's launches on every path, decode's
    and rnn's 0 among them, ``launches_api`` the BN kernels' 60 + 60 over
    phase 14 (b)'s three steps, ``launches_quant`` their 240 + 240 over
    phase 15 (d), ``launches_vision`` every earlier kernel's 0 over phase
@@ -419,6 +450,7 @@ result line) if any phase fails:
    twin and every other count 0, ``launches_dist`` every kernel's
    launches summed over phase 19 (c)'s two ranks, the four split entry
    points with ``launches`` from that run and ``launches_by_rank``,
+   ``launches_gateway`` every kernel's launches over phase 20 (a)-(c),
    and the BN kernels' bfloat16, imagenet-twin and zoo launches and
    times, inception-v3's per-step times), the seconds of each phase,
    the card's nvidia-smi line, and the result line.
@@ -1706,7 +1738,7 @@ def fit_phase(mx, K, card, hand_img_per_s):
 # ---------------------------------------------------------------------------
 SERVE_MAX_BATCH = 32
 SERVE_SIZES = (1, 2, 3, 8, 16)     # bench.py _bench_serve's request mix
-SERVE_CLIENTS, SERVE_SECONDS = 8, 10.0
+SERVE_CLIENTS, SERVE_SECONDS = 8, 5.0
 SERVE_PARITY_ROWS = (2, 4, 5, 8, 16, 32, 70)   # 5 pads to 8, 70 chunks
 
 
@@ -2277,43 +2309,52 @@ def cifar_twin_phase(mx, K, card, copy_rate):
     check("snapshot", snap.pop("ok"), {"phase": "cifar_twin_snapshot",
                                        **snap, "card": card})
 
-    # as subprocesses: preempted after epoch 1, then resumed
-    ck = os.path.join(work, "preempt")
-    rc, tail = twin_subprocess(TWIN_ARGS + ["--checkpoint-dir", ck,
-                                            "--exit-after-epoch", "1"], work)
-    steps = CheckpointManager(ck).all_steps()
-    check("preempt", rc == 66 and steps == [0], {
-        "phase": "cifar_twin_preempt", "exit_code": rc,
-        "committed_steps": steps, "tail": tail if rc != 66 else None})
-    digest_path = os.path.join(work, "resumed.txt")
-    rc, tail = twin_subprocess(TWIN_ARGS + [
-        "--checkpoint-dir", ck, "--resume",
-        "--params-digest-out", digest_path], work)
-    resumed = open(digest_path).read().strip() if rc == 0 else None
-    check("resume", rc == 0 and resumed == res["params_digest"], {
-        "phase": "cifar_twin_resume", "exit_code": rc,
-        "params_digest": resumed, "uninterrupted": res["params_digest"],
-        "bit_for_bit": resumed == res["params_digest"],
-        "committed_steps": CheckpointManager(ck).all_steps(),
-        "tail": tail if rc != 0 else None})
-    if not reshape_check(mx, K, mod, n_bn):
-        failed.append("reshape")
     # bf16 with grouped steps, twice in subprocesses: the accuracy gate
-    # and a params_digest that repeats
-    digests, accs, tails = [], [], []
-    for i in range(2):
+    # and a params_digest that repeats. These two processes and the
+    # preempt / resume pair below are independent: they run at once
+    from concurrent.futures import ThreadPoolExecutor
+
+    def bf16_run(i):
         paths = [os.path.join(work, "bf16_%s%d.txt" % (k, i))
                  for k in ("digest", "acc")]
         t0 = time.time()
         rc, tail = twin_subprocess(TWIN_ARGS + TWIN_BF16_ARGS + [
             "--min-accuracy", str(TWIN_MIN_ACCURACY),
             "--params-digest-out", paths[0], "--acc-out", paths[1]], work)
+        return rc, tail, paths, time.time() - t0
+
+    with ThreadPoolExecutor(2) as runner:
+        bf16 = [runner.submit(bf16_run, i) for i in range(2)]
+        # as subprocesses: preempted after epoch 1, then resumed
+        ck = os.path.join(work, "preempt")
+        rc, tail = twin_subprocess(TWIN_ARGS + [
+            "--checkpoint-dir", ck, "--exit-after-epoch", "1"], work)
+        steps = CheckpointManager(ck).all_steps()
+        check("preempt", rc == 66 and steps == [0], {
+            "phase": "cifar_twin_preempt", "exit_code": rc,
+            "committed_steps": steps, "tail": tail if rc != 66 else None})
+        digest_path = os.path.join(work, "resumed.txt")
+        rc, tail = twin_subprocess(TWIN_ARGS + [
+            "--checkpoint-dir", ck, "--resume",
+            "--params-digest-out", digest_path], work)
+        resumed = open(digest_path).read().strip() if rc == 0 else None
+        check("resume", rc == 0 and resumed == res["params_digest"], {
+            "phase": "cifar_twin_resume", "exit_code": rc,
+            "params_digest": resumed, "uninterrupted": res["params_digest"],
+            "bit_for_bit": resumed == res["params_digest"],
+            "committed_steps": CheckpointManager(ck).all_steps(),
+            "tail": tail if rc != 0 else None})
+        if not reshape_check(mx, K, mod, n_bn):
+            failed.append("reshape")
+        runs = [f.result() for f in bf16]
+    digests, accs, tails = [], [], []
+    for i, (rc, tail, paths, seconds) in enumerate(runs):
         ok = rc == 0
         digests.append(open(paths[0]).read().strip() if ok else None)
         accs.append(float(open(paths[1]).read()) if ok else None)
         tails.append(None if ok else tail)
         emit({"phase": "cifar_twin_bf16_run", "run": i, "exit_code": rc,
-              "seconds": time.time() - t0})
+              "seconds": seconds, "concurrent": True})
     check("bf16_grouped", None not in digests and digests[0] == digests[1]
           and min(accs) >= TWIN_MIN_ACCURACY, {
               "phase": "cifar_twin_bf16_grouped", "args": TWIN_BF16_ARGS,
@@ -3329,7 +3370,9 @@ RNN_KINK = 1e-6
 RNN_TIME_CASES = [("ptb", m, False) for m in RNN_MODES] + \
     [("ptb", "lstm", True), ("char", "lstm", False)]
 RNN_TIME_REPS = 10
-RNN_PLAIN_REPS = 3       # the loop takes ~5,000 launches a call
+RNN_PLAIN_REPS = 1       # the loop takes ~5,000 launches and 30-220 ms
+#                          a call: one call is a long sample, and its
+#                          profiler trace was the phase's largest cost
 RNN_DEVICE = "cuda"
 # the JAX script's lr 0.1 diverges at its own default width in both
 # packages (the JAX script's perplexity is NaN from epoch 0 on the CPU;
@@ -3338,7 +3381,7 @@ CHAR_TWIN_ARGS = ["--gpus", "0", "--lr", "0.01"]
 BUCKET_TWIN_ARGS = ["--gpus", "0", "--num-layers", "2", "--num-hidden",
                     "200", "--num-embed", "200", "--batch-size", "32",
                     "--buckets", "10,20,30,40,50,60", "--vocab-size",
-                    "10000", "--zipf", "1.0", "--sentences", "6400",
+                    "10000", "--zipf", "1.0", "--sentences", "3200",
                     "--num-epochs", "2", "--seed", "7"]
 RNN_PROFILE_STEPS = 10
 
@@ -5987,10 +6030,10 @@ def serve_twin(args, cwd):
             res.stdout[-1500:] + res.stderr[-3000:])
 
 
-def sc_twins(mx, work, card, check):
-    """(a) the cold replica (trains, checkpoints, serves, commits) and (b)
-    the warm one, in two processes sharing one checkpoint and one cache
-    directory. Returns the cold run's numbers."""
+def sc_cold(mx, work, card, check):
+    """(a) the cold replica (trains, checkpoints, serves, commits) in a
+    process of its own. Returns its numbers and the checkpoint
+    directory."""
     per_step = sum(model_bn_shapes(mx, SC_NETWORK, (3, 28, 28), 10,
                                    SC_BATCH).values())
     ck, cache = os.path.join(work, "ck"), os.path.join(work, "cache")
@@ -6011,6 +6054,14 @@ def sc_twins(mx, work, card, check):
            "bn_per_step": per_step, "bn_want": want_bn,
            "numbers": cold, "tail": None if rc == 0 else tail,
            "card": card})
+    return cold, ck
+
+
+def sc_warm(work, card, check, cold):
+    """(b) the warm replica, in another process on the cold one's
+    checkpoint and cache directory."""
+    ck, cache = os.path.join(work, "ck"), os.path.join(work, "cache")
+    buckets = sorted(cold.get("warmup", {}), key=int)
     rc, warm, sec, tail = serve_twin(
         ["--checkpoint-dir", ck, "--cache-dir", cache, "--expect-warm",
          "--digest-out", os.path.join(work, "warm.sha")], work)
@@ -6032,7 +6083,6 @@ def sc_twins(mx, work, card, check):
         b: {"cold_ms": cold["warmup"][b]["warmup_ms"],
             "warm_ms": warm.get("warmup", {}).get(b, {}).get("warmup_ms")}
         for b in buckets}})
-    return cold, ck
 
 
 def sc_predictor(mx, mod, cache=None, top=SC_MAX_BATCH):
@@ -6293,10 +6343,20 @@ def serve_cache_phase(mx, K, C, R, card):
     work = tempfile.mkdtemp(prefix="serve_cache_", dir=os.path.join(
         ROOT, "build"))
     try:
-        cold, ck = sc_twins(mx, work, card, check)
+        cold, ck = sc_cold(mx, work, card, check)
         mod = mx.mod.Module.load(ck, context=sc_ctx(mx))
         X = np.random.RandomState(3).rand(
             max(SC_ROWS), 3, 28, 28).astype(np.float32)
+        # the warm replica's process reads only the cold one's checkpoint
+        # and cache, which nothing here writes until it is done: the
+        # checks on directories of their own run beside it
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(1) as runner:
+            warm = runner.submit(sc_warm, work, card, check, cold)
+            sc_calibration(mx, mod, X, work, check)
+            sc_decode(mx, work, check)
+            sc_howtos(work, card, check)
+            warm.result()
         eager = sc_predictor(mx, mod)
         want = {n: eager.predict(X[:n]) for n in SC_ROWS}
         # this process loads what the cold twin's process committed
@@ -6312,9 +6372,6 @@ def serve_cache_phase(mx, K, C, R, card):
         eager.release()
         cached.release()
         sc_damaged_entries(mx, mod, X, cache, check)
-        sc_calibration(mx, mod, X, work, check)
-        sc_decode(mx, work, check)
-        sc_howtos(work, card, check)
         sc_sync()
         inproc = vision_counts(K, C, R)
         check("kernels in process", not any(inproc.values()),
@@ -6692,7 +6749,7 @@ def dist_loss(mx, params, x, y):
         p[np.arange(len(y)), y.astype(int)], 1e-30)).mean())
 
 
-def dist_two_ranks(mx, K, card, work):
+def dist_two_ranks(mx, K, card, work, beside=None):
     """(c) ResNet-50 trained by two ranks on the one card over gloo,
     launched by tools/launch.py through the ImageNet twin with
     ``--kv-store dist_sync`` (32 rows a rank, ``DIST_STEPS`` steps),
@@ -6717,11 +6774,21 @@ def dist_two_ranks(mx, K, card, work):
     dist_s = time.time() - t0
     ranks = [json.loads(ln.split("DIST_TWIN ", 1)[1])
              for ln in res.stdout.splitlines() if ln.startswith("DIST_TWIN ")]
+    # the two single processes at the global batch are independent: at
+    # once, and ``beside`` (a check of processes of its own) with them
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.time()
-    dist_run(dist_twin_cmd(pack, outs["one"], glob_batch), work)
+    with ThreadPoolExecutor(3) as runner:
+        singles = [runner.submit(dist_run, dist_twin_cmd(
+            pack, outs["one"], glob_batch), work),
+            runner.submit(dist_run, dist_twin_cmd(
+                pack, outs["one_exact"], glob_batch), work,
+                {"MXNET_BN_EXACT_STATS": "1"})]
+        if beside is not None:
+            singles.append(runner.submit(beside))
+        for f in singles:
+            f.result()
     one_s = time.time() - t0
-    dist_run(dist_twin_cmd(pack, outs["one_exact"], glob_batch), work,
-             env={"MXNET_BN_EXACT_STATS": "1"})
     p = {k: dict(np.load(v)) for k, v in outs.items()}
     names = sorted(n for n in p["one"] if n.startswith("arg:"))
 
@@ -6754,7 +6821,8 @@ def dist_two_ranks(mx, K, card, work):
     row = {"phase": "dist_two_ranks", "network": DIST_NETWORK,
            "ranks": DIST_RANKS, "rank_batch": DIST_RANK_BATCH,
            "steps": DIST_STEPS, "backend": "gloo", "card": card,
-           "per_rank": ranks, "two_rank_s": dist_s, "one_process_s": one_s,
+           "per_rank": ranks, "two_rank_s": dist_s,
+           "one_process_pair_s": one_s,
            "params_rel_l2": params_rel, "largest_diff_param": worst_key,
            "loss": loss, "loss_rel": loss_rel,
            "exact_spread_rel_l2": spread, "tolerance": tol,
@@ -6855,11 +6923,10 @@ def dist_phase(mx, K, C, R, card):
         ROOT, "build"))
     try:
         t0 = time.time()
-        launches, by_rank = dist_two_ranks(mx, K, card, work)
-        t["c"] = time.time() - t0
-        t0 = time.time()
-        dist_push_pull(work, card)
-        t["d"] = time.time() - t0
+        # (d) runs beside (c)'s two single processes
+        launches, by_rank = dist_two_ranks(
+            mx, K, card, work, beside=lambda: dist_push_pull(work, card))
+        t["c_and_d"] = time.time() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t0 = time.time()
@@ -6867,6 +6934,614 @@ def dist_phase(mx, K, C, R, card):
     t["e"] = time.time() - t0
     emit({"phase": "dist_seconds", **t})
     return launches, by_rank, totals, worst
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the network serving plane (gateway, autopilot, scenarios)
+# ---------------------------------------------------------------------------
+GW_DEVICE = "cuda"
+GW_NETWORK = "resnet-50"
+GW_IMAGE = (3, 224, 224)
+GW_CLASSES = 1000
+GW_MAX_BATCH = 32                 # buckets 2, 4, 8, 16, 32 (phase 18's)
+GW_CANARY_BUCKETS = [2, 8]        # (b)'s stable and canary Predictors
+GW_REQUESTS = 64
+GW_CLIENTS = 8
+GW_REQUEST_ROWS = (1,)            # cycled over the requests: the JSON of
+#                                   one 224² row is ~3 MB a way
+GW_TIME_ROWS = 8                  # bucket 8
+GW_TIME_REPS = 5
+GW_DIRECT_REPS = 20
+GW_DRAIN_ROWS = 8
+GW_STREAMS = 8
+GW_HAMMER_THREADS = 4
+GW_TICK_S = 0.2                   # between (b)'s ticks: the hammer threads
+#                                   serve across every change of the pool
+GW_PEER_NETWORK = "resnet-20"     # the CIFAR twin's net and crops
+GW_PEER_IMAGE = (3, 28, 28)
+GW_PEER_ROWS, GW_PEER_BATCH, GW_PEER_EPOCHS = 256, 32, 2   # 16 steps
+GW_PEER_EVERY = 2                 # a commit (and a capture) every 2 steps
+GW_PEER_FAULT = (6, (1, 3))       # hosts 1 and 3 lost at update 6
+GW_PEER_BN = 20                   # BatchNorms of resnet-20, each kernel
+
+
+def gw_ctx(mx):
+    return mx.cpu() if GW_DEVICE == "cpu" else mx.gpu(0)
+
+
+def gw_counts(K, C, R):
+    """Every kernel's launch count: phase 16's and the split entry
+    points."""
+    return dict(vision_counts(K, C, R),
+                **{k: getattr(K, k).launches for k in K.SPLIT_KERNELS})
+
+
+def gw_zero(K, C, R):
+    vision_zero(K, C, R)
+    for k in K.SPLIT_KERNELS:
+        getattr(K, k).launches = 0
+
+
+def gw_pct(values, p):
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, int(round(p / 100.0 * (len(vals) - 1))))]
+
+
+def gw_thread(target, name):
+    import threading
+    t = threading.Thread(target=target, name=name, daemon=True)
+    t.start()
+    return t
+
+
+def gw_source(mx):
+    """The served net at full width: an inference module, Xavier weights
+    from ``mx.random`` seed 0, bound at the top bucket."""
+    ctx = gw_ctx(mx)
+    mx.random.seed(0)
+    sym = mx.models.get_symbol(GW_NETWORK, num_classes=GW_CLASSES,
+                               image_shape=GW_IMAGE)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (GW_MAX_BATCH,) + GW_IMAGE)],
+             for_training=False)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    return mod
+
+
+def gw_pool(src, violations):
+    """A ReplicaPool of Predictors over ``src`` (1 to 2 replicas) whose
+    replicas record any request that enters one after its release."""
+    from mxnet_tpu_torch.autopilot import ReplicaPool
+    from mxnet_tpu_torch.serving import Predictor
+
+    class Guarded(Predictor):
+        closed = False
+
+        def predict(self, data):
+            if self.closed:
+                violations.append("entered a closed replica")
+            out = super().predict(data)
+            if self.closed:
+                violations.append("closed during predict")
+            return out
+
+        def release(self):
+            self.closed = True
+            super().release()
+
+    return ReplicaPool(lambda: Guarded(src, max_batch_size=GW_MAX_BATCH),
+                       min_replicas=1, max_replicas=2, start=False)
+
+
+def gw_raw_generate(port, prompt, n, seed):
+    """The bytes of one ``/v1/generate`` stream as the wire carries
+    them, and the seconds to its first token line."""
+    from http.client import HTTPConnection
+    body = json.dumps({"prompt": prompt, "max_new_tokens": n,
+                       "seed": seed}).encode()
+    conn = HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/generate", body,
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        first = r.readline()
+        ttft = time.perf_counter() - t0
+        rest = r.read()
+        return r.status, first + rest, ttft
+    finally:
+        conn.close()
+
+
+def gw_front_door(mx, card, pool, check):
+    """(a) The gateway over the pool (two replicas) and the decode
+    engine of phase 10 (a)."""
+    import numpy as np
+    from mxnet_tpu_torch import faults
+    from mxnet_tpu_torch.gateway import (GatewayClient, GatewayError,
+                                         GatewayServer)
+    from mxnet_tpu_torch.serving.decode import DecodeEngine
+    ctx = gw_ctx(mx)
+    cfg = DECODE_LSTM
+    model = decode_model(cfg)
+    eng = DecodeEngine(model, model.init_params(seed=cfg["seed"]),
+                       slots=cfg["slots"],
+                       max_prefill_len=cfg["max_prefill_len"], context=ctx)
+    srv = None
+    try:
+        eng.warmup()
+        srv = GatewayServer(predict_backend=pool, decode_backend=eng,
+                            host="127.0.0.1", port=0, drain_timeout_s=120)
+        cli = GatewayClient("127.0.0.1", srv.port, timeout=600)
+        ref_rep = pool.replicas[0]
+        rs = np.random.RandomState(20)
+        sizes = [GW_REQUEST_ROWS[i % len(GW_REQUEST_ROWS)]
+                 for i in range(GW_REQUESTS)]
+        xs = [rs.randn(n, *GW_IMAGE).astype(np.float32) for n in sizes]
+        refs = [ref_rep.predict(x) for x in xs]
+        got = [None] * GW_REQUESTS
+        errors = []
+
+        def client(k):
+            c = GatewayClient("127.0.0.1", srv.port, timeout=600)
+            for i in range(k, GW_REQUESTS, GW_CLIENTS):
+                try:
+                    got[i] = c.predict(xs[i])
+                except Exception as e:  # noqa: BLE001 - gated below
+                    errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [gw_thread(lambda k=k: client(k), "gw-smoke-client-%d" % k)
+                   for k in range(GW_CLIENTS)]
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        same = not errors and all(
+            g is not None and g.dtype == r.dtype and g.tobytes() == r.tobytes()
+            for g, r in zip(got, refs))
+        finite = all(np.isfinite(r).all() for r in refs)
+        outstanding = [pool.outstanding(r) for r in pool.replicas]
+        check("gateway predict parity", same and finite and not any(
+            t.is_alive() for t in threads),
+            {"phase": "gateway_predict", "requests": GW_REQUESTS,
+             "clients": GW_CLIENTS, "rows": sum(sizes),
+             "request_rows": list(GW_REQUEST_ROWS), "wall_s": wall,
+             "requests_per_s": GW_REQUESTS / wall,
+             "bitwise_vs_direct": same, "finite": finite,
+             "errors": errors[:3], "replicas": pool.size,
+             "outstanding_after": outstanding, "card": card})
+
+        # p50/p95 at bucket 8: through the gateway and direct
+        x8 = rs.randn(GW_TIME_ROWS, *GW_IMAGE).astype(np.float32)
+        gw_ms, direct_ms, enc_ms, dec_ms = [], [], [], []
+        ref8 = ref_rep.predict(x8)
+        same8 = True
+        for _ in range(GW_TIME_REPS):
+            t0 = time.perf_counter()
+            out = cli.predict(x8)
+            gw_ms.append(1e3 * (time.perf_counter() - t0))
+            same8 = same8 and out.tobytes() == ref8.tobytes()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            body = json.dumps({"rows": x8.tolist()}).encode()
+            t1 = time.perf_counter()
+            np.asarray(json.loads(body)["rows"], dtype=np.float32)
+            enc_ms.append(1e3 * (t1 - t0))
+            dec_ms.append(1e3 * (time.perf_counter() - t1))
+        for _ in range(GW_DIRECT_REPS):
+            t0 = time.perf_counter()
+            ref_rep.predict(x8)
+            direct_ms.append(1e3 * (time.perf_counter() - t0))
+        check("gateway bucket-8 rows", same8, {
+              "phase": "gateway_latency", "rows": GW_TIME_ROWS,
+              "bucket": ref_rep.bucket_for(GW_TIME_ROWS),
+              "gateway_ms_p50": gw_pct(gw_ms, 50),
+              "gateway_ms_p95": gw_pct(gw_ms, 95),
+              "direct_ms_p50": gw_pct(direct_ms, 50),
+              "direct_ms_p95": gw_pct(direct_ms, 95),
+              "json_encode_ms": statistics.median(enc_ms),
+              "json_decode_ms": statistics.median(dec_ms),
+              "request_mb": len(body) / 1e6,
+              "gateway_reps": GW_TIME_REPS, "direct_reps": GW_DIRECT_REPS,
+              "bitwise_vs_direct": same8, "card": card})
+
+        # streams: every generation byte for byte the engine's own
+        prompts = decode_prompts(cfg)[:GW_STREAMS]
+        n_new = cfg["new_tokens"]
+        direct, direct_ttft = [], []
+        for i, p in enumerate(prompts):
+            req = eng.submit(p, max_new_tokens=n_new, seed=i)
+            direct.append(req.result(timeout=600))
+            direct_ttft.append(req.ttft_ms)
+        res = [None] * len(prompts)
+
+        def stream(i):
+            res[i] = gw_raw_generate(srv.port, prompts[i], n_new, i)
+
+        threads = [gw_thread(lambda i=i: stream(i), "gw-smoke-stream-%d" % i)
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.join(600)
+        want = [b"".join(b"%d\n" % t for t in d) for d in direct]
+        same = all(r is not None and r[0] == 200 and r[1] == w
+                   for r, w in zip(res, want))
+        seq_ttft = [1e3 * gw_raw_generate(srv.port, p, n_new, i)[2]
+                    for i, p in enumerate(prompts)]
+        check("gateway streams", same,
+              {"phase": "gateway_streams", "streams": len(prompts),
+               "new_tokens": n_new, "byte_identical": same,
+               "ttft_ms_p50_gateway": statistics.median(seq_ttft),
+               "ttft_ms_p50_direct": statistics.median(direct_ttft),
+               "card": card})
+
+        # the three gateway seams fire and heal
+        x1 = xs[0]
+        try:
+            plan = faults.arm("gateway.accept:flood@nth=1", seed=5)
+            out = GatewayClient("127.0.0.1", srv.port, retries=2,
+                                backoff_s=0.001, sleep=lambda s: None,
+                                timeout=600).predict(x1)
+            accept_ok = out.tobytes() == refs[0].tobytes() and \
+                [i["site"] for i in plan.incidents()] == ["gateway.accept"]
+            plan = faults.arm("gateway.route:error@nth=1", seed=5)
+            cli0 = GatewayClient("127.0.0.1", srv.port, retries=0,
+                                 timeout=600)
+            try:
+                cli0.predict(x1)
+                status = 200
+            except GatewayError as e:
+                status = e.status
+            healed = cli0.predict(x1).tobytes() == refs[0].tobytes()
+            route_ok = status == 503 and healed and \
+                [i["site"] for i in plan.incidents()] == ["gateway.route"]
+            plan = faults.arm("gateway.stream:transient@nth=3", seed=9)
+            toks = list(cli.generate(prompts[0], max_new_tokens=n_new,
+                                     seed=0))
+            stream_ok = toks == direct[0] and plan.unfired() == [] and \
+                [i["site"] for i in plan.incidents()] == ["gateway.stream"]
+        finally:
+            faults.disarm()
+        check("gateway seams", accept_ok and route_ok and stream_ok,
+              {"phase": "gateway_seams", "accept_flood_healed": accept_ok,
+               "route_error_503_then_served": route_ok,
+               "stream_transient_exact": stream_ok})
+
+        # drain: readiness flips while the request in flight completes
+        xd = rs.randn(GW_DRAIN_ROWS, *GW_IMAGE).astype(np.float32)
+        refd = ref_rep.predict(xd)
+        outd = []
+        t = gw_thread(lambda: outd.append(GatewayClient(
+            "127.0.0.1", srv.port, retries=0, timeout=600).predict(xd)),
+            "gw-smoke-drain-request")
+        deadline = time.time() + 120
+        while srv.inflight() < 1 and time.time() < deadline:
+            time.sleep(0.001)
+        ready_before = cli.ready()
+        dt = gw_thread(srv.drain, "gw-smoke-drainer")
+        while not srv.draining and time.time() < deadline:
+            time.sleep(0.001)
+        inflight = srv.inflight()      # admitted, its JSON still parsing
+        ready_during, healthy = cli.ready(), cli.healthy()
+        dt.join(300)
+        t.join(300)
+        completed = len(outd) == 1 and outd[0].tobytes() == refd.tobytes()
+        try:
+            cli0.predict(x1)
+            after = 200
+        except GatewayError as e:
+            after = e.status
+        check("gateway drain", (inflight >= 1 or GW_DEVICE == "cpu") and
+              ready_before and not ready_during and healthy and completed
+              and after == 503 and not dt.is_alive() and not t.is_alive(),
+              {"phase": "gateway_drain", "inflight_when_draining": inflight,
+               "ready_before": ready_before, "ready_during": ready_during,
+               "healthy": healthy, "inflight_completed_bitwise": completed,
+               "status_after": after, "stats": srv.stats()})
+    finally:
+        if srv is not None:
+            srv.shutdown(drain=False)
+        eng.shutdown(drain=True)
+        eng.release()
+
+
+def gw_autoscale(mx, pool, violations, check):
+    """(b) The pool from 1 to 2 to 1 replica under the autopilot, the
+    ``autopilot.scale`` seam failing the first spin-up, while hammer
+    threads serve through the pool."""
+    import threading
+    import numpy as np
+    from mxnet_tpu_torch import autopilot, faults
+    pool.scale_to(1)
+    x = np.random.RandomState(21).randn(2, *GW_IMAGE).astype(np.float32)
+    ref = pool.replicas[0].predict(x)
+    stop, errors, served = threading.Event(), [], [0]
+
+    def hammer():
+        while not stop.is_set():
+            try:
+                out = pool.predict(x)
+                if out.tobytes() != ref.tobytes():
+                    errors.append("rows differ")
+                served[0] += 1
+            except Exception as e:  # noqa: BLE001 - gated below
+                errors.append(repr(e))
+
+    slo = mx.telemetry.SLOTracker("gateway_phase.pool", error_rate=1e-3,
+                                  fast_window_s=0.5, slow_window_s=0.5,
+                                  refresh_s=0.0)
+    ap = autopilot.Autopilot(
+        config=autopilot.AutopilotConfig(min_replicas=1, max_replicas=2,
+                                         cooldown_ticks=1, idle_ticks=2),
+        slo=slo, pool=pool)
+    threads = [gw_thread(hammer, "gw-smoke-hammer-%d" % i)
+               for i in range(GW_HAMMER_THREADS)]
+    sizes = []
+    try:
+        for _ in range(50):
+            slo.record(outcome="error")
+        plan = faults.arm("autopilot.scale:error@nth=1", seed=0)
+        try:
+            ap.step()                    # the spin-up seam fires
+            sizes.append(pool.size)
+            time.sleep(GW_TICK_S)
+            ap.step()                    # cooldown
+            time.sleep(GW_TICK_S)
+            ap.step()                    # the retry comes up
+            sizes.append(pool.size)
+            incidents = [i["site"] for i in plan.incidents()]
+        finally:
+            faults.disarm()
+        deadline = time.time() + 30
+        while slo.burn_state()["n_fast"] and time.time() < deadline:
+            time.sleep(0.05)             # the errors age out
+        for _ in range(4):
+            time.sleep(GW_TICK_S)
+            ap.step()
+        time.sleep(GW_TICK_S)            # traffic on the one left
+        sizes.append(pool.size)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+        ap.stop()
+    acts = [(e["decision"]["action"], "actuate_error" in e)
+            for e in ap.transcript if "decision" in e]
+    check("autoscale", sizes == [1, 2, 1] and incidents ==
+          ["autopilot.scale"] and ap.replay() == [] and not violations
+          and not errors and served[0] > 0
+          and not any(t.is_alive() for t in threads),
+          {"phase": "gateway_autoscale", "sizes": sizes,
+           "transcript": acts, "incidents": incidents,
+           "replay_divergences": len(ap.replay()),
+           "hammer_requests": served[0], "violations": violations[:3],
+           "errors": errors[:3],
+           "spinups": [dict(r) for r in pool.spinup_reports]})
+
+
+def gw_canary(mx, src, work, check):
+    """(b) A NaN-poisoned generation admitted as a canary is rolled back;
+    the stable route keeps serving its rows."""
+    import hashlib
+    import numpy as np
+    from mxnet_tpu_torch.autopilot import (AutopilotConfig,
+                                           CanaryController, decide_canary)
+    from mxnet_tpu_torch.checkpoint import CheckpointManager, params_digest
+    from mxnet_tpu_torch.serving import DynamicBatcher, Predictor, Tenant
+    ctx = gw_ctx(mx)
+    mgr = CheckpointManager(os.path.join(work, "canary"))
+    src.save_checkpoint(None, 1, manager=mgr, async_save=False)
+    base = mgr.restore(1)
+    arrays = {k: np.array(v) for k, v in base.params.items()}
+    name = sorted(arrays)[0]
+    arrays[name].reshape(-1)[0] = np.nan
+    extra = dict(mgr.step_metadata(1), epoch=2,
+                 params_digest=params_digest(src.symbol.tojson(), arrays))
+    mgr.save(2, arrays, extra=extra, async_save=False)
+    shapes = [("data", (GW_CANARY_BUCKETS[-1],) + GW_IMAGE)]
+
+    def load(step):
+        pred = Predictor.load(mgr, step, data_shapes=shapes, context=ctx,
+                              buckets=GW_CANARY_BUCKETS)
+        pred.warmup()
+        return pred
+
+    stable = load(1)
+    srv = DynamicBatcher(tenants={"stable": Tenant(
+        "stable", stable, priority=1, protected=True)}, max_wait_ms=2)
+    try:
+        x = np.random.RandomState(22).randn(3, *GW_IMAGE).astype(np.float32)
+        before = srv.predict(x, timeout=600, tenant="stable")
+        ctrl = CanaryController(mgr, srv, stable_step=1,
+                                predictor_factory=load, context=ctx)
+        cfg = AutopilotConfig(canary_soak_ticks=2)
+        acts = []
+        for tick in range(3):
+            obs = ctrl.observe(tick=tick)
+            decision = decide_canary(cfg, obs)
+            ctrl.apply(decision, tick=tick)
+            acts.append(decision["action"] + ":" + decision["reason"])
+        after = srv.predict(x, timeout=600, tenant="stable")
+        same = after.tobytes() == before.tobytes() and \
+            bool(np.isfinite(after).all())
+        check("canary rollback", acts[:2] == ["admit:new_generation",
+                                              "rollback:probe_failed"]
+              and acts[2].startswith("hold") and same
+              and ctrl.rejected_steps == [2] and ctrl.stable_step == 1
+              and srv.tenants() == ["stable"],
+              {"phase": "gateway_canary", "decisions": acts,
+               "rejected": ctrl.rejected_steps,
+               "stable_step": ctrl.stable_step,
+               "stable_rows_bitwise": same,
+               "stable_digest": stable.params_digest[:16],
+               "stable_rows_sha256":
+                   hashlib.sha256(after.tobytes()).hexdigest()[:16]})
+    finally:
+        srv.shutdown()
+        srv.tenant("stable").predictor.release()
+
+
+def gw_peer(mx, K, work, check):
+    """(b) ElasticTrainer over 4 virtual hosts with a PeerCheckpointStore:
+    hosts 1 and 3 die, the resume comes from peer memory, lands on the
+    disk resume's parameters bit for bit, and the store's newest capture
+    restores the manager's entry bit for bit."""
+    import numpy as np
+    from mxnet_tpu_torch.autopilot import PeerCheckpointStore
+    from mxnet_tpu_torch.dist import ElasticTrainer, VirtualCluster
+    ctx = gw_ctx(mx)
+    rs = np.random.RandomState(3)
+    X = rs.rand(GW_PEER_ROWS, *GW_PEER_IMAGE).astype(np.float32)
+    y = rs.randint(0, 10, GW_PEER_ROWS).astype(np.float32)
+    net = mx.models.get_symbol(GW_PEER_NETWORK, num_classes=10,
+                               image_shape=GW_PEER_IMAGE)
+
+    def run(name, store):
+        mx.random.seed(3)
+        np.random.seed(3)
+        b0 = (K.bn_fwd.launches, K.bn_bwd.launches)
+        tr = ElasticTrainer(
+            VirtualCluster(4, context=ctx),
+            lambda w: mx.mod.Module(net, context=w.contexts()),
+            lambda w: w.feed(mx.io.NDArrayIter(X, y,
+                                               batch_size=GW_PEER_BATCH)),
+            os.path.join(work, name), checkpoint_every_steps=GW_PEER_EVERY,
+            peer_store=store)
+        mod = tr.fit(num_epoch=GW_PEER_EPOCHS, inject_fault=GW_PEER_FAULT,
+                     optimizer="sgd",
+                     optimizer_params={"learning_rate": 0.05,
+                                       "momentum": 0.9},
+                     initializer=mx.init.Xavier(factor_type="in",
+                                                magnitude=2.34))
+        tr.manager.wait_until_finished()
+        steps = sum(e.get("at_num_update", e.get("final_num_update", 0))
+                    - (e["resume_step"] or 0) for e in tr.transcript)
+        launches = (K.bn_fwd.launches - b0[0], K.bn_bwd.launches - b0[1])
+        return tr, mod, steps, launches
+
+    from mxnet_tpu_torch import telemetry
+    try:
+        store = PeerCheckpointStore(4)
+        tr, mod, steps, launches = run("peer", store)
+        tr_d, mod_d, steps_d, launches_d = run("disk", None)
+    finally:
+        telemetry.flight_recorder().disarm()
+        telemetry.flight_recorder().pop_last_dump()
+    done = [e for e in tr.transcript if e["event"] == "finished"]
+    last = store.latest()
+    peer, disk = store.restore(last), tr.manager.restore(last)
+    restored = set(peer.params) == set(disk.params) and all(
+        np.asarray(peer.params[k]).tobytes() ==
+        np.asarray(disk.params[k]).tobytes() for k in disk.params) and \
+        peer.optimizer_state == disk.optimizer_state
+    same = all(a.tobytes() == b.tobytes() for a, b in zip(
+        [v for _, v in sorted(host_params(mod).items())],
+        [v for _, v in sorted(host_params(mod_d).items())]))
+    want = GW_PEER_BN * steps
+    bn_ok = GW_DEVICE == "cpu" or (launches == (want, want) and
+                                   launches_d == (GW_PEER_BN * steps_d,) * 2)
+    check("peer store", bool(done) and done[0]["resume_source"] == "peer"
+          and [e["decision"]["action"] for e in store.transcript]
+          == ["peer_restore"] and restored and same and bn_ok,
+          {"phase": "gateway_peer", "network": GW_PEER_NETWORK,
+           "resume_source": done[0]["resume_source"] if done else None,
+           "resume_step": done[0]["resume_step"] if done else None,
+           "final_num_update": done[0]["final_num_update"] if done else None,
+           "peer_decisions": [e["decision"] for e in store.transcript],
+           "latest_capture": last, "restore_bitwise_vs_disk": restored,
+           "params_bitwise_vs_disk_resume": same,
+           "bn_launches": launches, "bn_launches_disk_run": launches_d,
+           "steps_run": [steps, steps_d], "store": store.stats()})
+
+
+def gw_scenarios(mx, check):
+    """(c) The scenario matrix on the card, and the chaos sweep of
+    ``nce_loss``."""
+    from mxnet_tpu_torch import scenarios
+    with gw_ctx(mx):
+        t0 = time.time()
+        report = scenarios.run_matrix()
+        matrix_s = time.time() - t0
+        for name, row in report["scenarios"].items():
+            bad = {c: v["detail"] for c, v in row["contracts"].items()
+                   if not v["ok"]}
+            check("scenario %s" % name, row["green"] and
+                  row["post_warmup_retraces"] == 0,
+                  {"phase": "gateway_scenario", "name": name,
+                   "green": row["green"],
+                   "post_warmup_retraces": row["post_warmup_retraces"],
+                   "accuracy": row["accuracy"], "floor": row["floor"],
+                   "floor_mode": row["floor_mode"],
+                   "fit_seconds": row["fit_seconds"],
+                   "digest": row["digest"], "failed": bad,
+                   "serving": row.get("serving")})
+        t0 = time.time()
+        ch = scenarios.chaos_sweep(scenarios.get("nce_loss"))
+        chaos_s = time.time() - t0
+    check("chaos sweep", ch["digest"] == ch["reference"] and
+          ch["incidents"] >= 1 and not ch["unfired"] and
+          ch["reference"][:16] == report["scenarios"]["nce_loss"]["digest"],
+          {"phase": "gateway_chaos", "scenario": "nce_loss",
+           "digest": ch["digest"][:16], "reference": ch["reference"][:16],
+           "incidents": ch["incidents"], "unfired": ch["unfired"],
+           "rules": ch["rules"], "matrix_s": matrix_s, "chaos_s": chaos_s})
+
+
+def gateway_phase(mx, K, C, R, card):
+    """Phase 20 (module docstring). Returns every kernel's launches over
+    (a)-(c)."""
+    import shutil
+    import tempfile
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    failed = []
+
+    def check(name, ok, row):
+        emit(dict(row, ok=bool(ok)))
+        if not ok:
+            failed.append(name)
+
+    t, parts = {}, {}
+    violations = []
+    src = gw_source(mx)
+    pool = gw_pool(src, violations)
+    work = tempfile.mkdtemp(prefix="gateway_phase_", dir=os.path.join(
+        ROOT, "build"))
+    try:
+        t0 = time.time()
+        pool.scale_to(2)
+        gw_zero(K, C, R)
+        gw_front_door(mx, card, pool, check)
+        parts["a"] = gw_counts(K, C, R)
+        t["a"] = time.time() - t0
+        check("no kernel on the front door", not any(parts["a"].values()),
+              {"phase": "gateway_kernels_a", "launches": parts["a"]})
+        t0 = time.time()
+        gw_zero(K, C, R)
+        gw_autoscale(mx, pool, violations, check)
+        pool.close()
+        gw_canary(mx, src, work, check)
+        gw_peer(mx, K, work, check)
+        parts["b"] = gw_counts(K, C, R)
+        t["b"] = time.time() - t0
+    finally:
+        pool.close()
+        shutil.rmtree(work, ignore_errors=True)
+    del src
+    t0 = time.time()
+    gw_zero(K, C, R)
+    gw_scenarios(mx, check)
+    parts["c"] = gw_counts(K, C, R)
+    t["c"] = time.time() - t0
+    on_card = GW_DEVICE != "cpu"
+    check("nms kernels in the matrix", not on_card or (
+        parts["c"]["nms_mask"] > 0 and parts["c"]["nms_scan"] > 0),
+        {"phase": "gateway_kernels_c", "launches": parts["c"]})
+    emit({"phase": "gateway_seconds", **t})
+    if failed:
+        raise RuntimeError("gateway phase failed: %s" % "; ".join(failed))
+    return {k: sum(p[k] for p in parts.values()) for k in parts["a"]}
 
 
 def build_kernels(builds):
@@ -6968,6 +7643,7 @@ def main():
                            card)
     dist_launches, dist_by_rank, dist_times, dist_worst = timed(
         "dist", dist_phase, mx, K, C, R, card)
+    gateway_launches = timed("gateway", gateway_phase, mx, K, C, R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -7037,6 +7713,8 @@ def main():
             **{key + "_bf16": bf16[key] for key in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
             device_ms=f32["device_ms"]))
+    for e in kernels:
+        e["launches_gateway"] = gateway_launches[e["name"]]
     emit({"phase": "done", "seconds": time.time() - t_start,
           "phase_seconds": seconds})
     print(card)

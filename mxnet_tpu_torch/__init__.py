@@ -59,6 +59,8 @@ from . import test_utils
 from . import profiler
 from . import dist
 from . import parallel
+from . import autopilot
+from . import gateway
 from . import attribute
 from . import name
 from .attribute import AttrScope
@@ -74,5 +76,5 @@ __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "image", "data", "autograd", "operator", "kv", "kvstore", "opt",
            "viz", "visualization", "test_utils", "FeedForward", "plugin",
            "faults", "guardian", "engine", "profiler", "waitall", "dist",
-           "parallel",
+           "parallel", "autopilot", "gateway",
            "cpu_pinned", "AttrScope", "NameManager", "attribute", "name"]

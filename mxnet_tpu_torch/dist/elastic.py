@@ -258,10 +258,13 @@ class ElasticTrainer:
         Refuse to train below this width.
     max_restarts : int
         Give up after this many restarts.
-    peer_store : None
-        The peer-memory checkpoint copy belongs to ``autopilot/``, which
-        the port does not have yet (ROADMAP A10b): anything but None
-        raises.
+    peer_store : PeerCheckpointStore, optional
+        A ring-replicated host-memory copy of every commit
+        (:class:`~mxnet_tpu_torch.autopilot.PeerCheckpointStore`); a
+        resume after a worker loss restores from the survivors' memory
+        when it holds exactly the step disk would restore.
+        ``MXNET_AUTOPILOT_PEER_CKPT=1`` builds one over the world's
+        hosts when none is passed.
     """
 
     def __init__(self, world, module_factory, data_factory, manager,
@@ -269,13 +272,14 @@ class ElasticTrainer:
                  min_dp_width=1, max_restarts=4, logger=None,
                  flight_recorder=None, peer_store=None):
         from ..checkpoint import CheckpointManager
-        if peer_store is not None or os.environ.get(
-                "MXNET_AUTOPILOT_PEER_CKPT", "0") == "1":
-            raise MXNetError("the peer checkpoint store comes with the "
-                             "port's autopilot/ (ROADMAP A10b)")
         if isinstance(manager, str):
             manager = CheckpointManager(manager)
-        self.peer_store = None
+        if peer_store is None and os.environ.get(
+                "MXNET_AUTOPILOT_PEER_CKPT", "0") == "1":
+            from ..autopilot import PeerCheckpointStore
+            peer_store = PeerCheckpointStore(
+                world.describe().get("n_hosts", world.device_count))
+        self.peer_store = peer_store
         self.world = world
         self.module_factory = module_factory
         self.data_factory = data_factory
@@ -312,6 +316,14 @@ class ElasticTrainer:
             mod.save_checkpoint(
                 None, n, save_optimizer_states=self.save_optimizer_states,
                 manager=self.manager, extra=coords)
+            if self.peer_store is not None:
+                # the peer-memory copy of the SAME commit, with no step
+                # (or RNG draw) in between: both hold identical state
+                self.peer_store.capture(
+                    n, mod._checkpoint_arrays(),
+                    optimizer_state=mod._optimizer_state_bytes()
+                    if self.save_optimizer_states else None,
+                    extra=coords)
         return _cb
 
     def _fault_callback(self, fail_at_update, dead_hosts, monitor, mod):
@@ -364,6 +376,7 @@ class ElasticTrainer:
     def _fit_attempts(self, world, fault, num_epoch, monitor,
                       batch_end_callback, fit_kwargs):
         attempt = 0
+        resume_src = self.manager
         while True:
             if world.device_count < self.min_dp_width:
                 raise MXNetError(
@@ -389,12 +402,14 @@ class ElasticTrainer:
                     batch_end_callback, list) else [batch_end_callback])
             entry = {"attempt": attempt, "dp_width": world.device_count,
                      "resume_step": self.manager.latest(),
-                     "resume_source": "disk", "world": world.describe()}
+                     "resume_source": "disk" if resume_src
+                     is self.manager else "peer",
+                     "world": world.describe()}
             self.recorder.pop_last_dump()
             t0 = time.perf_counter()
             try:
                 mod.fit(data, num_epoch=num_epoch,
-                        resume_from=self.manager,
+                        resume_from=resume_src,
                         batch_end_callback=cbs, **fit_kwargs)
             except WorkerLost as exc:
                 entry.update({
@@ -432,6 +447,25 @@ class ElasticTrainer:
                     ) from exc
                 world = world.shrink(exc.dead_hosts,
                                      dead_count=exc.dead_count)
+                resume_src = self.manager
+                if self.peer_store is not None:
+                    # the dead hosts' memory is gone; the survivors' ring
+                    # replicas may still cover every block, and then the
+                    # resume skips the disk read. Any failure here falls
+                    # back to the durable path.
+                    self.peer_store.drop_hosts(exc.dead_hosts)
+                    try:
+                        peer_ckpt = self.peer_store.resume_checkpoint(
+                            self.manager.latest())
+                    except Exception:  # noqa: BLE001 - recovery proceeds
+                        self.logger.exception(
+                            "peer-checkpoint resume failed; falling "
+                            "back to disk")
+                        peer_ckpt = None
+                    if peer_ckpt is not None:
+                        resume_src = peer_ckpt
+                        self.recorder.note("peer_restore",
+                                           step=peer_ckpt.step)
                 fault = None  # an injected fault fires once
                 if monitor is not None:
                     monitor.acknowledge()

@@ -5,7 +5,7 @@ Failure is an input, not an accident: a :class:`FaultPlan` (a seeded
 list of ``(site, trigger, kind)`` rules — grammar in
 :mod:`mxnet_tpu_torch.faults.plan`) is **armed** process-wide, and named
 injection seams threaded through the stack evaluate it. The port's
-seams so far:
+seams are the JAX package's 25:
 
 ===========================  ===============  =============================
 site                         entry point      where it lives
@@ -30,11 +30,14 @@ site                         entry point      where it lives
 ``dist.heartbeat``           value            HeartbeatMonitor dead-node probe
 ``dist.straggler``           check            VirtualFeed per-host slice clock
 ``dist.worker``              check            ElasticTrainer per-batch check
+``autopilot.poll``           check            Autopilot controller tick
+``autopilot.scale``          check            ReplicaPool spin-up path
+``gateway.accept``           fires            GatewayServer edge admission
+``gateway.route``            check            Router replica selection
+``gateway.stream``           check            GatewayServer token flush
 ===========================  ===============  =============================
 
-``SITES`` holds the same table (site -> entry point). The JAX package's
-gateway and autopilot seams come with the port's slices of those
-modules. The discipline is
+``SITES`` holds the same table (site -> entry point). The discipline is
 ``telemetry.enabled()``'s: an UNARMED process pays one module-attribute
 branch per seam (``faults.armed()``) and trains bit for bit as a build
 without the seams. Armed, every firing is recorded — the plan's
@@ -92,6 +95,11 @@ SITES = {
     "dist.heartbeat": "value",
     "dist.straggler": "check",
     "dist.worker": "check",
+    "autopilot.poll": "check",
+    "autopilot.scale": "check",
+    "gateway.accept": "fires",
+    "gateway.route": "check",
+    "gateway.stream": "check",
 }
 _PLAN = None
 _lock = threading.Lock()

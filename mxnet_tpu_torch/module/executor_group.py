@@ -91,13 +91,25 @@ class DataParallelExecutorGroup(object):
             shared_grads = {n: g for n, g in shared_ex.grad_dict.items()
                             if n in self.param_names}
 
+        attrs = self.symbol.attr_dict()
+
         def alloc(name, shape, shared):
             arr = shared.get(name)
             if arr is None:
                 return nd.zeros(shape, ctx=ctx)
             if arr.shape != tuple(shape):
-                raise MXNetError("shared %s has shape %s, this bind needs %s"
-                                 % (name, arr.shape, tuple(shape)))
+                # a non-learned state arg (__lr_mult__ 0, an RNN cell's
+                # zero begin_state) is shaped by the batch: a shared bind
+                # at another batch (a Predictor bucket) gets its own zero
+                # buffer; a learned param must agree
+                lr = (attrs.get(name) or {}).get("__lr_mult__")
+                if lr is not None and float(lr) == 0.0:
+                    return nd.zeros(shape, ctx=ctx)
+                raise MXNetError(
+                    "shared_module bind: learned param %r has shape %r in "
+                    "the parent but %r here — a shared module must agree "
+                    "on every learned param shape"
+                    % (name, tuple(arr.shape), tuple(shape)))
             return arr
 
         args, grads = [], {}

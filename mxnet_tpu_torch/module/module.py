@@ -334,22 +334,31 @@ class Module(BaseModule):
             self.save_optimizer_states(state_name)
             self.logger.info('Saved optimizer state to "%s"', state_name)
 
-    def _save_to_manager(self, manager, step, save_optimizer_states,
-                         async_save, extra=None):
-        from ..checkpoint import pack_params, params_digest
+    def _checkpoint_arrays(self):
+        """Packed ``arg:``/``aux:`` name -> the bound tensors themselves,
+        for the manager path and the peer store: each copies them to the
+        host before it returns, one copy from the card."""
+        from ..checkpoint import pack_params
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params first")
         grp = self._exec_group
-        # the bound tensors themselves: the manager copies each to the
-        # host before save() returns, one copy from the card
-        arrays = pack_params(
+        return pack_params(
             {n: a[0] for n, a in zip(self._param_names, grp.param_arrays)},
             {n: a[0] for n, a in zip(self._aux_names, grp.aux_arrays)})
+
+    def _optimizer_state_bytes(self):
+        if not self.optimizer_initialized:
+            raise MXNetError("call init_optimizer first")
+        return self._states_updater().get_states()
+
+    def _save_to_manager(self, manager, step, save_optimizer_states,
+                         async_save, extra=None):
+        from ..checkpoint import params_digest
+        arrays = self._checkpoint_arrays()
+        grp = self._exec_group
         opt_state = None
         if save_optimizer_states:
-            if not self.optimizer_initialized:
-                raise MXNetError("call init_optimizer first")
-            opt_state = self._states_updater().get_states()
+            opt_state = self._optimizer_state_bytes()
         sym_json = self._symbol.tojson()
         merged = {"epoch": int(step), "symbol": sym_json,
                   "precision_mode": self.precision_mode,

@@ -310,6 +310,12 @@ class Predictor:
     def data_names(self):
         return [name for name, _ in self._data_descs]
 
+    @property
+    def device(self):
+        """The ``torch.device`` the buckets serve on (the gateway puts
+        request rows there)."""
+        return self._base._context[0].torch_device()
+
     def stats(self):
         """Snapshot of the serving counters: request outcomes, latency
         percentiles, batch-fill ratio, queue depth, compile count (the
