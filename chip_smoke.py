@@ -440,7 +440,40 @@ result line) if any phase fails:
    all six scenarios green on the card with 0 post-warmup retraces
    (``ssd_toy`` launches the NMS kernels), and ``chaos_sweep`` of
    ``nce_loss`` healed to the fault-free digest;
-21. the kernels line (each kernel's launches on every path, decode's
+21. native: the C API, the native host runtime, RNN under the bfloat16
+   modes and the plugins. (a) The port's ``libmxnet_tpu.so``
+   (``mxnet_tpu_torch/capi``: ``c_api.cpp`` embedding CPython, built with
+   ``g++`` into ``build/capi_torch``) and the C client
+   ``capi/train_serve.c`` in a process of its own: over ``dev_type`` 2 it
+   binds ResNet-50 (224², batch 32, Xavier weights from seed 21) with
+   ``MXExecutorBind``, trains 3 steps (``MXExecutorForward(is_train=1)``,
+   ``MXExecutorBackward``, ``sgd_mom_update`` through
+   ``MXImperativeInvoke``, lr 0.01), pushes one axpy through
+   ``MXRtcCreate``/``MXRtcPush`` (1M floats, exact), and serves the
+   trained parameters through ``MXPredCreate`` at 8 rows; gates: 51 + 51
+   BN launches each step and one rtc launch (read from the bridge's
+   ``MXNET_CAPI_LAUNCH_LOG`` after each ``MXNDArrayWaitAll``), the rows
+   bit for bit the port's ``Module.predict`` with the trained parameters
+   (else within relative L2 1e-5, with the reason), and
+   ``tests/cpp/test_c_api.c`` and ``test_c_api_ext.c`` passing against the
+   library. (b) The native runtime built on the card's host (a failed
+   build fails the phase): ``assemble_batch`` at 224², batch 32,
+   natively and through numpy (img/s each, within 1 ulp), the native
+   ``RecordFile`` reading a ``.npy`` pack bit for bit, the engine on
+   ``NativeEngine`` ordering a read/write diamond, and the ImageNet twin's
+   ``ImageRecordIter`` assembling through the library (its counter).
+   (c) RNN under ``bf16``: the char-LSTM (seq 32, embed 64, hidden 256, 2
+   layers, batch 32) and the PTB-width LM (vocab 10,000, seq 35, 2 × 200),
+   6 SGD steps each in float32 and bf16 from one seed, cuDNN
+   deterministic: ms a step of each, the softmax rows after one step
+   within relative L2 2e-2 of float32's, bf16 twice bit for bit, its
+   perplexity falling. (d) The Caffe twin (the MLP, and LeNet with
+   ``CaffeLoss``) and the torch twin (with and without
+   ``TorchCriterion``) with their scripts' accuracy asserts, the
+   ``TorchModule`` layers' parameters on the card, and the OpenCV
+   plugin's border, crop and ``fixed_crop(size=None)``; its decode and
+   resize with cv2 or PIL where one imports, else their ``MXNetError``;
+22. the kernels line (each kernel's launches on every path, decode's
    and rnn's 0 among them, ``launches_api`` the BN kernels' 60 + 60 over
    phase 14 (b)'s three steps, ``launches_quant`` their 240 + 240 over
    phase 15 (d), ``launches_vision`` every earlier kernel's 0 over phase
@@ -451,7 +484,8 @@ result line) if any phase fails:
    launches summed over phase 19 (c)'s two ranks, the four split entry
    points with ``launches`` from that run and ``launches_by_rank``,
    ``launches_gateway`` every kernel's launches over phase 20 (a)-(c),
-   and the BN kernels' bfloat16, imagenet-twin and zoo launches and
+   ``launches_native`` every kernel's launches over phase 21 (a)-(d), the
+   C client's included, and the BN kernels' bfloat16, imagenet-twin and zoo launches and
    times, inception-v3's per-step times), the seconds of each phase,
    the card's nvidia-smi line, and the result line.
 
@@ -7544,6 +7578,505 @@ def gateway_phase(mx, K, C, R, card):
     return {k: sum(p[k] for p in parts.values()) for k in parts["a"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the C API, the native host runtime, RNN under bf16, the plugins
+# ---------------------------------------------------------------------------
+NATIVE_DEVICE = "cuda"
+NATIVE_NETWORK = "resnet-50"
+NATIVE_IMAGE = (3, 224, 224)
+NATIVE_CLASSES = 1000
+NATIVE_BATCH = 32
+NATIVE_STEPS = 3
+NATIVE_ROWS = 8
+NATIVE_LR = 0.01                  # 3 steps from Xavier stay sane
+NATIVE_BN = 51                    # BatchNorms of resnet-50, each kernel
+NATIVE_REL_L2 = 1e-5              # rows vs Module.predict if not bitwise
+NATIVE_ASSEMBLE_REPS = 20
+NATIVE_PACK_IMAGES = 64
+NATIVE_PACK_CLASSES = 10
+NATIVE_ITER_BATCHES = 2
+NATIVE_C_TESTS = (("test_c_api.c", "CAPI_TEST_PASS"),
+                  ("test_c_api_ext.c", "CAPI_EXT_TEST_PASS"))
+NATIVE_TWIN_ARGS = ["--gpus", "0"]
+NATIVE_TORCH_EPOCHS = 3           # the torch twin's 15 cut to 3 (> 0.9)
+# (name, vocab, seq len, batch, embed, hidden, layers): the char-LSTM of
+# phase 13 and the PTB-width bucketed LM's longest bucket
+RNN16_CASES = [("char", 64, 32, 32, 64, 256, 2),
+               ("ptb", 10000, 35, 32, 200, 200, 2)]
+RNN16_STEPS = 6
+RNN16_LR = 0.5
+# bf16 keeps 8 significant bits (unit roundoff 2^-9): its rounding of the
+# embeddings, weights, gate pre-activations and logits moves the softmax
+# rows after one step by a few roundings (char: 2.0e-3 on an H100). The
+# token ids stay float32 (precision.policy.index_inputs): rounded to
+# bfloat16, ids above 256 read other embedding rows, which put the PTB
+# rows 5.4e-2 away. So the rows are held to 2e-2 of float32's, about ten
+# bf16 roundings, and must differ from them (> 0: the step did compute in
+# bfloat16)
+RNN16_REL_L2 = 2e-2
+
+
+def native_ctx(mx):
+    return mx.cpu() if NATIVE_DEVICE == "cpu" else mx.gpu(0)
+
+
+def native_sync():
+    import torch
+    if NATIVE_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def native_log(path):
+    """The C client's launch log: one dict of launches per
+    MXNDArrayWaitAll."""
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def native_capi(mx, work, card, check):
+    """(a): the port's libmxnet_tpu.so and a C client train ResNet-50 and
+    serve it; the repo's two C tests against the library. Returns the
+    client's launches."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mxnet_tpu_torch import capi
+    t0 = time.time()
+    so = capi.build_library()
+    client_src = os.path.join(ROOT, "mxnet_tpu_torch", "capi",
+                              "train_serve.c")
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(capi.build_client, client_src,
+                              os.path.join(work, "train_serve"))] + [
+            pool.submit(capi.build_client,
+                        os.path.join(ROOT, "tests", "cpp", src),
+                        os.path.join(work, src[:-2]))
+            for src, _ in NATIVE_C_TESTS]
+        exes = [b.result() for b in builds]
+    build_s = time.time() - t0
+    # the C tests run on the CPU (dev_type 1): beside the client
+    tests = [subprocess.Popen([exe], env=capi.client_env(), cwd=work,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for exe in exes[1:]]
+    try:
+        return native_capi_client(mx, work, card, check, exes[0], tests,
+                                  dict(library=os.path.relpath(so, ROOT),
+                                       build_s=build_s))
+    finally:
+        for proc in tests:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def native_capi_client(mx, work, card, check, exe, tests, row):
+    """(a) after the builds: the C client's run and its gates, then the C
+    tests' results. Returns the client's launches."""
+    import numpy as np
+    from mxnet_tpu_torch import capi
+    t0 = time.time()
+    ctx = native_ctx(mx)
+    C, H, W = NATIVE_IMAGE
+    sym = mx.models.get_symbol(NATIVE_NETWORK, num_classes=NATIVE_CLASSES,
+                               image_shape=NATIVE_IMAGE)
+    sym_path = os.path.join(work, "net.json")
+    sym.save(sym_path)
+    mx.random.seed(21)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (NATIVE_BATCH,) + NATIVE_IMAGE)],
+             label_shapes=[("softmax_label", (NATIVE_BATCH,))])
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    args, aux = mod.get_params()
+    init_path = os.path.join(work, "init.params")
+    mx.nd.save(init_path, dict(args, **aux))
+    del mod
+    rs = np.random.RandomState(21)
+    xs = rs.randn(NATIVE_STEPS, NATIVE_BATCH, C, H, W).astype(np.float32)
+    ys = rs.randint(0, NATIVE_CLASSES, (NATIVE_STEPS, NATIVE_BATCH)).astype(
+        np.float32)
+    rows = rs.randn(NATIVE_ROWS, C, H, W).astype(np.float32)
+    batches_path = os.path.join(work, "batches.bin")
+    rows_path = os.path.join(work, "rows.bin")
+    with open(batches_path, "wb") as f:
+        f.write(xs.tobytes() + ys.tobytes())
+    rows.tofile(rows_path)
+    init_s = time.time() - t0
+    log_path = os.path.join(work, "launches.jsonl")
+    env = capi.client_env()
+    env["MXNET_CAPI_LAUNCH_LOG"] = log_path
+    dev_type = "1" if NATIVE_DEVICE == "cpu" else "2"
+    t0 = time.time()
+    res = subprocess.run(
+        [exe, sym_path, init_path, batches_path, rows_path, work,
+         dev_type, str(NATIVE_BATCH), str(NATIVE_STEPS), str(NATIVE_ROWS),
+         str(C), str(H), str(W), str(NATIVE_LR)],
+        env=env, capture_output=True, text=True, timeout=900, cwd=work)
+    client_s = time.time() - t0
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("CAPI_CLIENT ")]
+    if res.returncode != 0 or not line:
+        check("capi client", False, {
+            "phase": "native_capi_client", "rc": res.returncode,
+            "stdout": res.stdout[-2000:], "stderr": res.stderr[-4000:]})
+        return {}
+    out = json.loads(line[-1][len("CAPI_CLIENT "):])
+    log = native_log(log_path)
+    # line 0 after the bind, 1..steps after each step, then the rtc's
+    steps = [{k: log[i + 1][k] - log[i][k] for k in log[i]}
+             for i in range(NATIVE_STEPS)]
+    rtc = {k: log[NATIVE_STEPS + 1][k] - log[NATIVE_STEPS][k]
+           for k in log[0]}
+    on_card = NATIVE_DEVICE != "cpu"
+    want = NATIVE_BN if on_card else 0
+    check("capi BN launches", all(
+        s["bn_fwd"] == want and s["bn_bwd"] == want for s in steps), {
+        "phase": "native_capi_launches", "per_step": steps, "rtc": rtc})
+    check("capi rtc launch", rtc["rtc"] == (1 if on_card else 0),
+          {"phase": "native_capi_rtc", "launches": rtc["rtc"]})
+    # the served rows against the port's Module.predict, same parameters
+    t0 = time.time()
+    trained = mx.nd.load(os.path.join(work, "trained.params"), ctx=ctx)
+    t_args = {k[4:]: v for k, v in trained.items() if k.startswith("arg:")}
+    t_aux = {k[4:]: v for k, v in trained.items() if k.startswith("aux:")}
+    ref_mod = mx.mod.Module(sym, context=ctx)
+    ref_mod.bind(data_shapes=[("data", (NATIVE_ROWS,) + NATIVE_IMAGE)],
+                 for_training=False)
+    ref_mod.set_params(t_args, t_aux)
+    ref = ref_mod.predict(mx.io.NDArrayIter(rows, batch_size=NATIVE_ROWS))
+    ref = ref.asnumpy()
+    got = np.fromfile(os.path.join(work, "pred.bin"),
+                      dtype=np.float32).reshape(ref.shape)
+    bitwise = bool(np.array_equal(got, ref))
+    err = rel_l2(got, ref)
+    check("capi served rows", (bitwise or err <= NATIVE_REL_L2)
+          and bool(np.isfinite(got).all()), {
+        "phase": "native_capi_serve", "rows": NATIVE_ROWS,
+        "bitwise": bitwise, "rel_l2": err, "limit": NATIVE_REL_L2,
+        "reason": None if bitwise else
+        "MXPredCreate binds a plain Executor and Module.predict runs the "
+        "fused group's eval program: the same ops in another order"})
+    changed = not np.array_equal(t_args["fc1_weight"].asnumpy(),
+                                 args["fc1_weight"].asnumpy())
+    check("capi trained", changed, {"phase": "native_capi_trained",
+                                    "params_changed": changed})
+    ref_s = time.time() - t0
+    passed = {}
+    for proc, (src, want_line) in zip(tests, NATIVE_C_TESTS):
+        stdout, stderr = proc.communicate(timeout=600)
+        passed[src] = proc.returncode == 0 and want_line in stdout
+        if not passed[src]:
+            emit({"phase": "native_c_test_output", "test": src,
+                  "stdout": stdout[-2000:], "stderr": stderr[-4000:]})
+    check("the C tests", all(passed.values()),
+          {"phase": "native_c_tests", "passed": passed})
+    ms = out["step_ms"]
+    emit({"phase": "native_capi", "network": NATIVE_NETWORK,
+          "batch": NATIVE_BATCH, "image": list(NATIVE_IMAGE),
+          "steps": NATIVE_STEPS, "step_ms": ms,
+          "ms_per_step": statistics.median(ms[1:] or ms),
+          "img_per_s": NATIVE_BATCH / (statistics.median(ms[1:] or ms) / 1e3),
+          "pred_ms": out["pred_ms"], "pred_shape": out["pred_shape"],
+          "init_s": init_s, "client_s": client_s, "reference_s": ref_s,
+          "card": card, **row})
+    return log[-1]
+
+
+def native_runtime(mx, work, card, check):
+    """(b): the native record reader, batch assembly and engine."""
+    import threading
+    import numpy as np
+    from mxnet_tpu_torch import io_runtime, recordio, runtime
+    from mxnet_tpu_torch.runtime import core
+    lib, eng_lib = runtime.get_lib(), core.get_lib()
+    check("native libraries built", lib is not None and eng_lib is not None,
+          {"phase": "native_libs", "recordio": lib is not None,
+           "engine_core": eng_lib is not None})
+    if lib is None or eng_lib is None:
+        return
+    C, H, W = NATIVE_IMAGE
+    rs = np.random.RandomState(5)
+    imgs = rs.randint(0, 256, (NATIVE_BATCH, H, W, C)).astype(np.uint8)
+    mirror = rs.randint(0, 2, NATIVE_BATCH).astype(np.uint8)
+    kw = dict(mean=np.array(IMNET_MEAN, np.float32),
+              std=np.array(IMNET_STD, np.float32), mirror=mirror)
+    times, best, outs = {}, {}, {}
+    for name, fn in (("native", runtime.assemble_batch),
+                     ("numpy", io_runtime.assemble_batch)):
+        t = []
+        for _ in range(NATIVE_ASSEMBLE_REPS):
+            t0 = time.perf_counter()
+            outs[name] = fn(imgs, **kw)
+            t.append(time.perf_counter() - t0)
+        times[name] = statistics.median(t)
+        best[name] = min(t)
+    a, b = outs["native"], outs["numpy"]
+    ulps = int(np.abs(a.view(np.int32).astype(np.int64)
+                      - b.view(np.int32).astype(np.int64)).max())
+    check("assembly within 1 ulp", ulps <= 1 and np.all(
+        np.sign(a) == np.sign(b)), {
+        "phase": "native_assemble", "batch": NATIVE_BATCH,
+        "image": list(NATIVE_IMAGE), "max_ulps": ulps,
+        "native_img_per_s": NATIVE_BATCH / times["native"],
+        "numpy_img_per_s": NATIVE_BATCH / times["numpy"],
+        "native_ms": 1e3 * times["native"], "numpy_ms": 1e3 * times["numpy"],
+        "native_best_ms": 1e3 * best["native"],
+        "numpy_best_ms": 1e3 * best["numpy"], "reps": NATIVE_ASSEMBLE_REPS,
+        "host_cores": os.cpu_count(), "card": card})
+    pack = os.path.join(work, "pack.rec")
+    write_pack(pack, NATIVE_PACK_IMAGES, NATIVE_IMAGE, NATIVE_PACK_CLASSES)
+    rf, pf = runtime.RecordFile(pack), io_runtime.RecordFile(pack)
+    seq = recordio.MXRecordIO(pack, "r")
+    same = len(rf) == len(pf) == NATIVE_PACK_IMAGES and all(
+        rf.read(i) == pf.read(i) == seq.read() for i in range(len(rf)))
+    check("native record reader", same and rf._handle is not None,
+          {"phase": "native_recordfile", "records": len(rf),
+           "bitwise": same})
+    rf.close()
+    pf.close()
+    eng = mx.engine.Engine(4)
+    log, lock = [], threading.Lock()
+
+    def rec(x):
+        def f():
+            time.sleep(0.01)
+            with lock:
+                log.append(x)
+        return f
+
+    va, vb, vc = eng.new_var(), eng.new_var(), eng.new_var()
+    eng.push(rec("a"), mutate_vars=[va])
+    eng.push(rec("b"), const_vars=[va], mutate_vars=[vb])
+    eng.push(rec("c"), const_vars=[va], mutate_vars=[vc])
+    eng.push(rec("d"), const_vars=[vb, vc])
+    eng.wait_for_all()
+    ordered = len(log) == 4 and log[0] == "a" and log[3] == "d"
+    check("native engine diamond", eng.is_native and ordered,
+          {"phase": "native_engine", "native": eng.is_native,
+           "order": log, "workers": eng.num_workers})
+    eng.shutdown()
+    before = runtime.native_assemblies
+    it = mx.io.ImageRecordIter(
+        path_imgrec=pack, data_shape=NATIVE_IMAGE, batch_size=NATIVE_BATCH,
+        shuffle=True, rand_mirror=True, preprocess_threads=4,
+        label_name="softmax_label",
+        **dict(zip(("mean_r", "mean_g", "mean_b"), IMNET_MEAN)))
+    for _ in range(NATIVE_ITER_BATCHES):
+        it.next()
+    made = runtime.native_assemblies - before
+    check("the twin's reader assembles natively",
+          made == NATIVE_ITER_BATCHES,
+          {"phase": "native_image_record_iter", "batches":
+           NATIVE_ITER_BATCHES, "native_assemblies": made})
+
+
+def rnn16_symbol(mx, vocab, T, E, H, L):
+    """Embedding -> L-layer fused LSTM -> FullyConnected -> SoftmaxOutput
+    over (batch, T) tokens."""
+    data = mx.sym.Variable("data")
+    emb = mx.sym.Embedding(data, input_dim=vocab, output_dim=E,
+                           name="embed")
+    cell = mx.rnn.FusedRNNCell(H, num_layers=L, mode="lstm",
+                               prefix="lstm_")
+    out, _ = cell.unroll(T, inputs=emb, layout="NTC", merge_outputs=True)
+    pred = mx.sym.FullyConnected(mx.sym.Reshape(out, shape=(-1, H)),
+                                 num_hidden=vocab, name="pred")
+    label = mx.sym.Reshape(mx.sym.Variable("softmax_label"), shape=(-1,))
+    return mx.sym.SoftmaxOutput(pred, label, name="softmax")
+
+
+def rnn16_run(mx, case, precision):
+    """RNN16_STEPS SGD steps of one case on one batch from seeded weights:
+    (softmax rows after one step, perplexity of each step's forward, ms a
+    step)."""
+    import numpy as np
+    _, vocab, T, N, E, H, L = case
+    ctx = native_ctx(mx)
+    sym = rnn16_symbol(mx, vocab, T, E, H, L)
+    mod = mx.mod.Module(sym, context=ctx, precision=precision)
+    mod.bind(data_shapes=[("data", (N, T))],
+             label_shapes=[("softmax_label", (N, T))])
+    shapes = dict(zip(sym.list_arguments(),
+                      sym.infer_shape(data=(N, T),
+                                      softmax_label=(N, T))[0]))
+    rs = np.random.RandomState(13)
+    params = {n: mx.nd.array((rs.randn(*s) * 0.1).astype(np.float32),
+                             ctx=ctx)
+              for n, s in shapes.items() if n not in ("data",
+                                                      "softmax_label")}
+    mod.init_params(arg_params=params, allow_missing=True)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": RNN16_LR, "rescale_grad": 1.0 / (N * T)})
+    x = rs.randint(0, vocab, (N, T)).astype(np.float32)
+    y = np.roll(x, -1, axis=1)
+    batch = mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                            [mx.nd.array(y, ctx=ctx)])
+    labels = y.reshape(-1).astype(np.int64)
+    ppl, ms, rows = [], [], None
+    for step in range(RNN16_STEPS):
+        native_sync()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        native_sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        prob = mod.get_outputs()[0].asnumpy()
+        ppl.append(float(np.exp(-np.mean(np.log(np.maximum(
+            prob[np.arange(len(labels)), labels], 1e-30))))))
+        if step == 0:
+            mod.forward(batch, is_train=False)
+            rows = mod.get_outputs()[0].asnumpy().copy()
+    return rows, ppl, statistics.median(ms[1:])
+
+
+def native_rnn16(mx, card, check):
+    """(c): the char-LSTM and the PTB-width LM under bf16 against f32."""
+    import numpy as np
+    for case in RNN16_CASES:
+        with deterministic_cudnn():
+            f32 = rnn16_run(mx, case, None)
+            b16 = rnn16_run(mx, case, "bf16")
+            again = rnn16_run(mx, case, "bf16")
+        err = rel_l2(b16[0], f32[0])
+        bitwise = bool(np.array_equal(b16[0], again[0])) and \
+            b16[1] == again[1]
+        falling = b16[1][-1] < b16[1][0]
+        row = {"phase": "native_rnn_bf16", "case": case[0],
+               "vocab": case[1], "seq": case[2], "batch": case[3],
+               "embed": case[4], "hidden": case[5], "layers": case[6],
+               "f32_ms_per_step": f32[2], "bf16_ms_per_step": b16[2],
+               "rel_l2_after_one_step": err, "limit": RNN16_REL_L2,
+               "bf16_twice_bitwise": bitwise, "bf16_perplexity": b16[1],
+               "f32_perplexity": f32[1], "card": card}
+        check("rnn bf16 %s" % case[0], 0 < err <= RNN16_REL_L2
+              and bitwise
+              and falling and bool(np.isfinite(b16[0]).all()), row)
+
+
+def native_plugins(mx, card, check):
+    """(d): the two twins, TorchModule on the card, the opencv functions."""
+    import numpy as np
+    from mxnet_tpu_torch import torch_bridge
+    from mxnet_tpu_torch.examples import torch_module, train_caffe_net
+    from mxnet_tpu_torch.plugin import opencv
+    twin_args = ["--cpu"] if NATIVE_DEVICE == "cpu" else NATIVE_TWIN_ARGS
+    accs = {}
+    for name, argv in (("caffe_mlp", []),
+                       ("caffe_lenet_loss", ["--network", "lenet",
+                                             "--use-caffe-loss"])):
+        t0 = time.time()
+        accs[name] = (train_caffe_net.main(twin_args + argv)["accuracy"],
+                      time.time() - t0)
+    devices = []
+    lin = torch_bridge._build("nn.Linear(64, 32)")
+    # the hook sees every forward; shape inference runs on "meta"
+    hook = lin.register_forward_hook(
+        lambda m, inp, out: devices.append(str(m.weight.device))
+        if m.weight.device.type != "meta" else None)
+    try:
+        for name, argv in (("torch_mlp", []),
+                           ("torch_criterion", ["--use-torch-criterion"])):
+            t0 = time.time()
+            accs[name] = (torch_module.main(
+                twin_args + ["--num-epoch", str(NATIVE_TORCH_EPOCHS)]
+                + argv)["accuracy"],
+                time.time() - t0)
+    finally:
+        hook.remove()
+    want_dev = "cpu" if NATIVE_DEVICE == "cpu" else "cuda:0"
+    check("plugin twins", accs["caffe_mlp"][0] > 0.5
+          and accs["caffe_lenet_loss"][0] > 0.5
+          and accs["torch_mlp"][0] > 0.8 and accs["torch_criterion"][0] > 0.8
+          and devices and set(devices) == {want_dev}, {
+              "phase": "native_plugin_twins",
+              "accuracy": {k: v[0] for k, v in accs.items()},
+              "seconds": {k: v[1] for k, v in accs.items()},
+              "torch_module_param_devices": sorted(set(devices)),
+              "card": card})
+    rs = np.random.RandomState(3)
+    img_np = rs.randint(0, 256, (40, 30, 3)).astype(np.uint8)
+    img = mx.nd.array(img_np, ctx=mx.cpu(), dtype=np.uint8)
+    border = opencv.copyMakeBorder(img, 2, 3, 4, 5, value=7).asnumpy()
+    crop = opencv.fixed_crop(img, 3, 4, 10, 12).asnumpy()
+    crop_none = opencv.fixed_crop(img, 3, 4, 10, 12, size=None).asnumpy()
+    ok = border.shape == (45, 39, 3) and (border[:2] == 7).all() and \
+        np.array_equal(border[2:42, 4:34], img_np) and \
+        np.array_equal(crop, img_np[4:16, 3:13]) and \
+        np.array_equal(crop_none, crop)
+    libs = []
+    for lib in ("cv2", "PIL"):
+        try:
+            __import__(lib)
+            libs.append(lib)
+        except ImportError:
+            pass
+    if libs:
+        if "cv2" in libs:
+            import cv2
+            buf = cv2.imencode(".png", img_np)[1].tobytes()
+            want = img_np
+        else:
+            import io as pyio
+            from PIL import Image
+            bio = pyio.BytesIO()
+            Image.fromarray(img_np).save(bio, format="PNG")
+            buf = bio.getvalue()
+            want = img_np[:, :, ::-1]
+        dec = opencv.imdecode(buf).asnumpy()
+        res = opencv.resize(opencv.imdecode(buf), (15, 20)).asnumpy()
+        coded = np.array_equal(dec, want) and res.shape == (20, 15, 3)
+    else:
+        raised = []
+        for fn in (lambda: opencv.imdecode(b"\x89PNG"),
+                   lambda: opencv.resize(img, (15, 20))):
+            try:
+                fn()
+                raised.append(None)
+            except mx.MXNetError as e:
+                raised.append(str(e))
+        coded = all(r and "cv2" in r and "PIL" in r for r in raised)
+    check("opencv plugin", ok and coded, {
+        "phase": "native_opencv", "border_crop_ok": ok,
+        "image_libraries": libs, "decode_resize_ok": coded})
+
+
+def native_phase(mx, K, C, R, card):
+    """Phase 21 (module docstring). Returns every kernel's launches over
+    (a)-(d): the C client's and this process's."""
+    import shutil
+    import tempfile
+    failed = []
+
+    def check(name, ok, row):
+        emit(dict(row, ok=bool(ok)))
+        if not ok:
+            failed.append(name)
+
+    work = tempfile.mkdtemp(prefix="native_phase_", dir=os.path.join(
+        ROOT, "build"))
+    t = {}
+    try:
+        t0 = time.time()
+        client = native_capi(mx, work, card, check)
+        t["a"] = time.time() - t0
+        gw_zero(K, C, R)
+        t0 = time.time()
+        native_runtime(mx, work, card, check)
+        t["b"] = time.time() - t0
+        t0 = time.time()
+        native_rnn16(mx, card, check)
+        t["c"] = time.time() - t0
+        t0 = time.time()
+        native_plugins(mx, card, check)
+        t["d"] = time.time() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    here = gw_counts(K, C, R)
+    emit({"phase": "native_seconds", **t,
+          "launches_in_process": here, "launches_c_client": client})
+    if failed:
+        raise RuntimeError("native phase failed: %s" % "; ".join(failed))
+    return {k: here[k] + client.get(k, 0) for k in here}
+
+
 def build_kernels(builds):
     """Build the CUDA libraries at once (one nvcc each); seconds taken."""
     from concurrent.futures import ThreadPoolExecutor
@@ -7644,6 +8177,7 @@ def main():
     dist_launches, dist_by_rank, dist_times, dist_worst = timed(
         "dist", dist_phase, mx, K, C, R, card)
     gateway_launches = timed("gateway", gateway_phase, mx, K, C, R, card)
+    native_launches = timed("native", native_phase, mx, K, C, R, card)
 
     replaces = {"bn_fwd": "mxnet_tpu/ops/nn.py:460",
                 "bn_bwd": "tools/bn_pallas_probe.py:76"}
@@ -7715,6 +8249,7 @@ def main():
             device_ms=f32["device_ms"]))
     for e in kernels:
         e["launches_gateway"] = gateway_launches[e["name"]]
+        e["launches_native"] = native_launches.get(e["name"], 0)
     emit({"phase": "done", "seconds": time.time() - t_start,
           "phase_seconds": seconds})
     print(card)

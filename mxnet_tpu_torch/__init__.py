@@ -8,7 +8,8 @@ far (``mx.nd``, ``mx.sym``, ``mx.mod``, ``mx.init``, ``mx.optimizer``,
 ``mx.image``, ``mx.data``, ``mx.autograd``, ``mx.operator``, ``mx.kv``/
 ``mx.kvstore``, ``mx.model.FeedForward``, ``mx.viz``, ``mx.plugin``,
 ``mx.faults``, ``mx.guardian``, ``mx.engine``, ``mx.profiler``,
-``mx.dist``, ``mx.parallel`` and ``mx.test_utils``, with ``mx.waitall``, ``mx.cpu_pinned``,
+``mx.dist``, ``mx.parallel``, ``mx.runtime``, ``mx.torch`` (the torch
+bridge, ``torch_bridge.py``) and ``mx.test_utils``, with ``mx.waitall``, ``mx.cpu_pinned``,
 ``mx.AttrScope`` and ``mx.NameManager``). It
 imports torch and numpy, never JAX and
 nothing of ``mxnet_tpu``. Entry points run on ``gpu(0)`` unless the caller
@@ -52,6 +53,9 @@ from . import serving
 from . import rnn
 from . import precision
 from . import operator
+from . import runtime
+# ``mx.torch`` as in the JAX package; this module uses no name ``torch``
+from . import torch_bridge as torch  # noqa: F401
 from . import plugin
 from . import visualization
 from . import visualization as viz
@@ -76,5 +80,5 @@ __all__ = ["MXNetError", "__version__", "Context", "cpu", "gpu", "tpu",
            "image", "data", "autograd", "operator", "kv", "kvstore", "opt",
            "viz", "visualization", "test_utils", "FeedForward", "plugin",
            "faults", "guardian", "engine", "profiler", "waitall", "dist",
-           "parallel", "autopilot", "gateway",
+           "parallel", "autopilot", "gateway", "runtime", "torch",
            "cpu_pinned", "AttrScope", "NameManager", "attribute", "name"]

@@ -8,8 +8,12 @@ CUDA stream runs what PyTorch enqueues in order. What is left for the
 engine is HOST work — input stages, staging fills, checkpoint writes,
 callbacks — overlapped with the device, hazard-ordered among themselves.
 
-This is the JAX package's engine contract in Python (its native C++
-engine, ``runtime/``, is ROADMAP A7): per-variable hazard order, as
+The engine is the native C++ one (``runtime/engine_core.cpp``, bound in
+``runtime/core.py``), as in the JAX package, wherever ``g++`` can build
+it; ``MXNET_CPU_WORKER_NTHREADS`` sizes its pool (default
+min(8, cores)). Where no library builds (``runtime.core.get_lib()`` is
+None), the same contract runs in Python on ``MXNET_CPU_WORKER_NTHREADS``
+threads (default 1). Either way: per-variable hazard order, as
 ``threaded_engine.h``'s ThreadedVar —
 
 * ops that only READ a variable run concurrently with each other;
@@ -17,12 +21,15 @@ engine, ``runtime/``, is ROADMAP A7): per-variable hazard order, as
   and writes) and every later op waits for it;
 * ops on disjoint variables overlap;
 
-a priority worker pool (``MXNET_CPU_WORKER_NTHREADS`` workers, default
-1), ``wait_for_var``/``wait_for_all`` sync points (an op's exception
-surfaces there), and per-op profiler stamps dumped as Chrome trace JSON.
-``MXNET_ENGINE_TYPE=NaiveEngine`` (read at import) runs every op
-synchronously at push, the reference's race-bisection tool. The workers
-are daemon threads named ``mxnet-engine-<i>``.
+a priority worker pool, ``wait_for_var``/``wait_for_all`` sync points
+(an op's exception surfaces there), and per-op profiler stamps dumped as
+Chrome trace JSON. ``MXNET_ENGINE_TYPE=NaiveEngine`` (read at import)
+runs every op synchronously at push, the reference's race-bisection
+tool. The Python path's workers are daemon threads named
+``mxnet-engine-<i>``. The native engine's pool is drained and joined at
+interpreter exit (``shutdown``, registered with ``atexit``): a C++
+worker still inside a Python callback while the interpreter finalises
+aborts the process.
 """
 from __future__ import annotations
 
@@ -79,8 +86,17 @@ class Engine(object):
 
     def __init__(self, num_workers=None):
         self._naive = _NAIVE
+        self._native = None
+        self._deleted = set()        # the native path's deleted var ids
+        if not self._naive:
+            from .runtime.core import NativeEngine
+            native = NativeEngine(num_workers)
+            if native.available:
+                self._native = native
         if num_workers is None:
-            num_workers = int(os.environ.get("MXNET_CPU_WORKER_NTHREADS", 1))
+            num_workers = int(os.environ.get(
+                "MXNET_CPU_WORKER_NTHREADS",
+                1 if self._native is None else min(8, os.cpu_count() or 4)))
         self.num_workers = max(1, int(num_workers))
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
@@ -92,7 +108,12 @@ class Engine(object):
         self._profiling = False
         self._stamps = []
         self._workers = []
-        if not self._naive:
+        if self._native is not None:
+            # registered at creation: atexit is LIFO, so hooks that push
+            # work at exit (a checkpoint drain, registered later) run
+            # first and this drain still sees what they pushed
+            atexit.register(self.shutdown)
+        elif not self._naive:
             for i in range(self.num_workers):
                 t = threading.Thread(target=self._worker,
                                      name="mxnet-engine-%d" % i,
@@ -104,17 +125,24 @@ class Engine(object):
     # -------------------------------------------------------------- vars
     @property
     def is_native(self):
-        """False: the port's engine is Python (the native one is A7)."""
-        return False
+        """Whether the native C++ engine runs the ops."""
+        return self._native is not None
 
     def new_var(self):
         """Engine::NewVariable — a dependency token for host buffers."""
+        if self._native is not None:
+            return self._native.new_var()
         return Var()
 
     def del_var(self, var):
         """Engine::DeleteVariable: the var takes no new ops; pushed ones
         still run."""
-        if var is not None:
+        if var is None:
+            return
+        if self._native is not None:
+            self._deleted.add(var)
+            self._native.del_var(var)
+        else:
             var.deleted = True
 
     # -------------------------------------------------------------- push
@@ -129,8 +157,10 @@ class Engine(object):
                                           if c is not None)
                  if v not in mutate]
         for v in const + mutate:
-            if v.deleted:
+            if v in self._deleted if isinstance(v, int) else v.deleted:
                 raise ValueError("push on a deleted engine var")
+        if self._native is not None:
+            return self._push_native(fn, const, mutate, priority, name)
         op = _Op(fn, str(name), int(priority), next(self._seq))
         with self._lock:
             # naive: every op in line; closed: late host work (a finaliser
@@ -161,6 +191,22 @@ class Engine(object):
             if op.error is not None:
                 raise op.error
         return op.done
+
+    def _push_native(self, fn, const, mutate, priority, name):
+        done = threading.Event()
+
+        def run():
+            try:
+                fn()
+            finally:
+                done.set()
+
+        native = self._native
+        if native is None:       # shut down since: late host work in line
+            run()
+        else:
+            native.push(run, const, mutate, int(priority), str(name))
+        return done
 
     def push_async(self, fn):
         """Dependency-free host op; returns a waitable Event."""
@@ -213,6 +259,10 @@ class Engine(object):
     def wait_for_var(self, var):
         """Engine::WaitForVar — block until every op pushed on ``var``
         so far has run."""
+        if self._native is not None:
+            if var is not None:
+                self._native.wait_for_var(var)
+            return
         if var is not None and not self._naive:
             with self._lock:
                 ops = ([var.last_write] if var.last_write else []) + \
@@ -225,7 +275,9 @@ class Engine(object):
         """Engine::WaitForAll — block until every pushed op has run,
         then until the card (when one is in use) has finished its
         queued work. Raises the first error an op raised."""
-        if not self._naive:
+        if self._native is not None:
+            self._native.wait_all()
+        elif not self._naive:
             with self._lock:
                 while self._inflight:
                     self._cv.wait()
@@ -237,6 +289,17 @@ class Engine(object):
     def shutdown(self):
         """Drain pending ops and stop the workers (idempotent; the
         interpreter-exit hook). Work pushed afterwards runs in line."""
+        native, self._native = self._native, None
+        if native is not None:
+            self._closed = True
+            try:
+                native.wait_all()
+            except BaseException:  # noqa: BLE001 - surfaced at the waits
+                import logging
+                logging.getLogger(__name__).exception(
+                    "pending engine op failed during shutdown drain")
+            native.close()
+            return
         if self._naive:
             return
         with self._lock:
@@ -252,13 +315,19 @@ class Engine(object):
     # ----------------------------------------------------------- profiler
     def profile_start(self):
         self._profiling = True
+        if self._native is not None:
+            self._native.profile_start()
 
     def profile_stop(self):
         self._profiling = False
+        if self._native is not None:
+            self._native.profile_stop()
 
     def profile_dump(self, path, clear=True):
         """Write the ops' stamps as Chrome trace JSON (complete events);
         returns their count."""
+        if self._native is not None:
+            return self._native.profile_dump(path, clear)
         stamps = list(self._stamps)
         if clear:
             del self._stamps[:len(stamps)]
@@ -269,6 +338,16 @@ class Engine(object):
     def profile_events(self, clear=True):
         """The ops' stamps as Chrome trace events (``profile_dump``
         without the file)."""
+        if self._native is not None:
+            # the native engine writes only to a path: an in-memory file
+            # takes its dump, and nothing touches the disk
+            fd = os.memfd_create("mxnet-engine-trace")
+            with open(fd, "rb") as f:
+                self._native.profile_dump("/proc/self/fd/%d" % fd, clear)
+                events = json.load(f)["traceEvents"]
+            for ev in events:
+                ev["cat"] = "engine"
+            return events
         stamps = list(self._stamps)
         if clear:
             del self._stamps[:len(stamps)]

@@ -5,7 +5,7 @@ C++ augmenter chain).
 Decode uses cv2 when it can be imported, else PIL; a record whose payload
 is a raw ``.npy`` array (``recordio.pack_img(..., img_fmt=".npy")``)
 needs neither. Augmentation geometry is numpy on the host; batch assembly
-is ``io_runtime.assemble_batch`` (host path), or, with
+is ``runtime.assemble_batch`` (host path), or, with
 ``ImageRecordIter(device_augment=True)``, mirror/normalize/transpose on
 the card from uint8 NHWC batches, or, with ``device_augment="defer"``,
 the bound module's deferred augment (``data.DeviceAugment``). The
@@ -24,7 +24,7 @@ import numpy as onp
 import torch
 
 from . import recordio
-from . import io_runtime
+from . import runtime
 from .base import MXNetError
 from .context import cpu, current_context
 from .io import DataIter, DataBatch, DataDesc
@@ -253,7 +253,7 @@ class ImageIter(DataIter):
             raise ValueError("ImageIter needs path_imgrec, path_imglist or "
                              "an imglist")
         if path_imgrec:
-            self.rec = io_runtime.RecordFile(path_imgrec)
+            self.rec = runtime.RecordFile(path_imgrec)
             self.imglist = None
             self.seq = list(range(len(self.rec)))
         else:
@@ -351,7 +351,7 @@ def _decode_resize_crop(img_bytes, resize, th, tw, pick_crop):
 
 def _proc_worker_init(path):
     global _PROC_REC
-    _PROC_REC = io_runtime.RecordFile(path)
+    _PROC_REC = runtime.RecordFile(path)
 
 
 def _proc_decode_one(args):
@@ -427,7 +427,7 @@ class ImageRecordIter(DataIter):
     import only this package. The crop geometry is chosen per sample;
     then, per batch:
 
-    * default: ``io_runtime.assemble_batch`` on the host (float32 NCHW,
+    * default: ``runtime.assemble_batch`` on the host (float32 NCHW,
       ``(x - mean) / (std / scale)``, mirror drawn from the iterator's
       ``random.Random(seed)``);
     * ``device_augment=True``: the uint8 NHWC batch goes to ``ctx``
@@ -456,7 +456,7 @@ class ImageRecordIter(DataIter):
                  data_name="data", label_name="softmax_label", seed=0,
                  ctx=None, **kwargs):
         super().__init__(batch_size)
-        self.rec = io_runtime.RecordFile(path_imgrec)
+        self.rec = runtime.RecordFile(path_imgrec)
         self._path_imgrec = path_imgrec
         self.data_shape = tuple(data_shape)
         self.label_width = label_width
@@ -666,7 +666,7 @@ class ImageRecordIter(DataIter):
             batch = NDArray(self._device_preprocess(imgs, mirror))
         else:
             std = self.std / self.scale
-            batch = _host_nd(io_runtime.assemble_batch(
+            batch = _host_nd(runtime.assemble_batch(
                 imgs, mean=self.mean, std=std, mirror=mirror))
         return DataBatch([batch], [label_nd], pad=pad)
 

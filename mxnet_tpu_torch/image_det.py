@@ -28,7 +28,7 @@ import random
 
 import numpy as onp
 
-from . import io_runtime
+from . import runtime
 from . import recordio
 from .io import DataBatch, DataDesc, DataIter
 from .image import _host_nd, _resize, imdecode
@@ -358,7 +358,7 @@ class ImageDetRecordIter(DataIter):
         super().__init__(batch_size)
         # mmap'd indexed reads + threaded decode, same machinery as
         # ImageRecordIter (the reference's parser/prefetcher split)
-        self.rec = io_runtime.RecordFile(path_imgrec)
+        self.rec = runtime.RecordFile(path_imgrec)
         self.pool = ThreadPoolExecutor(max_workers=preprocess_threads,
                                        thread_name_prefix="imagedet-decode")
         self.data_shape = tuple(data_shape)

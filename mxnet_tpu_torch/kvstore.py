@@ -183,6 +183,14 @@ class KVStore(object):
         with open(fname, "rb") as fin:
             self._updater.set_states(fin.read())
 
+    def _send_command_to_servers(self, head, body):
+        """With no server processes, a command loops back to the
+        controller registered in process through MXKVStoreRunServer
+        (reference kvstore_dist.h SendCommandToServers)."""
+        ctrl = getattr(self, "_server_controller", None)
+        if ctrl is not None:
+            ctrl(int(head), str(body))
+
     # ---------------------------------------------------------- dist
     def barrier(self):
         """Apply dist_async's in-flight reductions, then wait for every

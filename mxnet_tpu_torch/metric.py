@@ -8,8 +8,7 @@ and ``create`` contract as the JAX package, for the metrics ``fit`` and
 (``_as_np``): each batch's outputs are read back from the card once.
 ``F1`` (binary, averaged per batch), ``MAE``, ``MSE`` and ``RMSE`` are
 MXNet 0.9.5's; the regression scores update on the host only. ``Torch``
-and ``Caffe`` come with their plugins (ROADMAP A10) and refuse until
-then.
+and ``Caffe`` are ``Loss`` under the plugins' names.
 
 The device-side tally: every metric but ``CustomMetric`` and the
 regression scores also has a
@@ -483,16 +482,15 @@ class RMSE(_BatchScore):
 
 
 class Torch(Loss):
-    """The loss of a Torch criterion: comes with the Torch plugin."""
+    """The loss of a Torch criterion head (``mx.torch``): the mean of the
+    raw outputs."""
 
     def __init__(self, name="torch"):
-        from .base import MXNetError
-        raise MXNetError("metric.%s comes with the Torch and Caffe plugins "
-                         "(ROADMAP A10) of the port" % type(self).__name__)
+        super(Loss, self).__init__(name)
 
 
 class Caffe(Torch):
-    """The loss of a Caffe net: comes with the Caffe plugin."""
+    """The loss of a Caffe net (``mx.plugin.caffe``)."""
 
     def __init__(self):
         super().__init__("caffe")

@@ -22,14 +22,14 @@ to the host. Here the step is one Python function over tensors,
   takes the classic update route. A forward that supersedes a deferred
   one runs it first, so no batch is dropped.
 * Precision: parameters stay float32 masters; under
-  ``compute_dtype="bfloat16"`` they, and every input but the labels, are
-  cast to bfloat16 INSIDE the autograd graph, so each gradient reaches its
-  master as float32. Outputs come back as float32. A policy with a loss
+  ``compute_dtype="bfloat16"`` they, and every input but the labels and
+  the indices (an Embedding's token ids), are cast to bfloat16 INSIDE the
+  autograd graph, so each gradient reaches its master as float32. Outputs come back as float32. A policy with a loss
   scale keeps a (scale, good steps, skipped) triple on the device:
   scaled head gradients, unscaled float32 gradients, and an update that
   is skipped, on the device, when a gradient is not finite. An
   ``act_cast`` policy (``int8_act``, ``fp8``, ``int8_serve``,
-  ``fp8_native``) round-trips every input but the labels through its
+  ``fp8_native``) round-trips every input but those through its
   narrow format after that cast, and an eval forward runs inside the
   policy's GEMM scope (``precision.quant``).
 * ``remat`` trains through ``executor._build_eval_segmented``.
@@ -111,7 +111,8 @@ from .. import telemetry
 from ..base import MXNetError
 from ..data.augment import crop_input_name, mirror_input_name, unwrap
 from ..executor import _build_eval_segmented
-from ..precision.policy import fake_cast, loss_scale_config, state_np_dtype
+from ..precision.policy import (fake_cast, index_inputs, loss_scale_config,
+                                state_np_dtype)
 from ..precision.quant import trace_gemm_scope
 from .executor_group import DataParallelExecutorGroup
 
@@ -330,11 +331,7 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
         self._device_augment = dict(device_augment or {})
         self.compute_dtype = compute_dtype
         self._cdt = state_np_dtype(compute_dtype, None)   # None: float32
-        if self._cdt is not None and any(
-                n.op is not None and n.op.name == "RNN"
-                for n in symbol._topo()):
-            from ..ops.rnn_op import BF16_REFUSAL
-            raise MXNetError(BF16_REFUSAL)
+        self._index_names = index_inputs(symbol)   # kept float32, as labels
         self.remat = remat
         self._ls_cfg = loss_scale_config(precision)
         self._ls_state = None
@@ -497,11 +494,13 @@ class MeshExecutorGroup(DataParallelExecutorGroup):
     def _arg_vals(self, params, inputs, leaves=None):
         """The symbol's argument values: parameters (as autograd leaves
         where ``leaves`` collects them) and inputs, each but the labels
-        cast to the compute dtype inside the graph. Under a policy's
-        ``act_cast`` every floating non-label input then takes its
-        low-bit round trip (``precision.fake_cast``), in training and in
-        eval alike."""
-        cdt, labels = self._cdt, set(self._label_names)
+        and the indices (``precision.policy.index_inputs``: token ids
+        above 256 do not survive bfloat16) cast to the compute dtype
+        inside the graph. Under a policy's ``act_cast`` every other
+        floating input then takes its low-bit round trip
+        (``precision.fake_cast``), in training and in eval alike."""
+        cdt = self._cdt
+        labels = set(self._label_names) | self._index_names
         act_cast = getattr(self._precision, "act_cast", None)
         vals = []
         for n in self.arg_names:

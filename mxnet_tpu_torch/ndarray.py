@@ -20,7 +20,7 @@ import numpy as onp
 import torch
 
 from .base import MXNetError, numeric_types, torch_dtype, numpy_dtype
-from .context import Context, current_context
+from .context import Context, cpu as _cpu, current_context
 from . import autograd as _autograd
 from . import random as _random
 from . import registry as _registry
@@ -433,6 +433,65 @@ def imdecode(str_img, **kwargs):
     """Decode image bytes to a float32 HWC NDArray (``io_util.imdecode``)."""
     from .io_util import imdecode as _imdecode
     return _imdecode(str_img, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# OpenCV-style host image ops (plugin/opencv cv_api.cc _cvimdecode/
+# _cvimresize/_cvcopyMakeBorder): host work, imperative only, on cv2 where
+# it imports, else PIL, as in the JAX package. They make CPU arrays.
+# ---------------------------------------------------------------------------
+def _cvimdecode(buf, flag=1, to_rgb=True):
+    """Decode a JPEG/PNG byte buffer into an HWC uint8 CPU NDArray.
+    ``flag`` follows cv::imread: 0 = grayscale (h, w), nonzero = color.
+    Without cv2 and PIL it raises ``MXNetError`` naming both."""
+    from .image import imdecode as _dec
+    img = _dec(buf if isinstance(buf, (bytes, bytearray)) else
+               buf.asnumpy().astype("uint8").tobytes(), to_rgb=to_rgb)
+    if flag == 0 and img.ndim == 3:
+        # ITU-R BT.601 luma — what cv::IMREAD_GRAYSCALE computes
+        w = onp.array([0.299, 0.587, 0.114] if to_rgb
+                      else [0.114, 0.587, 0.299], onp.float32)
+        img = (img.astype(onp.float32) @ w).round().astype(img.dtype)
+    return array(img, ctx=_cpu(), dtype=img.dtype)
+
+
+def _cvimresize(src, w, h, interp=1):
+    """Resize an HWC image NDArray to (w, h) on its context. ``interp``
+    follows cv2's enums (0 = nearest, 1 = linear, ...) with cv2; PIL maps
+    0 to nearest and anything else to bilinear. Without cv2 and PIL it
+    raises ``MXNetError`` naming both."""
+    img = src.asnumpy()
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        out = cv2.resize(img, (int(w), int(h)), interpolation=int(interp))
+    else:
+        try:
+            from PIL import Image
+        except ImportError:
+            from .image import _no_decoder
+            raise _no_decoder("resize")
+        mode = Image.NEAREST if int(interp) == 0 else Image.BILINEAR
+        out = onp.asarray(Image.fromarray(img.astype(onp.uint8)).resize(
+            (int(w), int(h)), mode)).astype(img.dtype)
+    return array(out, ctx=src.context, dtype=out.dtype)
+
+
+def _cvcopyMakeBorder(src, top, bot, left, right, type=0, value=0.0):  # noqa: A002
+    """Pad an HWC image NDArray on its context. ``type`` follows cv2's
+    border enums: 0 = constant fill; the others replicate the edge."""
+    img = src.asnumpy()
+    if int(type) == 0:
+        out = onp.full((img.shape[0] + top + bot,
+                        img.shape[1] + left + right) + img.shape[2:], value,
+                       dtype=img.dtype)
+        out[top:top + img.shape[0], left:left + img.shape[1]] = img
+    else:
+        pad = [(top, bot), (left, right)] + [(0, 0)] * (img.ndim - 2)
+        out = onp.pad(img, pad, mode="edge")
+    return array(out, ctx=src.context, dtype=out.dtype)
 
 
 def array(source_array, ctx=None, dtype=onp.float32):

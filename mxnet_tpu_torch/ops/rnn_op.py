@@ -23,11 +23,22 @@ mask from the node's key (``random.fold_in(key, layer)``, through
 ``random.key_uniform``), never from cuDNN's own dropout, whose draws
 come from torch's generator and would not repeat under remat or a
 resume. ``lstm_state_clip_min``/``_max`` are accepted and ignored, as in
-the JAX package. The op is float32: the bfloat16 modes refuse it at
-bind (``ROADMAP`` A3, "RNN under bf16 modes").
+the JAX package.
+
+Dtype: the op computes in the dtype of its inputs, as the JAX op does
+(its ``_rnn`` has no dtype rule). Under the bfloat16 precision modes the
+fused group casts the float32 master vector to bfloat16 inside the
+autograd graph, so cuDNN runs on bfloat16 views of that vector, the
+dropout masks (drawn from the same key as in float32) apply at bfloat16
+width, and each gradient reaches its float32 master.
+
+Under a selective remat policy (``remat="dots"``) the ``_VF`` call is
+recomputed whole (``precision.policy.recompute_whole``): PyTorch's CPU
+RNN adds into its matrix products in place, so a product the policy kept
+would be read back changed and the gradients would be wrong.
 
 ``rnn_plain`` is a Python loop over time, the JAX package's
-``_scan_layer`` step for step: the tests and ``chip_smoke.py`` hold the
+``_scan_layer`` step for step, in the same dtype rule: the tests and ``chip_smoke.py`` hold the
 op against it. ``launches`` counts the ``_VF`` calls.
 """
 from __future__ import annotations
@@ -39,10 +50,6 @@ from ..base import MXNetError
 from ..registry import register
 
 __all__ = ["rnn_param_size", "rnn_plain", "split_params", "launches"]
-
-BF16_REFUSAL = ("the RNN operator runs in float32 only: RNN under the "
-                "bfloat16 precision modes comes with ROADMAP A3 (RNN under "
-                "bf16 modes)")
 
 launches = 0
 
@@ -123,8 +130,6 @@ def _config(attrs, ins):
     if mode not in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
         raise MXNetError("RNN: unknown mode %r" % mode)
     data = ins[0]
-    if data.dtype != torch.float32:
-        raise MXNetError(BF16_REFUSAL + " (got %s data)" % data.dtype)
     h = int(attrs["state_size"])
     layers = int(attrs["num_layers"])
     d = 2 if attrs.get("bidirectional", False) else 1
@@ -165,11 +170,13 @@ def _vf(mode, x, h0, c0, weights, num_layers, bidirectional):
     """One ``torch._VF`` RNN call over time-major ``x``; returns
     (output, h_n, c_n or None)."""
     global launches
+    from ..precision.policy import recompute_whole
     launches += 1
     fn = getattr(torch._VF, mode)
     hx = (h0, c0) if mode == "lstm" else h0
-    res = fn(x, hx, weights, True, num_layers, 0.0, torch.is_grad_enabled(),
-             bidirectional, False)
+    with recompute_whole():
+        res = fn(x, hx, weights, True, num_layers, 0.0,
+                 torch.is_grad_enabled(), bidirectional, False)
     if mode == "lstm":
         return res[0], res[1], res[2]
     return res[0], res[1], None

@@ -19,6 +19,7 @@ import torch
 from .. import random as _random
 from ..base import MXNetError
 from ..executor import _build_eval
+from ..precision.policy import index_inputs
 
 __all__ = ["DataParallelTrainStep", "sgd_step_fn", "adam_step_fn"]
 
@@ -99,6 +100,8 @@ class DataParallelTrainStep:
         self.aux_names = symbol.list_auxiliary_states()
         self.input_names = list(data_names) + list(label_names)
         self.label_names = list(label_names)
+        # labels and indices (index_inputs) stay float32 under compute_dtype
+        self._keep_f32 = set(label_names) | index_inputs(symbol)
         self.param_names = [n for n in self.arg_names
                             if n not in self.input_names]
         self._eval_fn = _build_eval(symbol)
@@ -151,7 +154,7 @@ class DataParallelTrainStep:
         vals = []
         for n in self.arg_names:
             v = params[n] if n in params else inputs[n]
-            if cdt is not None and n not in self.label_names and \
+            if cdt is not None and n not in self._keep_f32 and \
                     v.is_floating_point():
                 v = v.to(cdt)
             vals.append(v)

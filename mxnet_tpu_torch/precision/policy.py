@@ -35,7 +35,9 @@ changes nothing against no policy at all.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 
 import torch
 
@@ -106,6 +108,29 @@ def state_np_dtype(name, weight_dtype):
     if name == "float32":
         return torch.float32
     raise MXNetError("unknown state dtype %r" % (name,))
+
+
+# the ops that read an input as indices, by the input's position: bfloat16
+# keeps 8 significant bits, so it holds every integer only up to 256 (an
+# Embedding id of 8,200 would read row 8,192), and the compute-dtype cast
+# leaves a variable that feeds nothing but these in float32
+_INDEX_ARGS = {"Embedding": 0, "take": 1, "batch_take": 1, "one_hot": 0,
+               "pick": 1, "gather_nd": 1}
+
+
+def index_inputs(symbol):
+    """The names of ``symbol``'s variables that every consumer reads as
+    indices (``_INDEX_ARGS``): the inputs that stay float32 under the
+    compute dtype and ``act_cast``, as the labels do."""
+    uses = {}
+    for node in symbol._topo():
+        if node.op is None:
+            continue
+        pos = _INDEX_ARGS.get(node.op.name)
+        for i, (src, _) in enumerate(node.inputs):
+            if src.op is None:
+                uses.setdefault(src.name, []).append(i == pos)
+    return frozenset(n for n, u in uses.items() if all(u))
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +329,22 @@ def wrap_fused_apply(fa, state_dtype):
 
 # aten operators whose outputs "dots" keeps: convolutions and matrix
 # products (the counterpart of jax's dots_saveable)
+_WHOLE = threading.local()
+
+
+@contextlib.contextmanager
+def recompute_whole():
+    """A block whose operations a selective remat policy recomputes, none
+    kept: for a composite op whose internals the policy must not split
+    (PyTorch's CPU RNN writes into its products in place, so a kept
+    product would be read back changed)."""
+    _WHOLE.depth = getattr(_WHOLE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _WHOLE.depth -= 1
+
+
 def _dot_ops():
     aten = torch.ops.aten
     return {aten.convolution.default, aten.mm.default, aten.addmm.default,
@@ -372,7 +413,8 @@ def remat_checkpoint_policy(remat):
     statistics sweep; here the BatchNorm core computes its statistics and
     its output in the same single pass over a channel's slab (one kernel
     launch on the card), so a kept statistic would save no sweep, and the
-    replay recomputes them bit for bit."""
+    replay recomputes them bit for bit. Inside ``recompute_whole`` nothing
+    is kept."""
     if callable(remat):
         return remat
     if remat == "full":
@@ -382,7 +424,7 @@ def remat_checkpoint_policy(remat):
         keep = _dot_ops()
 
         def policy(ctx, op, *args, **kwargs):
-            if op in keep:
+            if op in keep and not getattr(_WHOLE, "depth", 0):
                 return CheckpointPolicy.MUST_SAVE
             return CheckpointPolicy.PREFER_RECOMPUTE
 

@@ -79,6 +79,9 @@ class OpDef:
             return list(self.arg_names(attrs or {}))
         return list(self.arg_names)
 
+    def num_inputs(self, attrs=None):
+        return len(self.list_arguments(attrs))
+
     def list_outputs(self, attrs=None):
         n = self.num_outputs(attrs)
         if n == len(self.out_names):

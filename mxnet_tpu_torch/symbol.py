@@ -97,6 +97,92 @@ class Symbol:
             return self._heads[0][0]._attr_dict.get(key)
         return None
 
+    def _set_attr(self, **kwargs):
+        for (n, _) in self._heads:
+            n._attr_dict.update(kwargs)
+
+    # ------------------------------------------------------ composition
+    def __call__(self, *args, **kwargs):
+        s = self.__copy__()
+        s._compose(*args, **kwargs)
+        return s
+
+    def _compose(self, *args, **kwargs):
+        """Substitute free variables with symbols (nnvm Symbol::Compose):
+        kwargs match variable *names* anywhere in the graph; positional args
+        match free variables in list_arguments order."""
+        name = kwargs.pop("name", None)
+        # "one head node" includes multi-output atomics (SliceChannel, RNN)
+        # whose heads are N outputs of the SAME node
+        single = len({id(n) for (n, _) in self._heads}) == 1
+        head = self._heads[0][0] if single else None
+        if kwargs and single and head.op is not None:
+            # nnvm Compose on an ATOMIC head matches kwargs against the
+            # op's argument names (data/weight/...). Our placeholders are
+            # eager, so "atomic" = every input is still the placeholder
+            # variable _create generated (named <head>_<arg>); once any
+            # input was bound, the symbol is composite and kwargs match
+            # variable names like everywhere else.
+            argnames = head.op.list_arguments(head.attrs)
+            pairs = list(zip(head.inputs, argnames))
+            if all(src.op is None and src.auto_named
+                   and src.name == head.name + "_" + nm
+                   for (src, _), nm in pairs) and pairs:
+                trans = {nm: src.name for (src, _), nm in pairs}
+                kwargs = {trans.get(k, k): v for k, v in kwargs.items()}
+        order = self._topo()
+        free_vars = [n for n in order if n.op is None]
+        repl = {}  # id(var node) -> (node, out_idx) replacement head
+        # positional args bind in list_arguments order, which excludes aux
+        # states (reference symbol.py __call__ / nnvm Symbol::Compose)
+        pos_vars = [n for n in free_vars if not n.is_aux]
+        if len(args) > len(pos_vars):
+            raise MXNetError(
+                "too many positional arguments: %d given, %d free variables"
+                % (len(args), len(pos_vars)))
+        for var, s in zip(pos_vars, args):
+            repl[id(var)] = s._heads[0]
+        by_name = {n.name: n for n in free_vars}
+        for k, v in kwargs.items():
+            if k not in by_name:
+                raise MXNetError("cannot compose: no variable named %s" % k)
+            repl[id(by_name[k])] = v._heads[0]
+        for n in order:
+            n.inputs = [repl.get(id(src), (src, oi))
+                        for (src, oi) in n.inputs]
+        self._heads = [repl.get(id(n), (n, oi)) for (n, oi) in self._heads]
+        if name and single and head.op is not None:
+            # nnvm Symbol::Compose assigns the node name BEFORE argument
+            # names are synthesized (nnvm/src/core/symbolic.cc), so a
+            # compose-time name flows into auto param names (fc1_weight).
+            # Our placeholders are eager: rename the head's still-free
+            # direct-input PLACEHOLDERS (auto_named vars _create made)
+            # that carry its auto-generated prefix. User-chosen names —
+            # even ones sharing the prefix — are never touched.
+            old = head.name
+            head.name = name
+            if old != name and head.auto_named:
+                for (src, _) in head.inputs:
+                    if src.op is None and src.auto_named \
+                            and src.name.startswith(old + "_"):
+                        src.name = name + src.name[len(old):]
+            head.auto_named = False
+
+    def __copy__(self):
+        # deep copy of reachable graph
+        mapping = {}
+
+        def copy_node(n):
+            if id(n) in mapping:
+                return mapping[id(n)]
+            c = _Node(n.op, n.name, dict(n.attrs), [], n.is_aux,
+                      dict(n._attr_dict), auto_named=n.auto_named)
+            mapping[id(n)] = c
+            c.inputs = [(copy_node(s), i) for (s, i) in n.inputs]
+            return c
+
+        return Symbol([(copy_node(n), i) for (n, i) in self._heads])
+
     def attr_dict(self):
         ret = {}
         for n in self._topo():

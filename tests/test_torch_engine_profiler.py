@@ -182,18 +182,26 @@ def test_naive_engine_runs_at_push(monkeypatch):
 
 
 def test_worker_threads_from_env(monkeypatch):
+    """The native engine sizes its pool from the environment; where no
+    library builds, the Python path does, on named daemon threads."""
+    from mxnet_tpu_torch.runtime import core
     monkeypatch.setenv("MXNET_CPU_WORKER_NTHREADS", "3")
-    e = E.Engine()
-    assert e.num_workers == 3
-    assert [t.name for t in e._workers] == \
-        ["mxnet-engine-0", "mxnet-engine-1", "mxnet-engine-2"]
-    assert all(t.daemon for t in e._workers)
-    assert not e.is_native
-    e.shutdown()
-    e.shutdown()     # idempotent
-    log = []
-    e.push(lambda: log.append(1))   # after shutdown: runs in line
-    assert log == [1]
+    native = E.Engine()
+    assert native.num_workers == 3
+    assert native.is_native == (core.get_lib() is not None)
+    monkeypatch.setattr(core, "get_lib", lambda: None)
+    for e in (native, E.Engine()):
+        if e is not native:
+            assert [t.name for t in e._workers] == \
+                ["mxnet-engine-0", "mxnet-engine-1", "mxnet-engine-2"]
+            assert all(t.daemon for t in e._workers)
+            assert not e.is_native
+        e.shutdown()
+        e.shutdown()     # idempotent
+        assert not e.is_native
+        log = []
+        e.push(lambda: log.append(1))   # after shutdown: runs in line
+        assert log == [1]
 
 
 def test_waitall_names_and_del_var():

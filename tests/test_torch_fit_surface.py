@@ -216,9 +216,19 @@ def test_f1_rides_the_device_tally_in_fit():
 
 
 def test_torch_and_caffe_metrics_wait_for_their_plugins():
-    for cls in (tmx.metric.Torch, tmx.metric.Caffe):
-        with pytest.raises(tmx.MXNetError, match="A10"):
-            cls()
+    """The plugins are ported: ``metric.Torch`` and ``metric.Caffe`` are
+    the JAX package's (``Loss`` under the plugins' names), their sums
+    equal on the same outputs."""
+    rs = np.random.RandomState(2)
+    outs = [rs.rand(4, 3).astype(np.float32) for _ in range(2)]
+    for name in ("Torch", "Caffe"):
+        t, j = getattr(tmx.metric, name)(), getattr(jmx.metric, name)()
+        assert t.name == j.name == name.lower()
+        for o in outs:
+            t.update(None, [tmx.nd.array(o, ctx=CPU)])
+            j.update(None, [jmx.nd.array(o)])
+        assert t.num_inst == j.num_inst == 24
+        np.testing.assert_allclose(t.get()[1], j.get()[1], rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,10 @@ the JAX package: ``pack``/``unpack`` bytes equal, files written by either
 package read back byte for byte in the other, and ``assemble_batch`` and
 ``ImageRecordIter`` batches bit for bit (``.npy`` packs, and image packs
 decoded by the same library, with ``rand_crop`` off: the host path's crop
-draws race across the decode threads). The JAX package's batch assembly
-runs through its numpy path here (its native OpenMP loop multiplies by
-1/std where the numpy path divides). ``ImageRecordIter(device_augment=
+draws race across the decode threads). Both packages' batch assembly
+runs through its numpy path in these crossings (the native OpenMP loop
+multiplies by 1/std where the numpy path divides; the native paths are
+crossed in ``test_torch_runtime.py``). ``ImageRecordIter(device_augment=
 True)`` agrees with the host path within atol 1e-4, the JAX test's limit.
 """
 import sys
@@ -71,9 +72,11 @@ def _make_rec(tmp_path, n=24, hw=(36, 36), fmt="png", name="imgs.rec"):
 
 @pytest.fixture
 def jax_numpy_assembly(monkeypatch):
-    """Route the JAX package's reader and assembly through its numpy
-    path."""
+    """Route both packages' readers and assembly through their numpy
+    paths."""
+    from mxnet_tpu_torch import runtime as trt
     monkeypatch.setattr(jrt, "get_lib", lambda: None)
+    monkeypatch.setattr(trt, "get_lib", lambda: None)
 
 
 # ----------------------------------------------------------------------

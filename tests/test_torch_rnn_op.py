@@ -340,15 +340,29 @@ def test_modifier_and_bidirectional_cells_match_jax(kind):
 
 
 def test_rnn_under_bf16_modes_is_refused():
+    """No longer refused: the bfloat16 modes bind a net with the RNN op
+    and train it (``tests/test_torch_rnn_bf16.py`` holds the values to
+    the JAX package), and the op runs at bfloat16 inputs, returning
+    bfloat16."""
     with TNameManager():
         sym = tmx.models.lstm.get_symbol(seq_len=4, vocab_size=7,
                                          num_hidden=8, num_embed=4)
-    mod = tmx.mod.Module(sym, context=tmx.cpu(), precision="bf16")
-    with pytest.raises(MXNetError, match="ROADMAP A3"):
+    for precision in ("bf16", "bf16_opt", "combined"):
+        mod = tmx.mod.Module(sym, context=tmx.cpu(), precision=precision)
         mod.bind(data_shapes=[("data", (2, 4))],
                  label_shapes=[("softmax_label", (2, 4))])
-    with pytest.raises(MXNetError, match="ROADMAP A3"):
-        treg.get_op("RNN").fcompute(
-            _attrs("gru", False, 1, False),
-            [torch.tensor(v).to(torch.bfloat16) for v in
-             _inputs("gru", False, 1)], treg.OpContext())
+        mod.init_params(tmx.init.Xavier())
+        mod.init_optimizer(optimizer="sgd")
+        batch = tmx.io.DataBatch(
+            [tmx.nd.array(np.arange(8).reshape(2, 4) % 7, ctx=tmx.cpu())],
+            [tmx.nd.array(np.ones((2, 4)), ctx=tmx.cpu())])
+        mod.forward_backward(batch)
+        mod.update()
+        out = mod.get_outputs()[0].asnumpy()
+        assert out.dtype == np.float32 and np.isfinite(out).all()
+    outs = treg.get_op("RNN").fcompute(
+        _attrs("gru", False, 1, False),
+        [torch.tensor(v).to(torch.bfloat16) for v in
+         _inputs("gru", False, 1)], treg.OpContext())
+    assert outs[0].dtype == torch.bfloat16
+    assert torch.isfinite(outs[0].float()).all()
