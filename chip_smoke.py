@@ -282,10 +282,16 @@ result line) if any phase fails:
    masks and suppression words bit for bit at ragged box counts (1, 63,
    64, 65, 130, 1000), on integer boxes (IoUs of exactly 1/2 at threshold
    1/2), on boxes clipped to [0, 1] (zero areas, copies, −1 scores), on
-   pairs whose float32 IoU is exactly the threshold or the next float32
-   above it (the strict ``>`` must say no, then yes), on
-   MultiBoxDetection's sorted boxes of the SSD300 batch that (b) runs (32
-   × 8,732) and at Proposal's 6,000; the ROI forward (out and tie counts)
+   boxes with corners up to 1e20 (unions past float32's range), on pairs
+   whose float32 IoU is exactly the threshold or the next float32 above
+   it, at 0.45 and 0.7, each in a large and a small batch (the strict
+   ``>`` must say no, then yes; both tile widths of the mask), on pairs drawn near
+   that threshold and touching pairs at thresholds 0 and −0.1 (an IoU of
+   0 is above a negative one), on MultiBoxDetection's sorted boxes of the
+   SSD300 batch that (b) runs (32 × 8,732), on 33 images of that size (a
+   batch that does not divide the 132 SMs), on random boxes at Proposal's
+   6,000 and on Proposal's own sorted boxes of (b)'s operating point; the
+   ROI forward (out and tie counts)
    bit for bit and the backward within ``ROI_BWD_TOL`` of the plain
    gradient's max-abs, on post-ReLU maps full of zero ties, with empty and
    one-pixel bins, ragged and at Faster R-CNN's full width (512×38×63, 300
@@ -302,7 +308,11 @@ result line) if any phase fails:
    each kernel alone at those shapes (call, device, enqueue ms), its plain
    version's host ms on the same inputs (the NMS pair on all 32 images,
    ``NMS_PLAIN_CHUNK`` a call) and its bound (bytes, or the IoU pairs'
-   ``NMS_PAIR_OPS`` at the float32 SIMT rate); the ROI backward's
+   ``NMS_PAIR_OPS`` at the float32 SIMT rate); the NMS pair also at
+   Proposal's 1 × 6,000, each time with its share of the bound (its row
+   beside the first design's), and ``nms_mask``'s SASS instructions a
+   pair; the
+   ROI backward's
    ``max_abs_err`` is absolute, its ``max_rel_err`` of the plain
    gradient's max-abs; ``F.ctc_loss`` beside the port's CTCLoss at the CTC
    twins' shapes, as a yardstick. (c) Part two: the five twins at their
@@ -4782,7 +4792,22 @@ NMS_RAGGED = (1, 63, 64, 65, 130, 1000)
 # (2); union > 0 (1); inter / union (1); iou > thresh (1). Per box, once:
 # its area, (x2 − x1)·(y2 − y1) and a max with 0 (4).
 NMS_PAIR_OPS, NMS_BOX_OPS = 14, 4
+NMS_SASS_PAIRS = 16 * 2     # pairs in nms_mask's unrolled chunk (SASS)
 NMS_AT_THRESH_DRAWS = 1 << 20   # pairs drawn to find IoUs at the threshold
+# pairs drawn for each of the threshold-0 and negative-threshold cases, at
+# the touching geometry and at SSD_NMS's (an image of 2 boxes a pair: the
+# mask's grid takes at most 65,535 images)
+NMS_LOW_THRESH_DRAWS = 30000
+NMS_LOW_THRESHES = (0.0, -0.1)
+NMS_ODD_BATCH = 33          # images: does not divide the card's 132 SMs
+NMS_HUGE_SPAN = 8e19        # huge_boxes' corners: sides up to 2e19
+NMS_NARROW_PAIRS = 500      # pairs at and above the threshold each, in a
+                            # batch small enough for nms_mask's 64 × 64 tile
+# the first design's device ms of the two kernels at 32 × 8,732 (a
+# 64 × 64 tile a block of 64 threads, the IEEE division on every pair; a
+# block of 256 threads an image, thread 0 testing each bit): PERF.md's
+# kernel table
+NMS_FIRST_DEVICE_MS = {"nms_mask": 3.127, "nms_scan": 0.680}
 ROI_BWD_TOL = 1e-6         # of the plain gradient's max-abs
 VISION_CPU_REL_L2 = 1e-4
 VISION_TWINS = [("train_ssd", []), ("train_ssd", ["--use-recordio"]),
@@ -4863,13 +4888,21 @@ def clipped_boxes(B, n, gen):
     return boxes, scores
 
 
-def threshold_pairs(NM, thresh, gen, draws=NMS_AT_THRESH_DRAWS):
-    """Box pairs (M, 2, 4) whose plain float32 IoU is exactly ``thresh``
-    (as float32), and pairs whose IoU is the next float32 above it: the
-    pairs where an IoU rounded otherwise (an fma contraction, an
-    approximate division) flips the strict ``>``. b is a shifted along x
-    by w·(1 − t)/(1 + t), an IoU of t, with x1 moved by up to 64 steps of
-    2⁻²⁴."""
+def huge_boxes(B, n, gen):
+    """(B, n, 4) boxes with corners up to 1e20: areas from 0 past 2^127
+    and float32's largest (inf), every fifth box a copy of an earlier one,
+    so that some pairs' area_a + area_b overflows (a union of inf, an IoU
+    of 0)."""
+    boxes, scores = vision_boxes(B, n, NMS_HUGE_SPAN, gen)
+    boxes[:, 5::5] = boxes[:, 1:-4:5].clone()
+    return boxes, scores
+
+
+def jittered_pairs(thresh, gen, draws=NMS_AT_THRESH_DRAWS):
+    """(draws, 2, 4) box pairs with an IoU near ``thresh``: b is a shifted
+    along x by w·(1 − t)/(1 + t), an IoU of t, with x1 moved by up to 64
+    steps of 2⁻²⁴ (at t = 0 the boxes touch, overlapping by a few steps or
+    not at all)."""
     import numpy as np
     import torch
     dev = gen.device
@@ -4883,8 +4916,19 @@ def threshold_pairs(NM, thresh, gen, draws=NMS_AT_THRESH_DRAWS):
     b = a.clone()
     b[:, 0] += dx + jitter
     b[:, 2] += dx
-    iou = NM.iou_matrix(a[:, None], b[:, None])[:, 0, 0]
-    pairs = torch.stack([a, b], dim=1)
+    return torch.stack([a, b], dim=1)
+
+
+def threshold_pairs(NM, thresh, gen, draws=NMS_AT_THRESH_DRAWS):
+    """Box pairs (M, 2, 4) whose plain float32 IoU is exactly ``thresh``
+    (as float32), and pairs whose IoU is the next float32 above it: the
+    pairs where an IoU rounded otherwise (an fma contraction, an
+    approximate division) flips the strict ``>``, drawn by
+    ``jittered_pairs``."""
+    import numpy as np
+    t = np.float32(thresh)
+    pairs = jittered_pairs(thresh, gen, draws)
+    iou = NM.iou_matrix(pairs[:, :1], pairs[:, 1:])[:, 0, 0]
     above = float(np.nextafter(t, np.float32(1)))
     return pairs[iou == float(t)], pairs[iou == above]
 
@@ -4908,7 +4952,8 @@ def host_call(fn):
 
 def nms_check(NM, boxes_s, thresh):
     """Kernel against plain on score-sorted boxes (B, N, 4), the plain
-    version NMS_PLAIN_CHUNK images a call: (mask equal, keep equal,
+    version NMS_PLAIN_CHUNK images of SSD300's size a call (as many more
+    as hold as many pairs at a smaller N): (mask equal, keep equal,
     repeat equal, kernel mask, kernel keep, the plain mask's and scan's
     host ms over all B images)."""
     import torch
@@ -4919,8 +4964,10 @@ def nms_check(NM, boxes_s, thresh):
     keep2 = NM.nms_scan(mask2, n)
     mask_eq = keep_eq = True
     mask_ms = scan_ms = 0.0
-    for lo in range(0, boxes_s.shape[0], NMS_PLAIN_CHUNK):
-        hi = lo + NMS_PLAIN_CHUNK
+    chunk = max(NMS_PLAIN_CHUNK,
+                int(NMS_PLAIN_CHUNK * (SSD_ANCHORS / n) ** 2))
+    for lo in range(0, boxes_s.shape[0], chunk):
+        hi = lo + chunk
         pmask, ms = host_call(lambda: NM.nms_mask_plain(boxes_s[lo:hi],
                                                         thresh))
         mask_ms += ms
@@ -4987,30 +5034,51 @@ def roi_check(RP, data, rois, pooled, scale, gen, bwd_rois=None):
     return row, out, count
 
 
-def vision_checks(NM, RP, card, ssd_boxes):
+def vision_checks(NM, RP, card, ssd_boxes, rpn_boxes):
     """(a) The four kernels against their plain versions: NMS at ragged
-    sizes, on integer boxes, on clipped boxes, on pairs at the threshold,
-    on ``ssd_boxes`` (MultiBoxDetection's sorted boxes at SSD300's
-    full width) and at Proposal's; ROI pooling ragged and at full width.
-    Returns (failed, worst errors by kernel, the worst relative error of
-    the ROI backward, the plain mask's and scan's host ms on
-    ``ssd_boxes``)."""
+    sizes, on integer boxes, on clipped boxes, on huge boxes (unions past
+    float32's range), on pairs at SSD300's and Faster R-CNN's thresholds
+    (and near them at thresholds 0 and −0.1), on ``ssd_boxes``
+    (MultiBoxDetection's sorted boxes at SSD300's full width), on 33
+    images of that size, on random boxes at Proposal's size and on
+    ``rpn_boxes`` (Proposal's own sorted boxes); ROI pooling ragged and
+    at full width. Returns (failed, worst errors by kernel, the worst
+    relative error of the ROI backward, the plain mask's and scan's host
+    ms on ``ssd_boxes`` and on ``rpn_boxes``)."""
     import numpy as np
     import torch
     failed = []
     worst = {"nms_mask": 0.0, "nms_scan": 0.0, "roi_pool_fwd": 0.0,
              "roi_pool_bwd": 0.0}
     gen = vision_gen(16)
-    t = np.float32(SSD_NMS)
-    eq, up = threshold_pairs(NM, SSD_NMS, gen)
+    # pairs at and just above SSD300's and Faster R-CNN's thresholds, each
+    # threshold with its own tp and tb in the kernel's fast test
+    at = {thresh: threshold_pairs(NM, thresh, gen)
+          for thresh in (SSD_NMS, RCNN_NMS)}
+    # each also as a batch of NMS_NARROW_PAIRS + NMS_NARROW_PAIRS images,
+    # which nms_mask takes in its 64 × 64 tiles (the full one in 128 × 128)
+    at.update({(thresh, "narrow"): (eq[:NMS_NARROW_PAIRS],
+                                    up[:NMS_NARROW_PAIRS])
+               for thresh, (eq, up) in list(at.items())})
+    near = torch.cat([jittered_pairs(geom, gen, NMS_LOW_THRESH_DRAWS)
+                      for geom in (0.0, SSD_NMS)])
     cases = [("ragged", 0.3, vision_boxes(3, n, 40.0, gen))
              for n in NMS_RAGGED] + [
         ("integer", 0.5, integer_boxes(4, 1000, gen)),
         ("clipped", SSD_NMS, clipped_boxes(3, 1000, gen)),
-        ("at_threshold", SSD_NMS, (torch.cat([eq, up]), None)),
+        ("huge", SSD_NMS, huge_boxes(2, 1000, gen))] + [
+        ("at_threshold_%g%s" % (thresh, tag), thresh,
+         (torch.cat(at[key]), None))
+        for thresh in (SSD_NMS, RCNN_NMS)
+        for key, tag in ((thresh, ""), ((thresh, "narrow"), "_narrow"))] + [
+        ("near_threshold_%g" % low, low, (near, None))
+        for low in NMS_LOW_THRESHES] + [
         ("ssd300_detection", SSD_NMS, (ssd_boxes, None)),
-        ("proposal", RCNN_NMS, vision_boxes(1, RCNN_PRE, 1000.0, gen))]
-    plain_ms = None
+        ("ssd300_batch_%d" % NMS_ODD_BATCH, SSD_NMS,
+         vision_boxes(NMS_ODD_BATCH, SSD_ANCHORS, 1.0, gen)),
+        ("proposal", RCNN_NMS, vision_boxes(1, RCNN_PRE, 1000.0, gen)),
+        ("proposal_rpn", RCNN_NMS, (rpn_boxes, None))]
+    plain_ms = {}
     for name, thresh, (boxes, scores) in cases:
         boxes_s = boxes if scores is None else vision_sorted(boxes, scores)
         B, n = boxes_s.shape[:2]
@@ -5030,16 +5098,29 @@ def vision_checks(NM, RP, card, ssd_boxes):
         if name in ("clipped", "ssd300_detection"):
             wh = boxes_s[..., 2:] - boxes_s[..., :2]
             row["zero_area_boxes"] = int((wh.prod(-1) <= 0).sum())
-        if name == "at_threshold":
+        if name == "huge":
+            area = (boxes_s[..., 2:] - boxes_s[..., :2]).prod(-1)
+            sums = area[:, :, None] + area[:, None, :]
+            row["pairs_union_inf"] = int(torch.isinf(sums).triu(1).sum())
+            ok = ok and row["pairs_union_inf"] > 0
+        if name.startswith("at_threshold"):
             # bit 1 of row 0: iou(a, b) > t, false at t, true just above
+            eq, up = at[(thresh, "narrow") if name.endswith("narrow")
+                        else thresh]
             bit = (mask[:, 0, 0] >> 1) & 1
             row["pairs_at_thresh"], row["pairs_above"] = len(eq), len(up)
             row["exact"] = bool((bit[:len(eq)] == 0).all()
                                 and (bit[len(eq):] == 1).all())
-            row["thresh_float32"] = float(t)
+            row["thresh_float32"] = float(np.float32(thresh))
             ok = ok and row["exact"] and len(eq) > 0 and len(up) > 0
-        if name == "ssd300_detection":
-            plain_ms = (mask_ms, scan_ms)
+        if name.startswith("near_threshold"):
+            # an IoU of 0 is above a negative threshold; at 0 the touching
+            # pairs that overlap by a few steps of 2^-24 are above it
+            iou = NM.iou_matrix(boxes_s[:, :1], boxes_s[:, 1:])[:, 0, 0]
+            row["pairs_iou_0"] = int((iou == 0).sum())
+            row["pairs_kept_bit"] = int(((mask[:, 0, 0] >> 1) & 1).sum())
+        if name in ("ssd300_detection", "proposal_rpn"):
+            plain_ms[name] = (mask_ms, scan_ms)
         row.update(ok=ok, card=card)
         emit(row)
         if not ok:
@@ -5153,17 +5234,94 @@ def kernel_entry(name, source, replaces, t, plain_ms, bytes_moved, ops,
                 library_ms=None)
 
 
-def vision_full_width(mx, NM, RP, card, worst, bwd_rel, ssd, nms_plain_ms):
+def nms_times(NM, at, boxes_s, thresh, plain_ms, worst, card):
+    """The two NMS kernels timed alone on score-sorted ``boxes_s`` (B, N,
+    4): their entries, with each one's share of its bound (bound ms /
+    device ms). The printed row also holds the first design's device ms
+    where it was timed at this shape (PERF.md's number, not this run's,
+    so it stays out of the entries)."""
+    B, n = boxes_s.shape[:2]
+    words = (n + 63) // 64
+    mask = NM.nms_mask(boxes_s, thresh)
+    keep_s = NM.nms_scan(mask, n)
+    entries = []
+    for name, fn, plain, moved, ops in (
+            ("nms_mask", lambda: NM.nms_mask(boxes_s, thresh), plain_ms[0],
+             boxes_s.numel() * 4 + mask.numel() * 8,
+             B * (n * (n - 1) / 2 * NMS_PAIR_OPS + n * NMS_BOX_OPS)),
+            ("nms_scan", lambda: NM.nms_scan(mask, n), plain_ms[1],
+             nms_scan_bytes(keep_s, words), 0.0)):
+        e = kernel_entry(name, "mxnet_tpu_torch/kernels/csrc/nms.cu",
+                         "mxnet_tpu/ops/detection.py:114", op_times(fn),
+                         plain, moved, ops, worst[name])
+        e.update(shape=[B, n], plain_images=B, thresh=thresh,
+                 kept_per_image_mean=float(keep_s.sum(1).float().mean()),
+                 share_of_bound=e["bound_ms"] / e["device_ms"])
+        emit({"phase": "vision_nms_times", "at": at, **e,
+              "first_design_device_ms": NMS_FIRST_DEVICE_MS[name]
+              if at == "ssd300_detection" else None, "card": card})
+        entries.append(e)
+    return entries
+
+
+def nms_sass(NM):
+    """Instructions a pair of ``nms_mask``'s wide fast kernel, read from
+    its SASS (``cuobjdump -sass`` of the built library): the innermost
+    loop (a backward branch) that holds 5 min/max instructions a pair is
+    the unrolled chunk of NMS_SASS_PAIRS pairs (16 columns × 2 rows).
+    Returns the count and the opcodes a pair, or the reason it could
+    not."""
+    import re
+    import shutil
+    import subprocess
+    from collections import Counter
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", NM._library()._name],
+                             capture_output=True, text=True,
+                             timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return {"error": str(e)}
+    line = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9]*)([^;]*);")
+    for func in out.split("Function : ")[1:]:
+        if "nms_mask_kernelILi2ELb1E" not in func.split("\n", 1)[0]:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2), m.group(3))
+               for m in map(line.search, func.splitlines()) if m]
+        loops = []
+        for addr, op, rest in ins:
+            target = re.match(r"\s*0x([0-9a-f]+)", rest)
+            if op == "BRA" and target and int(target.group(1), 16) < addr:
+                lo = int(target.group(1), 16)
+                loops.append([o for a, o, _ in ins if lo <= a <= addr])
+        loops = [b for b in loops if b.count("FMNMX") >= 5 * NMS_SASS_PAIRS]
+        if not loops:
+            return {"error": "no loop of the unrolled chunk in the SASS"}
+        body = min(loops, key=len)
+        return {"kernel": "nms_mask_kernel<2, true>",
+                "pairs": NMS_SASS_PAIRS,
+                "instructions_per_pair": len(body) / NMS_SASS_PAIRS,
+                "per_pair": {k: v / NMS_SASS_PAIRS for k, v in
+                             sorted(Counter(body).items())}}
+    return {"error": "no nms_mask_kernel<2, true> in the SASS"}
+
+
+def vision_full_width(mx, NM, RP, card, worst, bwd_rel, ssd, nms_plain_ms,
+                      rpn_boxes):
     """(b) Each op at SSD300's and Faster R-CNN's operating points (call,
     device and enqueue times), each kernel alone at the ops' shapes beside
-    its plain version and its bound, and F.ctc_loss beside the port's CTC.
+    its plain version and its bound (the NMS pair at SSD300's 32 × 8,732
+    and at Proposal's 1 × 6,000, ``rpn_boxes``, beside the first design's
+    times and with their share of the bound), and F.ctc_loss beside the
+    port's CTC.
     ``ssd`` is ssd_inputs' SSD300 batch, ``nms_plain_ms`` the plain NMS's
-    host ms on its 32 images (from the check). Returns the four kernels'
-    entries."""
+    host ms on its 32 images and on ``rpn_boxes`` (from the check).
+    Returns the four kernels' entries (the NMS pair's at SSD300, with
+    Proposal's under ``at_proposal``)."""
     import torch
     gen = vision_gen(160)
     anchors, label, logits, prob, loc = ssd
-    A = anchors.shape[1]
     target = op_call("_contrib_MultiBoxTarget", {"overlap_threshold": 0.5})
     detect = op_call("_contrib_MultiBoxDetection", {
         "nms_threshold": SSD_NMS, "threshold": SSD_THRESH})
@@ -5200,23 +5358,19 @@ def vision_full_width(mx, NM, RP, card, worst, bwd_rel, ssd, nms_plain_ms):
     # each kernel alone, at the ops' shapes, beside its plain version's
     # host ms on the same inputs (the NMS pair's from vision_checks)
     entries = []
-    boxes_s = ssd_sorted_boxes(prob, loc, anchors)
-    n, words = A, (A + 63) // 64
-    mask = NM.nms_mask(boxes_s, SSD_NMS)
-    keep_s = NM.nms_scan(mask, n)
-    for name, fn, plain_ms, moved, ops in (
-            ("nms_mask", lambda: NM.nms_mask(boxes_s, SSD_NMS),
-             nms_plain_ms[0], boxes_s.numel() * 4 + mask.numel() * 8,
-             SSD_BATCH * (n * (n - 1) / 2 * NMS_PAIR_OPS
-                          + n * NMS_BOX_OPS)),
-            ("nms_scan", lambda: NM.nms_scan(mask, n), nms_plain_ms[1],
-             nms_scan_bytes(keep_s, words), 0.0)):
-        e = kernel_entry(name, "mxnet_tpu_torch/kernels/csrc/nms.cu",
-                         "mxnet_tpu/ops/detection.py:114", op_times(fn),
-                         plain_ms, moved, ops, worst[name])
-        e.update(shape=[SSD_BATCH, n], plain_images=SSD_BATCH,
-                 kept_per_image_mean=float(keep_s.sum(1).float().mean()))
-        entries.append(e)
+    for at, boxes_s, thresh in (
+            ("ssd300_detection", ssd_sorted_boxes(prob, loc, anchors),
+             SSD_NMS),
+            ("proposal_rpn", rpn_boxes, RCNN_NMS)):
+        entries += nms_times(NM, at, boxes_s, thresh, nms_plain_ms[at],
+                             worst, card)
+    small = {e["name"]: e for e in entries[2:]}
+    entries = entries[:2]
+    for e in entries:
+        e["at_proposal"] = {k: small[e["name"]][k] for k in (
+            "shape", "ms", "device_ms", "enqueue_us", "plain_ms",
+            "bound_ms", "bound_by", "share_of_bound", "kept_per_image_mean")}
+    entries[0]["sass"] = nms_sass(NM)
     copies = [fmap.clone() for _ in range(VISION_GRAPH_COPIES)]
     it = iter(range(10 ** 9))
     t = op_times(lambda: RP.roi_pool_fwd(
@@ -5283,6 +5437,29 @@ def ssd_sorted_boxes(prob, loc, anchors):
                                              [prob, loc, anchors])
     return vision_sorted(boxes, torch.where(valid, scores,
                                             torch.full_like(scores, -1.0)))
+
+
+def proposal_sorted_boxes(rpn):
+    """The score-sorted boxes (1, RCNN_PRE, 4) that Proposal hands to NMS
+    at Faster R-CNN's operating point, from ``rpn_inputs``' (cls, deltas,
+    im_info): read off the op's call of ``nms``."""
+    from mxnet_tpu_torch.ops import detection
+    seen, nms = [], detection.nms
+
+    def spy(boxes, scores, thresh):
+        seen.append(vision_sorted(boxes, scores))
+        return nms(boxes, scores, thresh)
+
+    op = op_call("_contrib_Proposal", {
+        "feature_stride": RCNN_STRIDE, "scales": RCNN_SCALES,
+        "ratios": RCNN_RATIOS, "rpn_pre_nms_top_n": RCNN_PRE,
+        "rpn_post_nms_top_n": RCNN_POST, "threshold": RCNN_NMS})
+    detection.nms = spy
+    try:
+        op(list(rpn))
+    finally:
+        detection.nms = nms
+    return seen[-1]
 
 
 def vision_ctc_yardstick(card):
@@ -5530,15 +5707,16 @@ def vision_phase(mx, K, C, R, card):
     # SSD300's batch: the kernels are checked on MultiBoxDetection's
     # boxes of it, the full-width graph runs it, the kernels are timed on it
     ssd = ssd_inputs(vision_gen(160))
+    rpn_boxes = proposal_sorted_boxes(rpn_inputs(vision_gen(161)))
     failed, worst, bwd_rel, nms_plain_ms = vision_checks(
-        NM, RP, card, ssd_sorted_boxes(ssd[3], ssd[4], ssd[0]))
+        NM, RP, card, ssd_sorted_boxes(ssd[3], ssd[4], ssd[0]), rpn_boxes)
     f, graph_launches = vision_graphs(mx, K, C, R, card, ssd)
     failed += f
     f, rows, twin_launches = vision_twins(mx, K, C, R, card)
     failed += f
     launches = {k: v + twin_launches[k] for k, v in graph_launches.items()}
     entries = vision_full_width(mx, NM, RP, card, worst, bwd_rel, ssd,
-                                nms_plain_ms)
+                                nms_plain_ms, rpn_boxes)
     failed += vision_card_vs_cpu(mx, card)
     for e in entries:
         e["launches"] = launches[e["name"]]

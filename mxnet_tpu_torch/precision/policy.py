@@ -116,21 +116,47 @@ def state_np_dtype(name, weight_dtype):
 # leaves a variable that feeds nothing but these in float32
 _INDEX_ARGS = {"Embedding": 0, "take": 1, "batch_take": 1, "one_hot": 0,
                "pick": 1, "gather_nd": 1}
+# the sequence ops read their lengths as indices: position 1, an input
+# they take only under use_sequence_length
+_LENGTH_ARGS = frozenset(("SequenceLast", "SequenceMask", "SequenceReverse"))
+# the ops that only move their first input's elements (views, slices,
+# repeats, copies): ids that pass through one are still ids
+_SHAPE_OPS = frozenset((
+    "Reshape", "SwapAxis", "transpose", "Flatten", "expand_dims",
+    "slice_axis", "slice", "SliceChannel", "reverse", "repeat", "tile",
+    "broadcast_axis", "broadcast_to", "BlockGrad", "_CrossDeviceCopy"))
+
+
+def _index_pos(node):
+    """The position of ``node``'s input that it reads as indices, or
+    None."""
+    name = node.op.name
+    if name in _LENGTH_ARGS:
+        return 1 if node.attrs.get("use_sequence_length", False) else None
+    return _INDEX_ARGS.get(name)
 
 
 def index_inputs(symbol):
-    """The names of ``symbol``'s variables that every consumer reads as
-    indices (``_INDEX_ARGS``): the inputs that stay float32 under the
-    compute dtype and ``act_cast``, as the labels do."""
+    """The names of ``symbol``'s variables whose every path ends in an
+    index argument (``_INDEX_ARGS``, the sequence ops' lengths), directly
+    or through shape-only ops (``_SHAPE_OPS``): the inputs that stay
+    float32 under the compute dtype and ``act_cast``, as the labels do.
+    A shape op on the way whose output also feeds anything else, or is
+    one of the symbol's outputs, leaves the variable to be cast."""
+    order = symbol._topo()
     uses = {}
-    for node in symbol._topo():
-        if node.op is None:
-            continue
-        pos = _INDEX_ARGS.get(node.op.name)
+    for node in order:
         for i, (src, _) in enumerate(node.inputs):
-            if src.op is None:
-                uses.setdefault(src.name, []).append(i == pos)
-    return frozenset(n for n, u in uses.items() if all(u))
+            uses.setdefault(id(src), []).append((node, i))
+    heads = {id(n) for n, _ in symbol._heads}
+    only = {}
+    for node in reversed(order):         # every consumer before its inputs
+        dsts = uses.get(id(node), ())
+        only[id(node)] = bool(dsts) and id(node) not in heads and all(
+            i == _index_pos(dst) or (i == 0 and dst.op.name in _SHAPE_OPS
+                                     and only[id(dst)])
+            for dst, i in dsts)
+    return frozenset(n.name for n in order if n.op is None and only[id(n)])
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ versions.
 Held exactly: NMS keep masks (random boxes; integer boxes whose IoU is
 exactly the threshold, which the strict ``>`` keeps; the card's cases of
 ``chip_smoke.py`` phase 16 (a): integer boxes, boxes clipped to [0, 1],
-pairs whose float32 IoU is the threshold or the next float32 above it),
+boxes with corners up to 1e20, pairs whose float32 IoU is the threshold
+or the next float32 above it),
 MultiBoxTarget's
 class targets and masks (the three label layouts of a padded row after a
 forced match), MultiBoxDetection's class ids, Proposal's selected
@@ -94,12 +95,16 @@ def test_nms_at_exactly_the_threshold_keeps_both():
 
 
 @pytest.mark.parametrize("case,thresh", [("integer", 0.5),
-                                         ("clipped", 0.45)])
+                                         ("clipped", 0.45),
+                                         ("integer", -0.1),
+                                         ("clipped", 0.0),
+                                         ("huge", 0.45)])
 def test_nms_chip_cases_equal_the_jax_loop(case, thresh):
     # chip_smoke.py holds the kernels to the plain version on these boxes
     g = torch.Generator().manual_seed(16)
     make = {"integer": chip_smoke.integer_boxes,
-            "clipped": chip_smoke.clipped_boxes}[case]
+            "clipped": chip_smoke.clipped_boxes,
+            "huge": chip_smoke.huge_boxes}[case]
     boxes, scores = make(2, 200, g)
     keep = tnms.nms(boxes, scores, thresh).numpy()
     for b in range(2):
@@ -111,6 +116,9 @@ def test_nms_chip_cases_equal_the_jax_loop(case, thresh):
     area = (boxes[..., 2:] - boxes[..., :2]).prod(-1)
     if case == "integer":
         assert int((iou == 0.5).sum()) > 0          # pairs at the threshold
+    elif case == "huge":                            # unions past float32
+        assert bool(torch.isinf(area[:, :, None] + area[:, None]).any())
+        assert torch.equal(boxes[:, 5::5], boxes[:, 1:-4:5])
     else:
         assert int((area == 0).sum()) > 0 and int((scores == -1).sum()) > 0
         assert torch.equal(boxes[:, 5::5], boxes[:, 1:-4:5])
